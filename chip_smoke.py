@@ -8,8 +8,8 @@ Phases, each of which makes the script exit non-zero when it fails:
 1. device: CUDA must be there; prints the card's name and power limit as
    ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
    gives them;
-2. build: compiles every kernel of the serving path from ``ops/csrc``
-   (one ``nvcc`` per source, all started together);
+2. build: compiles the serving path's kernel from ``ops/csrc`` with
+   ``nvcc``;
 3. kernels: ``conv3x3_bn_relu`` against its plain PyTorch version on the
    card at each of ResNet-18's five fused shapes, at n = 128 and n = 3, in
    bf16 and fp32 (fp32: rtol 1e-4, atol 1e-4 against the plain version in
@@ -41,7 +41,6 @@ import statistics
 import subprocess
 import sys
 import time
-from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -118,13 +117,10 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build(build, sources) -> None:
+def phase_build(build) -> None:
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
-        list(pool.map(build.compile_source, sources))
-    for s in sources:
-        build.load(s)
-    print(f"build: {len(sources)} source(s) in "
+    build.load()
+    print(f"build: {build.SOURCE.name} in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
 
@@ -299,7 +295,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     peaks = peaks_for(name)
     fails = Failures()
-    phase_build(_build, [K.SOURCE])
+    phase_build(_build)
     rows = phase_kernels(K, peaks, fails)
     sl = phase_slice(K, smi, fails)
 

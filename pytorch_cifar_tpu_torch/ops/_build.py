@@ -1,9 +1,10 @@
-"""Build and load the CUDA kernels of ``csrc/`` with ``nvcc`` and ``ctypes``.
+"""Build and load the CUDA kernel ``csrc/conv_bn_relu.cu`` with ``nvcc``
+and ``ctypes``.
 
-Each source compiles on its own into a shared library with a plain C
-interface (no PyTorch headers: seconds to build, where a PyTorch extension
-takes minutes). The library lands in ``ops/build/`` under a name that
-carries a hash of its source, so an edited source rebuilds and an unchanged
+The source compiles into a shared library with a plain C interface (no
+PyTorch headers: seconds to build, where a PyTorch extension takes
+minutes). The library lands in ``ops/build/`` under a name that carries a
+hash of the source and flags, so an edited source rebuilds and an unchanged
 one is loaded as built. Nothing here runs at import time.
 """
 
@@ -16,27 +17,20 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Optional
 
-CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_bn_relu.cu"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-
-# C signature shared by every entry point of conv_bn_relu.cu:
 # (x, w, scale, bias, out, n, h, w, cin, cout, stream) -> cudaError_t
-_CONV_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-SIGNATURES: Dict[str, Dict[str, list]] = {
-    "conv_bn_relu.cu": {
-        "conv3x3_bn_relu_bf16": _CONV_ARGS,
-        "conv3x3_bn_relu_f32": _CONV_ARGS,
-    },
-}
+ENTRY_POINTS = ("conv3x3_bn_relu_bf16", "conv3x3_bn_relu_f32")
+ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_lib: Optional[ctypes.CDLL] = None
 
 
 def nvcc_path() -> str:
@@ -54,49 +48,44 @@ def nvcc_path() -> str:
         return os.path.join(CUDA_HOME, "bin", "nvcc")
     raise RuntimeError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
-        "CUDA kernels are compiled from ops/csrc at first use"
+        "CUDA kernel is compiled from ops/csrc at first use"
     )
 
 
-def library_path(source: str) -> Path:
-    src = CSRC / source
+def library_path() -> Path:
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    return BUILD_DIR / f"lib{SOURCE.stem}_{digest}.so"
 
 
-def compile_source(source: str) -> Path:
-    """Compile ``csrc/<source>`` unless its hashed library exists; returns
-    the library path. Safe to run for several sources at once (each writes
-    its own temporary file and renames it into place)."""
-    lib = library_path(source)
+def _compile() -> Path:
+    lib = library_path()
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-           str(CSRC / source)]
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")  # another process may race
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed on {source} (rc {proc.returncode}):\n"
+            f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, lib)
     return lib
 
 
-def load(source: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<source>``, built on first use, with
-    ``argtypes``/``restype`` declared for every entry point."""
+def load() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use, with ``argtypes`` and
+    ``restype`` declared for each entry point."""
+    global _lib
     with _lock:
-        lib = _loaded.get(source)
-        if lib is None:
-            lib = ctypes.CDLL(str(compile_source(source)))
-            for name, argtypes in SIGNATURES[source].items():
+        if _lib is None:
+            lib = ctypes.CDLL(str(_compile()))
+            for name in ENTRY_POINTS:
                 fn = getattr(lib, name)
-                fn.argtypes = argtypes
+                fn.argtypes = ARGTYPES
                 fn.restype = ctypes.c_int
-            _loaded[source] = lib
-        return lib
+            _lib = lib
+        return _lib

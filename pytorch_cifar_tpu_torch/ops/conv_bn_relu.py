@@ -23,8 +23,6 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-SOURCE = "conv_bn_relu.cu"
-
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 _launch_lock = threading.Lock()
 
@@ -95,7 +93,7 @@ def conv3x3_bn_relu(
         raise ValueError("conv3x3_bn_relu needs contiguous scale and bias")
     from pytorch_cifar_tpu_torch.ops import _build
 
-    lib = _build.load(SOURCE)
+    lib = _build.load()
     fn = (
         lib.conv3x3_bn_relu_bf16
         if x.dtype == torch.bfloat16

@@ -275,14 +275,22 @@ int launch(const void* x, const void* w, const float* scale,
       n > 65535)
     return (int)cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
+  // th * wd <= kMaxM, so the halo (th + 2) * (wd + 2) is at most
+  // (kMaxM + 2) * 3 pixels (th = 1 or wd = 1): the attribute is set once per
+  // instantiation to that size (thread-safe static init; one device per
+  // process), and each launch asks only for its own smem.
+  constexpr size_t kMaxSmem =
+      ((size_t)(kMaxM + 2) * 3 * kStride + (size_t)9 * kChunk * kStrideW) *
+      sizeof(T);
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      conv3x3_bn_relu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)kMaxSmem);
+  if (attr != cudaSuccess) return (int)attr;
   const int th = min(h, kMaxM / wd);
   const size_t smem = ((size_t)(th + 2) * (wd + 2) * kStride +
                        (size_t)9 * kChunk * kStrideW) *
                       sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_bn_relu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   const bool vec_x = cin % V == 0 && ((uintptr_t)x % 16) == 0;
   const bool vec_w = cout % V == 0 && ((uintptr_t)w % 16) == 0;
   dim3 grid((cout + kTileN - 1) / kTileN, (h + th - 1) / th, n);
