@@ -13,6 +13,12 @@ needed here). Paths, in the JAX model's forward order:
   -> the shortcut;
 - ``Dense_0/Dense_0/kernel`` transposed -> ``linear.weight``.
 
+The JAX LeNet: ``Conv_0``/``Conv_1`` -> ``conv1``/``conv2`` (with bias),
+``Dense_0..2`` -> ``fc1..fc3``. ``fc1`` takes a flattened feature map, whose
+order is NHWC in the JAX model and NCHW in the reference, so its columns
+are permuted by :data:`LINEAR_FLATTEN` (the port's copy of the JAX
+``compat.LINEAR_FLATTEN``).
+
 ``num_batches_tracked`` is zero (torch reads it only under
 ``momentum=None``). The result equals what the JAX package's
 ``compat.export_torch_state_dict`` produces with the port model's
@@ -21,12 +27,41 @@ needed here). Paths, in the JAX model's forward order:
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
+from torch import nn
 
 from pytorch_cifar_tpu_torch.models import create_model
+from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.resnet import BasicBlock
+
+# linears whose input is a flattened feature map: linear index -> (c, h, w)
+LINEAR_FLATTEN: Dict[str, Dict[int, Tuple[int, int, int]]] = {
+    "LeNet": {0: (16, 5, 5)}
+}
+
+
+def _lenet_from_jax(params: Mapping, out: Dict[str, np.ndarray]) -> None:
+    for i in range(2):
+        node = params[f"Conv_{i}"]["Conv_0"]
+        out[f"conv{i + 1}.weight"] = np.transpose(
+            np.asarray(node["kernel"]), (3, 2, 0, 1)
+        )
+        out[f"conv{i + 1}.bias"] = np.asarray(node["bias"])
+    flatten = LINEAR_FLATTEN["LeNet"]
+    for i in range(3):
+        node = params[f"Dense_{i}"]["Dense_0"]
+        w = np.asarray(node["kernel"]).T  # (out, in), in in NHWC order
+        if i in flatten:
+            c, h, wd = flatten[i]
+            w = (
+                w.reshape(-1, h, wd, c)
+                .transpose(0, 3, 1, 2)
+                .reshape(w.shape[0], -1)
+            )
+        out[f"fc{i + 1}.weight"] = w
+        out[f"fc{i + 1}.bias"] = np.asarray(node["bias"])
 
 
 def state_dict_from_jax(
@@ -34,13 +69,20 @@ def state_dict_from_jax(
     params: Mapping,
     batch_stats: Mapping,
     num_classes: int = 10,
+    model: Optional[nn.Module] = None,
 ) -> Dict[str, np.ndarray]:
     """The port's ``state_dict`` for the JAX ``name`` model's trees, as
-    numpy arrays in the port's key order. Raises on any missing, extra or
-    misshapen tensor."""
-    model = create_model(name, num_classes=num_classes)
+    numpy arrays in the port's key order. ``model`` is the port model to
+    fill (default: a fresh ``create_model(name)``; pass one for an
+    unregistered depth such as ``ResNet(BasicBlock, (1, 1, 1, 1))``).
+    Raises on any missing, extra or misshapen tensor."""
+    if model is None:
+        model = create_model(name, num_classes=num_classes)
     template = model.state_dict()
     out: Dict[str, np.ndarray] = {}
+    if isinstance(model, LeNet):
+        _lenet_from_jax(params, out)
+        return _checked(name, template, out)
 
     def put_conv(prefix, node):
         out[f"{prefix}.weight"] = np.transpose(
@@ -78,7 +120,14 @@ def state_dict_from_jax(
     out["linear.bias"] = np.asarray(dense["bias"])
     if k != sum(1 for key in params if key.startswith(kind)):
         raise ValueError(f"JAX tree has another number of {kind}s than {name}")
+    return _checked(name, template, out)
 
+
+def _checked(
+    name: str, template: Mapping, out: Dict[str, np.ndarray]
+) -> Dict[str, np.ndarray]:
+    """``out`` in the template's key order and dtypes, after checking that
+    it has exactly the template's keys and shapes."""
     if set(out) != set(template):
         raise ValueError(
             f"key mismatch vs {name}: missing {sorted(set(template) - set(out))}"

@@ -1,12 +1,123 @@
-"""Host staging arena for the serving path (counterpart of
-``StagingPool`` in ``pytorch_cifar_tpu/data/pipeline.py``)."""
+"""The device-resident training data plane and the serving path's host
+staging arena (counterparts of ``DeviceDataset`` and ``StagingPool`` in
+``pytorch_cifar_tpu/data/pipeline.py``)."""
 
 from __future__ import annotations
 
 import threading
-from typing import Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
+import torch
+
+
+def mix_seed(seed: int, k: int) -> int:
+    """The generator seed for draw ``k`` (an epoch, a step) of a run
+    seeded ``seed``: the JAX host loader's ``(seed * 100003 + k) % 2**31``
+    arithmetic."""
+    return (seed * 100003 + k) % (2**31)
+
+
+class DeviceDataset:
+    """The whole dataset on the device: uint8 images and int32 labels are
+    staged once, and each epoch's batches are gathered there from an
+    extended permutation of length ``len(self) * batch_size``: the epoch
+    order followed by wrap-around indices for a ragged tail (positions
+    >= n get label -1 when materialized), the JAX ``DeviceDataset``'s rule.
+
+    ``staged_perm(epoch)``: with ``device_perm=False`` the host
+    ``RandomState((seed * 100003 + epoch) % 2**31)`` permutation, the same
+    integers as the JAX package's host stream, copied to the device; with
+    ``device_perm=True`` ``torch.randperm`` on the device from a generator
+    seeded with the same ``(seed, epoch)`` mix (another stream than
+    ``jax.random``'s, by design). ``shuffle=False`` is the identity order,
+    staged once (the eval path)."""
+
+    def __init__(
+        self,
+        images: np.ndarray,
+        labels: np.ndarray,
+        batch_size: int,
+        shuffle: bool = True,
+        drop_last: bool = False,
+        seed: int = 0,
+        device_perm: bool = False,
+        device="cpu",
+    ):
+        if images.shape[0] != labels.shape[0]:
+            raise ValueError(
+                f"{images.shape[0]} images but {labels.shape[0]} labels"
+            )
+        self.n = images.shape[0]
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.device = torch.device(device)
+        self.device_perm = device_perm and shuffle
+        self.images = torch.from_numpy(np.ascontiguousarray(images)).to(
+            self.device
+        )
+        self.labels = torch.from_numpy(
+            np.ascontiguousarray(labels, np.int32)
+        ).to(self.device)
+        self._perm_static = (
+            None if shuffle else self._put(self._epoch_perm(None))
+        )
+
+    def __len__(self) -> int:
+        return (
+            self.n // self.batch_size
+            if self.drop_last
+            else -(-self.n // self.batch_size)
+        )
+
+    def _epoch_perm(self, order: Optional[np.ndarray]) -> np.ndarray:
+        """Extended permutation of length ``len(self) * batch_size``."""
+        n, total = self.n, len(self) * self.batch_size
+        if order is None:
+            order = np.arange(n, dtype=np.int32)
+        if total <= n:
+            return order[:total].astype(np.int32)
+        return order[np.arange(total) % n].astype(np.int32)
+
+    def _put(self, perm: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(perm).to(self.device)
+
+    def staged_perm(self, epoch: int) -> torch.Tensor:
+        """The epoch's extended permutation, int32, on the device."""
+        if not self.shuffle:
+            return self._perm_static
+        if not self.device_perm:
+            order = np.random.RandomState(
+                mix_seed(self.seed, epoch)
+            ).permutation(self.n)
+            return self._put(self._epoch_perm(order))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(mix_seed(self.seed, epoch))
+        order = torch.randperm(self.n, generator=gen, device=self.device)
+        total = len(self) * self.batch_size
+        if total > self.n:
+            order = order[torch.arange(total, device=self.device) % self.n]
+        return order[:total].to(torch.int32)
+
+    def materialize(
+        self, perm: torch.Tensor, start: int
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Batch ``[start, start + batch_size)`` of the extended order:
+        its images, and its labels with -1 at positions >= n."""
+        idx = perm[start:start + self.batch_size]
+        x = torch.index_select(self.images, 0, idx)
+        y = torch.index_select(self.labels, 0, idx)
+        pos = torch.arange(
+            start, start + self.batch_size, device=self.device
+        )
+        return x, torch.where(pos < self.n, y, -1)
+
+    def epoch(self, epoch: int) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+        perm = self.staged_perm(epoch)
+        for b in range(len(self)):
+            yield self.materialize(perm, b * self.batch_size)
 
 
 class StagingPool:

@@ -1,4 +1,4 @@
-"""Model registry of the port (the ResNet family so far).
+"""Model registry of the port (LeNet and the ResNet family so far).
 
 Counterpart of ``pytorch_cifar_tpu/models/__init__.py``: models are named
 factories selected by ``--model``. Factories take ``num_classes`` and return
@@ -16,6 +16,7 @@ from pytorch_cifar_tpu_torch.models.common import (  # noqa: F401
     count_params,
     reset_parameters,
 )
+from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.resnet import (
     ResNet18,
     ResNet34,
@@ -25,12 +26,26 @@ from pytorch_cifar_tpu_torch.models.resnet import (
 )
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "LeNet": LeNet,
     "ResNet18": ResNet18,
     "ResNet34": ResNet34,
     "ResNet50": ResNet50,
     "ResNet101": ResNet101,
     "ResNet152": ResNet152,
 }
+
+# the JAX package's other registry models, which later slices port
+NOT_PORTED = (
+    "DLA", "DPN26", "DPN92", "DenseNet121", "DenseNet161", "DenseNet169",
+    "DenseNet201", "DenseNetCifar", "EfficientNetB0", "GoogLeNet",
+    "MobileNet", "MobileNetV2", "PNASNetA", "PNASNetB", "PreActResNet101",
+    "PreActResNet152", "PreActResNet18", "PreActResNet34", "PreActResNet50",
+    "RegNetX_200MF", "RegNetX_400MF", "RegNetY_400MF", "ResNeXt29_2x64d",
+    "ResNeXt29_32x4d", "ResNeXt29_4x64d", "ResNeXt29_8x64d", "SENet18",
+    "ShuffleNetG2", "ShuffleNetG3", "ShuffleNetV2_0.5", "ShuffleNetV2_1",
+    "ShuffleNetV2_1.5", "ShuffleNetV2_2", "SimpleDLA", "VGG11", "VGG13",
+    "VGG16", "VGG19",
+)
 
 
 def create_model(
@@ -40,6 +55,11 @@ def create_model(
 ) -> nn.Module:
     """Build ``name`` on the CPU; with ``generator``, its initial weights
     are drawn from it (PyTorch's default init) instead of the global RNG."""
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"model {name!r} is not ported yet; the port has "
+            f"{sorted(MODEL_REGISTRY)}"
+        )
     if name not in MODEL_REGISTRY:
         raise KeyError(
             f"unknown model {name!r}; available: {sorted(MODEL_REGISTRY)}"

@@ -1,11 +1,20 @@
-"""Shared building blocks for the port's models (what ResNet needs).
+"""Shared building blocks for the port's models (what ResNet and LeNet
+need).
 
-Counterpart of ``pytorch_cifar_tpu/models/common.py``. The layers are
-PyTorch's own: ``nn.Conv2d``/``nn.Linear`` default init *is* the init the
-JAX package re-derives (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and
-biases), and ``nn.BatchNorm2d(eps=1e-5, momentum=0.1)`` *is* the torch-exact
-BN semantics its ``BatchNorm`` implements. :func:`reset_parameters` redraws
-that same init from an explicit ``torch.Generator``.
+Counterpart of ``pytorch_cifar_tpu/models/common.py``. The layers subclass
+PyTorch's own, so ``state_dict()`` keeps the reference layout:
+``nn.Conv2d``/``nn.Linear`` default init *is* the init the JAX package
+re-derives (U(-1/sqrt(fan_in), 1/sqrt(fan_in)) for weights and biases),
+and :func:`reset_parameters` redraws it from an explicit
+``torch.Generator``.
+
+The bf16 policy is the JAX package's (``config.amp``): fp32 parameters, BN
+statistics and loss, compute in the input's dtype. :class:`Conv2d` and
+:class:`Linear` cast their fp32 weights to the input's dtype at each call
+(explicit casts, not ``torch.autocast``, whose op lists would round at
+other places than the JAX model does). :class:`BatchNorm` is the JAX
+``BatchNorm``'s train-mode semantics, with its moments computed by
+:func:`bn_batch_moments` (pluggable through :func:`bn_moments_impl`).
 
 Activations are NCHW-logical tensors in ``torch.channels_last`` memory, so
 ``x.permute(0, 2, 3, 1)`` is a zero-copy NHWC view for the NHWC kernels.
@@ -13,9 +22,11 @@ Activations are NCHW-logical tensors in ``torch.channels_last`` memory, so
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -26,13 +37,102 @@ from pytorch_cifar_tpu_torch.ops.conv_bn_relu import conv3x3_bn_relu
 BN_EPS = 1e-5
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` computing in the input's dtype: the fp32 weight (and
+    bias) is cast to ``x.dtype`` at each call, as the JAX ``Conv`` casts
+    its fp32 params to the module dtype."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` computing in the input's dtype (see :class:`Conv2d`)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+# Pluggable batch-moments implementation: fn(x_nhwc) -> (E[x], E[x^2]) in
+# fp32 over N, H, W. None -> the inline twin reduce of bn_batch_moments.
+# ops.bn_stats.fused_moments (kernel K2) plugs in here.
+_BN_MOMENTS_IMPL: contextvars.ContextVar = contextvars.ContextVar(
+    "bn_moments_impl", default=None
+)
+
+
+@contextlib.contextmanager
+def bn_moments_impl(fn: Optional[Callable]):
+    """Within the block, every :class:`BatchNorm` in train mode computes
+    its batch moments with ``fn`` (given the NHWC view of its input)."""
+    token = _BN_MOMENTS_IMPL.set(fn)
+    try:
+        yield
+    finally:
+        _BN_MOMENTS_IMPL.reset(token)
+
+
+def bn_batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel batch ``(E[x], E[x^2])`` of an NCHW activation, in fp32
+    (at least: f64 stays f64), honouring a :func:`bn_moments_impl`
+    override, which is handed the NHWC view ``x.permute(0, 2, 3, 1)``."""
+    impl = _BN_MOMENTS_IMPL.get()
+    if impl is not None:
+        return impl(x.permute(0, 2, 3, 1))
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
+
+
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with the JAX package's ``BatchNorm`` semantics (torch-exact
+    ``BatchNorm2d``): eps 1e-5, momentum 0.1 (new = 0.9 old + 0.1 batch).
+
+    Train mode normalizes with the one-pass biased variance
+    ``max(E[x^2] - E[x]^2, 0)`` and updates the running var with the
+    unbiased one (n / (n - 1)); the running stats are fp32 and updated in
+    place. The normalization is one per-channel FMA ``x * mul + add`` whose
+    scalars are computed in fp32 and applied in ``x``'s dtype. Eval mode
+    applies the same fold to the running stats. ``num_batches_tracked``
+    stays in the ``state_dict`` (reference layout) and is not advanced:
+    only ``momentum=None`` reads it."""
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=BN_EPS, momentum=0.1)
+
+    def forward(self, x, moments=None):
+        """``moments``: optional precomputed fp32 ``(E[x], E[x^2])``, used
+        in train mode instead of reducing ``x`` here (autograd flows
+        through them)."""
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
+            mean, sq = bn_batch_moments(x) if moments is None else moments
+            var = torch.clamp(sq - mean * mean, min=0.0)
+            with torch.no_grad():
+                n = x.numel() // x.shape[1]
+                unbiased = var * (n / max(n - 1, 1))
+                m = self.momentum
+                self.running_mean.copy_(
+                    (1.0 - m) * self.running_mean + m * mean
+                )
+                self.running_var.copy_(
+                    (1.0 - m) * self.running_var + m * unbiased
+                )
+        mul = self.weight * torch.rsqrt(var + self.eps)
+        add = self.bias - mean * mul
+        shape = (1, -1, 1, 1)
+        return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+
+
+def conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
     """Bias-free conv with torch ``padding=k//2`` (the zoo's 1x1 and 3x3)."""
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
-def batchnorm(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=BN_EPS, momentum=0.1)
+def batchnorm(c: int) -> BatchNorm:
+    return BatchNorm(c)
 
 
 @torch.no_grad()

@@ -1,0 +1,34 @@
+"""LeNet-5 for CIFAR-10, PyTorch port of ``pytorch_cifar_tpu/models/lenet.py``.
+
+The only zoo model with no BatchNorm: two valid-padding 5x5 convs with
+bias, each followed by ReLU and a 2x2 max pool, then three fully-connected
+layers (400-120-84-10). 62,006 params. Modules carry the reference's names
+(``conv1``, ``conv2``, ``fc1``..``fc3``). The flatten before ``fc1`` is the
+reference's NCHW order; the JAX model flattens NHWC, and
+``compat.state_dict_from_jax`` permutes ``fc1``'s columns across the two.
+"""
+
+from __future__ import annotations
+
+import torch.nn.functional as F
+from torch import nn
+
+from pytorch_cifar_tpu_torch.models.common import Conv2d, Linear
+
+
+class LeNet(nn.Module):
+    def __init__(self, num_classes: int = 10):
+        super().__init__()
+        self.conv1 = Conv2d(3, 6, 5)
+        self.conv2 = Conv2d(6, 16, 5)
+        self.fc1 = Linear(16 * 5 * 5, 120)
+        self.fc2 = Linear(120, 84)
+        self.fc3 = Linear(84, num_classes)
+
+    def forward(self, x):
+        out = F.max_pool2d(F.relu(self.conv1(x)), 2)
+        out = F.max_pool2d(F.relu(self.conv2(out)), 2)
+        out = out.flatten(1)
+        out = F.relu(self.fc1(out))
+        out = F.relu(self.fc2(out))
+        return self.fc3(out)

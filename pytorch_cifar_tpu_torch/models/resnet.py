@@ -8,7 +8,10 @@ template of the JAX package's ``compat.export_torch_state_dict``.
 
 Two forwards:
 
-- train mode: plain ``nn.BatchNorm2d`` with batch statistics;
+- train mode: the port's :class:`~.common.BatchNorm` with batch statistics
+  (the JAX ``BatchNorm``'s semantics; its moments go through kernel K2
+  under ``bn_moments_impl(fused_moments)``), convs and the linear computing
+  in the input's dtype (the bf16 policy);
 - eval mode: :meth:`ResNet.fold` folds every BN into its conv once per
   weight set, and :meth:`ResNet.folded_forward` runs the folded sites. Each
   stride-1 3x3 conv -> BN -> ReLU (the stem, BasicBlock ``conv1`` at stride
@@ -32,6 +35,7 @@ from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
     FoldedConvBN,
+    Linear,
     avg_pool,
     batchnorm,
     conv,
@@ -136,7 +140,7 @@ class ResNet(nn.Module):
         self.layer2 = self._make_layer(block, 128, num_blocks[1], 2)
         self.layer3 = self._make_layer(block, 256, num_blocks[2], 2)
         self.layer4 = self._make_layer(block, 512, num_blocks[3], 2)
-        self.linear = nn.Linear(512 * block.expansion, num_classes)
+        self.linear = Linear(512 * block.expansion, num_classes)
 
     def _make_layer(self, block, planes: int, n: int, stride: int):
         layers = []
@@ -156,6 +160,7 @@ class ResNet(nn.Module):
     def forward(self, x):
         if not self.training:
             return self.folded_forward(self.fold(x.dtype), x)
+        x = x.contiguous(memory_format=torch.channels_last)
         out = F.relu(self.bn1(self.conv1(x)))
         for b in self.blocks():
             out = b(out)

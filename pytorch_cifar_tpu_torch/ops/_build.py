@@ -1,11 +1,13 @@
-"""Build and load the CUDA kernel ``csrc/conv_bn_relu.cu`` with ``nvcc``
+"""Build and load the port's CUDA kernels (``csrc/*.cu``) with ``nvcc``
 and ``ctypes``.
 
-The source compiles into a shared library with a plain C interface (no
-PyTorch headers: seconds to build, where a PyTorch extension takes
-minutes). The library lands in ``ops/build/`` under a name that carries a
-hash of the source and flags, so an edited source rebuilds and an unchanged
-one is loaded as built. Nothing here runs at import time.
+Each source compiles into its own shared library with a plain C interface
+(no PyTorch headers: seconds to build, where a PyTorch extension takes
+minutes). A library lands in ``ops/build/`` under a name that carries a
+hash of its source and the flags, so an edited source rebuilds and an
+unchanged one is loaded as built. Each is built at its first use;
+:func:`build_all` compiles every source at once, one ``nvcc`` each, in
+parallel. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,21 +18,38 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Optional
+from typing import Dict
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "conv_bn_relu.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
-# (x, w, scale, bias, out, n, h, w, cin, cout, stream) -> cudaError_t
-ENTRY_POINTS = ("conv3x3_bn_relu_bf16", "conv3x3_bn_relu_f32")
-ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# per source: entry point -> argtypes (every entry returns a cudaError_t)
+ENTRY_POINTS: Dict[str, Dict[str, list]] = {
+    # (x, w, scale, bias, out, n, h, w, cin, cout, stream)
+    "conv_bn_relu": {
+        name: [_P] * 5 + [_I] * 5 + [_P]
+        for name in ("conv3x3_bn_relu_bf16", "conv3x3_bn_relu_f32")
+    },
+    # (images, idx, out, n, m, row_bytes, vec, stream)
+    "dma_gather": {"dma_row_gather": [_P, _P, _P, _L, _L, _L, _I, _P]},
+    # (x, partial, out, rows, c, vec, stream); plan: (rows, c, vec,
+    # elem_bytes, *rows_per_block, *chunks)
+    "bn_stats": {
+        "fused_moments_bf16": [_P, _P, _P, _L, _I, _I, _P],
+        "fused_moments_f32": [_P, _P, _P, _L, _I, _I, _P],
+        "fused_moments_plan": [_L, _I, _I, _I, _P, _P],
+    },
+}
 
 _lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 
 
 def nvcc_path() -> str:
@@ -48,44 +67,65 @@ def nvcc_path() -> str:
         return os.path.join(CUDA_HOME, "bin", "nvcc")
     raise RuntimeError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH); the port's "
-        "CUDA kernel is compiled from ops/csrc at first use"
+        "CUDA kernels are compiled from ops/csrc at first use"
     )
 
 
-def library_path() -> Path:
+def source_path(name: str) -> Path:
+    if name not in ENTRY_POINTS:
+        raise KeyError(f"no kernel source {name!r}; have {sorted(ENTRY_POINTS)}")
+    return CSRC / f"{name}.cu"
+
+
+def library_path(name: str) -> Path:
+    src = source_path(name)
     digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{SOURCE.stem}_{digest}.so"
+    return BUILD_DIR / f"lib{name}_{digest}.so"
 
 
-def _compile() -> Path:
-    lib = library_path()
+def _compile(name: str) -> Path:
+    lib = library_path(name)
     if lib.exists():
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")  # another process may race
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
+            f"nvcc failed on {name}.cu (rc {proc.returncode}):\n"
             f"{proc.stdout}\n{proc.stderr}"
         )
     os.replace(tmp, lib)
     return lib
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use, with ``argtypes`` and
-    ``restype`` declared for each entry point."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use, with
+    ``argtypes`` and ``restype`` declared for each of its entry points."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(_compile()))
-            for name in ENTRY_POINTS:
-                fn = getattr(lib, name)
-                fn.argtypes = ARGTYPES
+        if name not in _libs:
+            lib = ctypes.CDLL(str(_compile(name)))
+            for fn_name, argtypes in ENTRY_POINTS[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
-            _lib = lib
-        return _lib
+            _libs[name] = lib
+        return _libs[name]
+
+
+def build_all() -> Dict[str, float]:
+    """Compile every source not yet built, one ``nvcc`` per source, all
+    started together; returns the seconds each source's build took (0.0
+    when it was already built). Raises if any build fails."""
+
+    def timed(name):
+        t0 = time.perf_counter()
+        _compile(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(ENTRY_POINTS)) as pool:
+        futures = {name: pool.submit(timed, name) for name in ENTRY_POINTS}
+        return {name: f.result() for name, f in futures.items()}

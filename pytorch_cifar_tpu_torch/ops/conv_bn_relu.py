@@ -93,7 +93,7 @@ def conv3x3_bn_relu(
         raise ValueError("conv3x3_bn_relu needs contiguous scale and bias")
     from pytorch_cifar_tpu_torch.ops import _build
 
-    lib = _build.load()
+    lib = _build.load("conv_bn_relu")
     fn = (
         lib.conv3x3_bn_relu_bf16
         if x.dtype == torch.bfloat16

@@ -69,7 +69,14 @@ def test_scan_sees_the_whole_package():
     for must in ("chip_smoke.py",
                  os.path.join("pytorch_cifar_tpu_torch", "serve", "engine.py"),
                  os.path.join("pytorch_cifar_tpu_torch", "ops",
-                              "conv_bn_relu.py")):
+                              "conv_bn_relu.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "ops",
+                              "dma_gather.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "ops",
+                              "bn_stats.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "train",
+                              "trainer.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "config.py")):
         assert must in files
 
 
