@@ -48,6 +48,8 @@ Then the training slice and its two kernels:
    and read just after: K1 once per epoch (and K3 six times per eval
    forward); each epoch's count 50,000, finite losses, the second epoch's
    train loss below the first's and the final eval accuracy above 50%;
+   then a third epoch dispatched under ``torch.cuda.set_sync_debug_mode
+   ("error")``, which fails on any host sync, its totals fetched after;
 8. bn_bench: the ResNet-18 b512 bf16 train step on one fixed batch,
    10 steps with stock BN moments and 10 under
    ``bn_moments_impl(fused_moments)`` (in turns stock, fused, fused,
@@ -433,7 +435,8 @@ def phase_moments(M, peaks, fails: Failures) -> list:
 
 
 def phase_train(G, M, K3, smi: str, fails: Failures) -> dict:
-    """The training slice through ``Trainer.fit``; K1 once per epoch."""
+    """The training slice through ``Trainer.fit``; K1 once per epoch. Then
+    one more epoch dispatched with host syncs made errors."""
     from pytorch_cifar_tpu_torch.config import TrainConfig
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
@@ -474,13 +477,30 @@ def phase_train(G, M, K3, smi: str, fails: Failures) -> dict:
                 "train: the second epoch's loss is not below the first's")
     fails.check(hist[-1]["eval_acc"] > 50.0,
                 f"train: final eval accuracy {hist[-1]['eval_acc']:.2f}%")
+    # one more epoch with every host sync an error: the epoch's dispatch
+    # must not wait for the device; its totals are fetched after the window
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        totals, _ = trainer.dispatch_epoch(epochs)
+        synced = None
+    except RuntimeError as e:
+        synced = str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    fails.check(synced is None, f"train: the epoch synced with the host: "
+                                f"{synced}")
+    if synced is None:
+        fails.check(float(totals["count"]) == TRAIN_N,
+                    "train: the sync-checked epoch counted "
+                    f"{float(totals['count'])} images")
     out = {
         "card": smi, "model": "ResNet18", "batch": BATCH, "dtype": "bf16",
         "train_n": TRAIN_N, "test_n": TEST_N,
         "steps_per_epoch": trainer.steps_per_epoch,
         "setup_s": setup_s, "best_acc": best,
         "k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
-        "peak_mem_gib": peak / 2**30,
+        "peak_mem_gib": peak / 2**30, "epoch_sync_error": synced,
         "epochs": [{k: h[k] for k in ("epoch", "train_loss", "train_acc",
                                       "eval_loss", "eval_acc", "epoch_s",
                                       "img_per_sec")} for h in hist],
@@ -507,7 +527,7 @@ def _train_state(seed: int, dtype: torch.dtype):
         cosine_epoch_schedule(0.1, 200, 98), seed=seed, device="cuda",
     )
     step = make_train_step(augment=dtype == torch.bfloat16,
-                           compute_dtype=dtype)
+                           compute_dtype=dtype, device="cuda")
     return state, step
 
 
@@ -643,7 +663,8 @@ def phase_card_vs_cpu(fails: Failures) -> dict:
                 model, make_optimizer(model.parameters()),
                 cosine_epoch_schedule(0.1, 200, 98), device=dev,
             )
-            step = make_train_step(augment=False, compute_dtype=dtype)
+            step = make_train_step(augment=False, compute_dtype=dtype,
+                                   device=dev)
             m = step(state, (images.to(dev), labels.to(dev)))
             after[dtype, dev] = _tensors(model)
             metrics[dtype, dev] = {k: float(m[k]) for k in METRIC_KEYS}

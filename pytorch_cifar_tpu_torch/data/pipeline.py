@@ -10,6 +10,8 @@ from typing import Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from pytorch_cifar_tpu_torch import resolve_device
+
 
 def mix_seed(seed: int, k: int) -> int:
     """The generator seed for draw ``k`` (an epoch, a step) of a run
@@ -31,7 +33,8 @@ class DeviceDataset:
     ``device_perm=True`` ``torch.randperm`` on the device from a generator
     seeded with the same ``(seed, epoch)`` mix (another stream than
     ``jax.random``'s, by design). ``shuffle=False`` is the identity order,
-    staged once (the eval path)."""
+    staged once (the eval path). The data lies on ``device``: CUDA unless
+    the caller names another."""
 
     def __init__(
         self,
@@ -42,7 +45,7 @@ class DeviceDataset:
         drop_last: bool = False,
         seed: int = 0,
         device_perm: bool = False,
-        device="cpu",
+        device=None,
     ):
         if images.shape[0] != labels.shape[0]:
             raise ValueError(
@@ -53,7 +56,7 @@ class DeviceDataset:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.device_perm = device_perm and shuffle
         self.images = torch.from_numpy(np.ascontiguousarray(images)).to(
             self.device

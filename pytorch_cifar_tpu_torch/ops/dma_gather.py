@@ -73,13 +73,15 @@ def dma_row_gather(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
             "dma_row_gather: images and idx must be on one CUDA device (or "
             f"both on the CPU), got {images.device} and {idx.device}"
         )
-    from pytorch_cifar_tpu_torch.ops import _build
-
-    lib = _build.load("dma_gather")
     out = torch.empty(
         (idx.shape[0], *images.shape[1:]), dtype=images.dtype,
         device=images.device,
     )
+    if idx.shape[0] == 0:  # nothing to gather: no launch, none counted
+        return out
+    from pytorch_cifar_tpu_torch.ops import _build
+
+    lib = _build.load("dma_gather")
     err = lib.dma_row_gather(
         images.data_ptr(), idx.data_ptr(), out.data_ptr(), images.shape[0],
         idx.shape[0], _row_bytes(images), int(vector_path(images, out)),

@@ -7,10 +7,13 @@ flip on) and times ``ITERS`` warm steps on one fixed batch with no
 profiler attached, with BN moments stock and under
 ``bn_moments_impl(fused_moments)`` (kernel K2) in turns (stock, fused,
 fused, stock; the wall per step is the faster of each mode's two runs,
-the last step synchronized). Then it captures ``ITERS`` more steps of
-each mode under ``torch.profiler`` with CUDA activity only (the device
-time). Prints one JSON line per mode:
-wall and device-busy ms per step, the idle share (1 - busy / wall), the
+the last step synchronized; each step's host issue time, the host's wall
+from the step's call to its return, is kept too: where it exceeds the
+device's work the host bounds the step). Then it captures ``ITERS`` more
+steps of each mode under ``torch.profiler`` with CUDA activity only (the
+device time). Prints one JSON line per mode: wall and device-busy ms per
+step, the idle share (1 - busy / wall), the
+median and largest host issue ms per step of each unprofiled run, the
 device ms per step of each kernel group (K1, K2, K3, library convs and
 GEMMs, reductions, the optimizer's fused updates, copies, other
 elementwise work) and the ten costliest kernels. A last line times the
@@ -21,6 +24,7 @@ its share of an epoch of 98 stock steps.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import time
 from collections import defaultdict
@@ -59,16 +63,20 @@ def group_of(name: str) -> str:
     return "elementwise_other"
 
 
-def wall_ms(state, step, batch) -> float:
-    """Host wall per step over ``ITERS`` warm steps, no profiler attached."""
+def wall_ms(state, step, batch) -> tuple:
+    """(wall ms per step over ``ITERS`` warm steps, each step's host issue
+    ms), no profiler attached."""
     for _ in range(5):
         step(state, batch)
     torch.cuda.synchronize()
+    issue = []
     t0 = time.perf_counter()
     for _ in range(ITERS):
+        t = time.perf_counter()
         step(state, batch)
+        issue.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3 / ITERS
+    return (time.perf_counter() - t0) * 1e3 / ITERS, issue
 
 
 def profile_steps(state, step, batch, wall: float) -> dict:
@@ -116,20 +124,24 @@ def main() -> int:
         model, make_optimizer(model.parameters()),
         cosine_epoch_schedule(0.1, 200, STEPS_PER_EPOCH), device="cuda",
     )
-    step = make_train_step(compute_dtype=torch.bfloat16)
+    step = make_train_step(compute_dtype=torch.bfloat16, device="cuda")
     impls = {"stock": None, "fused_moments": fused_moments}
     # walls first, in turns, before any profiler capture: a finished
     # capture can leave the host's launches slower for the rest of the run
     runs = {mode: [] for mode in impls}
+    issue = {mode: [] for mode in impls}
     for mode in ("stock", "fused_moments", "fused_moments", "stock"):
         with bn_moments_impl(impls[mode]):
-            runs[mode].append(wall_ms(state, step, (images, labels)))
+            wall, per_step = wall_ms(state, step, (images, labels))
+        runs[mode].append(wall)
+        issue[mode].append([statistics.median(per_step), max(per_step)])
     walls = {mode: min(ms) for mode, ms in runs.items()}
     for mode, impl in impls.items():
         with bn_moments_impl(impl):
             rec = profile_steps(state, step, (images, labels), walls[mode])
         print(json.dumps({"card": smi, "batch": BATCH, "dtype": "bfloat16",
                           "bn_moments": mode, "wall_ms_runs": runs[mode],
+                          "host_issue_ms_p50_max_runs": issue[mode],
                           **rec}), flush=True)
 
     data = torch.randint(0, 256, (50_000, 32, 32, 3), generator=g,

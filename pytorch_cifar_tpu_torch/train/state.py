@@ -16,6 +16,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
+from pytorch_cifar_tpu_torch import resolve_device
 from pytorch_cifar_tpu_torch.data.pipeline import mix_seed
 from pytorch_cifar_tpu_torch.train.optim import Schedule
 
@@ -50,12 +51,14 @@ def create_train_state(
     optimizer: torch.optim.Optimizer,
     schedule: Schedule,
     seed: int = 0,
-    device="cpu",
+    device=None,
 ) -> TrainState:
+    """A state whose augmentation generator lives on ``device``, where the
+    step's batches lie: CUDA unless the caller names another."""
     return TrainState(
         model=model,
         optimizer=optimizer,
         schedule=schedule,
-        generator=torch.Generator(device=torch.device(device)),
+        generator=torch.Generator(device=resolve_device(device)),
         seed=seed,
     )

@@ -22,6 +22,7 @@ from typing import Callable, Dict, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from pytorch_cifar_tpu_torch import resolve_device
 from pytorch_cifar_tpu_torch.data.augment import (
     CIFAR10_MEAN,
     CIFAR10_STD,
@@ -34,6 +35,15 @@ from pytorch_cifar_tpu_torch.train.state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
 METRIC_KEYS = ("loss_sum", "correct", "count", "nonfinite")
+
+
+def _device_stats(mean, std, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mean`` and ``std`` as fp32 tensors on the step's device, made once
+    when the step is built: a host tuple would cost a blocking host-to-device
+    copy in every step."""
+    dev = resolve_device(device)
+    return (torch.tensor(mean, dtype=torch.float32, device=dev),
+            torch.tensor(std, dtype=torch.float32, device=dev))
 
 
 def _not_ported(**requested) -> None:
@@ -88,12 +98,15 @@ def make_train_step(
     remat: bool = False,
     sync_bn: bool = False,
     skip_nonfinite: bool = False,
+    device=None,
 ) -> Callable:
     """Returns ``step(state, batch=(uint8 NHWC images, labels)) ->
     metrics``: one SGD update of ``state`` in place, with the crop offsets
-    and flip bits the state draws for its step."""
+    and flip bits the state draws for its step. The batch lies on
+    ``device`` (CUDA unless the caller names another)."""
     _not_ported(axis_name=axis_name, remat=remat, sync_bn=sync_bn,
                 skip_nonfinite=skip_nonfinite)
+    mean, std = _device_stats(mean, std, device)
 
     def step(state: TrainState, batch) -> Metrics:
         images, labels = batch
@@ -175,11 +188,14 @@ def make_eval_step(
     std: Sequence[float] = CIFAR10_STD,
     compute_dtype: torch.dtype = torch.float32,
     axis_name: Optional[str] = None,
+    device=None,
 ) -> Callable:
     """Returns ``step(state, batch) -> metrics``, the model in eval mode
     (a ResNet folds its BNs and runs the serving forward). Labels < 0 are
-    padding."""
+    padding; the batch lies on ``device`` (CUDA unless the caller names
+    another)."""
     _not_ported(axis_name=axis_name)
+    mean, std = _device_stats(mean, std, device)
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Metrics:

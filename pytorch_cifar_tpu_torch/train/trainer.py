@@ -31,6 +31,7 @@ from pytorch_cifar_tpu_torch.train.optim import (
 from pytorch_cifar_tpu_torch.train.state import create_train_state
 from pytorch_cifar_tpu_torch.train.steps import (
     METRIC_KEYS,
+    Metrics,
     make_eval_epoch,
     make_eval_step,
     make_train_epoch,
@@ -95,6 +96,7 @@ class Trainer:
             make_train_step(
                 crop=config.random_crop, flip=config.random_flip,
                 mean=config.mean, std=config.std, compute_dtype=compute,
+                device=self.device,
             ),
             global_batch=self.global_batch,
             n_data=tr_x.shape[0],
@@ -104,7 +106,7 @@ class Trainer:
         n_eval = te_x.shape[0]
         self.eval_epoch_fn = make_eval_epoch(
             make_eval_step(mean=config.mean, std=config.std,
-                           compute_dtype=compute),
+                           compute_dtype=compute, device=self.device),
             global_batch=self.eval_bs,
             n_data=n_eval,
             num_steps=max(-(-n_eval // self.eval_bs), 1),
@@ -112,9 +114,10 @@ class Trainer:
         self.best_acc = 0.0
         self.history: List[dict] = []
 
-    def _run_epoch(self, epoch: int) -> Tuple[Dict[str, float], Dict[str, float]]:
-        """Dispatch one train and one eval epoch; fetch both totals in one
-        device-to-host copy."""
+    def dispatch_epoch(self, epoch: int) -> Tuple[Metrics, Metrics]:
+        """Queue one train and one eval epoch on the device and return
+        their metric totals, still on the device. Nothing here waits for
+        the device."""
         perm = self.loader.staged_perm(epoch)
         self.state, totals = self.train_epoch_fn(
             self.state, zero_metrics(self.device), self.loader.images,
@@ -123,6 +126,12 @@ class Trainer:
         ev = self.eval_epoch_fn(
             self.state, self.eval_loader.images, self.eval_loader.labels
         )
+        return totals, ev
+
+    def _run_epoch(self, epoch: int) -> Tuple[Dict[str, float], Dict[str, float]]:
+        """Dispatch one train and one eval epoch; fetch both totals in one
+        device-to-host copy."""
+        totals, ev = self.dispatch_epoch(epoch)
         both = torch.stack(
             [totals[k] for k in METRIC_KEYS] + [ev[k] for k in METRIC_KEYS]
         ).tolist()  # the one sync of the epoch

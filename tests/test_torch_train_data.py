@@ -157,7 +157,8 @@ def test_host_permutation_stream_matches_jax(n, batch, drop_last):
     rs = np.random.RandomState(5)
     x = rs.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
     y = rs.randint(0, 10, n).astype(np.int32)
-    ours = DeviceDataset(x, y, batch, drop_last=drop_last, seed=9)
+    ours = DeviceDataset(x, y, batch, drop_last=drop_last, seed=9,
+                         device="cpu")
     theirs = JaxDeviceDataset(x, y, batch, drop_last=drop_last, seed=9)
     assert len(ours) == len(theirs)
     for epoch in range(3):
@@ -174,12 +175,12 @@ def test_host_permutation_stream_matches_jax(n, batch, drop_last):
 def test_eval_order_is_identity_and_device_perm_is_a_permutation():
     x = np.zeros((20, 32, 32, 3), np.uint8)
     y = np.arange(20, dtype=np.int32)
-    ev = DeviceDataset(x, y, 8, shuffle=False)
+    ev = DeviceDataset(x, y, 8, shuffle=False, device="cpu")
     np.testing.assert_array_equal(ev.staged_perm(0).numpy(),
                                   np.arange(24) % 20)
     _, labels = list(ev.epoch(0))[-1]
     np.testing.assert_array_equal(labels.numpy(), [16, 17, 18, 19] + [-1] * 4)
-    dp = DeviceDataset(x, y, 8, seed=1, device_perm=True)
+    dp = DeviceDataset(x, y, 8, seed=1, device_perm=True, device="cpu")
     p0, p0b, p1 = (dp.staged_perm(e).numpy() for e in (0, 0, 1))
     assert sorted(p0[:20]) == list(range(20))
     np.testing.assert_array_equal(p0[20:], p0[:4])  # wrap rule

@@ -93,6 +93,19 @@ def test_gather_cpu_never_launches_and_checks_inputs():
         dma_gather.dma_row_gather(imgs.to("meta"), idx.to("meta"))
 
 
+def test_gather_empty_idx_gives_no_rows():
+    """An empty index gathers an empty block of the row shape, as
+    ``jnp.take`` does, and launches nothing."""
+    before = dma_gather.LAUNCHES
+    imgs = np.arange(24, dtype=np.float32).reshape(6, 2, 2)
+    idx = np.zeros((0,), np.int32)
+    got = dma_gather.dma_row_gather(torch.from_numpy(imgs),
+                                    torch.from_numpy(idx))
+    want = np.asarray(jnp.take(jnp.asarray(imgs), jnp.asarray(idx), 0))
+    assert got.shape == want.shape == (0, 2, 2) and got.dtype == torch.float32
+    assert dma_gather.LAUNCHES == before
+
+
 # -- K2: fused_moments ---------------------------------------------------
 
 MOMENT_SHAPES = [(4, 8, 8, 16), (8, 4, 4, 256), (6, 8, 8, 130),

@@ -99,7 +99,7 @@ class Pair:
         model = model.to(memory_format=torch.channels_last)
         self.port = create_train_state(
             model, optim.make_optimizer(model.parameters(), lr=LR),
-            optim.cosine_epoch_schedule(LR, T_MAX, SPE),
+            optim.cosine_epoch_schedule(LR, T_MAX, SPE), device="cpu",
         )
 
     def jax_state_dict(self):
@@ -141,7 +141,7 @@ def test_train_steps_match_jax_fp32(name, n_steps):
     different summation orders in the next step's gradients."""
     pair = Pair(name, seed=0)
     jstep = jax.jit(jax_steps.make_train_step(augment=False))
-    pstep = steps.make_train_step(augment=False)
+    pstep = steps.make_train_step(augment=False, device="cpu")
     for i in range(n_steps):
         x, y = _batch(8, seed=10 + i)
         pair.jax, jm = jstep(pair.jax, (jnp.asarray(x), jnp.asarray(y)),
@@ -160,9 +160,9 @@ def test_train_step_bf16_loss_within_2_percent():
     _, jm = jax.jit(jax_steps.make_train_step(
         augment=False, compute_dtype=jnp.bfloat16
     ))(pair.jax, (jnp.asarray(x), jnp.asarray(y)), jax.random.PRNGKey(1))
-    pm = steps.make_train_step(augment=False, compute_dtype=torch.bfloat16)(
-        pair.port, (torch.from_numpy(x), torch.from_numpy(y))
-    )
+    pstep = steps.make_train_step(augment=False, device="cpu",
+                                  compute_dtype=torch.bfloat16)
+    pm = pstep(pair.port, (torch.from_numpy(x), torch.from_numpy(y)))
     want = float(jm["loss_sum"])
     assert abs(float(pm["loss_sum"]) - want) <= 0.02 * abs(want)
     assert float(pm["count"]) == float(jm["count"]) == 6
@@ -174,7 +174,8 @@ def test_train_step_bf16_loss_within_2_percent():
 def test_train_step_draws_augmentation_per_step():
     """Without an explicit draw the state draws offsets and flips from its
     generator reseeded with (seed, step): the same step draws the same."""
-    state = create_train_state(torch.nn.Linear(1, 1), None, None, seed=3)
+    state = create_train_state(torch.nn.Linear(1, 1), None, None, seed=3,
+                               device="cpu")
     a = state.draw_augment(16)
     assert a[0].shape == (16, 2) and a[1].shape == (16,)
     assert int(a[0].min()) >= 0 and int(a[0].max()) <= 8
@@ -197,13 +198,13 @@ def test_epoch_program_matches_jax_on_host_permutation():
     labels = rs.randint(0, 10, n).astype(np.int32)
     pair = Pair("LeNet", seed=2)
     jdata = JaxDeviceDataset(images, labels, batch, seed=5)
-    pdata = DeviceDataset(images, labels, batch, seed=5)
+    pdata = DeviceDataset(images, labels, batch, seed=5, device="cpu")
     jepoch = jax.jit(jax_steps.make_train_epoch(
         jax_steps.make_train_step(augment=False), global_batch=batch,
         n_data=n, num_steps=steps_per_epoch, dma_gather=False,
     ))
     seen = []
-    pstep = steps.make_train_step(augment=False)
+    pstep = steps.make_train_step(augment=False, device="cpu")
 
     def recording_step(state, b):
         seen.append((b[0].clone(), b[1].clone()))
@@ -243,7 +244,8 @@ def test_eval_epoch_matches_jax():
         jax_steps.make_eval_step(), global_batch=4, n_data=10, num_steps=3,
     ))(pair.jax, jnp.asarray(images), jnp.asarray(labels))
     got = steps.make_eval_epoch(
-        steps.make_eval_step(), global_batch=4, n_data=10, num_steps=3,
+        steps.make_eval_step(device="cpu"), global_batch=4, n_data=10,
+        num_steps=3,
     )(pair.port, torch.from_numpy(images), torch.from_numpy(labels))
     _assert_metrics(got, jax.device_get(want))
     assert float(got["count"]) == 10
@@ -273,6 +275,25 @@ def test_cli_trains_lenet_on_the_cpu(caplog):
     text = caplog.text
     assert "train epoch 1: loss" in text and "eval  epoch 1: loss" in text
     assert "global batch 64 | 8 steps/epoch" in text
+
+
+_ZEROS = np.zeros((4, 32, 32, 3), np.uint8), np.zeros(4, np.int32)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: DeviceDataset(*_ZEROS, batch_size=2),
+    lambda: create_train_state(torch.nn.Linear(1, 1), None, None),
+    lambda: steps.make_train_step(),
+    lambda: steps.make_eval_step(),
+], ids=["DeviceDataset", "create_train_state", "make_train_step",
+        "make_eval_step"])
+def test_constructors_default_to_cuda(build):
+    """Without a ``device`` each constructor of the slice asks for CUDA;
+    with no card it raises instead of staging on the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build()
 
 
 def test_cli_without_cuda_raises_unless_cpu():
