@@ -64,6 +64,37 @@ Then the training slice and its two kernels:
    1e-5: in fp32 the metrics and running stats, in float64 compute
    (fp32 parameters) the parameters too.
 
+Then the zoo slice (GoogLeNet, MobileNet) and its kernels:
+
+10. pool: ``max_pool3x3_s1`` (K4) against its plain version, bit for bit
+    (a NaN equal to a NaN): the forward without and with the uint8 winner
+    map, the map, and the backward on integer cotangents, at GoogLeNet's
+    six pool shapes at n = 512 and at ``(3, 5, 5, 130)`` (narrow vectors),
+    in bf16 and fp32; there also an all-ties input, NaNs (every window
+    holding one must return it, as ``F.max_pool2d`` does) and a ``-inf``
+    map; output and gradient equal to ``F.max_pool2d``'s; times of the
+    kernels, the plain version and ``F.max_pool2d`` forward and backward
+    (channels_last), and the byte bounds;
+11. stencil: ``depthwise_stencil`` (K5) against its plain version at
+    MobileNet's five stride-1 depthwise shapes at n = 128 (k = 3), at
+    ``(512, 32, 32, 44)`` with k = 5 and 7 and at ``(2, 8, 8, 130)``, in
+    bf16 and fp32 (tolerances in :func:`phase_stencil`); times of the
+    kernel, the plain version and ``F.conv2d(groups=C)``, and the bound;
+12. site_googlenet: phase 3 again at the 24 distinct shapes of GoogLeNet's
+    28 fused sites (cin from 3 to 192, cout from 32 to 384, maps 32, 16, 8);
+13. slice, for GoogLeNet and then MobileNet (8 clients x 64 requests):
+    launches reset just before and read just after, K4 = 9 and K3 = 28 per
+    GoogLeNet forward, K5 = 9 and K3 = 1 per MobileNet forward; served
+    logits against the CPU as in phase 4;
+14. googlenet_train: phase 7 for GoogLeNet on
+    ``synthetic_cifar10(10240, 2048)`` (20 steps per epoch): K1 once per
+    epoch, K4 forward 9 and backward 9 per train step and forward 9 per
+    eval forward, K3 28 per eval forward; counts, finite and falling loss,
+    the sync-checked third epoch, img/s and peak memory;
+15. pool_step: one fp32 GoogLeNet step (batch 64) with K4 against one with
+    ``F.max_pool2d`` from the same start, both against the float64-compute
+    step (see :func:`phase_pool_step`).
+
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -163,14 +194,15 @@ def phase_build(build) -> dict:
     return out
 
 
-def phase_kernels(K, peaks, fails: Failures):
+def phase_kernels(K, peaks, fails: Failures, sites=None, tag="site",
+                  runs: int = 25):
     """Per-site rows: correctness at n = 3 and 128 in both dtypes, batch
-    invariance, and times at n = 128."""
+    invariance, and times at n = 128. ``sites`` defaults to ResNet-18's."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
     rows = []
-    for site, h, w, cin, cout, per_fwd in SITES:
+    for site, h, w, cin, cout, per_fwd in (SITES if sites is None else sites):
         for dname, dt in DTYPES.items():
             x = torch.randn(128, h, w, cin, generator=g).to("cuda", dt)
             wt = (torch.randn(3, 3, cin, cout, generator=g)
@@ -216,24 +248,55 @@ def phase_kernels(K, peaks, fails: Failures):
                 "site": site, "dtype": dname, "n": 128,
                 "x": [h, w, cin], "cout": cout, "launches_per_forward": per_fwd,
                 "max_abs_err": err, "batch_invariant": inv,
-                "ms": time_ms(lambda: K.conv3x3_bn_relu(x, wt, scale, bias)),
+                "ms": time_ms(lambda: K.conv3x3_bn_relu(x, wt, scale, bias),
+                              runs),
                 "plain_ms": time_ms(
-                    lambda: K.conv3x3_bn_relu_reference(x, wt, scale, bias)
+                    lambda: K.conv3x3_bn_relu_reference(x, wt, scale, bias),
+                    runs,
                 ),
                 "library_ms": time_ms(
                     lambda: torch.relu(F.conv2d(x_cl, w_cl, padding=1) * s4
-                                       + b4)
+                                       + b4), runs,
                 ),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             }
             rows.append(row)
-            print("site " + json.dumps(row), flush=True)
+            print(f"{tag} " + json.dumps(row), flush=True)
     return rows
 
 
-def phase_slice(K, smi: str, fails: Failures) -> dict:
+def googlenet_sites() -> list:
+    """GoogLeNet's fused conv3x3+BN+ReLU sites, one row per distinct
+    (h, w, cin, cout) with the number of launches per forward, read off the
+    model's own fold."""
+    from pytorch_cifar_tpu_torch.models import create_model
+
+    folded = create_model("GoogLeNet").fold(torch.float32)
+    count: dict = {}
+    h = 32
+    for key, site in [("stem", folded["stem"])] + [
+        (None, c) for c in folded["cells"]
+    ]:
+        if site is None:  # a stage transition halves the map
+            h //= 2
+            continue
+        fused = [site] if key else site["b2"] + site["b3"]
+        for f in fused:
+            assert f.fused
+            shape = (h, h, f.weight.shape[2], f.weight.shape[3])
+            count[shape] = count.get(shape, 0) + 1
+    return [(f"{hh}x{ww}x{cin}->{cout}", hh, ww, cin, cout, k)
+            for (hh, ww, cin, cout), k in count.items()]
+
+
+def phase_slice(K, smi: str, fails: Failures, model: str = "ResNet18",
+                per_forward=None, requests: int = 256) -> dict:
+    """Serve ``model`` at full width under ``run_load``. ``per_forward``
+    lists (kernel module, its launch counter's name, launches per
+    forward); every counter is reset just before the main path and read
+    just after."""
     from pytorch_cifar_tpu_torch.obs import MetricsRegistry
     from pytorch_cifar_tpu_torch.serve import (
         InferenceEngine,
@@ -241,11 +304,14 @@ def phase_slice(K, smi: str, fails: Failures) -> dict:
         run_load,
     )
 
+    if per_forward is None:
+        per_forward = [(K, "LAUNCHES", 6)]
     registry = MetricsRegistry()
-    K.LAUNCHES = 0  # the main path starts here
+    for mod, counter, _ in per_forward:
+        setattr(mod, counter, 0)  # the main path starts here
     t0 = time.perf_counter()
     engine = InferenceEngine.from_random(
-        "ResNet18", seed=0, buckets=BUCKETS, compute_dtype=torch.bfloat16,
+        model, seed=0, buckets=BUCKETS, compute_dtype=torch.bfloat16,
         registry=registry,
     )
     build_s = time.perf_counter() - t0
@@ -258,54 +324,62 @@ def phase_slice(K, smi: str, fails: Failures) -> dict:
     batcher = MicroBatcher(engine, max_wait_ms=2.0, registry=registry)
     try:
         report = run_load(
-            batcher, clients=8, requests_per_client=256, images_max=8,
+            batcher, clients=8, requests_per_client=requests, images_max=8,
             seed=0,
         )
     finally:
         batcher.close()
-    launches, forwards = K.LAUNCHES, engine.forward_count  # main path ends
-    fails.check(
-        launches == 6 * forwards,
-        f"slice: {launches} kernel launches for {forwards} forwards "
-        f"(want 6 per forward)",
-    )
-    fails.check(forwards > len(BUCKETS), "slice: no request reached the engine")
+    forwards = engine.forward_count  # the main path ends here
+    counts = {f"{mod.__name__.rsplit('.', 1)[-1]}.{counter}":
+              getattr(mod, counter) for mod, counter, _ in per_forward}
+    for (name, got), (_, _, per) in zip(counts.items(), per_forward):
+        fails.check(
+            got == per * forwards,
+            f"slice {model}: {name} = {got} for {forwards} forwards "
+            f"(want {per} per forward)",
+        )
+    launches = next(iter(counts.values()))
+    fails.check(forwards > len(BUCKETS),
+                f"slice {model}: no request reached the engine")
     fails.check(engine.compile_count == len(BUCKETS),
-                f"slice: compile_count {engine.compile_count}")
-    fails.check(report["failed"] == 0, f"slice: {report['failed']} failed")
-    fails.check(report["requests"] == 8 * 256,
-                f"slice: {report['requests']} of {8 * 256} requests answered")
+                f"slice {model}: compile_count {engine.compile_count}")
+    fails.check(report["failed"] == 0,
+                f"slice {model}: {report['failed']} failed")
+    fails.check(report["requests"] == 8 * requests,
+                f"slice {model}: {report['requests']} of {8 * requests} "
+                "requests answered")
 
     # the served logits against the same weights on the CPU (plain path)
     xs = rs.randint(0, 256, size=(5, 32, 32, 3)).astype(np.uint8)
     cpu = InferenceEngine.from_random(
-        "ResNet18", seed=0, buckets=(8,), compute_dtype=torch.float32,
+        model, seed=0, buckets=(8,), compute_dtype=torch.float32,
         device="cpu",
     )
     want = cpu.predict(xs)
     got16 = engine.predict(xs)
     got32 = InferenceEngine.from_random(
-        "ResNet18", seed=0, buckets=(8,), compute_dtype=torch.float32,
+        model, seed=0, buckets=(8,), compute_dtype=torch.float32,
     ).predict(xs)
     err16 = float(np.max(np.abs(got16 - want)))
     err32 = float(np.max(np.abs(got32 - want)))
     top = float(np.max(np.abs(want)))
     fails.check(
         got16.shape == (5, 10) and bool(np.isfinite(got16).all()),
-        "slice: bf16 logits not finite (5, 10)",
+        f"slice {model}: bf16 logits not finite (5, 10)",
     )
     fails.check(err16 <= 0.02 * top,
-                f"slice: bf16 logits off the CPU by {err16:.3g} "
+                f"slice {model}: bf16 logits off the CPU by {err16:.3g} "
                 f"(max |logit| {top:.3g})")
     fails.check(
         bool(np.allclose(got32, want, rtol=1e-3, atol=1e-4)),
-        f"slice: fp32 logits off the CPU by {err32:.3g}",
+        f"slice {model}: fp32 logits off the CPU by {err32:.3g}",
     )
     out = {
         "card": smi,
-        "model": "ResNet18", "dtype": "bf16", "buckets": list(BUCKETS),
+        "model": model, "dtype": "bf16", "buckets": list(BUCKETS),
         "engine_build_and_warmup_s": build_s,
         "forwards": forwards, "kernel_launches": launches,
+        "launches": counts,
         "compiles": engine.compile_count,
         "padded_vs_direct_bit_identical": pad_identical,
         "padded_vs_direct_max_abs_diff": pad_diff, "padded_n": n_off,
@@ -434,16 +508,249 @@ def phase_moments(M, peaks, fails: Failures) -> list:
     return rows
 
 
-def phase_train(G, M, K3, smi: str, fails: Failures) -> dict:
-    """The training slice through ``Trainer.fit``; K1 once per epoch. Then
-    one more epoch dispatched with host syncs made errors."""
+# GoogLeNet's 3x3 / stride 1 pool inputs at batch 512: (h, w, c, pools per
+# forward), and a shape that takes the narrow-vector path
+POOL_SHAPES = [(32, 32, 192, 1), (32, 32, 256, 1), (16, 16, 480, 1),
+               (16, 16, 512, 3), (16, 16, 528, 1), (8, 8, 832, 2)]
+POOL_ODD = (3, 5, 5, 130)
+# MobileNet's stride-1 depthwise inputs at bucket 128: (n, h, w, c, k, sites
+# per forward), then PNASNet's 5x5 / 7x7 shape and a narrow-vector shape
+STENCIL_SHAPES = [(128, 32, 32, 32, 3, 1), (128, 16, 16, 128, 3, 1),
+                  (128, 8, 8, 256, 3, 1), (128, 4, 4, 512, 3, 5),
+                  (128, 2, 2, 1024, 3, 1), (512, 32, 32, 44, 5, 0),
+                  (512, 32, 32, 44, 7, 0), (2, 8, 8, 130, 3, 0),
+                  (2, 8, 8, 130, 7, 0)]
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal element for element, a NaN equal to a NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def library_pool(v: torch.Tensor) -> torch.Tensor:
+    """The library yardstick of K4 on the NHWC view (never on the port's
+    path for this pool)."""
+    return F.max_pool2d(v.permute(0, 3, 1, 2), 3, 1, 1).permute(0, 2, 3, 1)
+
+
+def _pool_checks(P, x, g, what: str, fails: Failures) -> None:
+    """Kernel against plain version, bit for bit: the forward without and
+    with the winner map, the map itself, and the gradient of ``g``."""
+    ref, ridx = P.max_pool3x3_s1_reference(x, True)
+    out = P.max_pool3x3_s1(x)  # no gradient asked for: no map
+    out_m, idx = P._forward(x, True)
+    gi = P._backward(g, idx)
+    torch.cuda.synchronize()
+    fails.check(same_bits(out, ref) and same_bits(out_m, ref),
+                f"K4 {what}: forward differs from the plain version")
+    fails.check(torch.equal(idx, ridx),
+                f"K4 {what}: winner map differs from the plain version")
+    fails.check(
+        same_bits(gi, P.max_pool3x3_s1_backward_reference(g, ridx)),
+        f"K4 {what}: backward differs from the plain version")
+    xr = x.detach().requires_grad_()
+    (ga,) = torch.autograd.grad(P.max_pool3x3_s1(xr), xr, g)
+    fails.check(same_bits(ga, gi),
+                f"K4 {what}: autograd's gradient differs from the kernel's")
+
+
+def phase_pool(P, peaks, fails: Failures) -> list:
+    """K4 forward (with and without map) and backward against the plain
+    version at GoogLeNet's six pool shapes at n = 512 and at an odd shape,
+    bf16 and fp32; edge inputs; times beside ``F.max_pool2d`` and the
+    bound."""
+    g = torch.Generator().manual_seed(5)
+    rows = []
+    for dname, dt in DTYPES.items():
+        # edge inputs at the odd shape (2-byte and 4-byte vectors)
+        x = torch.randn(POOL_ODD, generator=g).to("cuda", dt)
+        cot = torch.randint(0, 9, POOL_ODD, generator=g).to("cuda", dt)
+        nan = x.clone()
+        nan[0, 2, 3, 7] = float("nan")
+        nan[1, 0, 0, 129] = float("nan")
+        for what, v in (("random", x), ("all ties", torch.ones_like(x)),
+                        ("NaN", nan),
+                        ("-inf map", torch.full_like(x, float("-inf")))):
+            _pool_checks(P, v, cot, f"{dname} {POOL_ODD} {what}", fails)
+        out = P.max_pool3x3_s1(nan)
+        fails.check(int(torch.isnan(out[..., 7]).sum()) == 9
+                    and int(torch.isnan(out[..., 129]).sum()) == 4,
+                    f"K4 {dname}: a NaN did not win every window holding it")
+        lib = library_pool(nan)
+        fails.check(torch.equal(torch.isnan(out), torch.isnan(lib)),
+                    f"K4 {dname}: NaNs spread otherwise than F.max_pool2d's")
+        for h, w, c, per_fwd in POOL_SHAPES:
+            shape = (BATCH, h, w, c)
+            x = torch.randn(shape, generator=g).to("cuda", dt)
+            cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
+            _pool_checks(P, x, cot, f"{dname} {shape}", fails)
+            # the library pool and its backward compute the same function
+            xr = x.detach().requires_grad_()
+            lib = library_pool(xr)
+            (glib,) = torch.autograd.grad(lib, xr, cot, retain_graph=True)
+            _, idx = P._forward(x, True)
+            gi = P._backward(cot, idx)
+            fails.check(torch.equal(lib.detach(), P.max_pool3x3_s1(x))
+                        and torch.equal(glib, gi),
+                        f"K4 {dname} {shape}: differs from F.max_pool2d "
+                        "(integer cotangents)")
+            e, s = x.numel(), x.element_size()
+            t_train = (2 * s + 1) * e / peaks["bytes"] * 1e3
+            with torch.no_grad():
+                row = {
+                    "x": list(shape), "dtype": dname,
+                    "pools_per_forward": per_fwd, "max_abs_err": 0.0,
+                    "fwd_ms": time_ms(lambda: P._forward(x, False), 7, 3),
+                    "fwd_map_ms": time_ms(lambda: P._forward(x, True), 7, 3),
+                    "bwd_ms": time_ms(lambda: P._backward(cot, idx), 7, 3),
+                    "plain_fwd_map_ms": time_ms(
+                        lambda: P.max_pool3x3_s1_reference(x, True), 3, 2),
+                    "plain_bwd_ms": time_ms(
+                        lambda: P.max_pool3x3_s1_backward_reference(cot, idx),
+                        3, 2),
+                    "library_fwd_ms": time_ms(lambda: library_pool(x), 7, 3),
+                    "bound_fwd_ms": 2 * s * e / peaks["bytes"] * 1e3,
+                    "bound_fwd_map_ms": t_train, "bound_bwd_ms": t_train,
+                    "mbytes_train_each_way": (2 * s + 1) * e / 1e6,
+                }
+            row["library_bwd_ms"] = time_ms(
+                lambda: torch.autograd.grad(lib, xr, cot, retain_graph=True),
+                7, 3)
+            rows.append(row)
+            print("pool " + json.dumps(row), flush=True)
+            del x, cot, xr, lib, glib, idx, gi
+    return rows
+
+
+def phase_stencil(D, peaks, fails: Failures) -> list:
+    """K5 against its plain version at MobileNet's five stride-1 depthwise
+    shapes (n = 128, k = 3), PNASNet's (k = 5, 7) and a narrow-vector
+    shape, bf16 and fp32. fp32: rtol/atol 2e-5 (the fp32 sums' order);
+    bf16: against the fp32 plain version on the same bf16-rounded inputs,
+    rtol 2^-7 (one bf16 ulp: half for the rounding, the rest for a
+    rounding flipped by the sums' order), atol 1e-4."""
+    g = torch.Generator().manual_seed(6)
+    rows = []
+    for n, h, w, c, k, per_fwd in STENCIL_SHAPES:
+        for dname, dt in DTYPES.items():
+            x = torch.randn(n, h, w, c, generator=g).to("cuda", dt)
+            wt = (torch.randn(k, k, c, generator=g) / k).to("cuda", dt)
+            out = D.depthwise_stencil(x, wt)
+            torch.cuda.synchronize()
+            ref = D.depthwise_stencil_reference(x.float(), wt.float())
+            diff = (out.float() - ref).abs()
+            rtol, atol = (2e-5, 2e-5) if dname == "fp32" else (2.0 ** -7, 1e-4)
+            what = f"K5 {dname} {(n, h, w, c)} k={k}"
+            fails.check(bool((diff <= atol + rtol * ref.abs()).all()),
+                        f"{what}: off the plain version by "
+                        f"{diff.max().item():.3g}")
+            fails.check(bool(torch.isfinite(out).all()),
+                        f"{what}: non-finite output")
+            x_cl = x.permute(0, 3, 1, 2)
+            w_cl = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
+            s = x.element_size()
+            b_ms, b_by = bound(2 * s * x.numel() + wt.numel() * s,
+                               2 * k * k * x.numel(), peaks, "fp32")
+            row = {
+                "x": [n, h, w, c], "k": k, "dtype": dname,
+                "sites_per_forward": per_fwd,
+                "max_abs_err": diff.max().item(),
+                "ms": time_ms(lambda: D.depthwise_stencil(x, wt), 9, 3),
+                "plain_ms": time_ms(
+                    lambda: D.depthwise_stencil_reference(x, wt), 3, 2),
+                "library_ms": time_ms(
+                    lambda: F.conv2d(x_cl, w_cl, padding=k // 2, groups=c),
+                    9, 3),
+                "bound_ms": b_ms, "bound_by": b_by,
+            }
+            rows.append(row)
+            print("stencil " + json.dumps(row), flush=True)
+    return rows
+
+
+def phase_pool_step(P, fails: Failures) -> dict:
+    """One fp32 GoogLeNet train step (batch 64, augment off, TF32 off) with
+    the pools through K4 against one with them through ``F.max_pool2d``,
+    from the same start. K4 changes no value of the forward; its backward
+    sums a position's windows in another order than the library's, and the
+    step amplifies last-bit differences (BN's backward), so both are also
+    held against the library-pool step computed in float64 (fp32
+    parameters): K4's worst error, in units of each tensor's update, at
+    most twice the library step's; the running stats, the forward's work,
+    within rtol 1e-5. The direct difference is reported."""
+    from pytorch_cifar_tpu_torch.models import common
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator().manual_seed(8)
+    images = torch.randint(0, 256, (64, 32, 32, 3), generator=g,
+                           dtype=torch.uint8).cuda()
+    labels = torch.randint(0, 10, (64,), generator=g,
+                           dtype=torch.int32).cuda()
+    kernel_pool = common.max_pool3x3_s1
+    results, launches = {}, {}
+    try:
+        for mode, dtype in (("k4", torch.float32), ("library", torch.float32),
+                            ("f64", torch.float64)):
+            common.max_pool3x3_s1 = (
+                kernel_pool if mode == "k4" else library_pool)
+            st, step = _train_state(9, dtype, "GoogLeNet")
+            before = _tensors(st.model)
+            P.FWD_LAUNCHES = P.BWD_LAUNCHES = 0
+            step(st, (images, labels))
+            launches[mode] = (P.FWD_LAUNCHES, P.BWD_LAUNCHES)
+            results[mode] = _tensors(st.model)
+    finally:
+        common.max_pool3x3_s1 = kernel_pool
+        torch.backends.cudnn.deterministic = False
+    fails.check(launches == {"k4": (9, 9), "library": (0, 0), "f64": (0, 0)},
+                f"pool_step: K4 launches {launches}")
+    ref = results["f64"]
+    stats = [k for k in ref if "running_" in k]
+    ok_stats, where, excess = _close({k: results["k4"][k] for k in stats},
+                                     {k: results["library"][k] for k in stats},
+                                     1e-5, 1e-7)
+    fails.check(ok_stats, f"pool_step: K4 step's running stats off at {where} "
+                          f"by {excess:.3g} beyond rtol")
+
+    def worst(a, b):
+        errs = {k: (a[k] - b[k]).abs().max().item()
+                / max((ref[k] - before[k]).abs().max().item(), 1e-30)
+                for k in ref if k not in stats}
+        at = max(errs, key=errs.get)
+        return errs[at], at
+
+    err_k4, at_k4 = worst(results["k4"], ref)
+    err_lib, at_lib = worst(results["library"], ref)
+    direct, at_direct = worst(results["k4"], results["library"])
+    fails.check(err_k4 <= 2 * err_lib,
+                f"pool_step: K4 step off the float64 step by {err_k4:.3g} of "
+                f"the update at {at_k4}, the library step by {err_lib:.3g} at "
+                f"{at_lib}")
+    out = {"batch": 64, "dtype": "fp32", "k4_launches": launches["k4"],
+           "stats_worst_excess": excess,
+           "k4_vs_f64_worst": err_k4, "k4_at": at_k4,
+           "library_vs_f64_worst": err_lib, "library_at": at_lib,
+           "k4_vs_library_worst": direct, "k4_vs_library_at": at_direct}
+    print("pool_step " + json.dumps(out), flush=True)
+    return out
+
+
+def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
+                train_n=TRAIN_N, test_n=TEST_N, k3_per_forward=6,
+                pools_per_forward=0, min_acc=50.0, tag="train") -> dict:
+    """A training slice through ``Trainer.fit``: K1 once per epoch, K3 in
+    every eval forward, K4 (``pools_per_forward`` pool branches) forward
+    and backward in every train step and forward in every eval forward.
+    Then one more epoch dispatched with host syncs made errors."""
     from pytorch_cifar_tpu_torch.config import TrainConfig
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
     epochs = 2
     cfg = TrainConfig(
-        model="ResNet18", batch_size=BATCH, amp=True, synthetic_data=True,
-        synthetic_train_size=TRAIN_N, synthetic_test_size=TEST_N,
+        model=model, batch_size=BATCH, amp=True, synthetic_data=True,
+        synthetic_train_size=train_n, synthetic_test_size=test_n,
         epochs=epochs, cosine_t_max=2, dma_gather=True, device="cuda",
     )
     t0 = time.perf_counter()
@@ -451,32 +758,44 @@ def phase_train(G, M, K3, smi: str, fails: Failures) -> dict:
     setup_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    G.LAUNCHES = M.LAUNCHES = K3.LAUNCHES = 0  # the main path starts here
+    # the main path starts here
+    G.LAUNCHES = M.LAUNCHES = K3.LAUNCHES = 0
+    P.FWD_LAUNCHES = P.BWD_LAUNCHES = 0
     best = trainer.fit()
     k1, k2, k3 = G.LAUNCHES, M.LAUNCHES, K3.LAUNCHES  # and ends here
+    k4f, k4b = P.FWD_LAUNCHES, P.BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
-    eval_forwards = epochs * -(-TEST_N // cfg.eval_batch_size)
-    fails.check(k1 == epochs, f"train: K1 launched {k1} times in {epochs} "
+    eval_forwards = epochs * -(-test_n // cfg.eval_batch_size)
+    train_steps = epochs * trainer.steps_per_epoch
+    fails.check(k1 == epochs, f"{tag}: K1 launched {k1} times in {epochs} "
                               "epochs")
-    fails.check(k2 == 0, f"train: K2 launched {k2} times with the hook off")
-    fails.check(k3 == 6 * eval_forwards,
-                f"train: K3 launched {k3} times for {eval_forwards} eval "
-                "forwards (want 6 each)")
+    fails.check(k2 == 0, f"{tag}: K2 launched {k2} times with the hook off")
+    fails.check(k3 == k3_per_forward * eval_forwards,
+                f"{tag}: K3 launched {k3} times for {eval_forwards} eval "
+                f"forwards (want {k3_per_forward} each)")
+    fails.check(
+        k4f == pools_per_forward * (train_steps + eval_forwards)
+        and k4b == pools_per_forward * train_steps,
+        f"{tag}: K4 launched {k4f} forward, {k4b} backward for {train_steps} "
+        f"steps and {eval_forwards} eval forwards (want {pools_per_forward} "
+        "each)")
     for h in hist:
-        fails.check(h["train"]["count"] == TRAIN_N,
-                    f"train: epoch {h['epoch']} counted "
+        fails.check(h["train"]["count"] == train_n,
+                    f"{tag}: epoch {h['epoch']} counted "
                     f"{h['train']['count']} images")
-        fails.check(h["eval"]["count"] == TEST_N,
-                    f"train: eval {h['epoch']} counted {h['eval']['count']}")
+        fails.check(h["eval"]["count"] == test_n,
+                    f"{tag}: eval {h['epoch']} counted {h['eval']['count']}")
         fails.check(np.isfinite(h["train_loss"]) and
                     np.isfinite(h["eval_loss"]),
-                    f"train: epoch {h['epoch']} loss not finite")
+                    f"{tag}: epoch {h['epoch']} loss not finite")
+        fails.check(h["train"]["nonfinite"] == 0,
+                    f"{tag}: epoch {h['epoch']} had non-finite steps")
     fails.check(len(hist) == epochs and
                 hist[1]["train_loss"] < hist[0]["train_loss"],
-                "train: the second epoch's loss is not below the first's")
-    fails.check(hist[-1]["eval_acc"] > 50.0,
-                f"train: final eval accuracy {hist[-1]['eval_acc']:.2f}%")
+                f"{tag}: the second epoch's loss is not below the first's")
+    fails.check(hist[-1]["eval_acc"] > min_acc,
+                f"{tag}: final eval accuracy {hist[-1]['eval_acc']:.2f}%")
     # one more epoch with every host sync an error: the epoch's dispatch
     # must not wait for the device; its totals are fetched after the window
     torch.cuda.synchronize()
@@ -488,29 +807,30 @@ def phase_train(G, M, K3, smi: str, fails: Failures) -> dict:
         synced = str(e).splitlines()[0]
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    fails.check(synced is None, f"train: the epoch synced with the host: "
+    fails.check(synced is None, f"{tag}: the epoch synced with the host: "
                                 f"{synced}")
     if synced is None:
-        fails.check(float(totals["count"]) == TRAIN_N,
-                    "train: the sync-checked epoch counted "
+        fails.check(float(totals["count"]) == train_n,
+                    f"{tag}: the sync-checked epoch counted "
                     f"{float(totals['count'])} images")
     out = {
-        "card": smi, "model": "ResNet18", "batch": BATCH, "dtype": "bf16",
-        "train_n": TRAIN_N, "test_n": TEST_N,
+        "card": smi, "model": model, "batch": BATCH, "dtype": "bf16",
+        "train_n": train_n, "test_n": test_n,
         "steps_per_epoch": trainer.steps_per_epoch,
         "setup_s": setup_s, "best_acc": best,
         "k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
+        "k4_fwd_launches": k4f, "k4_bwd_launches": k4b,
         "peak_mem_gib": peak / 2**30, "epoch_sync_error": synced,
         "epochs": [{k: h[k] for k in ("epoch", "train_loss", "train_acc",
                                       "eval_loss", "eval_acc", "epoch_s",
                                       "img_per_sec")} for h in hist],
     }
-    print("train " + json.dumps(out), flush=True)
+    print(f"{tag} " + json.dumps(out), flush=True)
     return out
 
 
-def _train_state(seed: int, dtype: torch.dtype):
-    """A seeded ResNet-18 train state on the card and its step computing
+def _train_state(seed: int, dtype: torch.dtype, model: str = "ResNet18"):
+    """A seeded train state of ``model`` on the card and its step computing
     in ``dtype`` (augmentation on in bf16, the bench's setting; off
     otherwise)."""
     from pytorch_cifar_tpu_torch.models import create_model
@@ -519,11 +839,11 @@ def _train_state(seed: int, dtype: torch.dtype):
     from pytorch_cifar_tpu_torch.train.state import create_train_state
     from pytorch_cifar_tpu_torch.train.steps import make_train_step
 
-    model = create_model(
-        "ResNet18", generator=torch.Generator().manual_seed(seed)
+    net = create_model(
+        model, generator=torch.Generator().manual_seed(seed)
     ).to("cuda", memory_format=torch.channels_last)
     state = create_train_state(
-        model, make_optimizer(model.parameters()),
+        net, make_optimizer(net.parameters()),
         cosine_epoch_schedule(0.1, 200, 98), seed=seed, device="cuda",
     )
     step = make_train_step(augment=dtype == torch.bfloat16,
@@ -703,7 +1023,9 @@ def main() -> int:
     from pytorch_cifar_tpu_torch.ops import _build
     from pytorch_cifar_tpu_torch.ops import bn_stats as M
     from pytorch_cifar_tpu_torch.ops import conv_bn_relu as K
+    from pytorch_cifar_tpu_torch.ops import depthwise_stencil as D
     from pytorch_cifar_tpu_torch.ops import dma_gather as G
+    from pytorch_cifar_tpu_torch.ops import max_pool as P
 
     t_start = time.perf_counter()
     smi = phase_device()
@@ -715,9 +1037,24 @@ def main() -> int:
     sl = phase_slice(K, smi, fails)
     k1 = phase_gather(G, peaks, fails)
     k2 = phase_moments(M, peaks, fails)
-    tr = phase_train(G, M, K, smi, fails)
+    tr = phase_train(G, M, K, P, smi, fails)
     bb = phase_bn_bench(M, fails)
     phase_card_vs_cpu(fails)
+    # the zoo slice: GoogLeNet and MobileNet, kernels K4 and K5
+    pool = phase_pool(P, peaks, fails)
+    sten = phase_stencil(D, peaks, fails)
+    phase_kernels(K, peaks, fails, sites=googlenet_sites(),
+                  tag="site_googlenet", runs=5)
+    phase_slice(K, smi, fails, model="GoogLeNet", requests=64, per_forward=[
+        (P, "FWD_LAUNCHES", 9), (K, "LAUNCHES", 28), (P, "BWD_LAUNCHES", 0),
+        (D, "LAUNCHES", 0)])
+    zs = phase_slice(K, smi, fails, model="MobileNet", requests=64,
+                     per_forward=[(D, "LAUNCHES", 9), (K, "LAUNCHES", 1),
+                                  (P, "FWD_LAUNCHES", 0)])
+    gt = phase_train(G, M, K, P, smi, fails, model="GoogLeNet",
+                     train_n=10_240, test_n=2_048, k3_per_forward=28,
+                     pools_per_forward=9, min_acc=0.0, tag="googlenet_train")
+    phase_pool_step(P, fails)
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
     fwd = [r for r in rows if r["dtype"] == "bf16"]
@@ -769,6 +1106,54 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": sum(r["library_ms"] * k for r, k in zip(m16, per2)),
+    })
+    # K4 over one b512 bf16 GoogLeNet train step: its 9 forwards with the
+    # winner map and its 9 backwards, at their shapes
+    p16 = [r for r in pool if r["dtype"] == "bf16"]
+    per4 = [r["pools_per_forward"] for r in p16]
+
+    def pool_total(key):
+        return sum(r[key] * k for r, k in zip(p16, per4))
+
+    for kernel, line, launches, ms, plain, lib in (
+        ("max_pool3x3_s1", 343, gt["k4_fwd_launches"], "fwd_map_ms",
+         "plain_fwd_map_ms", "library_fwd_ms"),
+        ("max_pool3x3_s1_bwd", 316, gt["k4_bwd_launches"], "bwd_ms",
+         "plain_bwd_ms", "library_bwd_ms"),
+    ):
+        kernels.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "pytorch_cifar_tpu_torch/ops/csrc/max_pool.cu",
+            "replaces": f"pytorch_cifar_tpu/ops/max_pool.py:{line}",
+            "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in pool),
+            "ms": pool_total(ms),
+            "plain_ms": pool_total(plain),
+            "bound_ms": pool_total("bound_bwd_ms"),
+            "bound_by": "bytes",
+            "library_ms": pool_total(lib),
+        })
+    # K5 over one bucket-128 bf16 MobileNet forward: its 9 launches
+    s16 = [r for r in sten if r["dtype"] == "bf16"]
+    per5 = [r["sites_per_forward"] for r in s16]
+
+    def sten_total(key):
+        return sum(r[key] * k for r, k in zip(s16, per5))
+
+    by = {r["bound_by"] for r, k in zip(s16, per5) if k}
+    kernels.append({
+        "name": "depthwise_stencil",
+        "route": "cuda",
+        "source": "pytorch_cifar_tpu_torch/ops/csrc/depthwise_stencil.cu",
+        "replaces": "pytorch_cifar_tpu/ops/depthwise_stencil.py:58",
+        "launches": zs["launches"]["depthwise_stencil.LAUNCHES"],
+        "max_abs_err": max(r["max_abs_err"] for r in sten),
+        "ms": sten_total("ms"),
+        "plain_ms": sten_total("plain_ms"),
+        "bound_ms": sten_total("bound_ms"),
+        "bound_by": "bytes" if by == {"bytes"} else "operations",
+        "library_ms": sten_total("library_ms"),
     })
     print(f"card: {smi}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)

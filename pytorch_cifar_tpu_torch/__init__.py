@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of ``pytorch_cifar_tpu``: ResNet serving on an NVIDIA H100.
+"""PyTorch/CUDA port of ``pytorch_cifar_tpu``: training and serving the
+CIFAR-10 zoo (so far LeNet, ResNet, GoogLeNet, MobileNet) on an NVIDIA H100.
 
 The JAX package beside this one is the reference; this package mirrors its
 layout and names (``models/``, ``ops/``, ``serve/``, ...) so each module has

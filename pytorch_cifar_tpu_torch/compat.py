@@ -19,6 +19,18 @@ order is NHWC in the JAX model and NCHW in the reference, so its columns
 are permuted by :data:`LINEAR_FLATTEN` (the port's copy of the JAX
 ``compat.LINEAR_FLATTEN``).
 
+The JAX GoogLeNet: ``Conv_0``/``BatchNorm_0`` -> ``pre_layers.0/.1``;
+``Inception_{0..8}`` -> the cells ``a3`` .. ``b5`` in forward order, each
+with ``Conv_{0..6}``/``BatchNorm_{0..6}`` in the stock call order (y1; y2:
+1, 2; y3: 3, 4, 5; y4: 6, the same in both merged modes) -> ``b1.0/.1``,
+``b2.0/.1``, ``b2.3/.4``, ``b3.0/.1``, ``b3.3/.4``, ``b3.6/.7``,
+``b4.1/.2``; every conv with its bias. The JAX MobileNet:
+``Conv_0``/``BatchNorm_0`` -> ``conv1``/``bn1``;
+``DepthwiseSeparable_{0..12}`` ``Conv_{0,1}``/``BatchNorm_{0,1}`` ->
+``layers.{i}.conv{1,2}``/``bn{1,2}``, the depthwise kernels ``(3, 3, 1, C)``
+-> ``(C, 1, 3, 3)`` by the same HWIO -> OIHW transpose. Both heads pool to
+1x1 maps, so their linears need no :data:`LINEAR_FLATTEN` entry.
+
 ``num_batches_tracked`` is zero (torch reads it only under
 ``momentum=None``). The result equals what the JAX package's
 ``compat.export_torch_state_dict`` produces with the port model's
@@ -33,7 +45,9 @@ import numpy as np
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models import create_model
+from pytorch_cifar_tpu_torch.models.googlenet import CELLS, GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
+from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
 from pytorch_cifar_tpu_torch.models.resnet import BasicBlock
 
 # linears whose input is a flattened feature map: linear index -> (c, h, w)
@@ -88,6 +102,8 @@ def state_dict_from_jax(
         out[f"{prefix}.weight"] = np.transpose(
             np.asarray(node["Conv_0"]["kernel"]), (3, 2, 0, 1)
         )
+        if "bias" in node["Conv_0"]:
+            out[f"{prefix}.bias"] = np.asarray(node["Conv_0"]["bias"])
 
     def put_bn(prefix, p, s):
         out[f"{prefix}.weight"] = np.asarray(p["scale"])
@@ -96,8 +112,39 @@ def state_dict_from_jax(
         out[f"{prefix}.running_var"] = np.asarray(s["var"])
         out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
 
-    put_conv("conv1", params["Conv_0"])
-    put_bn("bn1", params["BatchNorm_0"], batch_stats["BatchNorm_0"])
+    def put_site(conv_prefix, bn_prefix, p, s, j):
+        put_conv(conv_prefix, p[f"Conv_{j}"])
+        put_bn(bn_prefix, p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
+
+    def put_linear():
+        dense = params["Dense_0"]["Dense_0"]
+        out["linear.weight"] = np.asarray(dense["kernel"]).T
+        out["linear.bias"] = np.asarray(dense["bias"])
+
+    if isinstance(model, GoogLeNet):
+        put_site("pre_layers.0", "pre_layers.1", params, batch_stats, 0)
+        cells = [cell[0] for cell in CELLS if cell is not None]
+        sites = ("b1.0", "b2.0", "b2.3", "b3.0", "b3.3", "b3.6", "b4.1")
+        for k, cell in enumerate(cells):
+            p, st = params[f"Inception_{k}"], batch_stats[f"Inception_{k}"]
+            for j, site in enumerate(sites):
+                branch, i = site.split(".")
+                put_site(f"{cell}.{site}", f"{cell}.{branch}.{int(i) + 1}",
+                         p, st, j)
+        put_linear()
+        return _checked(name, template, out)
+    if isinstance(model, MobileNet):
+        put_site("conv1", "bn1", params, batch_stats, 0)
+        for k in range(len(model.layers)):
+            p = params[f"DepthwiseSeparable_{k}"]
+            st = batch_stats[f"DepthwiseSeparable_{k}"]
+            for j in range(2):
+                put_site(f"layers.{k}.conv{j + 1}", f"layers.{k}.bn{j + 1}",
+                         p, st, j)
+        put_linear()
+        return _checked(name, template, out)
+
+    put_site("conv1", "bn1", params, batch_stats, 0)
     blocks = model.blocks()
     kind = "BasicBlock" if isinstance(blocks[0], BasicBlock) else "Bottleneck"
     nconv = 2 if kind == "BasicBlock" else 3
@@ -107,17 +154,13 @@ def state_dict_from_jax(
             bp, bs = params[f"{kind}_{k}"], batch_stats[f"{kind}_{k}"]
             prefix = f"layer{li}.{bi}"
             for j in range(nconv):
-                put_conv(f"{prefix}.conv{j + 1}", bp[f"Conv_{j}"])
-                put_bn(f"{prefix}.bn{j + 1}", bp[f"BatchNorm_{j}"],
-                       bs[f"BatchNorm_{j}"])
+                put_site(f"{prefix}.conv{j + 1}", f"{prefix}.bn{j + 1}",
+                         bp, bs, j)
             if len(block.shortcut):
-                put_conv(f"{prefix}.shortcut.0", bp[f"Conv_{nconv}"])
-                put_bn(f"{prefix}.shortcut.1", bp[f"BatchNorm_{nconv}"],
-                       bs[f"BatchNorm_{nconv}"])
+                put_site(f"{prefix}.shortcut.0", f"{prefix}.shortcut.1",
+                         bp, bs, nconv)
             k += 1
-    dense = params["Dense_0"]["Dense_0"]
-    out["linear.weight"] = np.asarray(dense["kernel"]).T
-    out["linear.bias"] = np.asarray(dense["bias"])
+    put_linear()
     if k != sum(1 for key in params if key.startswith(kind)):
         raise ValueError(f"JAX tree has another number of {kind}s than {name}")
     return _checked(name, template, out)

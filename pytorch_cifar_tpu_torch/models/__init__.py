@@ -1,4 +1,5 @@
-"""Model registry of the port (LeNet and the ResNet family so far).
+"""Model registry of the port (LeNet, the ResNet family, GoogLeNet and
+MobileNet so far).
 
 Counterpart of ``pytorch_cifar_tpu/models/__init__.py``: models are named
 factories selected by ``--model``. Factories take ``num_classes`` and return
@@ -16,7 +17,9 @@ from pytorch_cifar_tpu_torch.models.common import (  # noqa: F401
     count_params,
     reset_parameters,
 )
+from pytorch_cifar_tpu_torch.models.googlenet import GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
+from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
 from pytorch_cifar_tpu_torch.models.resnet import (
     ResNet18,
     ResNet34,
@@ -26,7 +29,9 @@ from pytorch_cifar_tpu_torch.models.resnet import (
 )
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "GoogLeNet": GoogLeNet,
     "LeNet": LeNet,
+    "MobileNet": MobileNet,
     "ResNet18": ResNet18,
     "ResNet34": ResNet34,
     "ResNet50": ResNet50,
@@ -37,8 +42,7 @@ MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
 # the JAX package's other registry models, which later slices port
 NOT_PORTED = (
     "DLA", "DPN26", "DPN92", "DenseNet121", "DenseNet161", "DenseNet169",
-    "DenseNet201", "DenseNetCifar", "EfficientNetB0", "GoogLeNet",
-    "MobileNet", "MobileNetV2", "PNASNetA", "PNASNetB", "PreActResNet101",
+    "DenseNet201", "DenseNetCifar", "EfficientNetB0", "MobileNetV2", "PNASNetA", "PNASNetB", "PreActResNet101",
     "PreActResNet152", "PreActResNet18", "PreActResNet34", "PreActResNet50",
     "RegNetX_200MF", "RegNetX_400MF", "RegNetY_400MF", "ResNeXt29_2x64d",
     "ResNeXt29_32x4d", "ResNeXt29_4x64d", "ResNeXt29_8x64d", "SENet18",

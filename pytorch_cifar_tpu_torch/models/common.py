@@ -1,5 +1,5 @@
-"""Shared building blocks for the port's models (what ResNet and LeNet
-need).
+"""Shared building blocks for the port's models (what LeNet, ResNet,
+GoogLeNet and MobileNet need).
 
 Counterpart of ``pytorch_cifar_tpu/models/common.py``. The layers subclass
 PyTorch's own, so ``state_dict()`` keeps the reference layout:
@@ -17,7 +17,9 @@ other places than the JAX model does). :class:`BatchNorm` is the JAX
 :func:`bn_batch_moments` (pluggable through :func:`bn_moments_impl`).
 
 Activations are NCHW-logical tensors in ``torch.channels_last`` memory, so
-``x.permute(0, 2, 3, 1)`` is a zero-copy NHWC view for the NHWC kernels.
+``x.permute(0, 2, 3, 1)`` is a zero-copy NHWC view for the NHWC kernels:
+the fused conv3x3+BN+ReLU (eval), the 3x3 / stride 1 max pool (train and
+eval) and the depthwise stencil (eval).
 """
 
 from __future__ import annotations
@@ -26,13 +28,18 @@ import contextlib
 import contextvars
 import math
 from dataclasses import dataclass
-from typing import Callable, Optional, Tuple
+from typing import Callable, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.ops.conv_bn_relu import conv3x3_bn_relu
+from pytorch_cifar_tpu_torch.ops.depthwise_stencil import (
+    KERNEL_SIZES,
+    depthwise_stencil,
+)
+from pytorch_cifar_tpu_torch.ops.max_pool import max_pool3x3_s1
 
 BN_EPS = 1e-5
 
@@ -126,9 +133,13 @@ class BatchNorm(nn.BatchNorm2d):
         return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
 
 
-def conv(cin: int, cout: int, k: int, stride: int = 1) -> Conv2d:
-    """Bias-free conv with torch ``padding=k//2`` (the zoo's 1x1 and 3x3)."""
-    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,
+         groups: int = 1) -> Conv2d:
+    """Conv with torch ``padding=k//2`` (the zoo's 1x1 and 3x3): bias-free
+    unless asked (GoogLeNet's convs keep theirs), depthwise with
+    ``groups=cin``."""
+    return Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=bias,
+                  groups=groups)
 
 
 def batchnorm(c: int) -> BatchNorm:
@@ -162,13 +173,22 @@ def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @dataclass(frozen=True)
 class FoldedConvBN:
-    """One eval-mode conv -> BN [-> ReLU] site with the BN folded, its
-    weights already in the layout and dtype the forward consumes.
+    """One eval-mode conv -> BN [-> ReLU] site with the BN (and the conv's
+    bias) folded, its weights already in the layout and dtype the forward
+    consumes. Three kinds of site:
 
-    ``fused`` sites (3x3, stride 1, followed by ReLU) run the NHWC kernel:
-    ``weight`` is HWIO in the compute dtype, ``mul``/``add`` fp32 ``(c,)``.
-    Other sites run ``F.conv2d``: ``weight`` is OIHW channels_last in the
-    compute dtype, ``mul``/``add`` ``(1, c, 1, 1)`` in the compute dtype."""
+    - ``fused`` (dense 3x3, stride 1, followed by ReLU) runs the NHWC
+      kernel ``conv3x3_bn_relu``: ``weight`` is HWIO in the compute dtype,
+      ``mul``/``add`` fp32 ``(c,)``.
+    - ``stencil`` (depthwise k x k with k in 3, 5, 7, stride 1, SAME) runs
+      the NHWC kernel ``depthwise_stencil``: ``weight`` is ``(k, k, c)`` in
+      the compute dtype; the affine and the ReLU follow in the compute
+      dtype, which is where the JAX model rounds.
+    - every other site runs ``F.conv2d(groups=groups)``: ``weight`` is OIHW
+      channels_last in the compute dtype.
+
+    Outside fused sites ``mul``/``add`` are ``(1, c, 1, 1)`` in the compute
+    dtype."""
 
     weight: torch.Tensor
     mul: torch.Tensor
@@ -177,41 +197,90 @@ class FoldedConvBN:
     padding: int
     relu: bool
     fused: bool
+    groups: int = 1
+    stencil: bool = False
 
 
 @torch.no_grad()
 def fold_conv_bn(
     conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype, relu: bool
 ) -> FoldedConvBN:
-    """Fold one site for ``dtype`` compute (once per weight set)."""
+    """Fold one site for ``dtype`` compute (once per weight set). A conv
+    bias goes into the affine: ``bn((x * w) + b) = (x * w) * mul + (bn.bias
+    + (b - running_mean) * mul)``."""
     mul, add = fold_bn(bn)
-    stride, padding = conv.stride[0], conv.padding[0]
-    fused = relu and conv.kernel_size == (3, 3) and stride == 1
+    if conv.bias is not None:
+        add = add + conv.bias.float() * mul
+    stride, padding, groups = conv.stride[0], conv.padding[0], conv.groups
+    k = conv.kernel_size[0]
+    same = conv.kernel_size == (k, k) and padding == k // 2 and stride == 1
+    fused = relu and groups == 1 and k == 3 and same
+    stencil = (
+        groups > 1 and groups == conv.in_channels == conv.out_channels
+        and k in KERNEL_SIZES and same
+    )
     if fused:
         weight = conv.weight.permute(2, 3, 1, 0).to(dtype).contiguous()
     else:
-        weight = conv.weight.to(dtype).contiguous(
-            memory_format=torch.channels_last
-        )
+        if stencil:  # (c, 1, k, k) -> (k, k, c)
+            weight = conv.weight[:, 0].permute(1, 2, 0).to(dtype).contiguous()
+        else:
+            weight = conv.weight.to(dtype).contiguous(
+                memory_format=torch.channels_last
+            )
         mul = mul.to(dtype).view(1, -1, 1, 1)
         add = add.to(dtype).view(1, -1, 1, 1)
-    return FoldedConvBN(weight, mul, add, stride, padding, relu, fused)
+    return FoldedConvBN(weight, mul, add, stride, padding, relu, fused,
+                        groups, stencil)
 
 
 def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
-    """Apply one folded site to a channels_last activation. Fused sites go
-    through ``ops.conv_bn_relu.conv3x3_bn_relu`` (the Hopper kernel on a
+    """Apply one folded site to a channels_last activation. Fused and
+    stencil sites go through their kernel's wrapper (the Hopper kernel on a
     CUDA tensor, its plain version on a CPU one)."""
     if f.fused:
         y = conv3x3_bn_relu(x.permute(0, 2, 3, 1), f.weight, f.mul, f.add)
         return y.permute(0, 3, 1, 2)
-    y = F.conv2d(x, f.weight, stride=f.stride, padding=f.padding)
+    if f.stencil:
+        y = depthwise_stencil(x.permute(0, 2, 3, 1), f.weight)
+        y = y.permute(0, 3, 1, 2)
+    else:
+        y = F.conv2d(x, f.weight, stride=f.stride, padding=f.padding,
+                     groups=f.groups)
     y = y * f.mul + f.add
     return torch.relu(y) if f.relu else y
 
 
-def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
-    return F.avg_pool2d(x, window)
+def folded_sites(folded) -> Iterator["FoldedConvBN"]:
+    """Every :class:`FoldedConvBN` of a model's ``fold()`` result (nested
+    dicts and lists), in forward order."""
+    if isinstance(folded, FoldedConvBN):
+        yield folded
+    elif isinstance(folded, dict):
+        for v in folded.values():
+            yield from folded_sites(v)
+    elif isinstance(folded, (list, tuple)):
+        for v in folded:
+            yield from folded_sites(v)
+
+
+def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
+             padding: int = 0) -> torch.Tensor:
+    """Max pool of a channels_last NCHW activation (``stride`` defaults to
+    ``window``, as in the JAX ``max_pool``). The 3 / 1 / 1 pool of the
+    Inception cells goes through ``ops.max_pool.max_pool3x3_s1`` (forward
+    and backward kernels on a CUDA tensor); every other pool, such as
+    GoogLeNet's 3 / 2 / 1 stage transitions, through ``F.max_pool2d``."""
+    stride = stride or window
+    if (window, stride, padding) == (3, 1, 1):
+        x = x.contiguous(memory_format=torch.channels_last)
+        return max_pool3x3_s1(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+    return F.max_pool2d(x, window, stride, padding)
+
+
+def avg_pool(x: torch.Tensor, window: int,
+             stride: Optional[int] = None) -> torch.Tensor:
+    return F.avg_pool2d(x, window, stride or window)
 
 
 def count_params(model: nn.Module) -> int:

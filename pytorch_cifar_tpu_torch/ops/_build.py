@@ -4,10 +4,11 @@ and ``ctypes``.
 Each source compiles into its own shared library with a plain C interface
 (no PyTorch headers: seconds to build, where a PyTorch extension takes
 minutes). A library lands in ``ops/build/`` under a name that carries a
-hash of its source and the flags, so an edited source rebuilds and an
-unchanged one is loaded as built. Each is built at its first use;
+hash of its source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source rebuilds and an unchanged one is loaded as built. Each is built at its first use;
 :func:`build_all` compiles every source at once, one ``nvcc`` each, in
-parallel. Nothing here runs at import time.
+parallel. Nothing here runs at import time, and nothing here imports
+``torch`` (tensors are only asked for ``data_ptr()`` and ``element_size()``).
 """
 
 from __future__ import annotations
@@ -46,6 +47,17 @@ ENTRY_POINTS: Dict[str, Dict[str, list]] = {
         "fused_moments_f32": [_P, _P, _P, _L, _I, _I, _P],
         "fused_moments_plan": [_L, _I, _I, _I, _P, _P],
     },
+    # fwd: (x, out, idx or NULL, n, h, w, c, vec, stream);
+    # bwd: (g, idx, gi, n, h, w, c, vec, stream)
+    "max_pool": {
+        f"max_pool3x3_{d}_{t}": [_P] * 3 + [_I] * 5 + [_P]
+        for d in ("fwd", "bwd") for t in ("bf16", "f32")
+    },
+    # (x, w, out, n, h, w, c, k, vec, stream)
+    "depthwise_stencil": {
+        name: [_P] * 3 + [_I] * 6 + [_P]
+        for name in ("depthwise_stencil_bf16", "depthwise_stencil_f32")
+    },
 }
 
 _lock = threading.Lock()
@@ -79,8 +91,9 @@ def source_path(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     src = source_path(name)
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}_{digest}.so"
 
@@ -114,6 +127,20 @@ def load(name: str) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[name] = lib
         return _libs[name]
+
+
+def vector_width(c: int, *tensors) -> int:
+    """Channels per thread: the widest of 16, 8, 4, ... bytes of the first
+    tensor's elements that divides ``c`` and to which every tensor's base
+    address (in its own element size) is aligned. Decided here from
+    ``data_ptr()``, so callers need not align anything."""
+    v = 16 // tensors[0].element_size()
+    while v > 1 and (
+        c % v
+        or any(t.data_ptr() % (v * t.element_size()) for t in tensors)
+    ):
+        v //= 2
+    return v
 
 
 def build_all() -> Dict[str, float]:

@@ -1,13 +1,17 @@
 """Serving CLI of the port, load-generator mode:
 
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --verify
+    python -m pytorch_cifar_tpu_torch.serve --model GoogLeNet
+    python -m pytorch_cifar_tpu_torch.serve --model MobileNet
 
 Builds an :class:`InferenceEngine` from seeded random weights, warms every
 bucket, optionally checks that the padded bucket path equals the direct
 unpadded forward (``--verify``), drives a :class:`MicroBatcher` with the
 closed-loop load generator, and prints ONE JSON line on stdout under
-``serve.py``'s key names, plus ``kernel_launches`` (launches of the fused
-conv kernel during the run). Progress goes to stderr. Runs on CUDA unless
+``serve.py``'s key names, plus ``kernel_launches`` (launches of the port's
+serving kernels during the run: the fused conv, the 3x3 max pool and the
+depthwise stencil, whichever the model has) and ``launches_by_kernel``.
+Progress goes to stderr. Runs on CUDA unless
 ``--device cpu`` is given. Checkpoint loading (``--ckpt``) is not ported
 yet.
 """
@@ -23,7 +27,7 @@ import torch
 
 from pytorch_cifar_tpu_torch import resolve_device
 from pytorch_cifar_tpu_torch.obs import MetricsRegistry
-from pytorch_cifar_tpu_torch.ops import conv_bn_relu
+from pytorch_cifar_tpu_torch.ops import conv_bn_relu, depthwise_stencil, max_pool
 from pytorch_cifar_tpu_torch.serve import (
     InferenceEngine,
     MicroBatcher,
@@ -31,6 +35,15 @@ from pytorch_cifar_tpu_torch.serve import (
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def _launches() -> dict:
+    """Launch counts of the kernels a served forward can reach."""
+    return {
+        "conv3x3_bn_relu": conv_bn_relu.LAUNCHES,
+        "max_pool3x3_s1": max_pool.FWD_LAUNCHES,
+        "depthwise_stencil": depthwise_stencil.LAUNCHES,
+    }
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -59,7 +72,7 @@ def main(argv=None) -> int:
     args = parse_args(argv)
     device = resolve_device(args.device)
     registry = MetricsRegistry()
-    launches0 = conv_bn_relu.LAUNCHES
+    launches0 = _launches()
     print(
         f"==> building {args.model} (seed {args.seed}, buckets "
         f"{tuple(args.buckets)}, {args.dtype}, {device})",
@@ -118,6 +131,7 @@ def main(argv=None) -> int:
         batcher.close()  # graceful drain
 
     obs_summary = registry.summary()
+    launches = {k: v - launches0[k] for k, v in _launches().items()}
     out = {
         "model": args.model,
         "platform": device.type,
@@ -142,7 +156,8 @@ def main(argv=None) -> int:
             for k, v in report.items()
         },
         "img_per_sec_per_chip": round(report["img_per_sec"], 3),
-        "kernel_launches": conv_bn_relu.LAUNCHES - launches0,
+        "kernel_launches": sum(launches.values()),
+        "launches_by_kernel": launches,
         "obs": {
             "queue_depth_max": obs_summary.get("serve.queue_depth.max", 0.0),
             "batch_occupancy_mean": round(

@@ -1,22 +1,24 @@
 """Where a served forward's device time goes, by kernel, on the card:
 
-    python -m pytorch_cifar_tpu_torch.tools.profile_forward
+    python -m pytorch_cifar_tpu_torch.tools.profile_forward [--model GoogLeNet]
 
-Builds the ResNet-18 engine (bf16, seeded random weights, buckets 8/32/128)
+Builds the engine of ``--model`` (ResNet-18 unless named; bf16, seeded
+random weights, buckets 8/32/128)
 and, for each bucket, times ``ITERS`` warm ``predict`` calls with no
 profiler attached (the wall time per call), then captures ``ITERS`` more
 under ``torch.profiler`` with CUDA activity only (the device time). Prints
 one JSON line per bucket: the mean and median wall time per call, the
 device-busy time per call (sum of kernel times), the idle share
 (1 - busy / mean wall), and the device time per call of each group — the
-fused ``conv3x3_bn_relu`` kernel, cuDNN/cuBLAS convolutions and GEMMs,
+fused ``conv3x3_bn_relu`` kernel, the 3x3 max-pool and depthwise-stencil
+kernels, cuDNN/cuBLAS convolutions and GEMMs,
 copies, and everything else — with the ten costliest kernel names.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
-import subprocess
 import time
 from collections import defaultdict
 
@@ -26,6 +28,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pytorch_cifar_tpu_torch.serve import InferenceEngine
+from pytorch_cifar_tpu_torch.tools._bench import card_line
 
 BUCKETS = (8, 32, 128)
 ITERS = 50
@@ -35,6 +38,10 @@ def group_of(name: str) -> str:
     low = name.lower()
     if "conv3x3_bn_relu" in low:
         return "fused_conv3x3_bn_relu"
+    if "max_pool_fwd_kernel" in low:
+        return "max_pool3x3_s1"
+    if "depthwise_kernel" in low:
+        return "depthwise_stencil"
     if "memcpy" in low or "memset" in low:
         return "copy"
     if any(k in low for k in ("conv", "xmma", "gemm", "cudnn", "cutlass",
@@ -81,19 +88,19 @@ def profile_bucket(engine, b: int) -> dict:
     }
 
 
-def main() -> int:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", default="ResNet18")
+    args = parser.parse_args(argv)
+    smi = card_line()
     print(smi, flush=True)
     engine = InferenceEngine.from_random(
-        "ResNet18", seed=0, buckets=BUCKETS, compute_dtype=torch.bfloat16,
+        args.model, seed=0, buckets=BUCKETS, compute_dtype=torch.bfloat16,
     )
     for b in engine.buckets:
         rec = profile_bucket(engine, b)
-        print(json.dumps({"card": smi, "dtype": "bfloat16", **rec}),
+        print(json.dumps({"card": smi, "model": args.model,
+                          "dtype": "bfloat16", **rec}),
               flush=True)
     return 0
 

@@ -1,9 +1,9 @@
-"""Where a ResNet-18 train step's time goes, by kernel group, on the card:
+"""Where a train step's time goes, by kernel group, on the card:
 
-    python -m pytorch_cifar_tpu_torch.tools.profile_train
+    python -m pytorch_cifar_tpu_torch.tools.profile_train [--model GoogLeNet]
 
-Builds a seeded ResNet-18 train state (batch 512, bf16 compute, crop and
-flip on) and times ``ITERS`` warm steps on one fixed batch with no
+Builds a seeded train state of ``--model`` (ResNet-18 unless named; batch
+512, bf16 compute, crop and flip on) and times ``ITERS`` warm steps on one fixed batch with no
 profiler attached, with BN moments stock and under
 ``bn_moments_impl(fused_moments)`` (kernel K2) in turns (stock, fused,
 fused, stock; the wall per step is the faster of each mode's two runs,
@@ -14,8 +14,8 @@ steps of each mode under ``torch.profiler`` with CUDA activity only (the
 device time). Prints one JSON line per mode: wall and device-busy ms per
 step, the idle share (1 - busy / wall), the
 median and largest host issue ms per step of each unprofiled run, the
-device ms per step of each kernel group (K1, K2, K3, library convs and
-GEMMs, reductions, the optimizer's fused updates, copies, other
+device ms per step of each kernel group (K1, K2, K3, K4 forward and
+backward, library convs and GEMMs, reductions, the optimizer's fused updates, copies, other
 elementwise work) and the ten costliest kernels. A last line times the
 epoch gather (kernel K1, 50,176 rows of ``(50000, 32, 32, 3)`` uint8) and
 its share of an epoch of 98 stock steps.
@@ -23,9 +23,9 @@ its share of an epoch of 98 stock steps.
 
 from __future__ import annotations
 
+import argparse
 import json
 import statistics
-import subprocess
 import time
 from collections import defaultdict
 
@@ -37,6 +37,7 @@ from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.models.common import bn_moments_impl
 from pytorch_cifar_tpu_torch.ops.bn_stats import fused_moments
 from pytorch_cifar_tpu_torch.ops.dma_gather import dma_row_gather
+from pytorch_cifar_tpu_torch.tools._bench import card_line
 from pytorch_cifar_tpu_torch.train.optim import (
     cosine_epoch_schedule,
     make_optimizer,
@@ -52,6 +53,8 @@ def group_of(name: str) -> str:
     for key, group in (("moments_", "k2_fused_moments"),
                        ("gather_rows", "k1_dma_row_gather"),
                        ("conv3x3_bn_relu", "k3_conv3x3_bn_relu"),
+                       ("max_pool_fwd_kernel", "k4_max_pool_fwd"),
+                       ("max_pool_bwd_kernel", "k4_max_pool_bwd"),
                        ("memcpy", "copy"), ("memset", "copy"),
                        ("multi_tensor_apply", "optimizer_foreach"),
                        ("reduce_kernel", "reduction")):
@@ -105,19 +108,18 @@ def profile_steps(state, step, batch, wall: float) -> dict:
     }
 
 
-def main() -> int:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip()
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("--model", default="ResNet18")
+    args = parser.parse_args(argv)
+    smi = card_line()
     print(smi, flush=True)
     g = torch.Generator().manual_seed(0)
     images = torch.randint(0, 256, (BATCH, 32, 32, 3), generator=g,
                            dtype=torch.uint8).cuda()
     labels = torch.randint(0, 10, (BATCH,), generator=g,
                            dtype=torch.int32).cuda()
-    model = create_model("ResNet18", generator=g).to(
+    model = create_model(args.model, generator=g).to(
         "cuda", memory_format=torch.channels_last
     )
     state = create_train_state(
@@ -139,8 +141,8 @@ def main() -> int:
     for mode, impl in impls.items():
         with bn_moments_impl(impl):
             rec = profile_steps(state, step, (images, labels), walls[mode])
-        print(json.dumps({"card": smi, "batch": BATCH, "dtype": "bfloat16",
-                          "bn_moments": mode, "wall_ms_runs": runs[mode],
+        print(json.dumps({"card": smi, "model": args.model, "batch": BATCH,
+                          "dtype": "bfloat16", "bn_moments": mode, "wall_ms_runs": runs[mode],
                           "host_issue_ms_p50_max_runs": issue[mode],
                           **rec}), flush=True)
 

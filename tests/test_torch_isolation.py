@@ -76,6 +76,11 @@ def test_scan_sees_the_whole_package():
                               "bn_stats.py"),
                  os.path.join("pytorch_cifar_tpu_torch", "train",
                               "trainer.py"),
+                 *(os.path.join("pytorch_cifar_tpu_torch", *parts) for parts in
+                   (("ops", "max_pool.py"), ("ops", "depthwise_stencil.py"),
+                    ("models", "googlenet.py"), ("models", "mobilenet.py"),
+                    ("tools", "pool_bench.py"),
+                    ("tools", "depthwise_bench.py"))),
                  os.path.join("pytorch_cifar_tpu_torch", "config.py")):
         assert must in files
 
