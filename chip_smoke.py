@@ -104,14 +104,19 @@ result.
 from __future__ import annotations
 
 import json
-import statistics
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+# the port's bench helpers: absent outside a checkout of the repository
+from pytorch_cifar_tpu_torch.tools._bench import (
+    card_line,
+    library_pool,
+    time_ms,
+)
 
 # dense peaks (no sparsity) from NVIDIA's data sheets: bf16 tensor-core and
 # fp32 CUDA-core FLOP/s, HBM bytes/s. The fp32 kernel runs on the CUDA
@@ -150,34 +155,8 @@ def peaks_for(name: str) -> dict:
     return PEAKS["H100 SXM"]
 
 
-def time_ms(fn, runs: int = 25, reps: int = 5) -> float:
-    """Median over ``runs`` of the per-call device time of ``reps``
-    back-to-back calls, timed with CUDA events. A sleep kernel queued first
-    keeps the stream busy while the host enqueues, so the events bracket
-    device work, not launch overhead."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    samples = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        samples.append(start.elapsed_time(end) / reps)
-    return statistics.median(samples)
-
-
 def phase_device() -> str:
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
+    smi = card_line()
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
@@ -527,15 +506,19 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-def library_pool(v: torch.Tensor) -> torch.Tensor:
-    """The library yardstick of K4 on the NHWC view (never on the port's
-    path for this pool)."""
-    return F.max_pool2d(v.permute(0, 3, 1, 2), 3, 1, 1).permute(0, 2, 3, 1)
+def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest absolute difference, 0 where both hold the same value (an
+    infinity, or a NaN on both sides); inf where only one side is NaN."""
+    d = (a.float() - b.float()).abs()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(d), d)
+    return float(torch.nan_to_num(d, nan=float("inf")).max())
 
 
-def _pool_checks(P, x, g, what: str, fails: Failures) -> None:
+def _pool_checks(P, x, g, what: str, fails: Failures) -> tuple:
     """Kernel against plain version, bit for bit: the forward without and
-    with the winner map, the map itself, and the gradient of ``g``."""
+    with the winner map, the map itself, and the gradient of ``g``. Returns
+    the measured largest differences of the forward and of the backward."""
     ref, ridx = P.max_pool3x3_s1_reference(x, True)
     out = P.max_pool3x3_s1(x)  # no gradient asked for: no map
     out_m, idx = P._forward(x, True)
@@ -545,13 +528,15 @@ def _pool_checks(P, x, g, what: str, fails: Failures) -> None:
                 f"K4 {what}: forward differs from the plain version")
     fails.check(torch.equal(idx, ridx),
                 f"K4 {what}: winner map differs from the plain version")
-    fails.check(
-        same_bits(gi, P.max_pool3x3_s1_backward_reference(g, ridx)),
-        f"K4 {what}: backward differs from the plain version")
+    gref = P.max_pool3x3_s1_backward_reference(g, ridx)
+    fails.check(same_bits(gi, gref),
+                f"K4 {what}: backward differs from the plain version")
     xr = x.detach().requires_grad_()
     (ga,) = torch.autograd.grad(P.max_pool3x3_s1(xr), xr, g)
     fails.check(same_bits(ga, gi),
                 f"K4 {what}: autograd's gradient differs from the kernel's")
+    return (max(max_abs_diff(out, ref), max_abs_diff(out_m, ref)),
+            max(max_abs_diff(gi, gref), max_abs_diff(ga, gref)))
 
 
 def phase_pool(P, peaks, fails: Failures) -> list:
@@ -583,7 +568,8 @@ def phase_pool(P, peaks, fails: Failures) -> list:
             shape = (BATCH, h, w, c)
             x = torch.randn(shape, generator=g).to("cuda", dt)
             cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
-            _pool_checks(P, x, cot, f"{dname} {shape}", fails)
+            fwd_err, bwd_err = _pool_checks(P, x, cot, f"{dname} {shape}",
+                                            fails)
             # the library pool and its backward compute the same function
             xr = x.detach().requires_grad_()
             lib = library_pool(xr)
@@ -599,7 +585,8 @@ def phase_pool(P, peaks, fails: Failures) -> list:
             with torch.no_grad():
                 row = {
                     "x": list(shape), "dtype": dname,
-                    "pools_per_forward": per_fwd, "max_abs_err": 0.0,
+                    "pools_per_forward": per_fwd,
+                    "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
                     "fwd_ms": time_ms(lambda: P._forward(x, False), 7, 3),
                     "fwd_map_ms": time_ms(lambda: P._forward(x, True), 7, 3),
                     "bwd_ms": time_ms(lambda: P._backward(cot, idx), 7, 3),
@@ -1115,11 +1102,11 @@ def main() -> int:
     def pool_total(key):
         return sum(r[key] * k for r, k in zip(p16, per4))
 
-    for kernel, line, launches, ms, plain, lib in (
-        ("max_pool3x3_s1", 343, gt["k4_fwd_launches"], "fwd_map_ms",
-         "plain_fwd_map_ms", "library_fwd_ms"),
-        ("max_pool3x3_s1_bwd", 316, gt["k4_bwd_launches"], "bwd_ms",
-         "plain_bwd_ms", "library_bwd_ms"),
+    for kernel, line, launches, err, ms, plain, lib in (
+        ("max_pool3x3_s1", 343, gt["k4_fwd_launches"], "fwd_max_abs_err",
+         "fwd_map_ms", "plain_fwd_map_ms", "library_fwd_ms"),
+        ("max_pool3x3_s1_bwd", 316, gt["k4_bwd_launches"], "bwd_max_abs_err",
+         "bwd_ms", "plain_bwd_ms", "library_bwd_ms"),
     ):
         kernels.append({
             "name": kernel,
@@ -1127,7 +1114,7 @@ def main() -> int:
             "source": "pytorch_cifar_tpu_torch/ops/csrc/max_pool.cu",
             "replaces": f"pytorch_cifar_tpu/ops/max_pool.py:{line}",
             "launches": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in pool),
+            "max_abs_err": max(r[err] for r in pool),
             "ms": pool_total(ms),
             "plain_ms": pool_total(plain),
             "bound_ms": pool_total("bound_bwd_ms"),

@@ -28,7 +28,7 @@ import contextlib
 import contextvars
 import math
 from dataclasses import dataclass
-from typing import Callable, Iterator, Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -249,19 +249,6 @@ def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
                      groups=f.groups)
     y = y * f.mul + f.add
     return torch.relu(y) if f.relu else y
-
-
-def folded_sites(folded) -> Iterator["FoldedConvBN"]:
-    """Every :class:`FoldedConvBN` of a model's ``fold()`` result (nested
-    dicts and lists), in forward order."""
-    if isinstance(folded, FoldedConvBN):
-        yield folded
-    elif isinstance(folded, dict):
-        for v in folded.values():
-            yield from folded_sites(v)
-    elif isinstance(folded, (list, tuple)):
-        for v in folded:
-            yield from folded_sites(v)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,

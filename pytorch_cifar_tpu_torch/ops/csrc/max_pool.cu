@@ -126,102 +126,85 @@ __global__ void __launch_bounds__(kThreads) max_pool_bwd_kernel(
   store<S, V>(gi + here, r);
 }
 
-template <typename IO, int V>
-int launch_fwd(const void* x, void* out, void* idx, long long blocks,
-               long long total, int h, int w, int c, cudaStream_t s) {
+// one call's arguments: `in` is x (forward) or g (backward), `out` is out or
+// gi; the forward writes `idx` unless it is null, the backward reads it
+struct Call {
+  const void* in;
+  void* idx;
+  void* out;
+  long long blocks, total;
+  int h, w, c;
+  cudaStream_t s;
+};
+
+template <typename IO, bool BWD, int V>
+int launch(const Call& a) {
   using S = typename IO::S;
-  if (!aligned(x, V * sizeof(S)) || !aligned(out, V * sizeof(S)) ||
-      (idx != nullptr && !aligned(idx, V)))
+  if (!aligned(a.in, V * sizeof(S)) || !aligned(a.out, V * sizeof(S)) ||
+      (a.idx != nullptr && !aligned(a.idx, V)))
     return static_cast<int>(cudaErrorMisalignedAddress);
-  if (idx != nullptr) {
-    max_pool_fwd_kernel<IO, V, true><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const S*>(x), static_cast<S*>(out),
-        static_cast<uint8_t*>(idx), total, h, w, c);
+  const unsigned blocks = static_cast<unsigned>(a.blocks);
+  const S* in = static_cast<const S*>(a.in);
+  S* out = static_cast<S*>(a.out);
+  uint8_t* idx = static_cast<uint8_t*>(a.idx);
+  if (BWD) {
+    if (idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    max_pool_bwd_kernel<IO, V><<<blocks, kThreads, 0, a.s>>>(
+        in, idx, out, a.total, a.h, a.w, a.c);
+  } else if (idx != nullptr) {
+    max_pool_fwd_kernel<IO, V, true><<<blocks, kThreads, 0, a.s>>>(
+        in, out, idx, a.total, a.h, a.w, a.c);
   } else {
-    max_pool_fwd_kernel<IO, V, false><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        static_cast<const S*>(x), static_cast<S*>(out), nullptr, total, h, w,
-        c);
+    max_pool_fwd_kernel<IO, V, false><<<blocks, kThreads, 0, a.s>>>(
+        in, out, nullptr, a.total, a.h, a.w, a.c);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename IO, int V>
-int launch_bwd(const void* g, const void* idx, void* gi, long long blocks,
-               long long total, int h, int w, int c, cudaStream_t s) {
-  using S = typename IO::S;
-  if (!aligned(g, V * sizeof(S)) || !aligned(gi, V * sizeof(S)) ||
-      !aligned(idx, V))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  max_pool_bwd_kernel<IO, V><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      static_cast<const S*>(g), static_cast<const uint8_t*>(idx),
-      static_cast<S*>(gi), total, h, w, c);
-  return static_cast<int>(cudaGetLastError());
+// vec = channels per thread: c % vec == 0 and every pointer aligned to vec
+// elements (the wrapper picks the widest, up to 16 bytes)
+template <typename IO, bool BWD>
+int dispatch(const void* in, const void* idx, void* out, int n, int h, int w,
+             int c, int vec, void* stream) {
+  Call a{in, const_cast<void*>(idx), out, 0, 0, h, w, c,
+         static_cast<cudaStream_t>(stream)};
+  a.blocks = blocks_for(n, h, w, c, vec, kThreads, &a.total);
+  if (a.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
+  switch (vec * static_cast<int>(sizeof(typename IO::S))) {
+    case 16: return launch<IO, BWD, 16 / sizeof(typename IO::S)>(a);
+    case 8: return launch<IO, BWD, 8 / sizeof(typename IO::S)>(a);
+    case 4: return launch<IO, BWD, 4 / sizeof(typename IO::S)>(a);
+    case 2:
+      if constexpr (sizeof(typename IO::S) == 2) return launch<IO, BWD, 1>(a);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 // x (n, h, w, c) -> out (n, h, w, c) and, when idx is not null, the uint8
-// winner map idx (n, h, w, c). vec = channels per thread: c % vec == 0 and
-// every pointer aligned to vec elements (the wrapper picks the widest).
+// winner map idx (n, h, w, c).
 extern "C" int max_pool3x3_fwd_bf16(const void* x, void* out, void* idx, int n,
                                     int h, int w, int c, int vec,
                                     void* stream) {
-  long long total = 0;
-  const long long blocks = blocks_for(n, h, w, c, vec, kThreads, &total);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 8: return launch_fwd<BF16, 8>(x, out, idx, blocks, total, h, w, c, s);
-    case 4: return launch_fwd<BF16, 4>(x, out, idx, blocks, total, h, w, c, s);
-    case 2: return launch_fwd<BF16, 2>(x, out, idx, blocks, total, h, w, c, s);
-    case 1: return launch_fwd<BF16, 1>(x, out, idx, blocks, total, h, w, c, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<BF16, false>(x, idx, out, n, h, w, c, vec, stream);
 }
 
 extern "C" int max_pool3x3_fwd_f32(const void* x, void* out, void* idx, int n,
                                    int h, int w, int c, int vec,
                                    void* stream) {
-  long long total = 0;
-  const long long blocks = blocks_for(n, h, w, c, vec, kThreads, &total);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 4: return launch_fwd<F32, 4>(x, out, idx, blocks, total, h, w, c, s);
-    case 2: return launch_fwd<F32, 2>(x, out, idx, blocks, total, h, w, c, s);
-    case 1: return launch_fwd<F32, 1>(x, out, idx, blocks, total, h, w, c, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<F32, false>(x, idx, out, n, h, w, c, vec, stream);
 }
 
 // g, idx (n, h, w, c) -> gi (n, h, w, c): each window's g to its winner.
 extern "C" int max_pool3x3_bwd_bf16(const void* g, const void* idx, void* gi,
                                     int n, int h, int w, int c, int vec,
                                     void* stream) {
-  long long total = 0;
-  const long long blocks = blocks_for(n, h, w, c, vec, kThreads, &total);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 8: return launch_bwd<BF16, 8>(g, idx, gi, blocks, total, h, w, c, s);
-    case 4: return launch_bwd<BF16, 4>(g, idx, gi, blocks, total, h, w, c, s);
-    case 2: return launch_bwd<BF16, 2>(g, idx, gi, blocks, total, h, w, c, s);
-    case 1: return launch_bwd<BF16, 1>(g, idx, gi, blocks, total, h, w, c, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<BF16, true>(g, idx, gi, n, h, w, c, vec, stream);
 }
 
 extern "C" int max_pool3x3_bwd_f32(const void* g, const void* idx, void* gi,
                                    int n, int h, int w, int c, int vec,
                                    void* stream) {
-  long long total = 0;
-  const long long blocks = blocks_for(n, h, w, c, vec, kThreads, &total);
-  if (blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 4: return launch_bwd<F32, 4>(g, idx, gi, blocks, total, h, w, c, s);
-    case 2: return launch_bwd<F32, 2>(g, idx, gi, blocks, total, h, w, c, s);
-    case 1: return launch_bwd<F32, 1>(g, idx, gi, blocks, total, h, w, c, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<F32, true>(g, idx, gi, n, h, w, c, vec, stream);
 }

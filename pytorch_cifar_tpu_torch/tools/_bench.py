@@ -1,5 +1,6 @@
-"""What the kernel bench tools share: the card's name and power limit, and
-CUDA-event timing."""
+"""What the kernel bench tools and ``chip_smoke.py`` share: the card's name
+and power limit, CUDA-event timing, the library's 3x3 pool, and which
+profiled kernel names are the library's convolutions and GEMMs."""
 
 from __future__ import annotations
 
@@ -7,6 +8,17 @@ import statistics
 import subprocess
 
 import torch
+import torch.nn.functional as F
+
+# substrings of cuDNN's and cuBLAS's kernel names (``nvjet`` is cuBLAS's
+# Hopper GEMM, which the 1x1 convolutions and the linear layers run)
+LIBRARY_CONV_GEMM_KEYS = ("conv", "xmma", "gemm", "cudnn", "cutlass",
+                          "implicit", "sm90", "wgrad", "dgrad", "nvjet")
+
+
+def is_library_conv_gemm(kernel_name: str) -> bool:
+    low = kernel_name.lower()
+    return any(k in low for k in LIBRARY_CONV_GEMM_KEYS)
 
 
 def card_line() -> str:
@@ -19,7 +31,7 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, runs: int = 15, reps: int = 5) -> float:
+def time_ms(fn, runs: int = 25, reps: int = 5) -> float:
     """Median over ``runs`` of the per-call device time of ``reps``
     back-to-back calls, timed with CUDA events. A sleep kernel queued first
     keeps the stream busy while the host enqueues, so the events bracket
@@ -39,3 +51,9 @@ def time_ms(fn, runs: int = 15, reps: int = 5) -> float:
         torch.cuda.synchronize()
         samples.append(start.elapsed_time(end) / reps)
     return statistics.median(samples)
+
+
+def library_pool(v: torch.Tensor) -> torch.Tensor:
+    """The library yardstick of the 3x3 / stride 1 / pad 1 max pool on an
+    NHWC view (never on the port's path for this pool)."""
+    return F.max_pool2d(v.permute(0, 3, 1, 2), 3, 1, 1).permute(0, 2, 3, 1)

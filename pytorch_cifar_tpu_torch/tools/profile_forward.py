@@ -28,7 +28,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from pytorch_cifar_tpu_torch.serve import InferenceEngine
-from pytorch_cifar_tpu_torch.tools._bench import card_line
+from pytorch_cifar_tpu_torch.tools._bench import (
+    card_line,
+    is_library_conv_gemm,
+)
 
 BUCKETS = (8, 32, 128)
 ITERS = 50
@@ -44,8 +47,7 @@ def group_of(name: str) -> str:
         return "depthwise_stencil"
     if "memcpy" in low or "memset" in low:
         return "copy"
-    if any(k in low for k in ("conv", "xmma", "gemm", "cudnn", "cutlass",
-                              "implicit", "sm90", "wgrad", "dgrad")):
+    if is_library_conv_gemm(low):
         return "library_conv_gemm"
     return "elementwise_other"
 

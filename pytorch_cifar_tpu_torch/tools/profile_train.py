@@ -37,7 +37,10 @@ from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.models.common import bn_moments_impl
 from pytorch_cifar_tpu_torch.ops.bn_stats import fused_moments
 from pytorch_cifar_tpu_torch.ops.dma_gather import dma_row_gather
-from pytorch_cifar_tpu_torch.tools._bench import card_line
+from pytorch_cifar_tpu_torch.tools._bench import (
+    card_line,
+    is_library_conv_gemm,
+)
 from pytorch_cifar_tpu_torch.train.optim import (
     cosine_epoch_schedule,
     make_optimizer,
@@ -60,8 +63,7 @@ def group_of(name: str) -> str:
                        ("reduce_kernel", "reduction")):
         if key in low:
             return group
-    if any(k in low for k in ("conv", "xmma", "gemm", "cudnn", "cutlass",
-                              "implicit", "sm90", "wgrad", "dgrad")):
+    if is_library_conv_gemm(low):
         return "library_conv_gemm"
     return "elementwise_other"
 

@@ -226,6 +226,19 @@ def test_bf16_error_no_worse_than_jax(name, trees):
     assert np.max(np.abs(got - ref)) <= 1.5 * np.max(np.abs(want - ref))
 
 
+def folded_sites(folded):
+    """Every ``FoldedConvBN`` of a model's ``fold()`` result (nested dicts
+    and lists), in forward order."""
+    if isinstance(folded, common.FoldedConvBN):
+        yield folded
+    elif isinstance(folded, dict):
+        for v in folded.values():
+            yield from folded_sites(v)
+    elif isinstance(folded, (list, tuple)):
+        for v in folded:
+            yield from folded_sites(v)
+
+
 @pytest.mark.parametrize("name,fused,pools,stencils",
                          [("GoogLeNet", 28, 9, 0), ("MobileNet", 1, 0, 9)])
 def test_kernel_sites_per_forward(name, fused, pools, stencils, monkeypatch):
@@ -234,7 +247,7 @@ def test_kernel_sites_per_forward(name, fused, pools, stencils, monkeypatch):
     the 9 stride-1 depthwise convs are stencil sites (the 4 stride-2 ones
     are not). Counted in the fold and in a forward's calls."""
     model = create_model(name).eval()
-    sites = list(common.folded_sites(model.fold(torch.float32)))
+    sites = list(folded_sites(model.fold(torch.float32)))
     assert sum(s.fused for s in sites) == fused
     assert sum(s.stencil for s in sites) == stencils
     for s in sites:

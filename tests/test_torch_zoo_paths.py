@@ -89,10 +89,14 @@ def test_mobilenet_train_step_matches_jax_fp32():
     worst tensor (the JAX fp32 step is 12% of an update off a
     float64-compute step here, the port's 6%). The port's fp32 step must be
     no further from the port's float64-compute step, in units of each
-    tensor's update, than twice the JAX fp32 step is."""
+    tensor's update, than twice the JAX fp32 step is; the JAX step itself
+    within 25% of an update on its worst tensor and, directly against the
+    port's fp32 step, within 10% on the median tensor (4.4% here). The
+    linear layer sits behind no BN backward and is held directly: its
+    update within 1e-3 of the JAX step's (2.5e-4 here)."""
     name = "MobileNet"
     params, stats = _jax_trees(name, seed=0)
-    x, y = _images(16, seed=10)
+    x, y = _images(32, seed=10)
     y[-2:] = -1  # padded rows: masked from loss, gradients and metrics
     tx = jax_optim.make_optimizer(lr=LR, t_max=T_MAX, steps_per_epoch=SPE)
     jmodel = jax_create_model(name)
@@ -121,9 +125,10 @@ def test_mobilenet_train_step_matches_jax_fp32():
     for k in steps.METRIC_KEYS:
         np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-4,
                                    atol=1e-5, err_msg=k)
-    assert float(pm["count"]) == 14
+    assert float(pm["count"]) == 30
     got, ref = after[torch.float32], after[torch.float64]
     errs = {"port": 0.0, "jax": 0.0}
+    direct = {}
     for k, w in want.items():
         if k.endswith("num_batches_tracked"):
             continue
@@ -137,8 +142,12 @@ def test_mobilenet_train_step_matches_jax_fp32():
                            float(np.abs(got[k] - ref[k]).max()) / update)
         errs["jax"] = max(errs["jax"],
                           float(np.abs(w - ref[k]).max()) / update)
+        direct[k] = float(np.abs(got[k] - w).max()) / update
     assert errs["port"] <= 2 * errs["jax"], errs
-    assert errs["jax"] < 0.5, errs  # the same step, not merely some step
+    assert errs["jax"] <= 0.25, errs  # the same step, not merely some step
+    assert np.median(list(direct.values())) <= 0.1, direct
+    for k in ("linear.weight", "linear.bias"):
+        assert direct[k] <= 1e-3, (k, direct[k])
 
 
 def test_mobilenet_port_engine_matches_jax_engine_fp32():
