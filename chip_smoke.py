@@ -14,11 +14,14 @@ Phases, each of which makes the script exit non-zero when it fails:
    card at each of ResNet-18's five fused shapes, at n = 128 and n = 3, in
    bf16 and fp32 (fp32: rtol 1e-4, atol 1e-4 against the plain version in
    full fp32, TF32 off; bf16: rtol 1.6e-2, atol 1e-2 against the plain
-   version in fp32 on the same bf16-rounded inputs); rows 0..2 of the
-   n = 128 output must equal the n = 3 output bit for bit; CUDA-event
-   times of the kernel, the plain version and the library yardstick
-   (``F.conv2d`` in channels_last + affine + ReLU, never called by the
-   port), beside the least time the card could take (``bound``);
+   version in fp32 on the same bf16-rounded inputs); rows 0..k of the
+   n = 128 output must equal the n = k output bit for bit at every serving
+   bucket, k = 1, 3, 8, 32 (multi-image tiles change which tile holds a
+   row); CUDA-event times of the kernel at its plan, of its mma.sync path
+   at the same bf16 site (the design every site ran before the wgmma path),
+   of the plain version and of the library yardstick (``F.conv2d`` in
+   channels_last + affine + ReLU, never called by the port), beside the
+   least time the card could take (``bound``);
 4. slice: ResNet-18 at full width served by ``InferenceEngine`` (bf16,
    buckets 1/8/32/128, seeded random weights) behind ``MicroBatcher`` under
    ``run_load`` (8 clients x 256 requests of 1..8 images), with the
@@ -103,6 +106,7 @@ result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -113,7 +117,10 @@ import torch.nn.functional as F
 
 # the port's bench helpers: absent outside a checkout of the repository
 from pytorch_cifar_tpu_torch.tools._bench import (
+    RESNET18_SITES as SITES,
+    STENCIL_SHAPES,
     card_line,
+    googlenet_sites,
     library_pool,
     time_ms,
 )
@@ -127,16 +134,8 @@ PEAKS = {
     "H100 NVL": {"bf16": 835e12, "fp32": 60e12, "bytes": 3.9e12},
 }
 
-# ResNet-18's fused conv3x3+BN+ReLU sites: (name, h, w, cin, cout, launches
-# per forward)
-SITES = [
-    ("stem", 32, 32, 3, 64, 1),
-    ("layer1.{0,1}.conv1", 32, 32, 64, 64, 2),
-    ("layer2.1.conv1", 16, 16, 128, 128, 1),
-    ("layer3.1.conv1", 8, 8, 256, 256, 1),
-    ("layer4.1.conv1", 4, 4, 512, 512, 1),
-]
 BUCKETS = (1, 8, 32, 128)
+INVARIANCE_NS = (1, 3, 8, 32)  # batch sizes held against rows of n = 128
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
 
 
@@ -176,7 +175,8 @@ def phase_build(build) -> dict:
 def phase_kernels(K, peaks, fails: Failures, sites=None, tag="site",
                   runs: int = 25):
     """Per-site rows: correctness at n = 3 and 128 in both dtypes, batch
-    invariance, and times at n = 128. ``sites`` defaults to ResNet-18's."""
+    invariance at n = 1, 3, 8, 32 against n = 128, and times at n = 128.
+    ``sites`` defaults to ResNet-18's."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(0)
@@ -208,9 +208,16 @@ def phase_kernels(K, peaks, fails: Failures, sites=None, tag="site",
                             f"{site} {dname} n={n}: non-finite output")
                 err = max(err, diff.max().item())
                 outs[n] = out
-            inv = torch.equal(outs[128][:3], outs[3])
-            fails.check(inv, f"{site} {dname}: rows 0..2 of n=128 differ "
-                             "from the n=3 output")
+            inv = True
+            for n in INVARIANCE_NS:
+                if n not in outs:
+                    outs[n] = K.conv3x3_bn_relu(x[:n].contiguous(), wt,
+                                                scale, bias)
+                same = torch.equal(outs[128][:n], outs[n])
+                inv &= same
+                fails.check(same, f"{site} {dname}: rows 0..{n - 1} of "
+                                  f"n=128 differ from the n={n} output")
+            p = K.plan(h, w, cin, cout, dt)
 
             nbytes = (x.numel() + wt.numel() + outs[128].numel()) \
                 * x.element_size() + 2 * cout * 4
@@ -227,8 +234,14 @@ def phase_kernels(K, peaks, fails: Failures, sites=None, tag="site",
                 "site": site, "dtype": dname, "n": 128,
                 "x": [h, w, cin], "cout": cout, "launches_per_forward": per_fwd,
                 "max_abs_err": err, "batch_invariant": inv,
+                "plan": dataclasses.asdict(p),
                 "ms": time_ms(lambda: K.conv3x3_bn_relu(x, wt, scale, bias),
                               runs),
+                # the mma.sync path at this site: PR 1's design
+                "sync_path_ms": time_ms(
+                    lambda: K.launch(x, wt, scale, bias,
+                                     dataclasses.replace(p, path="sync")),
+                    runs),
                 "plain_ms": time_ms(
                     lambda: K.conv3x3_bn_relu_reference(x, wt, scale, bias),
                     runs,
@@ -241,33 +254,10 @@ def phase_kernels(K, peaks, fails: Failures, sites=None, tag="site",
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
             }
+            row["tflops"] = flops / row["ms"] / 1e9
             rows.append(row)
             print(f"{tag} " + json.dumps(row), flush=True)
     return rows
-
-
-def googlenet_sites() -> list:
-    """GoogLeNet's fused conv3x3+BN+ReLU sites, one row per distinct
-    (h, w, cin, cout) with the number of launches per forward, read off the
-    model's own fold."""
-    from pytorch_cifar_tpu_torch.models import create_model
-
-    folded = create_model("GoogLeNet").fold(torch.float32)
-    count: dict = {}
-    h = 32
-    for key, site in [("stem", folded["stem"])] + [
-        (None, c) for c in folded["cells"]
-    ]:
-        if site is None:  # a stage transition halves the map
-            h //= 2
-            continue
-        fused = [site] if key else site["b2"] + site["b3"]
-        for f in fused:
-            assert f.fused
-            shape = (h, h, f.weight.shape[2], f.weight.shape[3])
-            count[shape] = count.get(shape, 0) + 1
-    return [(f"{hh}x{ww}x{cin}->{cout}", hh, ww, cin, cout, k)
-            for (hh, ww, cin, cout), k in count.items()]
 
 
 def phase_slice(K, smi: str, fails: Failures, model: str = "ResNet18",
@@ -492,13 +482,6 @@ def phase_moments(M, peaks, fails: Failures) -> list:
 POOL_SHAPES = [(32, 32, 192, 1), (32, 32, 256, 1), (16, 16, 480, 1),
                (16, 16, 512, 3), (16, 16, 528, 1), (8, 8, 832, 2)]
 POOL_ODD = (3, 5, 5, 130)
-# MobileNet's stride-1 depthwise inputs at bucket 128: (n, h, w, c, k, sites
-# per forward), then PNASNet's 5x5 / 7x7 shape and a narrow-vector shape
-STENCIL_SHAPES = [(128, 32, 32, 32, 3, 1), (128, 16, 16, 128, 3, 1),
-                  (128, 8, 8, 256, 3, 1), (128, 4, 4, 512, 3, 5),
-                  (128, 2, 2, 1024, 3, 1), (512, 32, 32, 44, 5, 0),
-                  (512, 32, 32, 44, 7, 0), (2, 8, 8, 130, 3, 0),
-                  (2, 8, 8, 130, 7, 0)]
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1030,8 +1013,8 @@ def main() -> int:
     # the zoo slice: GoogLeNet and MobileNet, kernels K4 and K5
     pool = phase_pool(P, peaks, fails)
     sten = phase_stencil(D, peaks, fails)
-    phase_kernels(K, peaks, fails, sites=googlenet_sites(),
-                  tag="site_googlenet", runs=5)
+    grows = phase_kernels(K, peaks, fails, sites=googlenet_sites(),
+                          tag="site_googlenet", runs=5)
     phase_slice(K, smi, fails, model="GoogLeNet", requests=64, per_forward=[
         (P, "FWD_LAUNCHES", 9), (K, "LAUNCHES", 28), (P, "BWD_LAUNCHES", 0),
         (D, "LAUNCHES", 0)])
@@ -1044,28 +1027,38 @@ def main() -> int:
     phase_pool_step(P, fails)
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
-    fwd = [r for r in rows if r["dtype"] == "bf16"]
-    per = [r["launches_per_forward"] for r in fwd]
+    # (and GoogLeNet's 28 beside it)
+    def forward(site_rows):
+        fwd = [r for r in site_rows if r["dtype"] == "bf16"]
 
-    def total(key):
-        return sum(r[key] * k for r, k in zip(fwd, per))
+        def total(key):
+            return sum(r[key] * r["launches_per_forward"] for r in fwd)
 
-    t_bytes = sum(r["mbytes"] * 1e6 * k for r, k in zip(fwd, per)) \
-        / peaks["bytes"] * 1e3
-    t_ops = sum(r["gflop"] * 1e9 * k for r, k in zip(fwd, per)) \
-        / peaks["bf16"] * 1e3
+        t_bytes = total("mbytes") * 1e6 / peaks["bytes"] * 1e3
+        t_ops = total("gflop") * 1e9 / peaks["bf16"] * 1e3
+        return {
+            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": total("library_ms"),
+            "earlier_design_ms": total("sync_path_ms"),
+        }
+
+    k3 = forward(rows)
     kernels = [{
         "name": "conv3x3_bn_relu",
         "route": "cuda",
         "source": "pytorch_cifar_tpu_torch/ops/csrc/conv_bn_relu.cu",
         "replaces": "pytorch_cifar_tpu/ops/conv_bn_relu.py:54",
         "launches": sl["kernel_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": total("library_ms"),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + grows),
+        **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                              "library_ms")},
+        # the wgmma path is PR 4's; the mma.sync path, timed at the same
+        # sites in this run, is the design it replaced
+        "redesigned": "PR 4",
+        "earlier_design_ms": k3["earlier_design_ms"],
+        "googlenet_forward": forward(grows),
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -1141,6 +1134,9 @@ def main() -> int:
         "bound_ms": sten_total("bound_ms"),
         "bound_by": "bytes" if by == {"bytes"} else "operations",
         "library_ms": sten_total("library_ms"),
+        "redesigned": "PR 4 (shared-memory halo tile); the design it "
+                      "replaced is not in the tree: PERF.md section 6 keeps "
+                      "its time",
     })
     print(f"card: {smi}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -33,10 +33,13 @@ NVCC_FLAGS = (
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # per source: entry point -> argtypes (every entry returns a cudaError_t)
 ENTRY_POINTS: Dict[str, Dict[str, list]] = {
-    # (x, w, scale, bias, out, n, h, w, cin, cout, stream)
+    # sync path: (x, w, scale, bias, out, n, h, w, cin, cout, stream);
+    # wgmma path: the same with (ib, th, bn, stages, minb, smem) before
+    # stream
     "conv_bn_relu": {
-        name: [_P] * 5 + [_I] * 5 + [_P]
-        for name in ("conv3x3_bn_relu_bf16", "conv3x3_bn_relu_f32")
+        "conv3x3_bn_relu_bf16": [_P] * 5 + [_I] * 5 + [_P],
+        "conv3x3_bn_relu_f32": [_P] * 5 + [_I] * 5 + [_P],
+        "conv3x3_bn_relu_bf16_wgmma": [_P] * 5 + [_I] * 11 + [_P],
     },
     # (images, idx, out, n, m, row_bytes, vec, stream)
     "dma_gather": {"dma_row_gather": [_P, _P, _P, _L, _L, _L, _I, _P]},
@@ -53,9 +56,9 @@ ENTRY_POINTS: Dict[str, Dict[str, list]] = {
         f"max_pool3x3_{d}_{t}": [_P] * 3 + [_I] * 5 + [_P]
         for d in ("fwd", "bwd") for t in ("bf16", "f32")
     },
-    # (x, w, out, n, h, w, c, k, vec, stream)
+    # (x, w, out, n, h, w, c, k, vec, ib, th, tr, ccv, xruns, smem, stream)
     "depthwise_stencil": {
-        name: [_P] * 3 + [_I] * 6 + [_P]
+        name: [_P] * 3 + [_I] * 12 + [_P]
         for name in ("depthwise_stencil_bf16", "depthwise_stencil_f32")
     },
 }

@@ -13,6 +13,12 @@ tap order and rounded once to ``x``'s type. Layouts are the JAX package's:
 K in {3, 5, 7}, any ``c``. Forward only, as the TPU kernel is: training
 keeps the library's grouped convolution.
 
+:func:`plan` picks the kernel's tile from the shape and the vector width:
+a block stages ``ib`` images x ``th`` rows (plus the halo) of a chunk of
+``ccv`` channel vectors in shared memory; its threads each own a vector and
+a run of 4 outputs along a row, ``tr`` rows at a time. The sums here mirror
+the kernel's, which checks them again.
+
 :func:`depthwise_stencil` launches the CUDA kernel
 (``csrc/depthwise_stencil.cu``) for a CUDA tensor and raises on anything it
 cannot take; a CPU tensor runs :func:`depthwise_stencil_reference`. There
@@ -22,6 +28,7 @@ is no fallback from one to the other. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -32,6 +39,62 @@ LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 _launch_lock = threading.Lock()
 
 KERNEL_SIZES = (3, 5, 7)
+# the kernel's constants, as in csrc/depthwise_stencil.cu
+RUN = 4  # outputs along a row per thread: its register window
+MAX_THREADS = 128  # threads of a block, at most (the kernel takes 256)
+CHUNK_BYTES = 128  # channel bytes of one tile pixel, at most
+MIN_ROWS = 8  # rows of a band when a row needs many threads
+SMEM_OPT_IN = 232_448  # the most shared memory one block may have (227 KB)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch's tile: ``ib`` images x ``th`` rows (plus the halo) of a
+    chunk of ``ccv`` channel vectors, staged in shared memory, each row
+    ``xruns`` runs of :data:`RUN` outputs; the threads cover ``tr`` rows
+    at a time; ``smem`` bytes of shared memory per block."""
+
+    ib: int
+    th: int
+    tr: int
+    ccv: int
+    xruns: int
+    smem: int
+
+    @property
+    def threads(self) -> int:
+        return self.ib * self.tr * self.xruns * self.ccv
+
+
+def plan(h: int, w: int, c: int, k: int, elem: int, vec: int,
+         max_threads: int = MAX_THREADS) -> Plan:
+    """The kernel's tile for an (h, w, c) map, k x k taps, ``elem``-byte
+    elements moved ``vec`` at a time, blocks of at most ``max_threads``
+    (the kernel takes 256; a bench may ask for fewer); raises on a shape
+    it cannot take."""
+    if k not in KERNEL_SIZES or c % vec or not 0 < max_threads <= 256:
+        raise ValueError(f"depthwise_stencil: k {k}, c {c}, vec {vec}, "
+                         f"max_threads {max_threads}")
+    xruns = -(-w // RUN)
+    if xruns > max_threads:
+        raise ValueError(f"depthwise_stencil takes maps up to "
+                         f"{max_threads * RUN} wide, got {w}")
+    cvt = c // vec
+    cap = min(max(1, CHUNK_BYTES // (vec * elem)), max_threads // xruns)
+    chunks = -(-cvt // cap)
+    ccv = -(-cvt // chunks)  # chunks of equal width, the last no wider
+    per_row = xruns * ccv
+    if h * per_row <= max_threads:  # whole images, as many as fit
+        ib, th, tr = max_threads // (h * per_row), h, h
+    else:
+        ib, tr = 1, max_threads // per_row
+        th = min(h, max(tr, MIN_ROWS))
+    smem = ((ib * (th + k - 1) * (xruns * RUN + k - 1) + k * k) * ccv * vec
+            * elem)
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"depthwise_stencil: {smem} bytes of shared memory "
+                         f"at {(h, w, c)} k {k}")
+    return Plan(ib, th, tr, ccv, xruns, smem)
 
 
 def depthwise_stencil_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -74,7 +137,6 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def depthwise_stencil(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise conv of NHWC ``x`` with ``w`` ``(k, k, c)``, stride 1,
     SAME."""
-    global LAUNCHES
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return depthwise_stencil_reference(x, w)
@@ -88,6 +150,17 @@ def depthwise_stencil(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:  # nothing to convolve: no launch, none counted
         return out
+    vec = _build.vector_width(x.shape[3], x, w, out)
+    return launch(x, w, out, vec,
+                  plan(*x.shape[1:], w.shape[0], x.element_size(), vec))
+
+
+def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, vec: int,
+           p: Plan) -> torch.Tensor:
+    """Launch the kernel with plan ``p`` into ``out`` on checked CUDA
+    tensors, ``vec`` channels at a time. The wrapper passes :func:`plan`'s;
+    a bench may pass another to compare tiles."""
+    global LAUNCHES
     lib = _build.load("depthwise_stencil")
     fn = (
         lib.depthwise_stencil_bf16
@@ -95,15 +168,16 @@ def depthwise_stencil(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         else lib.depthwise_stencil_f32
     )
     n, h, wd, c = x.shape
+    k = w.shape[0]
     err = fn(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, w.shape[0],
-        _build.vector_width(c, x, w, out),
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, k, vec,
+        p.ib, p.th, p.tr, p.ccv, p.xruns, p.smem,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(
             f"depthwise_stencil kernel launch failed with cudaError {err} at "
-            f"x {tuple(x.shape)} {x.dtype}, k {w.shape[0]}"
+            f"x {tuple(x.shape)} {x.dtype}, k {k}, {p}"
         )
     with _launch_lock:
         LAUNCHES += 1

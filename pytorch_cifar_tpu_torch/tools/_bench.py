@@ -1,6 +1,7 @@
 """What the kernel bench tools and ``chip_smoke.py`` share: the card's name
-and power limit, CUDA-event timing, the library's 3x3 pool, and which
-profiled kernel names are the library's convolutions and GEMMs."""
+and power limit, CUDA-event timing, the library's 3x3 pool, which profiled
+kernel names are the library's convolutions and GEMMs, and the main path's
+kernel shapes."""
 
 from __future__ import annotations
 
@@ -57,3 +58,47 @@ def library_pool(v: torch.Tensor) -> torch.Tensor:
     """The library yardstick of the 3x3 / stride 1 / pad 1 max pool on an
     NHWC view (never on the port's path for this pool)."""
     return F.max_pool2d(v.permute(0, 3, 1, 2), 3, 1, 1).permute(0, 2, 3, 1)
+
+
+# ResNet-18's fused conv3x3+BN+ReLU sites: (name, h, w, cin, cout, launches
+# per forward)
+RESNET18_SITES = [
+    ("stem", 32, 32, 3, 64, 1),
+    ("layer1.{0,1}.conv1", 32, 32, 64, 64, 2),
+    ("layer2.1.conv1", 16, 16, 128, 128, 1),
+    ("layer3.1.conv1", 8, 8, 256, 256, 1),
+    ("layer4.1.conv1", 4, 4, 512, 512, 1),
+]
+
+# the depthwise stencil's shapes: MobileNet's five stride-1 depthwise sites
+# at bucket 128 (k = 3), PNASNet's 5x5 and 7x7 at (512, 32, 32, 44), and a
+# narrow-vector shape: (n, h, w, c, k, launches per MobileNet forward)
+STENCIL_SHAPES = [(128, 32, 32, 32, 3, 1), (128, 16, 16, 128, 3, 1),
+                  (128, 8, 8, 256, 3, 1), (128, 4, 4, 512, 3, 5),
+                  (128, 2, 2, 1024, 3, 1), (512, 32, 32, 44, 5, 0),
+                  (512, 32, 32, 44, 7, 0), (2, 8, 8, 130, 3, 0),
+                  (2, 8, 8, 130, 7, 0)]
+
+
+def googlenet_sites() -> list:
+    """GoogLeNet's fused conv3x3+BN+ReLU sites, one row per distinct
+    (h, w, cin, cout) with the number of launches per forward, read off the
+    model's own fold."""
+    from pytorch_cifar_tpu_torch.models import create_model
+
+    folded = create_model("GoogLeNet").fold(torch.float32)
+    count: dict = {}
+    h = 32
+    for key, site in [("stem", folded["stem"])] + [
+        (None, c) for c in folded["cells"]
+    ]:
+        if site is None:  # a stage transition halves the map
+            h //= 2
+            continue
+        fused = [site] if key else site["b2"] + site["b3"]
+        for f in fused:
+            assert f.fused
+            shape = (h, h, f.weight.shape[2], f.weight.shape[3])
+            count[shape] = count.get(shape, 0) + 1
+    return [(f"{hh}x{ww}x{cin}->{cout}", hh, ww, cin, cout, k)
+            for (hh, ww, cin, cout), k in count.items()]
