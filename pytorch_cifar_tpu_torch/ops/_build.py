@@ -34,12 +34,11 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # per source: entry point -> argtypes (every entry returns a cudaError_t)
 ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     # sync path: (x, w, scale, bias, out, n, h, w, cin, cout, stream);
-    # wgmma path: the same with (ib, th, bn, stages, minb, smem) before
-    # stream
+    # wgmma path: the same with (ib, th, bn, minb, smem) before stream
     "conv_bn_relu": {
         "conv3x3_bn_relu_bf16": [_P] * 5 + [_I] * 5 + [_P],
         "conv3x3_bn_relu_f32": [_P] * 5 + [_I] * 5 + [_P],
-        "conv3x3_bn_relu_bf16_wgmma": [_P] * 5 + [_I] * 11 + [_P],
+        "conv3x3_bn_relu_bf16_wgmma": [_P] * 5 + [_I] * 10 + [_P],
     },
     # (images, idx, out, n, m, row_bytes, vec, stream)
     "dma_gather": {"dma_row_gather": [_P, _P, _P, _L, _L, _L, _I, _P]},

@@ -13,7 +13,7 @@ compare like with like: ``x`` NHWC ``(n, h, w, cin)``, ``w`` HWIO
 row's summation order never depends on the batch): bf16 with ``cin`` and
 ``cout`` multiples of 8 runs the wgmma path (two warpgroups over 128
 pixels, ``ib`` whole images at maps of 64 pixels or fewer, a cp.async ring
-of ``stages`` 16-channel chunks); fp32 and the stems (cin = 3) run the
+of 4 16-channel chunks); fp32 and the stems (cin = 3) run the
 mma.sync path. The sums here mirror the kernel's, which checks them again.
 
 :func:`conv3x3_bn_relu` launches the CUDA kernel (``csrc/conv_bn_relu.cu``)
@@ -63,6 +63,7 @@ def fold_batchnorm(
 WG_M = 128  # output pixels per block: two warpgroups of 64 rows
 WG_KC = 16  # input channels per stage: one k16 step
 WG_ATOM = 1024  # a 128-byte swizzle atom: 8 rows of 128 bytes
+WG_STAGES = 4  # the cp.async ring's depth
 SMEM_OPT_IN = 232_448  # the most shared memory one block may have (227 KB)
 # two blocks an SM: 228 KB less 1 KB the card keeps per block, halved
 SMEM_TWO_BLOCKS = (233_472 - 2 * 1024) // 2
@@ -74,8 +75,7 @@ SYNC_M, SYNC_STRIDE, SYNC_STRIDE_W = 64, 24, 72
 @dataclass(frozen=True)
 class Plan:
     """One launch's path and tile. ``ib`` images x ``th`` rows of each make
-    the M tile, ``bn`` output channels the N tile; ``stages`` is the
-    cp.async ring's depth (1: staged synchronously); ``smem`` is the
+    the M tile, ``bn`` output channels the N tile; ``smem`` is the
     dynamic shared memory one block asks for, in bytes; ``blocks_per_sm``
     the blocks an SM the wgmma kernel is built for."""
 
@@ -83,7 +83,6 @@ class Plan:
     ib: int
     th: int
     bn: int
-    stages: int
     smem: int
     blocks_per_sm: int = 1  # the kernel's register cap: 2 means 128 a thread
 
@@ -92,13 +91,13 @@ def _round_up(v: int, a: int) -> int:
     return -(-v // a) * a
 
 
-def wgmma_smem(bn: int, stages: int, halo_px: int) -> int:
-    """The wgmma path's shared memory: a ring of stages, each the 9 taps'
+def wgmma_smem(bn: int, halo_px: int) -> int:
+    """The wgmma path's shared memory: a ring of 4 stages, each the 9 taps'
     [16 ci][bn co] weight tiles and the [halo pixel][16 ci] input, or the
     epilogue's [128][bn + 8] bf16 tile if larger, plus one atom of slack to
     align the ring."""
     stage = 9 * WG_KC * bn * 2 + _round_up(halo_px * WG_KC * 2, WG_ATOM)
-    return WG_ATOM + max(stages * stage, WG_M * (bn + 8) * 2)
+    return WG_ATOM + max(WG_STAGES * stage, WG_M * (bn + 8) * 2)
 
 
 def plan(h: int, w: int, cin: int, cout: int,
@@ -117,18 +116,14 @@ def plan(h: int, w: int, cin: int, cout: int,
         # 64 at maps of 64 pixels or fewer, where blocks are few
         wide = h * w > 64 and -(-cout // 128) * 128 == -(-cout // 64) * 64
         bn = 128 if wide else 64
-        # two blocks an SM for BN = 64, unless the map is too small to
-        # give the SMs two blocks each (4x4: 128 blocks at bucket 128)
-        per_sm = 2 if bn == 64 and h * w > 16 else 1
-        halo = ib * (th + 2) * (w + 2)
-        budget = SMEM_TWO_BLOCKS if per_sm == 2 else SMEM_OPT_IN
-        stages = next((s for s in (4, 3, 2)
-                       if wgmma_smem(bn, s, halo) <= budget), 2)
-        smem = wgmma_smem(bn, stages, halo)
+        smem = wgmma_smem(bn, ib * (th + 2) * (w + 2))
         if smem > SMEM_OPT_IN:
             raise ValueError(f"conv3x3_bn_relu: a {h}x{w} map needs {smem} "
                              "bytes of shared memory")
-        return Plan("wgmma", ib, th, bn, stages, smem, per_sm)
+        # two blocks an SM for BN = 64 where both fit, unless the map is too
+        # small to give the SMs two blocks each (4x4: 128 at bucket 128)
+        two = bn == 64 and h * w > 16 and smem <= SMEM_TWO_BLOCKS
+        return Plan("wgmma", ib, th, bn, smem, 2 if two else 1)
     if w > SYNC_M:
         raise ValueError(f"conv3x3_bn_relu takes maps up to {SYNC_M} wide "
                          f"in fp32 and at cin or cout not a multiple of 8, "
@@ -137,7 +132,7 @@ def plan(h: int, w: int, cin: int, cout: int,
     elem = 2 if dtype == torch.bfloat16 else 4
     smem = ((th + 2) * (w + 2) * SYNC_STRIDE + 9 * WG_KC * SYNC_STRIDE_W) \
         * elem
-    return Plan("sync", 1, th, 64, 1, smem)
+    return Plan("sync", 1, th, 64, smem)
 
 
 def require_aligned(*tensors: torch.Tensor) -> None:
@@ -202,8 +197,8 @@ def conv3x3_bn_relu(
 def launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
            bias: torch.Tensor, p: Plan) -> torch.Tensor:
     """Launch the kernel with plan ``p`` on checked CUDA tensors. The
-    wrapper passes :func:`plan`'s; a bench may pass another (the sync path
-    at a bf16 site, another ``bn`` or ``stages``) to compare tiles."""
+    wrapper passes :func:`plan`'s; a bench may pass the sync path at a
+    bf16 site, to time the design the wgmma path replaced."""
     global LAUNCHES
     from pytorch_cifar_tpu_torch.ops import _build
 
@@ -217,8 +212,7 @@ def launch(x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor,
     if p.path == "wgmma":
         require_aligned(x, w, out)
         err = lib.conv3x3_bn_relu_bf16_wgmma(
-            *ptrs, p.ib, p.th, p.bn, p.stages, p.blocks_per_sm, p.smem,
-            stream)
+            *ptrs, p.ib, p.th, p.bn, p.blocks_per_sm, p.smem, stream)
     else:
         fn = (lib.conv3x3_bn_relu_bf16 if x.dtype == torch.bfloat16
               else lib.conv3x3_bn_relu_f32)

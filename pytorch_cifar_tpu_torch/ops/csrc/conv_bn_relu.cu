@@ -29,15 +29,16 @@
 //      ldmatrix), and the 9 taps' [16 ci][BN co] weight tiles, stored
 //      MN-major (HWIO is co-innermost) in the 128-byte-swizzled layout a
 //      wgmma descriptor reads with its transpose bit set.
-//    - Stages form a ring of 2-4, filled with cp.async 16-byte copies
+//    - Stages form a ring of 4, filled with cp.async 16-byte copies
 //      whose zero-fill supplies the halo's zero border, the channel tail
 //      past cin and the images past n. Each chunk's wgmmas are issued
-//      first, then the copies of the chunk STAGES - 1 ahead, then the
-//      block waits: the copies and the next chunks' loads overlap the
-//      multiplies. BN = 64 tiles on maps of more than 16 pixels are built
-//      for two blocks an SM (128 registers a thread, a ring within half the
-//      SM's shared memory); BN = 128 tiles, and 4x4 or smaller maps (too
-//      few blocks to share an SM), for one, with a 4-stage ring.
+//      first, then the copies of the chunk 3 ahead, then the block waits:
+//      the copies and the next chunks' loads overlap the multiplies.
+//      BN = 64 tiles on maps of more than 16 pixels are built for two
+//      blocks an SM (128 registers a thread, a ring within half the SM's
+//      shared memory); BN = 128 tiles, and 4x4 or smaller maps (too few
+//      blocks to share an SM), for one. Those three tiles are all the
+//      plan chooses, so they are all that is built.
 //    - BN is 128 where it pads cout no wider than 64 does (cout 96, 128,
 //      208, 224, 256 at maps over 64 pixels), else 64 (cout 192, 288,
 //      320, and every map of 64 pixels or fewer, where blocks are few).
@@ -48,11 +49,11 @@
 //    - Epilogue: acc * scale + bias, ReLU, one rounding to bf16, staged in
 //      shared memory and written out in 16-byte NHWC stores.
 //    Measured (NVIDIA H100 80GB HBM3, 700 W, bucket-128 bf16, PERF.md):
-//    0.316 ms per ResNet-18 forward and 1.660 ms per GoogLeNet forward,
-//    against cuDNN's 0.391 and 2.116 in the same run; maps of 8x8 and 4x4
+//    0.317 ms per ResNet-18 forward and 1.676 ms per GoogLeNet forward,
+//    against cuDNN's 0.387 and 2.143 in the same run; maps of 8x8 and 4x4
 //    still lose to cuDNN (4x4x512: 128 blocks, one an SM).
 // 2. sync (fp32, and bf16 with cin or cout not a multiple of 8: the stems),
-//    the PR 1 design: one block per (image, row tile of <= 64 pixels, 64
+//    the original design: one block per (image, row tile of <= 64 pixels, 64
 //    output channels); per 16-channel chunk the halo and the 9 x 16 x 64
 //    weight slice are staged synchronously, then bf16 runs mma.sync
 //    m16n8k16 per warp and fp32 the same fragment layout on the CUDA cores
@@ -345,6 +346,7 @@ constexpr int kKC = 16;               // input channels per stage: one k16
 constexpr int kPix = kKC * 2;         // bytes of one halo pixel in a stage
 constexpr int kAtom = 1024;           // 8 rows x 128 bytes: a swizzle atom
 constexpr int kSmemOptIn = 232448;    // the most one block may ask for
+constexpr int kStages = 4;            // the cp.async ring's depth
 
 __host__ __device__ constexpr int round_up(int v, int a) {
   return (v + a - 1) / a * a;
@@ -358,10 +360,9 @@ __host__ __device__ constexpr int stage_bytes(int bn, int halo_px) {
 }
 // the ring, or the epilogue's [kM][bn + 8] bf16 staging tile if larger,
 // plus slack to align the base to a swizzle atom
-__host__ __device__ constexpr int smem_bytes(int bn, int stages,
-                                             int halo_px) {
-  return kAtom + (stages * stage_bytes(bn, halo_px) > kM * (bn + 8) * 2
-                      ? stages * stage_bytes(bn, halo_px)
+__host__ __device__ constexpr int smem_bytes(int bn, int halo_px) {
+  return kAtom + (kStages * stage_bytes(bn, halo_px) > kM * (bn + 8) * 2
+                      ? kStages * stage_bytes(bn, halo_px)
                       : kM * (bn + 8) * 2);
 }
 
@@ -467,7 +468,7 @@ struct Mma<128> {
 // th == h.
 // MINB: blocks an SM the kernel is built for. Two cap it at 128 registers
 // a thread (BN = 64 only: BN = 128 holds 64 accumulators a thread).
-template <int BN, int STAGES, int MINB>
+template <int BN, int MINB>
 __global__ void __launch_bounds__(kThreads, MINB)
     conv3x3_bn_relu_wgmma_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
@@ -533,19 +534,19 @@ __global__ void __launch_bounds__(kThreads, MINB)
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
+  for (int s = 0; s < kStages - 1; ++s) {
     if (s < chunks) load_stage(s, s);
     cp_async_commit();  // empty groups keep the count uniform
   }
   constexpr uint32_t kLbo = kAtom, kSbo = (BN / 64) * kAtom;
   for (int c = 0; c < chunks; ++c) {
-    cp_async_wait<STAGES - 2>();  // chunk c has landed (this thread's part)
+    cp_async_wait<kStages - 2>();  // chunk c has landed (this thread's part)
     // cp.async wrote through the generic proxy; wgmma reads through the
     // async one
     asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
     __syncthreads();  // every part has landed; stage c - 1 is free
 
-    const uint32_t sb = base + (c % STAGES) * sbytes;
+    const uint32_t sb = base + (c % kStages) * sbytes;
     const uint32_t ab = sb + weight_bytes(BN);
     uint32_t a[9][4];
 #pragma unroll
@@ -560,8 +561,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
                    desc_sw128(sb + tap * (kKC * BN * 2), kLbo, kSbo));
     wgmma_commit();
     // the next copies are issued while the tensor cores multiply
-    if (c + STAGES - 1 < chunks)
-      load_stage((c + STAGES - 1) % STAGES, c + STAGES - 1);
+    if (c + kStages - 1 < chunks)
+      load_stage((c + kStages - 1) % kStages, c + kStages - 1);
     cp_async_commit();
     wgmma_wait_all();
 #pragma unroll
@@ -602,21 +603,21 @@ __global__ void __launch_bounds__(kThreads, MINB)
   }
 }
 
-template <int BN, int STAGES, int MINB>
+template <int BN, int MINB>
 int launch(const void* x, const void* w, const float* scale,
            const float* bias, void* out, int n, int h, int wd, int cin,
            int cout, int ib, int th, int smem, cudaStream_t stream) {
   // set once per instantiation (thread-safe static init; one device per
   // process); each launch asks only for its own plan's bytes
   static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_bn_relu_wgmma_kernel<BN, STAGES, MINB>,
+      conv3x3_bn_relu_wgmma_kernel<BN, MINB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
   if (attr != cudaSuccess) return (int)attr;
   const long long tiles =
       (long long)((n + ib - 1) / ib) * ((h + th - 1) / th);
   if (tiles > 2147483647LL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)tiles, (cout + BN - 1) / BN);
-  conv3x3_bn_relu_wgmma_kernel<BN, STAGES, MINB>
+  conv3x3_bn_relu_wgmma_kernel<BN, MINB>
       <<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x),
       static_cast<const __nv_bfloat16*>(w), scale, bias,
@@ -643,28 +644,26 @@ extern "C" int conv3x3_bn_relu_f32(const void* x, const void* w,
   return launch<float>(x, w, scale, bias, out, n, h, wd, cin, cout, stream);
 }
 
-// The wgmma path. (ib, th, bn, stages, minb, smem) is the wrapper's plan;
+// The wgmma path. (ib, th, bn, minb, smem) is the wrapper's plan;
 // it is checked here against the shape and the kernel's own shared-memory
 // sum.
 extern "C" int conv3x3_bn_relu_bf16_wgmma(
     const void* x, const void* w, const float* scale, const float* bias,
     void* out, int n, int h, int wd, int cin, int cout, int ib, int th,
-    int bn, int stages, int minb, int smem, void* stream) {
+    int bn, int minb, int smem, void* stream) {
   if (n <= 0 || h <= 0 || wd <= 0 || cin <= 0 || cout <= 0 || cin % 8 ||
       cout % 8 || ib <= 0 || th <= 0 || th > h || (ib > 1 && th != h) ||
       ib * th * wd > wg::kM || smem > wg::kSmemOptIn ||
-      smem != wg::smem_bytes(bn, stages, ib * (th + 2) * (wd + 2)))
+      smem != wg::smem_bytes(bn, ib * (th + 2) * (wd + 2)))
     return (int)cudaErrorInvalidValue;
   if (((uintptr_t)x | (uintptr_t)w | (uintptr_t)out) % 16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define WG_CASE(BN, ST, MB)                                                  \
-  if (bn == BN && stages == ST && minb == MB)                                \
-    return wg::launch<BN, ST, MB>(x, w, scale, bias, out, n, h, wd, cin,     \
-                                  cout, ib, th, smem, s);
-  WG_CASE(64, 2, 1) WG_CASE(64, 3, 1) WG_CASE(64, 4, 1)
-  WG_CASE(64, 2, 2) WG_CASE(64, 3, 2) WG_CASE(64, 4, 2)
-  WG_CASE(128, 2, 1) WG_CASE(128, 3, 1) WG_CASE(128, 4, 1)
+#define WG_CASE(BN, MB)                                                      \
+  if (bn == BN && minb == MB)                                                \
+    return wg::launch<BN, MB>(x, w, scale, bias, out, n, h, wd, cin, cout,   \
+                              ib, th, smem, s);
+  WG_CASE(64, 2) WG_CASE(64, 1) WG_CASE(128, 1)
 #undef WG_CASE
   return (int)cudaErrorInvalidValue;
 }

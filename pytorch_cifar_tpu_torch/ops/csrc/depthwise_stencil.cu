@@ -29,7 +29,7 @@
 //   steps over the tile's rows `tr` at a time. The tile is padded to
 //   whole runs (xruns * 4 + K - 1 columns, zero-filled) so that no window
 //   load needs a bound: a guarded window on an unpadded tile measured 1.5x
-//   slower (PERF.md, PR 4).
+//   slower (PERF.md).
 // - At small maps (MobileNet's 4x4x512 and 2x2x1024) one block covers
 //   several whole images, so a launch is 256 full blocks and not many
 //   near-empty ones.
@@ -53,7 +53,7 @@
 namespace {
 
 constexpr int kRun = 4;           // outputs along a row per thread
-constexpr int kMaxThreads = 256;  // the plan's block never exceeds it
+constexpr int kMaxThreads = 128;  // the plan's block never exceeds it
 constexpr int kSmemOptIn = 232448;
 
 // BYTES global -> shared, zero-filled when !ok (src is then not read)

@@ -41,7 +41,7 @@ _launch_lock = threading.Lock()
 KERNEL_SIZES = (3, 5, 7)
 # the kernel's constants, as in csrc/depthwise_stencil.cu
 RUN = 4  # outputs along a row per thread: its register window
-MAX_THREADS = 128  # threads of a block, at most (the kernel takes 256)
+MAX_THREADS = 128  # threads of a block, at most
 CHUNK_BYTES = 128  # channel bytes of one tile pixel, at most
 MIN_ROWS = 8  # rows of a band when a row needs many threads
 SMEM_OPT_IN = 232_448  # the most shared memory one block may have (227 KB)
@@ -66,28 +66,24 @@ class Plan:
         return self.ib * self.tr * self.xruns * self.ccv
 
 
-def plan(h: int, w: int, c: int, k: int, elem: int, vec: int,
-         max_threads: int = MAX_THREADS) -> Plan:
+def plan(h: int, w: int, c: int, k: int, elem: int, vec: int) -> Plan:
     """The kernel's tile for an (h, w, c) map, k x k taps, ``elem``-byte
-    elements moved ``vec`` at a time, blocks of at most ``max_threads``
-    (the kernel takes 256; a bench may ask for fewer); raises on a shape
-    it cannot take."""
-    if k not in KERNEL_SIZES or c % vec or not 0 < max_threads <= 256:
-        raise ValueError(f"depthwise_stencil: k {k}, c {c}, vec {vec}, "
-                         f"max_threads {max_threads}")
+    elements moved ``vec`` at a time; raises on a shape it cannot take."""
+    if k not in KERNEL_SIZES or c % vec:
+        raise ValueError(f"depthwise_stencil: k {k}, c {c}, vec {vec}")
     xruns = -(-w // RUN)
-    if xruns > max_threads:
+    if xruns > MAX_THREADS:
         raise ValueError(f"depthwise_stencil takes maps up to "
-                         f"{max_threads * RUN} wide, got {w}")
+                         f"{MAX_THREADS * RUN} wide, got {w}")
     cvt = c // vec
-    cap = min(max(1, CHUNK_BYTES // (vec * elem)), max_threads // xruns)
+    cap = min(max(1, CHUNK_BYTES // (vec * elem)), MAX_THREADS // xruns)
     chunks = -(-cvt // cap)
     ccv = -(-cvt // chunks)  # chunks of equal width, the last no wider
     per_row = xruns * ccv
-    if h * per_row <= max_threads:  # whole images, as many as fit
-        ib, th, tr = max_threads // (h * per_row), h, h
+    if h * per_row <= MAX_THREADS:  # whole images, as many as fit
+        ib, th, tr = MAX_THREADS // (h * per_row), h, h
     else:
-        ib, tr = 1, max_threads // per_row
+        ib, tr = 1, MAX_THREADS // per_row
         th = min(h, max(tr, MIN_ROWS))
     smem = ((ib * (th + k - 1) * (xruns * RUN + k - 1) + k * k) * ccv * vec
             * elem)
@@ -137,6 +133,7 @@ def _check(x: torch.Tensor, w: torch.Tensor) -> None:
 def depthwise_stencil(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Depthwise conv of NHWC ``x`` with ``w`` ``(k, k, c)``, stride 1,
     SAME."""
+    global LAUNCHES
     _check(x, w)
     if x.device.type == "cpu" and w.device.type == "cpu":
         return depthwise_stencil_reference(x, w)
@@ -150,25 +147,16 @@ def depthwise_stencil(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     if x.numel() == 0:  # nothing to convolve: no launch, none counted
         return out
-    vec = _build.vector_width(x.shape[3], x, w, out)
-    return launch(x, w, out, vec,
-                  plan(*x.shape[1:], w.shape[0], x.element_size(), vec))
-
-
-def launch(x: torch.Tensor, w: torch.Tensor, out: torch.Tensor, vec: int,
-           p: Plan) -> torch.Tensor:
-    """Launch the kernel with plan ``p`` into ``out`` on checked CUDA
-    tensors, ``vec`` channels at a time. The wrapper passes :func:`plan`'s;
-    a bench may pass another to compare tiles."""
-    global LAUNCHES
+    n, h, wd, c = x.shape
+    k = w.shape[0]
+    vec = _build.vector_width(c, x, w, out)
+    p = plan(h, wd, c, k, x.element_size(), vec)
     lib = _build.load("depthwise_stencil")
     fn = (
         lib.depthwise_stencil_bf16
         if x.dtype == torch.bfloat16
         else lib.depthwise_stencil_f32
     )
-    n, h, wd, c = x.shape
-    k = w.shape[0]
     err = fn(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), n, h, wd, c, k, vec,
         p.ib, p.th, p.tr, p.ccv, p.xruns, p.smem,

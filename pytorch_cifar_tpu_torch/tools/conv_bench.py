@@ -1,7 +1,7 @@
 """The fused conv3x3+BN+ReLU kernel (K3) per site, on the card:
 
     python -m pytorch_cifar_tpu_torch.tools.conv_bench                  # ResNet-18 and GoogLeNet, n = 128 bf16
-    python -m pytorch_cifar_tpu_torch.tools.conv_bench --model ResNet18 --sweep
+    python -m pytorch_cifar_tpu_torch.tools.conv_bench --model ResNet18
     python -m pytorch_cifar_tpu_torch.tools.conv_bench --ptxas          # registers, spills, shared memory
 
 At every distinct fused site of the chosen models (ResNet-18's five,
@@ -15,8 +15,6 @@ site (the design every site ran before the wgmma path), and cuDNN
 the port). Each site's line carries its bound (the larger of its bytes
 over 3.35 TB/s and its operations over 989 TFLOP/s) and the achieved
 TFLOP/s; a last line sums each model's bucket-n forward over its launches.
-``--sweep`` also times every other (bn, stages) tile that fits at each
-wgmma site (not batch-invariant with the plan's tile: timing only).
 ``--ptxas`` compiles each kernel source once more with ``-Xptxas -v`` and
 prints what ptxas reports. Prints the card's name and power limit first.
 """
@@ -65,24 +63,7 @@ def ptxas_report() -> list:
     return lines
 
 
-def alternatives(p: K.Plan, h: int, w: int) -> list:
-    """The other wgmma tiles that fit at a site: bn 64 or 128, 2-4
-    stages, and for bn 64 kernels built for one or two blocks an SM."""
-    if p.path != "wgmma":
-        return []
-    halo = p.ib * (p.th + 2) * (w + 2)
-    out = []
-    for bn, per_sm in ((64, 1), (64, 2), (128, 1)):
-        for stages in (2, 3, 4):
-            smem = K.wgmma_smem(bn, stages, halo)
-            q = dataclasses.replace(p, bn=bn, stages=stages, smem=smem,
-                                    blocks_per_sm=per_sm)
-            if q != p and smem <= K.SMEM_OPT_IN:
-                out.append(q)
-    return out
-
-
-def site_row(name, h, w, cin, cout, per_fwd, n, runs, sweep, g) -> dict:
+def site_row(name, h, w, cin, cout, per_fwd, n, runs, g) -> dict:
     dev = "cuda"
     x = torch.randn(n, h, w, cin, generator=g).to(dev, torch.bfloat16)
     wt = (torch.randn(3, 3, cin, cout, generator=g) / (9 * cin) ** 0.5).to(
@@ -124,12 +105,6 @@ def site_row(name, h, w, cin, cout, per_fwd, n, runs, sweep, g) -> dict:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "tflops": flops / ms / 1e9,
     }
-    if sweep:
-        row["sweep"] = [
-            {"bn": q.bn, "stages": q.stages, "smem": q.smem,
-             "blocks_per_sm": q.blocks_per_sm,
-             "ms": time_ms(lambda q=q: K.launch(x, wt, scale, bias, q), runs)}
-            for q in alternatives(p, h, w)]
     return row
 
 
@@ -139,7 +114,6 @@ def main(argv=None) -> int:
                         choices=["ResNet18", "GoogLeNet"])
     parser.add_argument("--n", type=int, default=128)
     parser.add_argument("--runs", type=int, default=15)
-    parser.add_argument("--sweep", action="store_true")
     parser.add_argument("--ptxas", action="store_true")
     args = parser.parse_args(argv)
     resolve_device("cuda")  # a measurement: no card, no run
@@ -155,7 +129,7 @@ def main(argv=None) -> int:
         rows = []
         for site in sites:
             try:
-                row = site_row(*site, args.n, args.runs, args.sweep, g)
+                row = site_row(*site, args.n, args.runs, g)
             except RuntimeError as exc:  # a refused launch: report, go on
                 print(f"conv_site_failed {site}: {exc}", flush=True)
                 ok = False

@@ -36,22 +36,9 @@ from pytorch_cifar_tpu_torch.tools._bench import (
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM
 
 
-def variants(h, c, k, s, vec) -> list:
-    """The kernel's other tiles at a shape: blocks of at most 64, 128 or
-    256 threads (the plan's default is 128)."""
-    out = []
-    for max_threads in (64, 128, 256):
-        q = D.plan(h, h, c, k, s, vec, max_threads)
-        if q not in out:
-            out.append(q)
-    return out
-
-
-def shape_row(n, h, c, k, dtype, device, card, sweep=False) -> dict:
+def shape_row(n, h, c, k, dtype, device, card) -> dict:
     """Check and time one shape; ``ok`` says whether it is within the
-    tolerance. ``sweep`` also times every other tile (``sweep``), each
-    checked bit for bit against the plan's output (the sums' order does
-    not depend on the tile)."""
+    tolerance."""
     shape = (n, h, h, c)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=g).to(device, dtype)
@@ -71,21 +58,11 @@ def shape_row(n, h, c, k, dtype, device, card, sweep=False) -> dict:
     s = x.element_size()
     t_bytes = (2 * s * x.numel() + w.numel() * s) / HBM_BYTES_PER_S * 1e3
     t_ops = 2 * k * k * x.numel() / FP32_FLOP_PER_S * 1e3
-    vec = _build.vector_width(c, x, w, out)
-    p = D.plan(h, h, c, k, s, vec)
-    alt = {}
-    if sweep:
-        alt["sweep"] = []
-        for q in variants(h, c, k, s, vec):
-            buf = torch.empty_like(x)
-            got = D.launch(x, w, buf, vec, q)
-            alt["sweep"].append({
-                **dataclasses.asdict(q), "equal": bool(torch.equal(got, out)),
-                "ms": time_ms(lambda q=q: D.launch(x, w, buf, vec, q))})
+    p = D.plan(h, h, c, k, s, _build.vector_width(c, x, w, out))
     return {
         "card": card, "shape": list(shape), "k": k,
         "dtype": str(dtype).replace("torch.", ""),
-        "plan": dataclasses.asdict(p), **alt,
+        "plan": dataclasses.asdict(p),
         "max_abs_err_vs_plain_fp32": err, "tolerance": tol, "ok": err <= tol,
         "max_abs_diff_vs_library": float(
             (out.float() - library().permute(0, 2, 3, 1).float()).abs().max()),
@@ -105,8 +82,6 @@ def main(argv=None) -> int:
     parser.add_argument("--k", type=int, default=7, choices=D.KERNEL_SIZES)
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
-    parser.add_argument("--sweep", action="store_true",
-                        help="also time every other tile the kernel takes")
     parser.add_argument("--zoo", action="store_true",
                         help="every shape of chip_smoke's stencil phase, "
                              "both dtypes, and the bucket-128 MobileNet "
@@ -117,16 +92,15 @@ def main(argv=None) -> int:
     print(card, flush=True)
     if not args.zoo:
         rec = shape_row(args.n, args.h, args.c, args.k,
-                        getattr(torch, args.dtype), device, card,
-                        args.sweep)
+                        getattr(torch, args.dtype), device, card)
         print(json.dumps(rec), flush=True)
         return 0 if rec["ok"] else 1
     ok = True
     for dtype in (torch.bfloat16, torch.float32):
         fwd = {"kernel_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
         for n, h, w, c, k, per_fwd in STENCIL_SHAPES:
-            rec = shape_row(n, h, c, k, dtype, device, card, args.sweep)
-            ok &= rec["ok"] and all(v["equal"] for v in rec.get("sweep", []))
+            rec = shape_row(n, h, c, k, dtype, device, card)
+            ok &= rec["ok"]
             print("stencil " + json.dumps(rec), flush=True)
             for key in fwd:
                 fwd[key] += per_fwd * rec[key]
