@@ -35,10 +35,11 @@ Then the training slice and its two kernels:
 
 5. gather: ``dma_row_gather`` (K1) against its plain version, bit for bit,
    on the epoch gather of the main path (50,176 int32 indices over
-   ``(50000, 32, 32, 3)`` uint8, the 16-byte path), on float32 rows of
+   ``(50000, 32, 32, 3)`` uint8, the bulk-copy ring), on float32 rows of
    252 bytes and on a uint8 base 1 byte off alignment (the byte path);
-   times of the kernel, the plain version and ``index_select``, and the
-   bound;
+   times of the kernel, the plain version, ``index_select`` and a
+   contiguous ``copy_`` of the same bytes (the card's practical ceiling
+   for this work, a yardstick only), and the bound;
 6. moments: ``fused_moments`` (K2) at ResNet-18's four BN shapes at
    n = 512 in bf16 and fp32: values against the plain version in float64
    (rtol 1e-4, atol 1e-5), two launches bit-identical, the gradient
@@ -75,7 +76,11 @@ Then the zoo slice (GoogLeNet, MobileNet) and its kernels:
     six pool shapes at n = 512 and at ``(3, 5, 5, 130)`` (narrow vectors),
     in bf16 and fp32; there also an all-ties input, NaNs (every window
     holding one must return it, as ``F.max_pool2d`` does) and a ``-inf``
-    map; output and gradient equal to ``F.max_pool2d``'s; times of the
+    map, an odd C and a view one element off alignment (the narrowest
+    vectors); at the first n = 512 shape inputs planted on the forward's band
+    edges (two NaNs in one window, +-0 ties, ``-inf`` rows, ``-inf``
+    borders), the forward's output held bit for bit as raw bits; output
+    and gradient equal to ``F.max_pool2d``'s; times of the
     kernels, the plain version and ``F.max_pool2d`` forward and backward
     (channels_last), and the byte bounds;
 11. stencil: ``depthwise_stencil`` (K5) against its plain version at
@@ -117,6 +122,8 @@ import torch.nn.functional as F
 
 # the port's bench helpers: absent outside a checkout of the repository
 from pytorch_cifar_tpu_torch.tools._bench import (
+    POOL_ODD,
+    POOL_SHAPES,
     RESNET18_SITES as SITES,
     STENCIL_SHAPES,
     card_line,
@@ -420,12 +427,16 @@ def phase_gather(G, peaks, fails: Failures) -> dict:
                     f"K1 {name}: differs from the plain version")
     nbytes = 2 * EPOCH_ROWS * 3072 + 4 * EPOCH_ROWS
     b_ms, b_by = bound(nbytes, 0, peaks, "fp32")
+    flat = torch.empty_like(out)
     row = {
         "images": [TRAIN_N, 32, 32, 3], "idx": EPOCH_ROWS, "exact": ok,
         "max_abs_err": err,
         "ms": time_ms(lambda: G.dma_row_gather(images, idx)),
         "plain_ms": time_ms(lambda: G.dma_row_gather_reference(images, idx)),
         "library_ms": time_ms(lambda: torch.index_select(images, 0, idx)),
+        # the same bytes read and written in one contiguous run: what the
+        # card gives this work at best (never the port's gather)
+        "copy_ms": time_ms(lambda: flat.copy_(out)),
         "bound_ms": b_ms, "bound_by": b_by, "mbytes": nbytes / 1e6,
     }
     print("gather " + json.dumps(row), flush=True)
@@ -487,13 +498,6 @@ def phase_moments(M, peaks, fails: Failures) -> list:
     return rows
 
 
-# GoogLeNet's 3x3 / stride 1 pool inputs at batch 512: (h, w, c, pools per
-# forward), and a shape that takes the narrow-vector path
-POOL_SHAPES = [(32, 32, 192, 1), (32, 32, 256, 1), (16, 16, 480, 1),
-               (16, 16, 512, 3), (16, 16, 528, 1), (8, 8, 832, 2)]
-POOL_ODD = (3, 5, 5, 130)
-
-
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
     """Equal element for element, a NaN equal to a NaN."""
     return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
@@ -508,16 +512,23 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.nan_to_num(d, nan=float("inf")).max())
 
 
+def raw_bits(a: torch.Tensor) -> torch.Tensor:
+    """The tensor's bits as integers: -0 differs from +0 there."""
+    return a.view(torch.int16 if a.element_size() == 2 else torch.int32)
+
+
 def _pool_checks(P, x, g, what: str, fails: Failures) -> tuple:
     """Kernel against plain version, bit for bit: the forward without and
-    with the winner map, the map itself, and the gradient of ``g``. Returns
-    the measured largest differences of the forward and of the backward."""
+    with the winner map (as raw bits: the output is the winner's own bits),
+    the map itself, and the gradient of ``g``. Returns the measured largest
+    differences of the forward and of the backward."""
     ref, ridx = P.max_pool3x3_s1_reference(x, True)
     out = P.max_pool3x3_s1(x)  # no gradient asked for: no map
     out_m, idx = P._forward(x, True)
     gi = P._backward(g, idx)
     torch.cuda.synchronize()
-    fails.check(same_bits(out, ref) and same_bits(out_m, ref),
+    fails.check(torch.equal(raw_bits(out), raw_bits(ref))
+                and torch.equal(raw_bits(out_m), raw_bits(ref)),
                 f"K4 {what}: forward differs from the plain version")
     fails.check(torch.equal(idx, ridx),
                 f"K4 {what}: winner map differs from the plain version")
@@ -530,6 +541,27 @@ def _pool_checks(P, x, g, what: str, fails: Failures) -> tuple:
                 f"K4 {what}: autograd's gradient differs from the kernel's")
     return (max(max_abs_diff(out, ref), max_abs_diff(out_m, ref)),
             max(max_abs_diff(gi, gref), max_abs_diff(ga, gref)))
+
+
+def pool_edge_input(P, shape, dt, g) -> torch.Tensor:
+    """A random input with, on the forward plan's first band edge (output
+    rows e - 1 | e, which two blocks compute), what the separable
+    max_h(max_w(x)) must get right: two NaNs in one window (image 0), +-0
+    ties (image 1), -inf rows (image 2); and -inf along every border (image
+    3: windows whose real taps are all -inf keep tap 0, in the halo)."""
+    n, h, w, c = shape
+    x = torch.randn(shape, generator=g).to("cuda", dt)
+    e = P.plan(h, w, c, x.element_size(), 16 // x.element_size()).rows
+    x[0, e - 1, 3] = float("nan")  # across the edge, one window apart
+    x[0, e, 4] = float("nan")
+    x[0, e, 10:12] = float("nan")  # two in one row
+    signs = torch.randint(0, 2, (4, w, c), generator=g).bool()
+    x[1, e - 2:e + 2] = torch.where(signs, 0.0, -0.0).to("cuda", dt)
+    x[2, e - 1:e + 1] = float("-inf")
+    for border in (np.s_[:2], np.s_[-2:]):
+        x[3, border] = float("-inf")
+        x[3, :, border] = float("-inf")
+    return x
 
 
 def phase_pool(P, peaks, fails: Failures) -> list:
@@ -557,6 +589,19 @@ def phase_pool(P, peaks, fails: Failures) -> list:
         lib = library_pool(nan)
         fails.check(torch.equal(torch.isnan(out), torch.isnan(lib)),
                     f"K4 {dname}: NaNs spread otherwise than F.max_pool2d's")
+        # the narrowest vectors (2 bytes in bf16, 4 in fp32): an odd C, and
+        # a view one element off 16-byte alignment
+        odd = torch.randn((3, 5, 5, 33), generator=g).to("cuda", dt)
+        off = torch.empty(x.numel() + 1, dtype=dt, device="cuda")[1:]
+        off = off.view(POOL_ODD)
+        off.copy_(x)
+        for what, v in (("C = 33", odd), ("offset view", off)):
+            cot = torch.randint(0, 9, v.shape, generator=g).to("cuda", dt)
+            _pool_checks(P, v, cot, f"{dname} {tuple(v.shape)} {what}", fails)
+        shape = (BATCH, *POOL_SHAPES[0][:3])
+        cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
+        _pool_checks(P, pool_edge_input(P, shape, dt, g), cot,
+                     f"{dname} {shape} band edges", fails)
         for h, w, c, per_fwd in POOL_SHAPES:
             shape = (BATCH, h, w, c)
             x = torch.randn(shape, generator=g).to("cuda", dt)
@@ -1076,7 +1121,11 @@ def main() -> int:
         "replaces": "pytorch_cifar_tpu/ops/dma_gather.py:110",
         "launches": tr["k1_launches"],
         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                              "bound_by", "library_ms")},
+                              "bound_by", "library_ms", "copy_ms")},
+        "redesigned": "a ring of cp.async.bulk row copies in shared memory, "
+                      "one bulk store per group of slots; the design it "
+                      "replaced (one warp per row through registers) is not "
+                      "in the tree: PERF.md section 6 keeps its time",
     }]
     # K2 over one bf16 ResNet-18 forward: its 20 launches at their shapes
     m16 = [r for r in k2 if r["dtype"] == "bf16"]
@@ -1103,11 +1152,15 @@ def main() -> int:
     def pool_total(key):
         return sum(r[key] * k for r, k in zip(p16, per4))
 
-    for kernel, line, launches, err, ms, plain, lib in (
+    for kernel, line, launches, err, ms, plain, lib, redesigned in (
         ("max_pool3x3_s1", 343, gt["k4_fwd_launches"], "fwd_max_abs_err",
-         "fwd_map_ms", "plain_fwd_map_ms", "library_fwd_ms"),
+         "fwd_map_ms", "plain_fwd_map_ms", "library_fwd_ms",
+         "the separable max_h(max_w(x)) over a band staged in shared memory "
+         "by cp.async; the design it replaced (nine tap loads per output "
+         "through L1/L2) is not in the tree: PERF.md section 6 keeps its "
+         "time"),
         ("max_pool3x3_s1_bwd", 316, gt["k4_bwd_launches"], "bwd_max_abs_err",
-         "bwd_ms", "plain_bwd_ms", "library_bwd_ms"),
+         "bwd_ms", "plain_bwd_ms", "library_bwd_ms", None),
     ):
         kernels.append({
             "name": kernel,
@@ -1122,6 +1175,10 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": pool_total(lib),
         })
+        if redesigned:
+            kernels[-1]["redesigned"] = redesigned
+            kernels[-1]["no_map_ms"] = pool_total("fwd_ms")
+            kernels[-1]["no_map_bound_ms"] = pool_total("bound_fwd_ms")
     # K5 over one bucket-128 bf16 MobileNet forward: its 9 launches
     s16 = [r for r in sten if r["dtype"] == "bf16"]
     per5 = [r["sites_per_forward"] for r in s16]

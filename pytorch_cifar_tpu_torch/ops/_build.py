@@ -40,8 +40,12 @@ ENTRY_POINTS: Dict[str, Dict[str, list]] = {
         "conv3x3_bn_relu_f32": [_P] * 5 + [_I] * 5 + [_P],
         "conv3x3_bn_relu_bf16_wgmma": [_P] * 5 + [_I] * 10 + [_P],
     },
-    # (images, idx, out, n, m, row_bytes, vec, stream)
-    "dma_gather": {"dma_row_gather": [_P, _P, _P, _L, _L, _L, _I, _P]},
+    # (images, idx, out, n, m, row_bytes, stream); the ring also takes its
+    # plan (piece, pieces, blocks, steps, slots, group, smem)
+    "dma_gather": {
+        "dma_row_gather_ring": [_P, _P, _P, _L, _L, _L] + [_I] * 7 + [_P],
+        "dma_row_gather_bytes": [_P, _P, _P, _L, _L, _L, _P],
+    },
     # (x, partial, out, rows, c, vec, stream); plan: (rows, c, vec,
     # elem_bytes, *rows_per_block, *chunks)
     "bn_stats": {
@@ -49,11 +53,13 @@ ENTRY_POINTS: Dict[str, Dict[str, list]] = {
         "fused_moments_f32": [_P, _P, _P, _L, _I, _I, _P],
         "fused_moments_plan": [_L, _I, _I, _I, _P, _P],
     },
-    # fwd: (x, out, idx or NULL, n, h, w, c, vec, stream);
-    # bwd: (g, idx, gi, n, h, w, c, vec, stream)
+    # fwd: (x, out, idx or NULL, n, h, w, c, vec, ib, rows, ccv, smem,
+    # stream); bwd: (g, idx, gi, n, h, w, c, vec, stream)
     "max_pool": {
-        f"max_pool3x3_{d}_{t}": [_P] * 3 + [_I] * 5 + [_P]
-        for d in ("fwd", "bwd") for t in ("bf16", "f32")
+        **{f"max_pool3x3_fwd_{t}": [_P] * 3 + [_I] * 9 + [_P]
+           for t in ("bf16", "f32")},
+        **{f"max_pool3x3_bwd_{t}": [_P] * 3 + [_I] * 5 + [_P]
+           for t in ("bf16", "f32")},
     },
     # (x, w, out, n, h, w, c, k, vec, ib, th, tr, ccv, xruns, smem, stream)
     "depthwise_stencil": {

@@ -56,25 +56,6 @@ constexpr int kRun = 4;           // outputs along a row per thread
 constexpr int kMaxThreads = 128;  // the plan's block never exceeds it
 constexpr int kSmemOptIn = 232448;
 
-// BYTES global -> shared, zero-filled when !ok (src is then not read)
-template <int BYTES>
-__device__ __forceinline__ void copy_async(void* dst, const void* src,
-                                           bool ok) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if constexpr (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(ok ? 16 : 0)
-                 : "memory");
-  } else if constexpr (BYTES == 8 || BYTES == 4) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(BYTES), "r"(ok ? BYTES : 0)
-                 : "memory");
-  } else {
-    using R = typename Raw<BYTES>::type;
-    *static_cast<R*>(dst) = ok ? *static_cast<const R*>(src) : R(0);
-  }
-}
-
 // shared-memory elements of one plan's tile and weights
 inline long long smem_elems(int ib, int th, int ccv, int xruns, int v,
                             int k) {

@@ -11,84 +11,282 @@
 //   gi[p] = sum of g[window] over the windows whose winner is p.
 // One difference, on purpose: a NaN wins over anything (v > best || v != v),
 // as torch's and XLA's max pools propagate it, where the TPU kernel's strict
-// > alone would let a NaN pass only at tap 0.
-//
-// Design (simple and right first):
-// - Forward: one thread per (pixel, vector of V channels). C is innermost,
-//   so a warp's threads sit on neighbouring channels and every tap is one
-//   coalesced load; the 9 taps of neighbouring pixels overlap and come
-//   through L1/L2. V * elem is 16 bytes where C and the base pointers allow
-//   it, else 8, 4, ... down to one element (the wrapper decides from
-//   data_ptr() and C, so C = 130 or an offset view still runs).
-// - The winner map is ONE uint8 per element (the winning tap 0..8), written
-//   only under autograd: 1 byte per element beside the output, where the
-//   TPU kernel kept two maps in the input dtype.
-// - Backward: a gather, no atomics. The thread of input position p reads
-//   the map of the up to 9 windows that contain p (window (y - dy + 1,
-//   x - dx + 1) sees p as its tap (dy, dx)) and adds g where the map names
-//   that tap, in tap order, in fp32, and rounds once. A window whose
-//   winner is tap 0 in the halo (every real tap -inf) names no input
-//   position: its gradient is dropped, as on the TPU, and nothing is read
-//   or written out of bounds.
-// - Compares are done on the values widened to fp32 (exact for bf16); the
-//   output is the winner's own bits.
+// > alone would let a NaN pass only at tap 0. Of several NaNs the last in
+// tap order wins.
 //
 // What bounds it on an H100 SXM (3.35 TB/s): bytes. Training forward:
 // read E elements, write E elements and E map bytes, (2s + 1) * E bytes;
 // inference forward 2s * E; backward reads g and the map and writes gi,
-// (2s + 1) * E. What this design leaves on the table: the 9x re-read goes
-// through L1/L2 instead of a shared-memory tile, and the backward loads the
-// map nine times.
+// (2s + 1) * E. Nine taps per output read straight from device memory
+// would move 9x the bytes through L1/L2; the forward reads each input once,
+// and the work between its loads and stores is what it has to keep small:
+// a per-element scan in fp32 left the first strip design (and the design it
+// replaces) issue-bound, at 38-40% of the bound in bf16 (NVIDIA H100 80GB
+// HBM3, 700 W).
+//
+// Forward design, the TPU kernel's separable max_h(max_w(x)) on a
+// shared-memory strip (the wrapper's plan, ops/max_pool.py: plan, picks the
+// tile, and the entry point checks it):
+// - One block per (group of `ib` whole images, or a band of `rows` output
+//   rows of one image; chunk of `ccv` channel vectors of V channels), the
+//   chunk fastest in blockIdx.x so that the chunks of one pixel, whose
+//   writes may share a 32-byte sector (C = 528: a map row is 528 bytes),
+//   run side by side. Its thread of (channel vector, column, image) stages
+//   its own vector of the band's rows and of the rows above and below with
+//   cp.async (16 bytes where C and the pointers allow it; a 2-byte vector,
+//   bf16 and odd C, is below cp.async's smallest copy and is staged with a
+//   plain load) into a tile of (rows + 2) x (w + 2) pixels whose border
+//   outside the map holds -inf, so no tap needs a bound check. Neighbouring
+//   bands of one image are neighbouring blocks: a halo row read twice comes
+//   from L2.
+// - Each thread walks down its band: the 3-tap w-pass of each tile row is
+//   computed once (three shared-memory loads), and a window of three row
+//   results (best value, winning column) slides in registers; the h-pass
+//   over the window gives the output and the winner 3 * row + column. Each
+//   pass starts from its first tap (left column, row above) and takes the
+//   next two under v > best || v != v: over the -inf border that is
+//   exactly the plain version's 9-tap scan (first maximum in row-major
+//   order, the last NaN, a window whose real taps are all -inf keeping tap
+//   0 in the halo).
+// - A vector is worked on as 32-bit words, two bf16 lanes or one fp32 lane
+//   each: a compare gives a mask per lane (set.gt / set.neu on bf16x2),
+//   and a take is two bitwise selects, of the value's own bits (the output
+//   is the winner's bits, +-0 and NaN payloads as they came) and of its tap
+//   index in the same lanes. A bf16 never leaves its 16 bits. The output
+//   and, under autograd, one uint8 map byte per element are written once.
+// The design it replaces (one thread per (pixel, channel vector), nine tap
+// loads through L1/L2) took 2.442 ms with the map and 1.994 without per
+// b512 bf16 GoogLeNet step (9 launches) against bounds of 0.930 and 0.744
+// (NVIDIA H100 80GB HBM3, 700 W).
+//
+// Backward (one thread per (pixel, channel vector)): a gather, no atomics.
+// The thread of input position p reads the map of the up to 9 windows that
+// contain p (window (y - dy + 1, x - dx + 1) sees p as its tap (dy, dx))
+// and adds g where the map names that tap, in tap order, in fp32, and
+// rounds once. A window whose winner is tap 0 in the halo (every real tap
+// -inf) names no input position: its gradient is dropped, as on the TPU,
+// and nothing is read or written out of bounds. It loads the map nine
+// times through L1/L2.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "nhwc_vec.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;         // backward block
+constexpr int kFwdMaxThreads = 512;   // the forward plan's block, at most
+constexpr int kSmemOptIn = 232448;
 
-template <typename IO, int V, bool MAP>
-__global__ void __launch_bounds__(kThreads) max_pool_fwd_kernel(
-    const typename IO::S* __restrict__ x, typename IO::S* __restrict__ out,
-    uint8_t* __restrict__ idx, long long total, int h, int w, int c) {
-  using S = typename IO::S;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const Where p = decode<V>(i, h, w, c);
-  // the window's centre is element (p.pix, p.c0); tap (dy, dx) lies
-  // ((dy - 1) * w + dx - 1) pixels from it
-  const S* centre = x + p.pix * c + p.c0;
-  Pack<S, V> best;
-  Pack<uint8_t, V> win;
-  float bestf[V];
+// A vector of V elements is worked on as N 32-bit words: two bf16 lanes or
+// one fp32 lane each (a lone bf16 sits in the low lane beside a -inf).
+// Every compare yields a mask per lane, and a take is two bitwise selects:
+// the value's own bits and its tap index, kept in the same lanes.
+template <typename IO, int V>
+struct Lanes {
+  static constexpr int kBytes = V * static_cast<int>(sizeof(typename IO::S));
+  static constexpr int N = kBytes >= 4 ? kBytes / 4 : 1;
+  static constexpr uint32_t kOne = sizeof(typename IO::S) == 2 ? 0x00010001u : 1u;
+};
+
+// lanes where cur takes over best: cur > best, or cur is a NaN
+__device__ __forceinline__ uint32_t take_mask(BF16, uint32_t cur,
+                                              uint32_t best) {
+  uint32_t gt, nan;
+  asm("set.gt.u32.bf16x2 %0, %1, %2;\n" : "=r"(gt) : "r"(cur), "r"(best));
+  asm("set.neu.u32.bf16x2 %0, %1, %1;\n" : "=r"(nan) : "r"(cur));
+  return gt | nan;
+}
+
+__device__ __forceinline__ uint32_t take_mask(F32, uint32_t cur,
+                                              uint32_t best) {
+  const float c = __uint_as_float(cur), b = __uint_as_float(best);
+  return c > b || c != c ? 0xFFFFFFFFu : 0u;
+}
+
+// the best so far of a scan and the tap that gave it, lane by lane
+template <typename IO, int V>
+struct Best {
+  uint32_t val[Lanes<IO, V>::N], tap[Lanes<IO, V>::N];
+
+  __device__ __forceinline__ void start(const uint32_t (&v)[Lanes<IO, V>::N],
+                                        const uint32_t (&t)[Lanes<IO, V>::N]) {
 #pragma unroll
-  for (int v = 0; v < V; ++v) {
-    best.v[v] = IO::neg_inf();  // tap 0 in the halo: -inf, winner 0
-    bestf[v] = -INFINITY;
-    win.v[v] = 0;
-  }
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    const int iy = p.y + t / 3 - 1, ix = p.x + t % 3 - 1;
-    // a halo tap is -inf: it never beats the running best under a strict >
-    if (iy < 0 || iy >= h || ix < 0 || ix >= w) continue;
-    const Pack<S, V> cur =
-        load<S, V>(centre + (static_cast<long long>(t / 3 - 1) * w + t % 3 - 1) * c);
-#pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float f = IO::to_float(cur.v[v]);
-      if (f > bestf[v] || f != f) {  // first maximum wins; a NaN always wins
-        bestf[v] = f;
-        best.v[v] = cur.v[v];
-        win.v[v] = static_cast<uint8_t>(t);
-      }
+    for (int i = 0; i < Lanes<IO, V>::N; ++i) {
+      val[i] = v[i];
+      tap[i] = t[i];
     }
   }
-  store<S, V>(out + p.pix * c + p.c0, best);
-  if (MAP) store<uint8_t, V>(idx + p.pix * c + p.c0, win);
+  // the scan's next tap: v with tap index t (+ add in every lane)
+  __device__ __forceinline__ void take(const uint32_t (&v)[Lanes<IO, V>::N],
+                                       const uint32_t (&t)[Lanes<IO, V>::N],
+                                       uint32_t add) {
+#pragma unroll
+    for (int i = 0; i < Lanes<IO, V>::N; ++i) {
+      const uint32_t m = take_mask(IO{}, v[i], val[i]);
+      val[i] = (v[i] & m) | (val[i] & ~m);
+      tap[i] = ((t[i] + add) & m) | (tap[i] & ~m);
+    }
+  }
+};
+
+template <typename IO, int V>
+__device__ __forceinline__ void load_lanes(const typename IO::S* p,
+                                           uint32_t (&w)[Lanes<IO, V>::N]) {
+  using L = Lanes<IO, V>;
+  if constexpr (L::kBytes == 16) {
+    const uint4 q = *reinterpret_cast<const uint4*>(p);
+    w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
+  } else if constexpr (L::kBytes == 8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(p);
+    w[0] = q.x, w[1] = q.y;
+  } else if constexpr (L::kBytes == 4) {
+    w[0] = *reinterpret_cast<const uint32_t*>(p);
+  } else {  // one bf16; the high lane -inf never takes
+    w[0] = 0xFF800000u | *reinterpret_cast<const uint16_t*>(p);
+  }
+}
+
+template <typename IO, int V>
+__device__ __forceinline__ void store_lanes(typename IO::S* p,
+                                            const uint32_t (&w)[Lanes<IO, V>::N]) {
+  using L = Lanes<IO, V>;
+  if constexpr (L::kBytes == 16) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else if constexpr (L::kBytes == 8) {
+    *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+  } else if constexpr (L::kBytes == 4) {
+    *reinterpret_cast<uint32_t*>(p) = w[0];
+  } else {
+    *reinterpret_cast<uint16_t*>(p) = static_cast<uint16_t>(w[0]);
+  }
+}
+
+// the V tap indices (one per lane, each < 9) as V map bytes
+template <typename IO, int V>
+__device__ __forceinline__ void store_taps(uint8_t* p,
+                                           const uint32_t (&t)[Lanes<IO, V>::N]) {
+  if constexpr (sizeof(typename IO::S) == 2) {  // 16-bit lanes
+    if constexpr (V == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(__byte_perm(t[0], t[1], 0x6420),
+                                                __byte_perm(t[2], t[3], 0x6420));
+    } else if constexpr (V == 4) {
+      *reinterpret_cast<uint32_t*>(p) = __byte_perm(t[0], t[1], 0x6420);
+    } else if constexpr (V == 2) {
+      *reinterpret_cast<uint16_t*>(p) =
+          static_cast<uint16_t>(__byte_perm(t[0], 0, 0x0020));
+    } else {
+      *p = static_cast<uint8_t>(t[0]);
+    }
+  } else {  // 32-bit lanes
+    if constexpr (V == 4) {
+      *reinterpret_cast<uint32_t*>(p) =
+          __byte_perm(__byte_perm(t[0], t[1], 0x0040),
+                      __byte_perm(t[2], t[3], 0x0040), 0x5410);
+    } else if constexpr (V == 2) {
+      *reinterpret_cast<uint16_t*>(p) =
+          static_cast<uint16_t>(__byte_perm(t[0], t[1], 0x0040));
+    } else {
+      *p = static_cast<uint8_t>(t[0]);
+    }
+  }
+}
+
+// the w-pass of one tile row at a thread's column: taps at columns -1, 0,
+// +1 (the tile's pad columns hold -inf), started from the first
+template <typename IO, int V>
+__device__ __forceinline__ Best<IO, V> w_pass(const typename IO::S* at,
+                                              int pv) {
+  using L = Lanes<IO, V>;
+  uint32_t left[L::N], mid[L::N], right[L::N], zero[L::N];
+  load_lanes<IO, V>(at - pv, left);
+  load_lanes<IO, V>(at, mid);
+  load_lanes<IO, V>(at + pv, right);
+#pragma unroll
+  for (int i = 0; i < L::N; ++i) zero[i] = 0;
+  Best<IO, V> b;
+  b.start(left, zero);
+  b.take(mid, zero, L::kOne);
+  b.take(right, zero, 2 * L::kOne);
+  return b;
+}
+
+template <typename IO, int V, bool MAP>
+__global__ void __launch_bounds__(kFwdMaxThreads) max_pool_fwd_kernel(
+    const typename IO::S* __restrict__ x, typename IO::S* __restrict__ out,
+    uint8_t* __restrict__ idx, int n, int h, int w, int c, int ib, int rows,
+    int ccv) {
+  using S = typename IO::S;
+  using L = Lanes<IO, V>;
+  // block -> (image group, band, channel chunk), the chunk fastest: the
+  // chunks of one pixel run side by side, so writes that share a sector
+  // meet in L2
+  const int cvt = c / V;
+  const int chunks = (cvt + ccv - 1) / ccv;
+  const int bands = (h + rows - 1) / rows;
+  const int cv0 = (blockIdx.x % chunks) * ccv;
+  const int tile = blockIdx.x / chunks;
+  const int img0 = (tile / bands) * ib;
+  const int oy0 = (tile % bands) * rows;
+  const int pv = ccv * V;              // elements of one tile pixel
+  const int row_step = (w + 2) * pv;   // elements of one tile row
+  const int tr = rows + 2;             // tile rows of one image
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [image][tile row][column + 1][pv]: tile row r is input row oy0 - 1 + r,
+  // rows and columns outside the map hold -inf
+  S* ts = reinterpret_cast<S*>(smem_raw);
+
+  // thread -> (channel vector, column, image); it stages its own vector of
+  // every tile row, and the pad columns beside it at the map's edges
+  const int v = threadIdx.x % ccv;
+  const int col = (threadIdx.x / ccv) % w;
+  const int im = threadIdx.x / (ccv * w);
+  const int img = img0 + im, cv = cv0 + v;
+  const bool live = im < ib && img < n && cv < cvt;
+  S* mine = ts + ((size_t)im * tr * (w + 2) + col + 1) * pv + v * V;
+  const S* src = x + (((long long)img * h + oy0 - 1) * w + col) * c + cv * V;
+  if (live) {
+    Pack<S, V> neg;
+#pragma unroll
+    for (int e = 0; e < V; ++e) neg.v[e] = IO::neg_inf();
+    for (int r = 0; r < tr; ++r) {
+      S* dst = mine + (size_t)r * row_step;
+      const int iy = oy0 - 1 + r;
+      if (iy >= 0 && iy < h)
+        copy_async<V * sizeof(S)>(dst, src + (long long)r * w * c, true);
+      else
+        store<S, V>(dst, neg);
+      if (col == 0) store<S, V>(dst - pv, neg);
+      if (col == w - 1) store<S, V>(dst + pv, neg);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (!live) return;
+
+  // a window of three w-passes slides down the band; the h-pass over it
+  // starts from the row above and names tap 3 * row + column
+  Best<IO, V> above = w_pass<IO, V>(mine, pv);
+  Best<IO, V> here = w_pass<IO, V>(mine + row_step, pv);
+  const long long first = (((long long)img * h + oy0) * w + col) * c + cv * V;
+  const long long out_step = (long long)w * c;
+  const int count = oy0 + rows < h ? rows : h - oy0;
+  for (int k = 0; k < count; ++k) {
+    const Best<IO, V> below = w_pass<IO, V>(mine + (size_t)(k + 2) * row_step, pv);
+    Best<IO, V> b;
+    b.start(above.val, above.tap);
+    b.take(here.val, here.tap, 3 * L::kOne);
+    b.take(below.val, below.tap, 6 * L::kOne);
+    store_lanes<IO, V>(out + first + k * out_step, b.val);
+    if (MAP) store_taps<IO, V>(idx + first + k * out_step, b.tap);
+    above = here;
+    here = below;
+  }
 }
 
 template <typename IO, int V>
@@ -126,58 +324,91 @@ __global__ void __launch_bounds__(kThreads) max_pool_bwd_kernel(
   store<S, V>(gi + here, r);
 }
 
-// one call's arguments: `in` is x (forward) or g (backward), `out` is out or
-// gi; the forward writes `idx` unless it is null, the backward reads it
-struct Call {
-  const void* in;
-  void* idx;
-  void* out;
-  long long blocks, total;
-  int h, w, c;
-  cudaStream_t s;
-};
-
-template <typename IO, bool BWD, int V>
-int launch(const Call& a) {
+template <typename IO, int V, bool MAP>
+int launch_fwd(const void* x, void* out, void* idx, int n, int h, int w,
+               int c, int ib, int rows, int ccv, int smem,
+               cudaStream_t s) {
   using S = typename IO::S;
-  if (!aligned(a.in, V * sizeof(S)) || !aligned(a.out, V * sizeof(S)) ||
-      (a.idx != nullptr && !aligned(a.idx, V)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const unsigned blocks = static_cast<unsigned>(a.blocks);
-  const S* in = static_cast<const S*>(a.in);
-  S* out = static_cast<S*>(a.out);
-  uint8_t* idx = static_cast<uint8_t*>(a.idx);
-  if (BWD) {
-    if (idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    max_pool_bwd_kernel<IO, V><<<blocks, kThreads, 0, a.s>>>(
-        in, idx, out, a.total, a.h, a.w, a.c);
-  } else if (idx != nullptr) {
-    max_pool_fwd_kernel<IO, V, true><<<blocks, kThreads, 0, a.s>>>(
-        in, out, idx, a.total, a.h, a.w, a.c);
-  } else {
-    max_pool_fwd_kernel<IO, V, false><<<blocks, kThreads, 0, a.s>>>(
-        in, out, nullptr, a.total, a.h, a.w, a.c);
-  }
+  // set once per instantiation (thread-safe static init; one device per
+  // process); each launch asks only for its own plan's bytes
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      max_pool_fwd_kernel<IO, V, MAP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const long long blocks = (long long)((n + ib - 1) / ib) *
+                           ((h + rows - 1) / rows) * ((c / V + ccv - 1) / ccv);
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  max_pool_fwd_kernel<IO, V, MAP>
+      <<<(unsigned)blocks, ib * w * ccv, smem, s>>>(
+          static_cast<const S*>(x), static_cast<S*>(out),
+          static_cast<uint8_t*>(idx), n, h, w, c, ib, rows, ccv);
   return static_cast<int>(cudaGetLastError());
 }
 
-// vec = channels per thread: c % vec == 0 and every pointer aligned to vec
-// elements (the wrapper picks the widest, up to 16 bytes)
-template <typename IO, bool BWD>
-int dispatch(const void* in, const void* idx, void* out, int n, int h, int w,
-             int c, int vec, void* stream) {
-  Call a{in, const_cast<void*>(idx), out, 0, 0, h, w, c,
-         static_cast<cudaStream_t>(stream)};
-  a.blocks = blocks_for(n, h, w, c, vec, kThreads, &a.total);
-  if (a.blocks == 0) return static_cast<int>(cudaErrorInvalidValue);
-  switch (vec * static_cast<int>(sizeof(typename IO::S))) {
-    case 16: return launch<IO, BWD, 16 / sizeof(typename IO::S)>(a);
-    case 8: return launch<IO, BWD, 8 / sizeof(typename IO::S)>(a);
-    case 4: return launch<IO, BWD, 4 / sizeof(typename IO::S)>(a);
+// f(std::integral_constant<int, V>) for the vector of vec elements: 16, 8,
+// 4 or 2 bytes
+template <typename IO, typename F>
+int with_vec(int vec, F&& f) {
+  using S = typename IO::S;
+  switch (vec * static_cast<int>(sizeof(S))) {
+    case 16: return f(std::integral_constant<int, 16 / sizeof(S)>{});
+    case 8: return f(std::integral_constant<int, 8 / sizeof(S)>{});
+    case 4: return f(std::integral_constant<int, 4 / sizeof(S)>{});
     case 2:
-      if constexpr (sizeof(typename IO::S) == 2) return launch<IO, BWD, 1>(a);
+      if constexpr (sizeof(S) == 2) return f(std::integral_constant<int, 1>{});
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// vec = channels per thread: c % vec == 0 and every pointer aligned to vec
+// elements (the wrapper picks the widest, up to 16 bytes); (ib, rows, ccv,
+// smem) is the wrapper's plan, checked here
+template <typename IO>
+int forward(const void* x, void* out, void* idx, int n, int h, int w, int c,
+            int vec, int ib, int rows, int ccv, int smem,
+            void* stream) {
+  using S = typename IO::S;
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || vec <= 0 || c % vec ||
+      ib <= 0 || rows <= 0 || rows > h || (ib > 1 && rows != h) ||
+      ccv <= 0 ||
+      ccv > c / vec || (long long)ib * w * ccv > kFwdMaxThreads ||
+      smem > kSmemOptIn ||
+      smem != (long long)ib * (rows + 2) * (w + 2) * ccv * vec * (int)sizeof(S))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned(x, vec * sizeof(S)) || !aligned(out, vec * sizeof(S)) ||
+      (idx != nullptr && !aligned(idx, vec)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_vec<IO>(vec, [&](auto vc) {
+    constexpr int V = decltype(vc)::value;
+    return idx != nullptr
+        ? launch_fwd<IO, V, true>(x, out, idx, n, h, w, c, ib, rows,
+                                  ccv, smem, s)
+        : launch_fwd<IO, V, false>(x, out, nullptr, n, h, w, c, ib, rows,
+                                   ccv, smem, s);
+  });
+}
+
+template <typename IO>
+int backward(const void* g, const void* idx, void* gi, int n, int h, int w,
+             int c, int vec, void* stream) {
+  using S = typename IO::S;
+  long long total = 0;
+  const long long blocks = blocks_for(n, h, w, c, vec, kThreads, &total);
+  if (blocks == 0 || idx == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned(g, vec * sizeof(S)) || !aligned(gi, vec * sizeof(S)) ||
+      !aligned(idx, vec))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  return with_vec<IO>(vec, [&](auto vc) {
+    constexpr int V = decltype(vc)::value;
+    max_pool_bwd_kernel<IO, V>
+        <<<static_cast<unsigned>(blocks), kThreads, 0,
+           static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const S*>(g), static_cast<const uint8_t*>(idx),
+            static_cast<S*>(gi), total, h, w, c);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 }  // namespace
@@ -185,26 +416,30 @@ int dispatch(const void* in, const void* idx, void* out, int n, int h, int w,
 // x (n, h, w, c) -> out (n, h, w, c) and, when idx is not null, the uint8
 // winner map idx (n, h, w, c).
 extern "C" int max_pool3x3_fwd_bf16(const void* x, void* out, void* idx, int n,
-                                    int h, int w, int c, int vec,
+                                    int h, int w, int c, int vec, int ib,
+                                    int rows, int ccv, int smem,
                                     void* stream) {
-  return dispatch<BF16, false>(x, idx, out, n, h, w, c, vec, stream);
+  return forward<BF16>(x, out, idx, n, h, w, c, vec, ib, rows, ccv,
+                       smem, stream);
 }
 
 extern "C" int max_pool3x3_fwd_f32(const void* x, void* out, void* idx, int n,
-                                   int h, int w, int c, int vec,
+                                   int h, int w, int c, int vec, int ib,
+                                   int rows, int ccv, int smem,
                                    void* stream) {
-  return dispatch<F32, false>(x, idx, out, n, h, w, c, vec, stream);
+  return forward<F32>(x, out, idx, n, h, w, c, vec, ib, rows, ccv,
+                      smem, stream);
 }
 
 // g, idx (n, h, w, c) -> gi (n, h, w, c): each window's g to its winner.
 extern "C" int max_pool3x3_bwd_bf16(const void* g, const void* idx, void* gi,
                                     int n, int h, int w, int c, int vec,
                                     void* stream) {
-  return dispatch<BF16, true>(g, idx, gi, n, h, w, c, vec, stream);
+  return backward<BF16>(g, idx, gi, n, h, w, c, vec, stream);
 }
 
 extern "C" int max_pool3x3_bwd_f32(const void* g, const void* idx, void* gi,
                                    int n, int h, int w, int c, int vec,
                                    void* stream) {
-  return dispatch<F32, true>(g, idx, gi, n, h, w, c, vec, stream);
+  return backward<F32>(g, idx, gi, n, h, w, c, vec, stream);
 }

@@ -1,7 +1,8 @@
 // Helpers shared by the NHWC stencil kernels (max_pool.cu,
 // depthwise_stencil.cu): element types by their storage, naturally aligned
-// vector loads and stores of V channels, and the thread -> (pixel, channel
-// vector) decode of a one-thread-per-(pixel, vector) grid.
+// vector loads and stores of V channels, their copies into a shared-memory
+// tile, and the thread -> (pixel, channel vector) decode of a
+// one-thread-per-(pixel, vector) grid.
 
 #pragma once
 
@@ -61,6 +62,25 @@ __device__ __forceinline__ Pack<S, V> load(const S* p) {
 template <typename S, int V>
 __device__ __forceinline__ void store(S* p, const Pack<S, V>& r) {
   *reinterpret_cast<typename Raw<V * sizeof(S)>::type*>(p) = r.raw;
+}
+
+// BYTES global -> shared, zero-filled when !ok (src is then not read)
+template <int BYTES>
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           bool ok) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  } else if constexpr (BYTES == 8 || BYTES == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+                 "l"(src), "n"(BYTES), "r"(ok ? BYTES : 0)
+                 : "memory");
+  } else {
+    using R = typename Raw<BYTES>::type;
+    *static_cast<R*>(dst) = ok ? *static_cast<const R*>(src) : R(0);
+  }
 }
 
 // thread i -> (global pixel index, y, x, first channel of its vector)

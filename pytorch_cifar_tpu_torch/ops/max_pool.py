@@ -26,6 +26,13 @@ tap 0, while ``nn.max_pool``, which the JAX GoogLeNet runs, propagates it;
 a pool that swallowed NaNs would hide a diverged step from the train
 step's ``nonfinite`` metric. Kernel and plain version share the rule.
 
+:func:`plan` picks the forward kernel's tile from the shape and the vector
+width: a block stages a band of ``rows`` output rows (or ``ib`` whole
+images) of a chunk of ``ccv`` channel vectors in shared memory, with a
+one-pixel ``-inf`` border (the halo rows inside the map are the input's),
+and its threads each own a (column, channel vector) and walk down the band
+with the separable ``max_h(max_w(x))``. The kernel checks the plan again.
+
 :func:`max_pool3x3_s1` launches the CUDA kernels (``csrc/max_pool.cu``)
 for a CUDA tensor and raises on anything they cannot take; a CPU tensor
 runs :func:`max_pool3x3_s1_reference` and
@@ -36,6 +43,7 @@ the other. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
 from __future__ import annotations
 
 import threading
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
@@ -49,6 +57,63 @@ BWD_LAUNCHES = 0  # backward launches, counted apart
 _launch_lock = threading.Lock()
 
 _PAD = (0, 0, 1, 1, 1, 1)  # F.pad of (n, h, w, c): one pixel around h and w
+
+# the forward kernel's constants, as in csrc/max_pool.cu
+THREADS = 256  # threads of a block the plan aims for
+MAX_THREADS = 512  # threads of a block, at most
+CHUNK_BYTES = 128  # channel bytes of one tile pixel, at most
+BLOCKS_PER_SM = 4  # blocks of a full tile that share one SM's 228 KB
+TILE_BYTES = 48 * 1024  # shared memory of one block's tile, at most
+SMEM_OPT_IN = 232_448  # the most shared memory one block may have (227 KB)
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One forward launch's tile: ``ib`` whole images, or (``ib`` = 1) a
+    band of ``rows`` output rows, of a chunk of ``ccv`` channel vectors,
+    staged as ``(rows + 2) x (w + 2)`` pixels an image; ``threads`` threads
+    and ``smem`` bytes of shared memory a block."""
+
+    ib: int
+    rows: int
+    ccv: int
+    threads: int
+    smem: int
+
+
+def plan(h: int, w: int, c: int, elem: int, vec: int, *,
+         threads: int = THREADS, tile_bytes: int = TILE_BYTES) -> Plan:
+    """The forward kernel's tile for an (h, w, c) map of ``elem``-byte
+    elements moved ``vec`` at a time; raises on a shape it cannot take.
+    The keywords exist for ``tools/pool_bench.py --sweep``; the wrapper
+    takes the defaults."""
+    if min(h, w, c, vec) <= 0 or c % vec:
+        raise ValueError(f"max_pool3x3_s1: h {h}, w {w}, c {c}, vec {vec}")
+    if w > MAX_THREADS:
+        raise ValueError(f"max_pool3x3_s1 takes maps up to {MAX_THREADS} "
+                         f"wide, got {w}")
+    cvt = c // vec
+    cap = min(max(1, CHUNK_BYTES // (vec * elem)), MAX_THREADS // w)
+    fewest = -(-cvt // cap)
+    # equal chunks that tile C where a count up to twice the fewest does,
+    # else equal widths with the last no wider
+    chunks = next((k for k in range(fewest, 2 * fewest + 1) if cvt % k == 0),
+                  fewest)
+    ccv = -(-cvt // chunks)
+    row_bytes = (w + 2) * ccv * vec * elem  # one tile row of the chunk
+    ib = max(1, min(threads, MAX_THREADS) // (w * ccv))
+    while ib > 1 and ib * (h + 2) * row_bytes > tile_bytes:
+        ib -= 1
+    if ib > 1:  # whole images, as many as fit
+        rows = h
+    else:  # bands of equal height whose rows and border fit the tile
+        fit = max(1, min(h, tile_bytes // row_bytes - 2))
+        rows = -(-h // -(-h // fit))
+    smem = ib * (rows + 2) * row_bytes
+    if smem > SMEM_OPT_IN:
+        raise ValueError(f"max_pool3x3_s1: {smem} bytes of shared memory at "
+                         f"{(h, w, c)}")
+    return Plan(ib, rows, ccv, ib * w * ccv, smem)
 
 
 def max_pool3x3_s1_reference(
@@ -122,7 +187,6 @@ def _forward(
     if x.device.type == "cpu":
         return max_pool3x3_s1_reference(x, with_index)
     fn = _entry(x, "fwd")
-    n, h, w, c = x.shape
     out = torch.empty_like(x)
     idx = (
         torch.empty(x.shape, dtype=torch.uint8, device=x.device)
@@ -130,12 +194,7 @@ def _forward(
     )
     if x.numel() == 0:  # nothing to pool: no launch, none counted
         return out, idx
-    tensors = (x, out) if idx is None else (x, out, idx)
-    err = fn(
-        x.data_ptr(), out.data_ptr(), None if idx is None else idx.data_ptr(),
-        n, h, w, c, _build.vector_width(c, *tensors),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    err = _launch_fwd(fn, x, out, idx)
     if err != 0:
         raise RuntimeError(
             f"max_pool3x3_s1 forward launch failed with cudaError {err} at "
@@ -144,6 +203,21 @@ def _forward(
     with _launch_lock:
         FWD_LAUNCHES += 1
     return out, idx
+
+
+def _launch_fwd(fn, x: torch.Tensor, out: torch.Tensor,
+                idx: Optional[torch.Tensor], tile: Optional[Plan] = None) -> int:
+    """One forward launch into ``out`` (and ``idx``) at ``tile``, else at
+    its plan; returns the cudaError."""
+    n, h, w, c = x.shape
+    tensors = (x, out) if idx is None else (x, out, idx)
+    vec = _build.vector_width(c, *tensors)
+    p = tile or plan(h, w, c, x.element_size(), vec)
+    return fn(
+        x.data_ptr(), out.data_ptr(), None if idx is None else idx.data_ptr(),
+        n, h, w, c, vec, p.ib, p.rows, p.ccv, p.smem,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
 
 
 def _backward(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

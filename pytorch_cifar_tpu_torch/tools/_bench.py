@@ -70,6 +70,12 @@ RESNET18_SITES = [
     ("layer4.1.conv1", 4, 4, 512, 512, 1),
 ]
 
+# GoogLeNet's 3x3 / stride 1 pool inputs at batch 512: (h, w, c, pools per
+# forward), and a shape that takes the narrow-vector path
+POOL_SHAPES = [(32, 32, 192, 1), (32, 32, 256, 1), (16, 16, 480, 1),
+               (16, 16, 512, 3), (16, 16, 528, 1), (8, 8, 832, 2)]
+POOL_ODD = (3, 5, 5, 130)
+
 # the depthwise stencil's shapes: MobileNet's five stride-1 depthwise sites
 # at bucket 128 (k = 3), PNASNet's 5x5 and 7x7 at (512, 32, 32, 44), and a
 # narrow-vector shape: (n, h, w, c, k, launches per MobileNet forward)

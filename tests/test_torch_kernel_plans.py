@@ -259,7 +259,8 @@ def test_stencil_refuses_what_it_cannot_take():
         D.plan(4, 4, 6, 3, 4, 4)  # c not a multiple of vec
 
 
-@pytest.mark.parametrize("name", ["conv_bn_relu", "depthwise_stencil"])
+@pytest.mark.parametrize("name", ["conv_bn_relu", "depthwise_stencil",
+                                  "dma_gather", "max_pool"])
 def test_entry_points_match_the_sources(name):
     """Each C entry point takes as many arguments as ``ENTRY_POINTS``
     declares for it, so ctypes passes every plan field."""
