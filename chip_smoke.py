@@ -35,8 +35,9 @@ Then the training slice and its two kernels:
 
 5. gather: ``dma_row_gather`` (K1) against its plain version, bit for bit,
    on the epoch gather of the main path (50,176 int32 indices over
-   ``(50000, 32, 32, 3)`` uint8, the bulk-copy ring), on float32 rows of
-   252 bytes and on a uint8 base 1 byte off alignment (the byte path);
+   ``(50000, 32, 32, 3)`` uint8, the 16-byte path), on float32 rows of
+   12,288 bytes (the 16-byte path at four times the row), on float32 rows
+   of 252 bytes and on a uint8 base 1 byte off alignment (the byte path);
    times of the kernel, the plain version, ``index_select`` and a
    contiguous ``copy_`` of the same bytes (the card's practical ceiling
    for this work, a yardstick only), and the bound;
@@ -409,10 +410,18 @@ def phase_gather(G, peaks, fails: Failures) -> dict:
     fails.check(ok and G.vector_path(images, out),
                 "K1: epoch gather differs from the plain version (or did "
                 "not take the 16-byte path)")
-    # byte path: 252-byte float32 rows, and a base 1 byte off alignment
-    rows = torch.randn(1000, 7, 9, generator=g).cuda()
+    # 16-byte path at another row size: 12,288-byte float32 rows
+    wide = torch.randn(1000, 32, 32, 3, generator=g).cuda()
     ridx = torch.randint(0, 1000, (3000,), generator=g,
                          dtype=torch.int32).cuda()
+    got = G.dma_row_gather(wide, ridx)
+    torch.cuda.synchronize()
+    fails.check(G.vector_path(wide, got)
+                and torch.equal(got, G.dma_row_gather_reference(wide, ridx)),
+                "K1 12,288-byte rows: differ from the plain version (or did "
+                "not take the 16-byte path)")
+    # byte path: 252-byte float32 rows, and a base 1 byte off alignment
+    rows = torch.randn(1000, 7, 9, generator=g).cuda()
     off = torch.empty(64 * 3072 + 1, dtype=torch.uint8, device="cuda")[1:]
     off = off.view(64, 32, 32, 3)
     off.copy_(images[:64])
@@ -1122,10 +1131,11 @@ def main() -> int:
         "launches": tr["k1_launches"],
         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "copy_ms")},
-        "redesigned": "a ring of cp.async.bulk row copies in shared memory, "
-                      "one bulk store per group of slots; the design it "
-                      "replaced (one warp per row through registers) is not "
-                      "in the tree: PERF.md section 6 keeps its time",
+        "redesigned": "one row per warp, each lane's loads of a row issued "
+                      "before its stores; the design it replaced (a capped "
+                      "grid, each load stored at once) and a cp.async.bulk "
+                      "ring tried in its place are not in the tree: PERF.md "
+                      "section 6 keeps their times",
     }]
     # K2 over one bf16 ResNet-18 forward: its 20 launches at their shapes
     m16 = [r for r in k2 if r["dtype"] == "bf16"]

@@ -40,12 +40,8 @@ ENTRY_POINTS: Dict[str, Dict[str, list]] = {
         "conv3x3_bn_relu_f32": [_P] * 5 + [_I] * 5 + [_P],
         "conv3x3_bn_relu_bf16_wgmma": [_P] * 5 + [_I] * 10 + [_P],
     },
-    # (images, idx, out, n, m, row_bytes, stream); the ring also takes its
-    # plan (piece, pieces, blocks, steps, slots, group, smem)
-    "dma_gather": {
-        "dma_row_gather_ring": [_P, _P, _P, _L, _L, _L] + [_I] * 7 + [_P],
-        "dma_row_gather_bytes": [_P, _P, _P, _L, _L, _L, _P],
-    },
+    # (images, idx, out, n, m, row_bytes, vec, stream)
+    "dma_gather": {"dma_row_gather": [_P, _P, _P, _L, _L, _L, _I, _P]},
     # (x, partial, out, rows, c, vec, stream); plan: (rows, c, vec,
     # elem_bytes, *rows_per_block, *chunks)
     "bn_stats": {

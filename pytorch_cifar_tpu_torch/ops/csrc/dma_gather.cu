@@ -10,242 +10,87 @@
 // read once and written once, plus 4 B of index: (2 * M * row_bytes +
 // 4 * M) / 3.35e12 s, 0.092 ms for the 50,176-row CIFAR epoch at batch 512.
 // A gather has no reuse, so the design's whole job is to keep enough bytes
-// in flight with as few instructions as possible.
+// in flight with few instructions.
 //
-// Design, the 16-byte path (rows whose byte size and both base pointers are
-// multiples of 16; the wrapper decides from data_ptr()): the TPU kernel's
-// DMA ring, on Hopper's bulk-copy engine. The wrapper's plan
-// (ops/dma_gather.py: plan) picks the ring, and the entry point checks it.
-// - Work is cut into items: one item is one piece of one row, and a row of
-//   at most 3,072 bytes is one piece (longer rows split into equal pieces
-//   that are multiples of 16 bytes). Consecutive items are consecutive
-//   bytes of `out`.
-// - Groups of `group` consecutive items are dealt round-robin to a
-//   persistent grid of one-warp blocks, a few an SM: block b takes groups
-//   b, b + blocks, ..., so the blocks' stores stay close together in `out`.
-//   The warp first stages the source row of each of its items, each index
-//   clamped into [0, N), in shared memory: the counterpart of the TPU
-//   kernel's scalar prefetch. No launch reads out of bounds (out-of-range
-//   indices are not relied on, as in JAX).
-// - Lane 0 then drives a ring of `slots` item slots in shared memory, a
-//   group to `group` consecutive slots. Each item is one
-//   cp.async.bulk global -> shared copy that completes on its slot's
-//   mbarrier (transaction bytes = the piece's bytes; a slot's k-th use
-//   waits on parity k & 1). When a group's items have landed, ONE
-//   cp.async.bulk shared -> global store writes the group, since its slots
-//   are contiguous in shared memory and its items in `out`. A group's slots
-//   are refilled one group later, after cp.async.bulk.wait_group.read
-//   shows that the group's store has read them; slots / group - 1 groups of
-//   loads stay in flight meanwhile.
-// - Loads and stores carry an L2 evict-first policy: no byte is touched
-//   twice, so none should displace a line that is still to be written.
-// - No thread moves a byte of a row through its registers.
-// The design it replaces (one warp per row, 16-byte loads and stores
-// through registers) took 0.1099 ms against index_select's 0.1080 (NVIDIA
-// H100 80GB HBM3, 700 W).
-//
-// The byte path (rows that fail the 16-byte condition, which the bulk
-// engine cannot copy): one warp per row, byte loads and stores.
+// Design:
+// - One warp per output row, and one row per warp: a grid of M / 8 blocks
+//   of 8 warps, so the block scheduler hands out rows as warps finish (the
+//   loop strides only where M outgrows the grid). Lane 0 reads the row's
+//   index once and broadcasts it with a shuffle; the index is clamped to
+//   [0, N), so no launch reads out of bounds (out-of-range indices are not
+//   relied on, as in JAX).
+// - The 32 lanes copy the row with 16-byte (uint4) loads and stores when
+//   the row's byte size and both base pointers are 16-byte aligned (the
+//   wrapper decides from data_ptr()), and byte by byte otherwise. Each lane
+//   issues all its loads of a 256-unit span (up to 8) before its first
+//   store: a 3,072 B CIFAR row is 192 uint4, the whole row in flight at
+//   once, and a warp's loads cover whole 128 B lines.
+// - The TPU kernel's ring of DMAs and its semaphores answered the TPU's
+//   per-descriptor latency; on Hopper the warps resident on the 132 SMs keep
+//   enough loads in flight by themselves. Its direct counterpart, a ring of
+//   cp.async.bulk row copies through shared memory, was built and measured
+//   slower than this design: 0.1114 ms against 0.1072 for the epoch gather
+//   (NVIDIA H100 80GB HBM3, 700 W).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kRingThreads = 32;  // one warp: stages the rows, lane 0 drives
-constexpr int kMaxPiece = 3072;   // bytes of one slot, at most
-constexpr int kSmemOptIn = 232448;
-constexpr int kByteThreads = 256;  // byte path: 8 warps, one row each
-constexpr long long kByteMaxBlocks = 132 * 16;
+constexpr int kThreads = 256;  // 8 warps, one row each
+constexpr int kPerLane = 8;    // units a lane loads before it stores
+constexpr long long kMaxBlocks = 2147483647;
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// an L2 policy that evicts these lines first: every byte is touched once
-__device__ __forceinline__ uint64_t evict_first() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar,
-                                          uint64_t policy) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar), "r"(bytes)
-               : "memory");
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar), "l"(policy)
-      : "memory");
-}
-
-__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
-                                           uint32_t bytes, uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint"
-      " [%0], [%1], %2, %3;\n" ::"l"(dst),
-      "r"(src), "r"(bytes), "l"(policy)
-      : "memory");
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-}
-
-// shared-memory bytes of one ring block: the slots, their mbarriers and the
-// source row of each of its (at most steps * group) items
-inline long long ring_smem(int piece, int slots, int steps, int group) {
-  return (long long)slots * piece + 8LL * slots + 8LL * steps * group;
-}
-
-__global__ void __launch_bounds__(kRingThreads) ring_gather_kernel(
-    const unsigned char* __restrict__ src, const int32_t* __restrict__ idx,
-    unsigned char* __restrict__ dst, long long n, long long m,
-    long long row_bytes, int piece, int pieces, int slots, int group) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ring = smem;
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + (size_t)slots * piece);
-  long long* rows = reinterpret_cast<long long*>(bars + slots);
-
-  // the block's groups are j * gridDim.x + blockIdx.x, j = 0, 1, ...
-  const long long items = m * pieces;
-  const long long ngroups = (items + group - 1) / group;
-  const int blocks = gridDim.x;
-  const int mine = static_cast<int>((ngroups - 1 - blockIdx.x) / blocks + 1);
-  auto first_item = [&](int j) {
-    return ((long long)j * blocks + blockIdx.x) * group;
-  };
-  auto valid = [&](int j) {  // items of group j (the last may be short)
-    const long long left = items - first_item(j);
-    return left < group ? static_cast<int>(left) : group;
-  };
-  for (int k = threadIdx.x; k < mine * group; k += kRingThreads) {
-    const long long it = first_item(k / group) + k % group;
-    long long s = it < items ? idx[it / pieces] : 0;
-    rows[k] = s < 0 ? 0 : (s >= n ? n - 1 : s);
-  }
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < slots; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                       smem_addr(bars + s))
-                   : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncwarp();
-  if (threadIdx.x != 0) return;
-
-  // block-local item k = j * group + i goes to slot k % slots; a slot's
-  // u-th use completes phase u of its mbarrier
-  const uint32_t ring_s = smem_addr(ring), bar_s = smem_addr(bars);
-  const uint64_t policy = evict_first();
-  auto load_group = [&](int j) {
-    for (int i = 0, nv = valid(j); i < nv; ++i) {
-      const int k = j * group + i, slot = k % slots;
-      const long long it = first_item(j) + i;
-      bulk_load(ring_s + (uint32_t)(slot * piece),
-                src + rows[k] * row_bytes + (it % pieces) * piece,
-                (uint32_t)piece, bar_s + 8u * slot, policy);
-    }
-  };
-  const int rounds = slots / group;  // groups the ring holds
-  for (int j = 0; j < mine && j < rounds; ++j) load_group(j);
-  for (int j = 0; j < mine; ++j) {
-    const int nv = valid(j);
-    for (int i = 0; i < nv; ++i) {
-      const int k = j * group + i;
-      wait_parity(bar_s + 8u * (k % slots), (uint32_t)((k / slots) & 1));
-    }
-    // the group's items are consecutive in `out` and its slots in the ring
-    bulk_store(dst + first_item(j) * piece,
-               ring_s + (uint32_t)((j * group % slots) * piece),
-               (uint32_t)(nv * piece), policy);
-    if (j >= 1) {
-      // the previous group's store has read its slots: refill them
-      asm volatile("cp.async.bulk.wait_group.read 1;\n" ::: "memory");
-      if (j - 1 + rounds < mine) load_group(j - 1 + rounds);
-    }
-  }
-  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
-}
-
-__global__ void __launch_bounds__(kByteThreads) byte_gather_kernel(
-    const unsigned char* __restrict__ src, const int32_t* __restrict__ idx,
-    unsigned char* __restrict__ dst, long long n, long long m,
-    long long row_bytes) {
+template <typename U>
+__global__ void __launch_bounds__(kThreads) gather_rows_kernel(
+    const U* __restrict__ src, const int32_t* __restrict__ idx,
+    U* __restrict__ dst, long long n, long long m, long long row_units) {
   const int lane = threadIdx.x & 31;
-  const long long warps = (long long)gridDim.x * (kByteThreads / 32);
-  for (long long r = (long long)blockIdx.x * (kByteThreads / 32) +
-                     threadIdx.x / 32;
+  const long long warps = (long long)gridDim.x * (kThreads / 32);
+  for (long long r = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
        r < m; r += warps) {
     long long s = 0;
     if (lane == 0) s = idx[r];
     s = __shfl_sync(0xffffffffu, s, 0);
     s = s < 0 ? 0 : (s >= n ? n - 1 : s);
-    const unsigned char* in = src + s * row_bytes;
-    unsigned char* out = dst + r * row_bytes;
-#pragma unroll 4
-    for (long long u = lane; u < row_bytes; u += 32) out[u] = in[u];
+    const U* in = src + s * row_units;
+    U* out = dst + r * row_units;
+    for (long long u0 = lane; u0 < row_units; u0 += 32 * kPerLane) {
+      U v[kPerLane];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        if (u0 + 32 * k < row_units) v[k] = in[u0 + 32 * k];
+#pragma unroll
+      for (int k = 0; k < kPerLane; ++k)
+        if (u0 + 32 * k < row_units) out[u0 + 32 * k] = v[k];
+    }
   }
 }
 
 }  // namespace
 
-// images (n, row_bytes) -> out (m, row_bytes) by idx (m,) int32, through
-// the bulk-copy ring: row_bytes, images and out multiples of 16; (piece,
-// pieces, blocks, steps, slots, group, smem) is the wrapper's plan, checked
-// here.
-extern "C" int dma_row_gather_ring(const void* images, const int32_t* idx,
-                                   void* out, long long n, long long m,
-                                   long long row_bytes, int piece, int pieces,
-                                   int blocks, int steps, int slots, int group,
-                                   int smem, void* stream) {
-  if (n <= 0 || m <= 0 || row_bytes <= 0 || piece <= 0 || pieces <= 0 ||
-      piece % 16 != 0 || piece > kMaxPiece ||
-      (long long)piece * pieces != row_bytes || blocks <= 0 || steps <= 0 ||
-      group <= 0 || slots % group != 0 || slots / group < 2)
-    return (int)cudaErrorInvalidValue;
-  const long long ngroups = (m * pieces + group - 1) / group;
-  if (blocks > ngroups || (long long)blocks * steps < ngroups ||
-      smem > kSmemOptIn || smem != ring_smem(piece, slots, steps, group))
-    return (int)cudaErrorInvalidValue;
-  if ((uintptr_t)images % 16 != 0 || (uintptr_t)out % 16 != 0)
+// images (n, row_bytes) -> out (m, row_bytes) by idx (m,) int32; vec != 0
+// takes the 16-byte path (row_bytes % 16 == 0, both pointers 16-aligned).
+extern "C" int dma_row_gather(const void* images, const int32_t* idx,
+                              void* out, long long n, long long m,
+                              long long row_bytes, int vec, void* stream) {
+  if (n <= 0 || m < 0 || row_bytes <= 0) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaSuccess;
+  if (vec && (row_bytes % 16 != 0 || (uintptr_t)images % 16 != 0 ||
+              (uintptr_t)out % 16 != 0))
     return (int)cudaErrorMisalignedAddress;
-  // set once (thread-safe static init; one device per process); each launch
-  // asks only for its own plan's bytes
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      ring_gather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemOptIn);
-  if (attr != cudaSuccess) return (int)attr;
-  ring_gather_kernel<<<blocks, kRingThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const unsigned char*>(images), idx,
-      static_cast<unsigned char*>(out), n, m, row_bytes, piece, pieces, slots,
-      group);
-  return (int)cudaGetLastError();
-}
-
-// The same gather for rows of any byte size and alignment, byte by byte.
-extern "C" int dma_row_gather_bytes(const void* images, const int32_t* idx,
-                                    void* out, long long n, long long m,
-                                    long long row_bytes, void* stream) {
-  if (n <= 0 || m <= 0 || row_bytes <= 0) return (int)cudaErrorInvalidValue;
-  long long blocks = (m + kByteThreads / 32 - 1) / (kByteThreads / 32);
-  if (blocks > kByteMaxBlocks) blocks = kByteMaxBlocks;
-  byte_gather_kernel<<<(int)blocks, kByteThreads, 0, (cudaStream_t)stream>>>(
-      static_cast<const unsigned char*>(images), idx,
-      static_cast<unsigned char*>(out), n, m, row_bytes);
+  const long long rows_per_block = kThreads / 32;
+  long long blocks = (m + rows_per_block - 1) / rows_per_block;
+  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec) {
+    gather_rows_kernel<uint4><<<(int)blocks, kThreads, 0, s>>>(
+        static_cast<const uint4*>(images), idx, static_cast<uint4*>(out), n,
+        m, row_bytes / 16);
+  } else {
+    gather_rows_kernel<unsigned char><<<(int)blocks, kThreads, 0, s>>>(
+        static_cast<const unsigned char*>(images), idx,
+        static_cast<unsigned char*>(out), n, m, row_bytes);
+  }
   return (int)cudaGetLastError();
 }

@@ -8,15 +8,6 @@ for in-range ``idx``, with rows moved as raw bytes, so any dtype and any
 trailing shape gathers alike. The JAX kernel's ``(k*8, 128)`` row-tiling
 precondition is a TPU layout constraint and has no counterpart here.
 
-Rows whose byte size and both base addresses are multiples of 16 (the
-16-byte path, :func:`vector_path`) go through a ring of bulk copies in
-shared memory; :func:`plan` picks the ring from the shape alone: rows cut
-into equal pieces of at most :data:`MAX_PIECE` bytes (items), groups of
-``group`` consecutive items dealt round-robin to a persistent grid of
-:data:`BLOCKS_PER_SM` one-warp blocks an SM (at most ``steps`` groups a
-block), each block's ``slots`` slots stored a group at a time. The kernel
-checks the plan again. Other rows take the kernel's byte path.
-
 :func:`dma_row_gather` launches the CUDA kernel (``csrc/dma_gather.cu``)
 for a CUDA tensor and raises on anything it cannot take; a CPU tensor runs
 :func:`dma_row_gather_reference`. There is no fallback from one to the
@@ -26,64 +17,11 @@ other. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import threading
-from dataclasses import dataclass
 
 import torch
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 _launch_lock = threading.Lock()
-
-# the ring's constants, as in csrc/dma_gather.cu
-SMS = 132  # streaming multiprocessors of an H100 SXM
-BLOCKS_PER_SM = 4  # ring blocks resident on one SM
-SLOTS = 16  # item slots of one block's ring
-GROUP = 4  # slots written back by one bulk store
-MAX_PIECE = 3072  # bytes of one slot, at most: one CIFAR row
-MAX_PER_BLOCK = 512  # items of one block, at most (its staged rows)
-SMEM_OPT_IN = 232_448  # the most shared memory one block may have (227 KB)
-
-
-@dataclass(frozen=True)
-class RingPlan:
-    """One launch's ring: rows of ``pieces`` pieces of ``piece`` bytes;
-    group ``g`` of ``group`` consecutive items goes to block ``g % blocks``,
-    which holds at most ``steps`` groups; ``slots`` slots of ``piece``
-    bytes a block, ``smem`` bytes of shared memory a block."""
-
-    piece: int
-    pieces: int
-    blocks: int
-    steps: int
-    slots: int
-    group: int
-    smem: int
-
-
-def plan(m: int, row_bytes: int, *, slots: int = SLOTS, group: int = GROUP,
-         blocks_per_sm: int = BLOCKS_PER_SM) -> RingPlan:
-    """The ring for gathering ``m`` rows of ``row_bytes`` bytes (a multiple
-    of 16); raises on what the ring cannot take. The keywords exist for
-    ``tools/gather_bench.py --sweep``; the wrapper takes the defaults."""
-    if m <= 0 or row_bytes <= 0 or row_bytes % 16:
-        raise ValueError(f"the gather ring takes m > 0 rows of a multiple of "
-                         f"16 bytes, got {m} rows of {row_bytes}")
-    if group <= 0 or slots % group or slots // group < 2:
-        raise ValueError(f"the ring needs two groups or more: {slots} slots "
-                         f"in groups of {group}")
-    units = row_bytes // 16
-    # the fewest equal pieces of whole 16-byte units no longer than a slot
-    pieces = next(d for d in range(-(-row_bytes // MAX_PIECE), units + 1)
-                  if units % d == 0)
-    piece = row_bytes // pieces
-    groups = -(-m * pieces // group)
-    steps = min(-(-groups // (SMS * blocks_per_sm)),
-                max(1, MAX_PER_BLOCK // group))
-    blocks = -(-groups // steps)
-    smem = slots * piece + 8 * slots + 8 * steps * group
-    if smem > SMEM_OPT_IN:
-        raise ValueError(f"the gather ring needs {smem} bytes of shared "
-                         f"memory at {slots} slots of {piece}")
-    return RingPlan(piece, pieces, blocks, steps, slots, group, smem)
 
 
 def dma_row_gather_reference(
@@ -98,10 +36,9 @@ def _row_bytes(images: torch.Tensor) -> int:
 
 
 def vector_path(images: torch.Tensor, out: torch.Tensor) -> bool:
-    """Whether the kernel may copy rows with bulk copies (the 16-byte
-    path): the row's byte size and both base addresses are multiples of
-    16. Decided here from ``data_ptr()``, so callers need not align
-    anything."""
+    """Whether the kernel may copy rows as 16-byte vectors: the row's byte
+    size and both base addresses are multiples of 16. Decided here from
+    ``data_ptr()``, so callers need not align anything."""
     return (
         _row_bytes(images) % 16 == 0
         and images.data_ptr() % 16 == 0
@@ -142,7 +79,14 @@ def dma_row_gather(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
     if idx.shape[0] == 0:  # nothing to gather: no launch, none counted
         return out
-    err = _launch(images, idx, out)
+    from pytorch_cifar_tpu_torch.ops import _build
+
+    lib = _build.load("dma_gather")
+    err = lib.dma_row_gather(
+        images.data_ptr(), idx.data_ptr(), out.data_ptr(), images.shape[0],
+        idx.shape[0], _row_bytes(images), int(vector_path(images, out)),
+        torch.cuda.current_stream(images.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(
             f"dma_row_gather kernel launch failed with cudaError {err} at "
@@ -151,23 +95,3 @@ def dma_row_gather(images: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     with _launch_lock:
         LAUNCHES += 1
     return out
-
-
-def _launch(images: torch.Tensor, idx: torch.Tensor, out: torch.Tensor,
-            ring: RingPlan | None = None) -> int:
-    """One launch into ``out``: the ring (at ``ring``, else its plan) on
-    the 16-byte path, else the byte path; returns the cudaError."""
-    from pytorch_cifar_tpu_torch.ops import _build
-
-    lib = _build.load("dma_gather")
-    stream = torch.cuda.current_stream(images.device).cuda_stream
-    n, m, row_bytes = images.shape[0], idx.shape[0], _row_bytes(images)
-    if not vector_path(images, out):
-        return lib.dma_row_gather_bytes(
-            images.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m,
-            row_bytes, stream)
-    p = ring or plan(m, row_bytes)
-    return lib.dma_row_gather_ring(
-        images.data_ptr(), idx.data_ptr(), out.data_ptr(), n, m, row_bytes,
-        p.piece, p.pieces, p.blocks, p.steps, p.slots, p.group, p.smem,
-        stream)

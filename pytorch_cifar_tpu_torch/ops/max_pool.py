@@ -42,6 +42,7 @@ the other. ``FWD_LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
 
 from __future__ import annotations
 
+import functools
 import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -81,12 +82,11 @@ class Plan:
     smem: int
 
 
-def plan(h: int, w: int, c: int, elem: int, vec: int, *,
-         threads: int = THREADS, tile_bytes: int = TILE_BYTES) -> Plan:
+@functools.lru_cache(maxsize=None)
+def plan(h: int, w: int, c: int, elem: int, vec: int) -> Plan:
     """The forward kernel's tile for an (h, w, c) map of ``elem``-byte
     elements moved ``vec`` at a time; raises on a shape it cannot take.
-    The keywords exist for ``tools/pool_bench.py --sweep``; the wrapper
-    takes the defaults."""
+    Cached: it depends on the shape alone, and every forward asks."""
     if min(h, w, c, vec) <= 0 or c % vec:
         raise ValueError(f"max_pool3x3_s1: h {h}, w {w}, c {c}, vec {vec}")
     if w > MAX_THREADS:
@@ -101,13 +101,13 @@ def plan(h: int, w: int, c: int, elem: int, vec: int, *,
                   fewest)
     ccv = -(-cvt // chunks)
     row_bytes = (w + 2) * ccv * vec * elem  # one tile row of the chunk
-    ib = max(1, min(threads, MAX_THREADS) // (w * ccv))
-    while ib > 1 and ib * (h + 2) * row_bytes > tile_bytes:
+    ib = max(1, THREADS // (w * ccv))
+    while ib > 1 and ib * (h + 2) * row_bytes > TILE_BYTES:
         ib -= 1
     if ib > 1:  # whole images, as many as fit
         rows = h
     else:  # bands of equal height whose rows and border fit the tile
-        fit = max(1, min(h, tile_bytes // row_bytes - 2))
+        fit = max(1, min(h, TILE_BYTES // row_bytes - 2))
         rows = -(-h // -(-h // fit))
     smem = ib * (rows + 2) * row_bytes
     if smem > SMEM_OPT_IN:
@@ -206,13 +206,13 @@ def _forward(
 
 
 def _launch_fwd(fn, x: torch.Tensor, out: torch.Tensor,
-                idx: Optional[torch.Tensor], tile: Optional[Plan] = None) -> int:
-    """One forward launch into ``out`` (and ``idx``) at ``tile``, else at
-    its plan; returns the cudaError."""
+                idx: Optional[torch.Tensor]) -> int:
+    """One forward launch into ``out`` (and ``idx``) at its plan; returns
+    the cudaError."""
     n, h, w, c = x.shape
     tensors = (x, out) if idx is None else (x, out, idx)
     vec = _build.vector_width(c, *tensors)
-    p = tile or plan(h, w, c, x.element_size(), vec)
+    p = plan(h, w, c, x.element_size(), vec)
     return fn(
         x.data_ptr(), out.data_ptr(), None if idx is None else idx.data_ptr(),
         n, h, w, c, vec, p.ib, p.rows, p.ccv, p.smem,

@@ -3,7 +3,6 @@ card (counterpart of the JAX package's ``tools/pool_bench.py``):
 
     python -m pytorch_cifar_tpu_torch.tools.pool_bench            # (512, 32, 32, 480) bf16
     python -m pytorch_cifar_tpu_torch.tools.pool_bench --n 512 --c 128 --dtype float32
-    python -m pytorch_cifar_tpu_torch.tools.pool_bench --sweep      # forward tiles side by side
 
 Times the training cost of one pool, forward with the winner map plus
 backward, for ``ops.max_pool.max_pool3x3_s1`` (the hand-written kernels),
@@ -12,76 +11,25 @@ the channels_last view and its autograd backward, which the port never
 calls for this pool), with CUDA events; checks the kernels' output and
 gradient against the plain version bit for bit at the bench shape; prints
 the card's name and power limit and one JSON line with the times and the
-byte bound ((2s + 1) * E bytes each way over 3.35 TB/s). ``--sweep``
-checks (output and winner map, bit for bit) and times the forward with and
-without the map at GoogLeNet's six pool shapes at n = 512 for each
-forward plan of :data:`SWEEP` (threads a block, tile bytes), one JSON line
-per shape and plan, then one per plan with the totals over a GoogLeNet
-forward's nine pools.
+byte bound ((2s + 1) * E bytes each way over 3.35 TB/s).
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 
 import torch
 
 from pytorch_cifar_tpu_torch import resolve_device
-from pytorch_cifar_tpu_torch.ops import _build
 from pytorch_cifar_tpu_torch.ops import max_pool as P
 from pytorch_cifar_tpu_torch.tools._bench import (
-    POOL_SHAPES,
     card_line,
     library_pool,
     time_ms,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
-# forward plans timed by --sweep: (threads, tile_bytes)
-SWEEP = [(P.THREADS, P.TILE_BYTES), (128, 24 * 1024), (256, 24 * 1024),
-         (256, 64 * 1024), (512, 48 * 1024), (512, 96 * 1024)]
-
-
-def sweep(device, dtype, card: str) -> bool:
-    """Each forward plan of :data:`SWEEP` at GoogLeNet's six pool shapes:
-    output and map against the plain version, and times with and without
-    the map."""
-    g = torch.Generator().manual_seed(0)
-    totals = {v: [0.0, 0.0] for v in SWEEP}
-    ok = True
-    for h, w, c, per_fwd in POOL_SHAPES:
-        x = torch.randn((512, h, w, c), generator=g).to(device, dtype)
-        ref, ridx = P.max_pool3x3_s1_reference(x, True)
-        fn = P._entry(x, "fwd")
-        out, idx = torch.empty_like(x), torch.empty_like(ridx)
-        vec = _build.vector_width(c, x, out, idx)
-        for threads, tile_bytes in SWEEP:
-            tile = P.plan(h, w, c, x.element_size(), vec, threads=threads,
-                          tile_bytes=tile_bytes)
-            out.zero_()
-            idx.zero_()
-            err = P._launch_fwd(fn, x, out, idx, tile)
-            exact = (err == 0 and torch.equal(out, ref)
-                     and torch.equal(idx, ridx))
-            ok &= exact
-            rec = {
-                "card": card, "x": list(x.shape), "plan": dataclasses.asdict(tile),
-                "exact": exact,
-                "fwd_map_ms": time_ms(lambda: P._launch_fwd(fn, x, out, idx, tile)),
-                "fwd_ms": time_ms(lambda: P._launch_fwd(fn, x, out, None, tile)),
-            }
-            totals[(threads, tile_bytes)][0] += rec["fwd_map_ms"] * per_fwd
-            totals[(threads, tile_bytes)][1] += rec["fwd_ms"] * per_fwd
-            print(json.dumps(rec), flush=True)
-        del x, ref, ridx, out, idx
-    for (threads, tile_bytes), (with_map, without) in totals.items():
-        print(json.dumps({"card": card, "threads": threads,
-                          "tile_bytes": tile_bytes,
-                          "googlenet_fwd_map_ms": with_map,
-                          "googlenet_fwd_ms": without}), flush=True)
-    return ok
 
 
 def main(argv=None) -> int:
@@ -91,14 +39,11 @@ def main(argv=None) -> int:
     parser.add_argument("--c", type=int, default=480)
     parser.add_argument("--dtype", default="bfloat16",
                         choices=["bfloat16", "float32"])
-    parser.add_argument("--sweep", action="store_true")
     args = parser.parse_args(argv)
     device = resolve_device("cuda")  # a measurement: no card, no run
     card = card_line()
     print(card, flush=True)
     dtype = getattr(torch, args.dtype)
-    if args.sweep:
-        return 0 if sweep(device, dtype, card) else 1
     shape = (args.n, args.h, args.h, args.c)
     g = torch.Generator().manual_seed(0)
     x = torch.randn(shape, generator=g).to(device, dtype)

@@ -1,15 +1,14 @@
-"""The host-side plans of the port's epoch row gather (K1) and 3x3 max-pool
-forward (K4), and the separable rule the pool's forward computes, on the
-CPU.
+"""The host-side plan of the port's 3x3 max-pool forward (K4), and the
+separable rule that forward computes, on the CPU.
 
-The kernels run only on the card (``chip_smoke.py``,
-``tools/gather_bench.py``, ``tools/pool_bench.py``); what decides K1's ring
-and K4's tiles is plain Python that these tests reach: every output is
-written once, every plan fits the shared memory of the blocks an SM it is
-built for, and the sources build what the plans assume. The forward's
-separable ``max_h(max_w(x))`` with the kernel's band split is written here
-in torch and held bit for bit against the plain version on the inputs where
-it could slip: ties, +-0, NaNs, -inf windows and values on band edges.
+The kernel runs only on the card (``chip_smoke.py``,
+``tools/pool_bench.py``); what decides its tiles is plain Python that these
+tests reach: every output is written once, every plan fits the shared
+memory of the blocks an SM it is built for, and the source builds what the
+plans assume. The forward's separable ``max_h(max_w(x))`` with the
+kernel's band split is written here in torch and held bit for bit against
+the plain version on the inputs where it could slip: ties, +-0, NaNs, -inf
+windows and values on band edges.
 """
 
 import re
@@ -20,7 +19,6 @@ import torch
 import torch.nn.functional as F
 
 from pytorch_cifar_tpu_torch.ops import _build
-from pytorch_cifar_tpu_torch.ops import dma_gather as G
 from pytorch_cifar_tpu_torch.ops import max_pool as P
 from pytorch_cifar_tpu_torch.tools._bench import POOL_ODD, POOL_SHAPES
 
@@ -229,107 +227,3 @@ def test_separable_rule_picks_the_last_nan_and_the_first_maximum():
     assert win[0, 1, 1].tolist() == [6, 1]
     assert torch.isnan(out[0, 1, 1, 0]) and out[0, 1, 1, 1] == 7.0
     assert torch.equal(win, P.max_pool3x3_s1_reference(x, True)[1])
-
-
-# -- K1: the bulk-copy ring ----------------------------------------------
-
-
-def _ring_schedule(m: int, p) -> np.ndarray:
-    """The kernel's lane-0 loop, block by block: block b takes groups
-    j * blocks + b of ``group`` consecutive items, loads its k-th item into
-    slot ``k % slots``, stores each group with one bulk store, and refills
-    a group's slots only after the store that read them is waited for
-    (``wait_group.read 1``). Asserts that a slot is free when loaded and
-    that each store's slots and items are contiguous; returns how often
-    each item is loaded and how often stored."""
-    items = m * p.pieces
-    ngroups = -(-items // p.group)
-    loaded = np.zeros(items, np.int64)
-    stored = np.zeros(items, np.int64)
-    rounds = p.slots // p.group
-    for b in range(p.blocks):
-        mine = (ngroups - 1 - b) // p.blocks + 1
-        assert 0 < mine <= p.steps  # no idle block, rows staged in smem
-        held = {}  # slot -> the block's item in it, not yet read by a store
-
-        def first(j):
-            return (j * p.blocks + b) * p.group
-
-        def valid(j):
-            return min(p.group, items - first(j))
-
-        def load(j):
-            for i in range(valid(j)):
-                k = j * p.group + i
-                assert k % p.slots not in held
-                held[k % p.slots] = first(j) + i
-                loaded[first(j) + i] += 1
-
-        for j in range(min(mine, rounds)):
-            load(j)
-        reading = []  # the slots of each store not yet waited for
-        for j in range(mine):
-            slots = [(j * p.group + i) % p.slots for i in range(valid(j))]
-            assert slots == list(range(slots[0], slots[0] + len(slots)))
-            assert [held[s] for s in slots] == \
-                list(range(first(j), first(j) + valid(j)))
-            stored[first(j):first(j) + valid(j)] += 1  # one run of out bytes
-            reading.append(slots)
-            if j >= 1:
-                for s in reading.pop(0):
-                    del held[s]
-                if j - 1 + rounds < mine:
-                    load(j - 1 + rounds)
-    return loaded, stored
-
-
-@pytest.mark.parametrize("m,row_bytes", [
-    (50_176, 3072),  # the CIFAR epoch
-    (3, 3072), (1, 16), (1000, 48),
-    (3000, 3 * 4096),  # rows of 4 pieces
-    (17, 16 * 7919),  # a prime number of 16-byte units: 7919 pieces
-], ids=["epoch", "3x3072", "1x16", "1000x48", "3000x12288", "17xprime"])
-def test_ring_maps_every_row_to_one_slot_and_one_store(m, row_bytes):
-    p = G.plan(m, row_bytes)
-    assert p.piece * p.pieces == row_bytes and p.piece % 16 == 0
-    assert p.piece <= G.MAX_PIECE
-    loaded, stored = _ring_schedule(m, p)
-    assert (loaded == 1).all() and (stored == 1).all()
-    # every row's pieces, and so every output row, once
-    assert (stored.reshape(m, p.pieces).sum(1) == p.pieces).all()
-
-
-@pytest.mark.parametrize("slots,group,bps", [(16, 4, 4), (16, 1, 4),
-                                             (8, 2, 8), (32, 8, 2),
-                                             (12, 4, 4)])
-def test_ring_schedule_holds_at_every_swept_plan(slots, group, bps):
-    p = G.plan(50_176, 3072, slots=slots, group=group, blocks_per_sm=bps)
-    loaded, stored = _ring_schedule(50_176, p)
-    assert (loaded == 1).all() and (stored == 1).all()
-
-
-def test_ring_plan_fits_the_blocks_an_sm_it_is_built_for():
-    """The epoch's ring is one wave of ``BLOCKS_PER_SM`` one-warp blocks
-    an SM, each within its share of the SM's shared memory."""
-    p = G.plan(50_176, 3072)
-    assert (p.piece, p.pieces, p.slots, p.group) == (3072, 1, 16, 4)
-    assert p.blocks <= G.SMS * G.BLOCKS_PER_SM
-    assert G.BLOCKS_PER_SM * (p.smem + BLOCK_RESERVED) <= SM_SMEM
-    for m, row_bytes in ((1, 16), (10**7, 3072), (17, 16 * 7919)):
-        q = G.plan(m, row_bytes)
-        assert q.steps * q.group <= G.MAX_PER_BLOCK
-        assert G.BLOCKS_PER_SM * (q.smem + BLOCK_RESERVED) <= SM_SMEM
-
-
-def test_ring_plan_refuses_what_the_ring_cannot_take():
-    with pytest.raises(ValueError, match="multiple of 16"):
-        G.plan(10, 252)
-    with pytest.raises(ValueError, match="two groups"):
-        G.plan(10, 3072, slots=4, group=4)
-
-
-def test_gather_source_holds_the_plans_constants():
-    src = (_build.CSRC / "dma_gather.cu").read_text()
-    for name, value in (("kMaxPiece", G.MAX_PIECE),
-                        ("kSmemOptIn", G.SMEM_OPT_IN)):
-        assert re.search(rf"constexpr int {name} = {value};", src), name
