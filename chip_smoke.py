@@ -45,8 +45,11 @@ Then the training slice and its two kernels:
    n = 512 in bf16 and fp32: values against the plain version in float64
    (rtol 1e-4, atol 1e-5), two launches bit-identical, the gradient
    through its ``autograd.Function`` against autograd of the plain version
-   (atol 1e-6); times of the kernel, the plain version and
-   ``torch.batch_norm_stats``, and the bound;
+   (atol 1e-6), one device kernel a call as ``torch.profiler`` counts
+   them; times of the kernel, the plain version and
+   ``torch.batch_norm_stats``, and the bound; then C = 130 and a view one
+   element off 16-byte alignment (the scalar path), values, determinism
+   and the kernel count;
 7. train: ``Trainer.fit`` on ``synthetic_cifar10(50000, 10000)``, ResNet-18
    at full width, batch 512, bf16, device data, ``dma_gather`` on,
    2 epochs, ``cosine_t_max`` 2, with the launch counts reset just before
@@ -80,7 +83,8 @@ Then the zoo slice (GoogLeNet, MobileNet) and its kernels:
     map, an odd C and a view one element off alignment (the narrowest
     vectors); at the first n = 512 shape inputs planted on the forward's band
     edges (two NaNs in one window, +-0 ties, ``-inf`` rows, ``-inf``
-    borders), the forward's output held bit for bit as raw bits; output
+    borders), and on the backward's with -0, NaN and infinite cotangents
+    there, the forward's output and the gradient held as raw bits; output
     and gradient equal to ``F.max_pool2d``'s; times of the
     kernels, the plain version and ``F.max_pool2d`` forward and backward
     (channels_last), and the byte bounds;
@@ -102,7 +106,17 @@ Then the zoo slice (GoogLeNet, MobileNet) and its kernels:
     the sync-checked third epoch, img/s and peak memory;
 15. pool_step: one fp32 GoogLeNet step (batch 64) with K4 against one with
     ``F.max_pool2d`` from the same start, both against the float64-compute
-    step (see :func:`phase_pool_step`).
+    step (see :func:`phase_pool_step`);
+
+Then the train CLI's default model:
+
+16. simpledla: SimpleDLA (``TrainConfig``'s default) at full width: phase
+    3 at the shapes of its 12 fused sites (among them 16 -> 16 and
+    16 -> 32 at 32x32, cout padded to the wgmma tile's 64); served at
+    buckets 8 and 128 (8 clients x 64 requests, 12 K3 launches a forward,
+    logits against the CPU as in phase 4); phase 7 on
+    ``synthetic_cifar10(10240, 2048)`` (20 steps an epoch; depth cut from
+    the recipe's 200 epochs to 2), K3 12 per eval forward.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -128,7 +142,7 @@ from pytorch_cifar_tpu_torch.tools._bench import (
     RESNET18_SITES as SITES,
     STENCIL_SHAPES,
     card_line,
-    googlenet_sites,
+    fused_sites,
     library_pool,
     time_ms,
 )
@@ -269,11 +283,12 @@ def phase_kernels(K, peaks, fails: Failures, sites=None, tag="site",
 
 
 def phase_slice(K, smi: str, fails: Failures, model: str = "ResNet18",
-                per_forward=None, requests: int = 256) -> dict:
-    """Serve ``model`` at full width under ``run_load``. ``per_forward``
-    lists (kernel module, its launch counter's name, launches per
-    forward); every counter is reset just before the main path and read
-    just after."""
+                per_forward=None, requests: int = 256,
+                buckets=BUCKETS) -> dict:
+    """Serve ``model`` at full width under ``run_load`` at ``buckets``.
+    ``per_forward`` lists (kernel module, its launch counter's name,
+    launches per forward); every counter is reset just before the main
+    path and read just after."""
     from pytorch_cifar_tpu_torch.obs import MetricsRegistry
     from pytorch_cifar_tpu_torch.serve import (
         InferenceEngine,
@@ -288,12 +303,12 @@ def phase_slice(K, smi: str, fails: Failures, model: str = "ResNet18",
         setattr(mod, counter, 0)  # the main path starts here
     t0 = time.perf_counter()
     engine = InferenceEngine.from_random(
-        model, seed=0, buckets=BUCKETS, compute_dtype=torch.bfloat16,
+        model, seed=0, buckets=buckets, compute_dtype=torch.bfloat16,
         registry=registry,
     )
     build_s = time.perf_counter() - t0
     rs = np.random.RandomState(0)
-    n_off = BUCKETS[1] - 1  # off-bucket: the padded path really pads
+    n_off = next(b for b in buckets if b > 1) - 1  # the padded path pads
     x = rs.randint(0, 256, size=(n_off, 32, 32, 3)).astype(np.uint8)
     padded, direct = engine.predict(x), engine.direct_forward(x)
     pad_identical = bool(np.array_equal(padded, direct))
@@ -316,9 +331,9 @@ def phase_slice(K, smi: str, fails: Failures, model: str = "ResNet18",
             f"(want {per} per forward)",
         )
     launches = next(iter(counts.values()))
-    fails.check(forwards > len(BUCKETS),
+    fails.check(forwards > len(buckets),
                 f"slice {model}: no request reached the engine")
-    fails.check(engine.compile_count == len(BUCKETS),
+    fails.check(engine.compile_count == len(buckets),
                 f"slice {model}: compile_count {engine.compile_count}")
     fails.check(report["failed"] == 0,
                 f"slice {model}: {report['failed']} failed")
@@ -353,7 +368,7 @@ def phase_slice(K, smi: str, fails: Failures, model: str = "ResNet18",
     )
     out = {
         "card": smi,
-        "model": model, "dtype": "bf16", "buckets": list(BUCKETS),
+        "model": model, "dtype": "bf16", "buckets": list(buckets),
         "engine_build_and_warmup_s": build_s,
         "forwards": forwards, "kernel_launches": launches,
         "launches": counts,
@@ -452,28 +467,63 @@ def phase_gather(G, peaks, fails: Failures) -> dict:
     return row
 
 
+def _moments_checks(M, x, what: str, fails: Failures) -> tuple:
+    """K2 on ``x`` against the plain version in float64 (rtol 1e-4, atol
+    1e-5) and against itself (two launches bit-identical); returns (the
+    largest difference, deterministic)."""
+    m1, s1 = M.fused_moments(x)
+    m2, s2 = M.fused_moments(x)
+    torch.cuda.synchronize()
+    rm, rs = M.fused_moments_reference(x.double())
+    err = 0.0
+    for got, ref in ((m1, rm), (s1, rs)):
+        diff = (got.double() - ref).abs()
+        err = max(err, diff.max().item())
+        fails.check(bool((diff <= 1e-5 + 1e-4 * ref.abs()).all()),
+                    f"K2 {what}: off the float64 moments by "
+                    f"{diff.max().item():.3g}")
+    det = torch.equal(m1, m2) and torch.equal(s1, s2)
+    fails.check(det, f"K2 {what}: two launches differ")
+    return err, det
+
+
+def kernels_per_call(fns, calls: int = 4) -> tuple:
+    """Device kernels that ``calls`` warm calls of each of ``fns`` launch,
+    per call, as one ``torch.profiler`` session records them, and their
+    names. A session that records no device event at all captured nothing
+    (the profiler dropped it) and is taken once more; a count other than
+    zero is the result."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            break
+    return len(names) / (calls * len(fns)), sorted(set(names))
+
+
 def phase_moments(M, peaks, fails: Failures) -> list:
     """K2 at ResNet-18's four BN shapes at n = 512, bf16 and fp32: values
-    vs float64, determinism, the gradient, and times."""
+    vs float64, determinism, the gradient and times; then an odd C and a
+    view off 16-byte alignment (the scalar path); then device kernels per
+    call over all of them (one)."""
     g = torch.Generator().manual_seed(2)
     rows = []
     for h, w, c, per_fwd in BN_SHAPES:
         for dname, dt in DTYPES.items():
             x = (torch.randn(BATCH, h, w, c, generator=g) + 0.5).to("cuda", dt)
-            m1, s1 = M.fused_moments(x)
-            m2, s2 = M.fused_moments(x)
-            torch.cuda.synchronize()
-            rm, rs = M.fused_moments_reference(x.double())
-            err = 0.0
-            for got, ref in ((m1, rm), (s1, rs)):
-                diff = (got.double() - ref).abs()
-                err = max(err, diff.max().item())
-                fails.check(bool((diff <= 1e-5 + 1e-4 * ref.abs()).all()),
-                            f"K2 {dname} {(BATCH, h, w, c)}: off the float64 "
-                            f"moments by {diff.max().item():.3g}")
-            det = torch.equal(m1, m2) and torch.equal(s1, s2)
-            fails.check(det, f"K2 {dname} {(BATCH, h, w, c)}: two launches "
-                             "differ")
+            what = f"{dname} {(BATCH, h, w, c)}"
+            err, det = _moments_checks(M, x, what, fails)
             a = torch.randn(c, generator=g).cuda()
             b = torch.randn(c, generator=g).cuda()
             grads = []
@@ -484,8 +534,7 @@ def phase_moments(M, peaks, fails: Failures) -> list:
                                             xr)
                 grads.append(gx.float())
             gerr = (grads[0] - grads[1]).abs().max().item()
-            fails.check(gerr <= 1e-6, f"K2 {dname} {(BATCH, h, w, c)}: "
-                                      f"gradient off by {gerr:.3g}")
+            fails.check(gerr <= 1e-6, f"K2 {what}: gradient off by {gerr:.3g}")
             x_nchw = x.permute(0, 3, 1, 2)  # channels_last NCHW view
             nbytes = x.numel() * x.element_size() + 2 * c * 4
             b_ms, b_by = bound(nbytes, 3 * x.numel(), peaks, "fp32")
@@ -504,6 +553,31 @@ def phase_moments(M, peaks, fails: Failures) -> list:
                 }
             rows.append(row)
             print("moments " + json.dumps(row), flush=True)
+    scalar = []  # the scalar path: an odd C and a view off alignment
+    for dname, dt in DTYPES.items():
+        odd = (torch.randn(64, 16, 16, 130, generator=g) + 0.5).to("cuda", dt)
+        off = torch.empty(64 * 16 * 16 * 128 + 1, dtype=dt, device="cuda")[1:]
+        off = off.view(64, 16, 16, 128)
+        off.copy_(torch.randn(off.shape, generator=g) + 0.5)
+        for what, v in (("C = 130", odd), ("offset view", off)):
+            err, det = _moments_checks(M, v, f"{dname} {what}", fails)
+            rows.append({"x": list(v.shape), "dtype": dname, "case": what,
+                         "max_abs_err": err, "deterministic": det})
+            print("moments " + json.dumps(rows[-1]), flush=True)
+            scalar.append(v)
+    # every case above, bf16 and fp32, vector and scalar paths, in one
+    # profiled session: one device kernel a call, the moments kernel
+    xs = [torch.randn(BATCH, h, w, c, generator=g).to("cuda", dt)
+          for h, w, c, _ in BN_SHAPES for dt in DTYPES.values()] + scalar
+    per_call, names = kernels_per_call(
+        [lambda v=v: M.fused_moments(v) for v in xs])
+    fails.check(per_call == 1 and all("moments_kernel" in n for n in names),
+                f"K2: {per_call} device kernels a call (want 1): {names}")
+    for r in rows:
+        r["kernels_per_call"] = per_call
+    print("moments " + json.dumps({"kernels_per_call": per_call,
+                                   "kernels": names, "cases": len(xs)}),
+          flush=True)
     return rows
 
 
@@ -542,7 +616,9 @@ def _pool_checks(P, x, g, what: str, fails: Failures) -> tuple:
     fails.check(torch.equal(idx, ridx),
                 f"K4 {what}: winner map differs from the plain version")
     gref = P.max_pool3x3_s1_backward_reference(g, ridx)
-    fails.check(same_bits(gi, gref),
+    num = ~torch.isnan(gref)  # elsewhere as raw bits: -0 differs from +0
+    fails.check(same_bits(gi, gref)
+                and torch.equal(raw_bits(gi)[num], raw_bits(gref)[num]),
                 f"K4 {what}: backward differs from the plain version")
     xr = x.detach().requires_grad_()
     (ga,) = torch.autograd.grad(P.max_pool3x3_s1(xr), xr, g)
@@ -552,15 +628,17 @@ def _pool_checks(P, x, g, what: str, fails: Failures) -> tuple:
             max(max_abs_diff(gi, gref), max_abs_diff(ga, gref)))
 
 
-def pool_edge_input(P, shape, dt, g) -> torch.Tensor:
-    """A random input with, on the forward plan's first band edge (output
-    rows e - 1 | e, which two blocks compute), what the separable
-    max_h(max_w(x)) must get right: two NaNs in one window (image 0), +-0
-    ties (image 1), -inf rows (image 2); and -inf along every border (image
-    3: windows whose real taps are all -inf keep tap 0, in the halo)."""
+def pool_edge_input(P, shape, dt, g, backward: bool = False) -> torch.Tensor:
+    """A random input with, on the first band edge of the forward's plan
+    (with ``backward``, of the backward's: rows e - 1 | e, which two blocks
+    compute), what the kernels must get right: two NaNs in one window
+    (image 0), +-0 ties (image 1), -inf rows (image 2); and -inf along
+    every border (image 3: windows whose real taps are all -inf keep tap
+    0, in the halo, and drop their gradient)."""
     n, h, w, c = shape
     x = torch.randn(shape, generator=g).to("cuda", dt)
-    e = P.plan(h, w, c, x.element_size(), 16 // x.element_size()).rows
+    e = P.plan(h, w, c, x.element_size(), 16 // x.element_size(),
+               backward=backward).rows
     x[0, e - 1, 3] = float("nan")  # across the edge, one window apart
     x[0, e, 4] = float("nan")
     x[0, e, 10:12] = float("nan")  # two in one row
@@ -611,6 +689,17 @@ def phase_pool(P, peaks, fails: Failures) -> list:
         cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
         _pool_checks(P, pool_edge_input(P, shape, dt, g), cot,
                      f"{dname} {shape} band edges", fails)
+        # the backward's band edges, with cotangents that must not spread:
+        # -0 rows across the edge, NaNs and infinities beside it
+        e = P.plan(*shape[1:], x.element_size(), 16 // x.element_size(),
+                   backward=True).rows
+        cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
+        cot[:, e - 1:e + 1, ::2] = -0.0
+        cot[0, e, 5:9] = float("nan")
+        cot[1, e - 1, 3] = float("inf")
+        cot[2, e - 2:e + 2, 7] = float("-inf")
+        _pool_checks(P, pool_edge_input(P, shape, dt, g, backward=True), cot,
+                     f"{dname} {shape} backward band edges", fails)
         for h, w, c, per_fwd in POOL_SHAPES:
             shape = (BATCH, h, w, c)
             x = torch.randn(shape, generator=g).to("cuda", dt)
@@ -1049,6 +1138,34 @@ def phase_card_vs_cpu(fails: Failures) -> dict:
     return out
 
 
+def phase_simpledla(G, M, K, P, D, smi: str, peaks, fails: Failures) -> dict:
+    """The train CLI's default model, SimpleDLA: K3 at its 12 fused sites'
+    shapes against the plain version (phase 3's checks; among them the
+    16 -> 16 and 16 -> 32 sites at 32x32, whose cout the wgmma tile pads
+    to 64), served at buckets 8 and 128 (12 K3 launches a forward), and
+    trained through ``Trainer.fit`` at b512 bf16 on a cut split (2 epochs
+    of 20 steps, 12 K3 launches a forward in eval, a falling loss)."""
+    from pytorch_cifar_tpu_torch.config import TrainConfig
+
+    model = TrainConfig().model
+    fails.check(model == "SimpleDLA", f"simpledla: the default model is "
+                                      f"{model}")
+    sites = fused_sites(model)
+    fails.check(sum(s[-1] for s in sites) == 12,
+                f"simpledla: {sites} fused sites")
+    rows = phase_kernels(K, peaks, fails, sites=sites, tag="site_simpledla",
+                         runs=5)
+    served = phase_slice(K, smi, fails, model=model, requests=64,
+                         buckets=(8, 128),
+                         per_forward=[(K, "LAUNCHES", 12),
+                                      (P, "FWD_LAUNCHES", 0),
+                                      (D, "LAUNCHES", 0)])
+    trained = phase_train(G, M, K, P, smi, fails, model=model,
+                          train_n=10_240, test_n=2_048, k3_per_forward=12,
+                          min_acc=0.0, tag="simpledla_train")
+    return {"sites": rows, "slice": served, "train": trained}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs only "
@@ -1077,7 +1194,7 @@ def main() -> int:
     # the zoo slice: GoogLeNet and MobileNet, kernels K4 and K5
     pool = phase_pool(P, peaks, fails)
     sten = phase_stencil(D, peaks, fails)
-    grows = phase_kernels(K, peaks, fails, sites=googlenet_sites(),
+    grows = phase_kernels(K, peaks, fails, sites=fused_sites("GoogLeNet"),
                           tag="site_googlenet", runs=5)
     phase_slice(K, smi, fails, model="GoogLeNet", requests=64, per_forward=[
         (P, "FWD_LAUNCHES", 9), (K, "LAUNCHES", 28), (P, "BWD_LAUNCHES", 0),
@@ -1089,6 +1206,7 @@ def main() -> int:
                      train_n=10_240, test_n=2_048, k3_per_forward=28,
                      pools_per_forward=9, min_acc=0.0, tag="googlenet_train")
     phase_pool_step(P, fails)
+    dla = phase_simpledla(G, M, K, P, D, smi, peaks, fails)
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
     # (and GoogLeNet's 28 beside it)
@@ -1114,7 +1232,8 @@ def main() -> int:
         "source": "pytorch_cifar_tpu_torch/ops/csrc/conv_bn_relu.cu",
         "replaces": "pytorch_cifar_tpu/ops/conv_bn_relu.py:54",
         "launches": sl["kernel_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in rows + grows),
+        "max_abs_err": max(r["max_abs_err"] for r in rows + grows
+                           + dla["sites"]),
         **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")},
         # the mma.sync path, timed at the same sites in this run, is the
@@ -1123,6 +1242,7 @@ def main() -> int:
                       "mma.sync path",
         "earlier_design_ms": k3["earlier_design_ms"],
         "googlenet_forward": forward(grows),
+        "simpledla_forward": forward(dla["sites"]),
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -1138,7 +1258,7 @@ def main() -> int:
                       "section 6 keeps their times",
     }]
     # K2 over one bf16 ResNet-18 forward: its 20 launches at their shapes
-    m16 = [r for r in k2 if r["dtype"] == "bf16"]
+    m16 = [r for r in k2 if r["dtype"] == "bf16" and "ms" in r]
     per2 = [r["launches_per_forward"] for r in m16]
     b_ms, b_by = launches_bound(m16, per2)
     kernels.append({
@@ -1153,6 +1273,13 @@ def main() -> int:
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": sum(r["library_ms"] * k for r, k in zip(m16, per2)),
+        "redesigned": "one launch: the last block of a channel tile, found "
+                      "by an integer ticket, sums the tile's partials in "
+                      "chunk order; warp shuffles, 16 loads a thread in "
+                      "flight; the design it replaced (a partial pass and a "
+                      "finalize launch) is not in the tree: PERF.md section "
+                      "6 keeps its time",
+        "kernels_per_call": max(r["kernels_per_call"] for r in k2),
     })
     # K4 over one b512 bf16 GoogLeNet train step: its 9 forwards with the
     # winner map and its 9 backwards, at their shapes
@@ -1170,7 +1297,13 @@ def main() -> int:
          "through L1/L2) is not in the tree: PERF.md section 6 keeps its "
          "time"),
         ("max_pool3x3_s1_bwd", 316, gt["k4_bwd_launches"], "bwd_max_abs_err",
-         "bwd_ms", "plain_bwd_ms", "library_bwd_ms", None),
+         "bwd_ms", "plain_bwd_ms", "library_bwd_ms",
+         "a band of g and the winner map staged in shared memory by "
+         "cp.async with a zero / 255 border, each position summing its nine "
+         "windows' selected g in tap order from registers sliding down the "
+         "band; the design it replaced (nine map and g loads per output "
+         "through L1/L2) is not in the tree: PERF.md section 6 keeps its "
+         "time"),
     ):
         kernels.append({
             "name": kernel,
@@ -1185,8 +1318,8 @@ def main() -> int:
             "bound_by": "bytes",
             "library_ms": pool_total(lib),
         })
-        if redesigned:
-            kernels[-1]["redesigned"] = redesigned
+        kernels[-1]["redesigned"] = redesigned
+        if kernel == "max_pool3x3_s1":
             kernels[-1]["no_map_ms"] = pool_total("fwd_ms")
             kernels[-1]["no_map_bound_ms"] = pool_total("bound_fwd_ms")
     # K5 over one bucket-128 bf16 MobileNet forward: its 9 launches

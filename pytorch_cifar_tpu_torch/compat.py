@@ -31,10 +31,22 @@ with ``Conv_{0..6}``/``BatchNorm_{0..6}`` in the stock call order (y1; y2:
 -> ``(C, 1, 3, 3)`` by the same HWIO -> OIHW transpose. Both heads pool to
 1x1 maps, so their linears need no :data:`LINEAR_FLATTEN` entry.
 
+The JAX SimpleDLA: ``Conv_{0..2}``/``BatchNorm_{0..2}`` -> the stems
+``base``, ``layer1``, ``layer2`` (``.0``/``.1``); ``Tree_{0..3}`` ->
+``layer3`` .. ``layer6``. A level-1 tree holds ``BasicBlock_{0,1}`` (the
+ResNet block's sites) -> ``left_tree``/``right_tree``, a level-2 tree
+``Tree_{0,1}`` -> the same; each tree's ``Root_0`` ``Conv_0``/``BatchNorm_0``
+-> ``root.conv``/``root.bn``. Its 4x4 pool leaves a 1x1 map, so its linear
+needs no :data:`LINEAR_FLATTEN` entry either.
+
 ``num_batches_tracked`` is zero (torch reads it only under
 ``momentum=None``). The result equals what the JAX package's
 ``compat.export_torch_state_dict`` produces with the port model's
-``state_dict()`` as its template.
+``state_dict()`` as its template; for SimpleDLA, with that template's keys
+in the JAX model's call order (each tree's root after its children). The
+export pairs same-shape modules first-fit in the template's order, so with
+the roots first it would hand a root's BN another block's tensors; this
+module maps every tree by name.
 """
 
 from __future__ import annotations
@@ -45,6 +57,7 @@ import numpy as np
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models import create_model
+from pytorch_cifar_tpu_torch.models.dla_simple import SimpleDLA, Tree
 from pytorch_cifar_tpu_torch.models.googlenet import CELLS, GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
@@ -144,6 +157,14 @@ def state_dict_from_jax(
         put_linear()
         return _checked(name, template, out)
 
+    if isinstance(model, SimpleDLA):
+        _dla_from_jax(model, params, batch_stats, put_site)
+        put_linear()
+        got = sum(1 for k in out if not k.endswith("num_batches_tracked"))
+        if _leaf_count(params) + _leaf_count(batch_stats) != got:
+            raise ValueError(f"JAX tree has leaves that {name} does not")
+        return _checked(name, template, out)
+
     put_site("conv1", "bn1", params, batch_stats, 0)
     blocks = model.blocks()
     kind = "BasicBlock" if isinstance(blocks[0], BasicBlock) else "Bottleneck"
@@ -164,6 +185,37 @@ def state_dict_from_jax(
     if k != sum(1 for key in params if key.startswith(kind)):
         raise ValueError(f"JAX tree has another number of {kind}s than {name}")
     return _checked(name, template, out)
+
+
+def _leaf_count(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_leaf_count(v) for v in tree.values())
+    return 1
+
+
+def _dla_from_jax(model: SimpleDLA, params: Mapping, stats: Mapping,
+                  put_site) -> None:
+    """SimpleDLA's stems and trees (the linear is the caller's)."""
+    for j, stem in enumerate(("base", "layer1", "layer2")):
+        put_site(f"{stem}.0", f"{stem}.1", params, stats, j)
+
+    def block(prefix, blk, p, s):
+        for j in range(2):
+            put_site(f"{prefix}.conv{j + 1}", f"{prefix}.bn{j + 1}", p, s, j)
+        if len(blk.shortcut):
+            put_site(f"{prefix}.shortcut.0", f"{prefix}.shortcut.1", p, s, 2)
+
+    def tree(prefix, t, p, s):
+        kind = "Tree" if isinstance(t.left_tree, Tree) else "BasicBlock"
+        for k, side in enumerate(("left_tree", "right_tree")):
+            child = getattr(t, side)
+            walk = tree if kind == "Tree" else block
+            walk(f"{prefix}.{side}", child, p[f"{kind}_{k}"], s[f"{kind}_{k}"])
+        put_site(f"{prefix}.root.conv", f"{prefix}.root.bn", p["Root_0"],
+                 s["Root_0"], 0)
+
+    for k, t in enumerate(model.trees()):
+        tree(f"layer{k + 3}", t, params[f"Tree_{k}"], stats[f"Tree_{k}"])
 
 
 def _checked(

@@ -1,5 +1,5 @@
-"""Model registry of the port (LeNet, the ResNet family, GoogLeNet and
-MobileNet so far).
+"""Model registry of the port (LeNet, the ResNet family, GoogLeNet,
+MobileNet and SimpleDLA so far).
 
 Counterpart of ``pytorch_cifar_tpu/models/__init__.py``: models are named
 factories selected by ``--model``. Factories take ``num_classes`` and return
@@ -17,6 +17,7 @@ from pytorch_cifar_tpu_torch.models.common import (  # noqa: F401
     count_params,
     reset_parameters,
 )
+from pytorch_cifar_tpu_torch.models.dla_simple import SimpleDLA
 from pytorch_cifar_tpu_torch.models.googlenet import GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
@@ -37,6 +38,7 @@ MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
     "ResNet50": ResNet50,
     "ResNet101": ResNet101,
     "ResNet152": ResNet152,
+    "SimpleDLA": SimpleDLA,
 }
 
 # the JAX package's other registry models, which later slices port
@@ -47,7 +49,7 @@ NOT_PORTED = (
     "RegNetX_200MF", "RegNetX_400MF", "RegNetY_400MF", "ResNeXt29_2x64d",
     "ResNeXt29_32x4d", "ResNeXt29_4x64d", "ResNeXt29_8x64d", "SENet18",
     "ShuffleNetG2", "ShuffleNetG3", "ShuffleNetV2_0.5", "ShuffleNetV2_1",
-    "ShuffleNetV2_1.5", "ShuffleNetV2_2", "SimpleDLA", "VGG11", "VGG13",
+    "ShuffleNetV2_1.5", "ShuffleNetV2_2", "VGG11", "VGG13",
     "VGG16", "VGG19",
 )
 

@@ -42,20 +42,18 @@ ENTRY_POINTS: Dict[str, Dict[str, list]] = {
     },
     # (images, idx, out, n, m, row_bytes, vec, stream)
     "dma_gather": {"dma_row_gather": [_P, _P, _P, _L, _L, _L, _I, _P]},
-    # (x, partial, out, rows, c, vec, stream); plan: (rows, c, vec,
-    # elem_bytes, *rows_per_block, *chunks)
+    # (x, partial, out, tickets, rows, c, vec, stream); plan: (rows, c,
+    # vec, elem_bytes, *rows_per_block, *chunks, *tiles)
     "bn_stats": {
-        "fused_moments_bf16": [_P, _P, _P, _L, _I, _I, _P],
-        "fused_moments_f32": [_P, _P, _P, _L, _I, _I, _P],
-        "fused_moments_plan": [_L, _I, _I, _I, _P, _P],
+        "fused_moments_bf16": [_P] * 4 + [_L, _I, _I, _P],
+        "fused_moments_f32": [_P] * 4 + [_L, _I, _I, _P],
+        "fused_moments_plan": [_L, _I, _I, _I, _P, _P, _P],
     },
     # fwd: (x, out, idx or NULL, n, h, w, c, vec, ib, rows, ccv, smem,
-    # stream); bwd: (g, idx, gi, n, h, w, c, vec, stream)
+    # stream); bwd: (g, idx, gi, the same ints, stream)
     "max_pool": {
-        **{f"max_pool3x3_fwd_{t}": [_P] * 3 + [_I] * 9 + [_P]
-           for t in ("bf16", "f32")},
-        **{f"max_pool3x3_bwd_{t}": [_P] * 3 + [_I] * 5 + [_P]
-           for t in ("bf16", "f32")},
+        f"max_pool3x3_{way}_{t}": [_P] * 3 + [_I] * 9 + [_P]
+        for way in ("fwd", "bwd") for t in ("bf16", "f32")
     },
     # (x, w, out, n, h, w, c, k, vec, ib, th, tr, ccv, xruns, smem, stream)
     "depthwise_stencil": {

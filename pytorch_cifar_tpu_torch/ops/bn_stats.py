@@ -11,24 +11,31 @@ fp32. The gradient is :class:`FusedMoments`' elementwise backward,
 ``dx = a/n + 2*b*x/n`` cast to ``x``'s type, in plain PyTorch, as the JAX
 package computes it in plain jnp outside any Pallas kernel.
 
-The forward launches the CUDA kernel (``csrc/bn_stats.cu``: a fixed-order
-two-pass reduction, no float atomics, so two launches on one input are
-bit-identical) for a CUDA tensor and raises on anything it cannot take; a
-CPU tensor runs :func:`fused_moments_reference`. There is no fallback from
-one to the other. ``LAUNCHES`` counts kernel launches (one per forward
-call; each runs the partial and the finalize pass).
+The forward launches the CUDA kernel (``csrc/bn_stats.cu``: one launch,
+whose blocks each reduce a chunk of rows and whose last block per channel
+tile, found by an integer ticket, sums the chunks' partials in a fixed
+order; no float atomics, so two launches on one input are bit-identical)
+for a CUDA tensor and raises on anything it cannot take; a CPU tensor runs
+:func:`fused_moments_reference`. There is no fallback from one to the
+other. ``LAUNCHES`` counts kernel launches, one per forward call.
 """
 
 from __future__ import annotations
 
 import ctypes
 import threading
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
 LAUNCHES = 0  # kernel launches since import (or since a caller reset it)
 _launch_lock = threading.Lock()
+# (device index, stream) -> the kernel's int32 ticket counters, one per
+# channel tile. Zeroed once here; each launch's last block of a tile
+# resets its counter, so a launch finds them zero and leaves them so.
+# Launches on one stream run in order and may share them; two streams
+# may run at once, so each has its own.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def fused_moments_reference(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,6 +57,19 @@ def _check(x: torch.Tensor) -> None:
         )
 
 
+def _tickets(device: int, stream: int, tiles: int) -> torch.Tensor:
+    """The stream's ticket counters, at least ``tiles`` of them. A larger
+    buffer replaces a smaller one; it is allocated on this stream, so the
+    old one is freed only after the launches queued before it."""
+    key = (device, stream)
+    buf = _TICKETS.get(key)
+    if buf is None or buf.numel() < tiles:
+        buf = torch.zeros(max(tiles, 64), dtype=torch.int32,
+                          device=f"cuda:{device}")
+        _TICKETS[key] = buf
+    return buf
+
+
 def _moments_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global LAUNCHES
     if x.dtype not in (torch.bfloat16, torch.float32):
@@ -62,9 +82,10 @@ def _moments_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     esize = x.element_size()
     vec = int(c % (16 // esize) == 0 and x.data_ptr() % 16 == 0)
     rows_per_block, chunks = ctypes.c_longlong(), ctypes.c_int()
+    tiles = ctypes.c_int()
     err = lib.fused_moments_plan(
         rows, c, vec, esize, ctypes.byref(rows_per_block),
-        ctypes.byref(chunks),
+        ctypes.byref(chunks), ctypes.byref(tiles),
     )
     if err != 0:
         raise ValueError(f"fused_moments cannot take x {tuple(x.shape)}")
@@ -72,10 +93,12 @@ def _moments_cuda(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         (chunks.value, 2, c), dtype=torch.float32, device=x.device
     )
     out = torch.empty((2, c), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    tickets = _tickets(x.device.index, stream, tiles.value)
     fn = lib.fused_moments_bf16 if esize == 2 else lib.fused_moments_f32
     err = fn(
-        x.data_ptr(), partial.data_ptr(), out.data_ptr(), rows, c, vec,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), partial.data_ptr(), out.data_ptr(),
+        tickets.data_ptr(), rows, c, vec, stream,
     )
     if err != 0:
         raise RuntimeError(

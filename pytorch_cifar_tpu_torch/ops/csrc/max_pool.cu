@@ -59,14 +59,30 @@
 // b512 bf16 GoogLeNet step (9 launches) against bounds of 0.930 and 0.744
 // (NVIDIA H100 80GB HBM3, 700 W).
 //
-// Backward (one thread per (pixel, channel vector)): a gather, no atomics.
-// The thread of input position p reads the map of the up to 9 windows that
-// contain p (window (y - dy + 1, x - dx + 1) sees p as its tap (dy, dx))
-// and adds g where the map names that tap, in tap order, in fp32, and
-// rounds once. A window whose winner is tap 0 in the halo (every real tap
-// -inf) names no input position: its gradient is dropped, as on the TPU,
-// and nothing is read or written out of bounds. It loads the map nine
-// times through L1/L2.
+// Backward, the forward's strip turned around (the wrapper's plan with
+// backward=True: the same chunks, a tile of g and the map, elem + 1 bytes
+// a channel): a gather, no atomics. A block stages its band's g rows and
+// winner-map rows, and the rows above and below, by cp.async into a tile
+// whose border outside the map holds g = 0 and map = 255 (names no tap),
+// so no tap needs a bound check and each map byte and g element leaves
+// device memory once (a halo row is read twice, from L2). Each thread
+// walks its (column, vector) down the band with the 3 x 3 windows' cells
+// that contain it sliding in registers: input position p sums, for t =
+// 0..8 in order, the g of the window that sees p as its tap t (window
+// (y - dy + 1, x - dx + 1), t = 3 dy + dx) where that window's map names
+// t, in fp32 from +0, and rounds once; the plain version's bits. Map bytes
+// are compared four at a time (add_tap) and a lane's byte mask selects
+// the g bits (a bf16 widened by shifting them), so an unmatched tap adds
+// +0, never g * 0: a NaN or an infinity that no window routes to p never
+// reaches p's sum. A window whose winner is tap 0 in the halo (every real
+// tap -inf) names no position: its gradient is dropped, as on the TPU.
+// What bounds it: in fp32 the bytes (83% of the bound per b512 GoogLeNet
+// step); in bf16, with half the bytes for the same nine selects and adds
+// an element, the issue of that work (63%): 1.475 ms against a 0.930 ms
+// bound, where the design it replaces (one thread per (pixel, vector),
+// nine map and g loads per output through L1/L2) took 2.337 in the same
+// call (NVIDIA H100 80GB HBM3, 700 W). Staging row by row with barriers
+// between, and a compare and predicated add per channel, were no faster.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -78,8 +94,7 @@
 
 namespace {
 
-constexpr int kThreads = 256;         // backward block
-constexpr int kFwdMaxThreads = 512;   // the forward plan's block, at most
+constexpr int kMaxThreads = 512;   // a plan's block, at most (both ways)
 constexpr int kSmemOptIn = 232448;
 
 // A vector of V elements is worked on as N 32-bit words: two bf16 lanes or
@@ -216,7 +231,7 @@ __device__ __forceinline__ Best<IO, V> w_pass(const typename IO::S* at,
 }
 
 template <typename IO, int V, bool MAP>
-__global__ void __launch_bounds__(kFwdMaxThreads) max_pool_fwd_kernel(
+__global__ void __launch_bounds__(kMaxThreads) max_pool_fwd_kernel(
     const typename IO::S* __restrict__ x, typename IO::S* __restrict__ out,
     uint8_t* __restrict__ idx, int n, int h, int w, int c, int ib, int rows,
     int ccv) {
@@ -289,44 +304,185 @@ __global__ void __launch_bounds__(kFwdMaxThreads) max_pool_fwd_kernel(
   }
 }
 
+// One tile pixel's staged vector for the backward: V cotangents as 32-bit
+// words (two bf16 or one fp32 each; a lone bf16 in the low half) and the
+// V winner-map bytes (padded with bytes that are never read).
 template <typename IO, int V>
-__global__ void __launch_bounds__(kThreads) max_pool_bwd_kernel(
-    const typename IO::S* __restrict__ g, const uint8_t* __restrict__ idx,
-    typename IO::S* __restrict__ gi, long long total, int h, int w, int c) {
-  using S = typename IO::S;
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const Where p = decode<V>(i, h, w, c);
-  const long long here = p.pix * c + p.c0;
-  float acc[V];
-#pragma unroll
-  for (int v = 0; v < V; ++v) acc[v] = 0.f;
-#pragma unroll
-  for (int t = 0; t < 9; ++t) {
-    // the window that sees this position as its tap t
-    const int oy = p.y - (t / 3 - 1), ox = p.x - (t % 3 - 1);
-    if (oy < 0 || oy >= h || ox < 0 || ox >= w) continue;
-    const long long off =
-        here - (static_cast<long long>(t / 3 - 1) * w + t % 3 - 1) * c;
-    const Pack<uint8_t, V> m = load<uint8_t, V>(idx + off);
-    bool any = false;
-#pragma unroll
-    for (int v = 0; v < V; ++v) any |= m.v[v] == t;
-    if (!any) continue;
-    const Pack<S, V> gv = load<S, V>(g + off);
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-      if (m.v[v] == t) acc[v] += IO::to_float(gv.v[v]);
+struct Cell {
+  static constexpr int kGBytes = V * static_cast<int>(sizeof(typename IO::S));
+  static constexpr int GW = kGBytes >= 4 ? kGBytes / 4 : 1;
+  static constexpr int MW = V >= 4 ? V / 4 : 1;
+  uint32_t g[GW], m[MW];
+
+  __device__ __forceinline__ void load(const typename IO::S* gp,
+                                       const uint8_t* mp) {
+    if constexpr (kGBytes == 16) {
+      const uint4 q = *reinterpret_cast<const uint4*>(gp);
+      g[0] = q.x, g[1] = q.y, g[2] = q.z, g[3] = q.w;
+    } else if constexpr (kGBytes == 8) {
+      const uint2 q = *reinterpret_cast<const uint2*>(gp);
+      g[0] = q.x, g[1] = q.y;
+    } else if constexpr (kGBytes == 4) {
+      g[0] = *reinterpret_cast<const uint32_t*>(gp);
+    } else {
+      g[0] = *reinterpret_cast<const uint16_t*>(gp);
+    }
+    if constexpr (V == 8) {
+      const uint2 q = *reinterpret_cast<const uint2*>(mp);
+      m[0] = q.x, m[1] = q.y;
+    } else if constexpr (V == 4) {
+      m[0] = *reinterpret_cast<const uint32_t*>(mp);
+    } else if constexpr (V == 2) {
+      m[0] = *reinterpret_cast<const uint16_t*>(mp);
+    } else {
+      m[0] = *mp;
+    }
   }
-  Pack<S, V> r;
+};
+
+// prmt.b32 in its default mode: a selector nibble with its msb set
+// replicates the sign bit of the byte it picks
+__device__ __forceinline__ uint32_t prmt_sign(uint32_t a, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;" : "=r"(r) : "r"(a), "r"(0u), "r"(sel));
+  return r;
+}
+
+// acc[e] += (map byte e == t ? g[e] : +0.0f), lane by lane, for one tap.
+// Four map bytes are compared at once: map bytes and t lie below 0x80 (or
+// are 0xFF), so ((m ^ t) | 0x80) - 1 borrows within its own byte and
+// leaves bit 7 set exactly where m != t; a sign-replicating prmt turns
+// that into a byte mask, which clears the cotangent's bits (a bf16 widened
+// by shifting them) where the map names another tap. An unmatched lane
+// thus adds the bits of +0.0: a NaN or an infinity in a cotangent that no
+// window routes here never reaches the sum. (__vcmpeq4 in place of the
+// borrow was slower: the compare is a fair part of the work a tap does.)
+template <typename IO, int V>
+__device__ __forceinline__ void add_tap(float (&acc)[V], const Cell<IO, V>& c,
+                                        uint32_t t) {
+  // bit 7 of each byte of ne: that map byte differs from t
+  uint32_t ne[Cell<IO, V>::MW];
 #pragma unroll
-  for (int v = 0; v < V; ++v) r.v[v] = IO::from_float(acc[v]);
-  store<S, V>(gi + here, r);
+  for (int i = 0; i < Cell<IO, V>::MW; ++i)
+    ne[i] = ((c.m[i] ^ (t * 0x01010101u)) | 0x80808080u) - 0x01010101u;
+  if constexpr (sizeof(typename IO::S) == 2) {
+#pragma unroll
+    for (int e = 0; e < V; e += 2) {  // one word: elements e, e + 1
+      const int b = e % 4;            // their map bytes b, b + 1
+      const uint32_t pair = prmt_sign(ne[e / 4], 0x9988 + b * 0x1111);
+      const uint32_t w = c.g[e / 2] & ~pair;
+      acc[e] += __uint_as_float(w << 16);
+      if (e + 1 < V) acc[e + 1] += __uint_as_float(w & 0xFFFF0000u);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      const uint32_t mask = prmt_sign(ne[e / 4], 0x8888 + (e % 4) * 0x1111);
+      acc[e] += __uint_as_float(c.g[e] & ~mask);
+    }
+  }
+}
+
+template <typename IO, int V>
+__global__ void __launch_bounds__(kMaxThreads) max_pool_bwd_kernel(
+    const typename IO::S* __restrict__ g, const uint8_t* __restrict__ idx,
+    typename IO::S* __restrict__ gi, int n, int h, int w, int c, int ib,
+    int rows, int ccv) {
+  using S = typename IO::S;
+  // block -> (image group, band, channel chunk) and thread -> (channel
+  // vector, column, image), as in the forward; the tile row r holds the
+  // windows of row oy0 - 1 + r, so input row oy0 + k is tap row 2, 1, 0
+  // of tile rows k, k + 1, k + 2
+  const int cvt = c / V;
+  const int chunks = (cvt + ccv - 1) / ccv;
+  const int bands = (h + rows - 1) / rows;
+  const int cv0 = (blockIdx.x % chunks) * ccv;
+  const int tile = blockIdx.x / chunks;
+  const int img0 = (tile / bands) * ib;
+  const int oy0 = (tile % bands) * rows;
+  const int pv = ccv * V;
+  const int row_step = (w + 2) * pv;
+  const int tr = rows + 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // [image][tile row][column + 1][pv] of g, then the same of map bytes;
+  // outside the map g is 0 and the map 255, which names no tap
+  S* gs = reinterpret_cast<S*>(smem_raw);
+  uint8_t* ms = smem_raw + (size_t)ib * tr * row_step * sizeof(S);
+
+  const int v = threadIdx.x % ccv;
+  const int col = (threadIdx.x / ccv) % w;
+  const int im = threadIdx.x / (ccv * w);
+  const int img = img0 + im, cv = cv0 + v;
+  const bool live = im < ib && img < n && cv < cvt;
+  const size_t at = ((size_t)im * tr * (w + 2) + col + 1) * pv + v * V;
+  const long long src = (((long long)img * h + oy0 - 1) * w + col) * c + cv * V;
+  if (live) {
+    Pack<S, V> zero;
+    Pack<uint8_t, V> none;
+#pragma unroll
+    for (int e = 0; e < V; ++e) zero.v[e] = S(0), none.v[e] = 255;
+    for (int r = 0; r < tr; ++r) {
+      const size_t d = at + (size_t)r * row_step;
+      const int iy = oy0 - 1 + r;
+      if (iy >= 0 && iy < h) {
+        copy_async<V * sizeof(S)>(gs + d, g + src + (long long)r * w * c, true);
+        copy_async<V>(ms + d, idx + src + (long long)r * w * c, true);
+      } else {
+        store<S, V>(gs + d, zero);
+        store<uint8_t, V>(ms + d, none);
+      }
+      if (col == 0) {
+        store<S, V>(gs + d - pv, zero);
+        store<uint8_t, V>(ms + d - pv, none);
+      }
+      if (col == w - 1) {
+        store<S, V>(gs + d + pv, zero);
+        store<uint8_t, V>(ms + d + pv, none);
+      }
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+  if (!live) return;
+
+  // three tile rows of the three windows' cells (columns x - 1, x, x + 1)
+  // slide down the band; input row oy0 + k sums tap t = 3 dy + dx from the
+  // window at tile row k + 2 - dy, column x + 1 - dx, in the order t = 0..8
+  Cell<IO, V> win[3][3];
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      win[r + 1][j].load(gs + at + r * row_step + (j - 1) * pv,
+                         ms + at + r * row_step + (j - 1) * pv);
+  const long long first = (((long long)img * h + oy0) * w + col) * c + cv * V;
+  const long long out_step = (long long)w * c;
+  const int count = oy0 + rows < h ? rows : h - oy0;
+  for (int k = 0; k < count; ++k) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      win[0][j] = win[1][j];
+      win[1][j] = win[2][j];
+      win[2][j].load(gs + at + (k + 2) * row_step + (j - 1) * pv,
+                     ms + at + (k + 2) * row_step + (j - 1) * pv);
+    }
+    float acc[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int t = 0; t < 9; ++t)
+      add_tap<IO, V>(acc, win[2 - t / 3][2 - t % 3], t);
+    Pack<S, V> r;
+#pragma unroll
+    for (int e = 0; e < V; ++e) r.v[e] = IO::from_float(acc[e]);
+    store<S, V>(gi + first + k * out_step, r);
+  }
 }
 
 template <typename IO, int V, bool MAP>
 int launch_fwd(const void* x, void* out, void* idx, int n, int h, int w,
-               int c, int ib, int rows, int ccv, int smem,
+               int c, int ib, int rows, int ccv, int smem, unsigned blocks,
                cudaStream_t s) {
   using S = typename IO::S;
   // set once per instantiation (thread-safe static init; one device per
@@ -335,11 +491,8 @@ int launch_fwd(const void* x, void* out, void* idx, int n, int h, int w,
       max_pool_fwd_kernel<IO, V, MAP>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
   if (attr != cudaSuccess) return static_cast<int>(attr);
-  const long long blocks = (long long)((n + ib - 1) / ib) *
-                           ((h + rows - 1) / rows) * ((c / V + ccv - 1) / ccv);
-  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
   max_pool_fwd_kernel<IO, V, MAP>
-      <<<(unsigned)blocks, ib * w * ccv, smem, s>>>(
+      <<<blocks, ib * w * ccv, smem, s>>>(
           static_cast<const S*>(x), static_cast<S*>(out),
           static_cast<uint8_t*>(idx), n, h, w, c, ib, rows, ccv);
   return static_cast<int>(cudaGetLastError());
@@ -360,6 +513,36 @@ int with_vec(int vec, F&& f) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the tile a plan gives: ib images of (rows + 2) x (w + 2) pixels of
+// ccv vectors of vec channels, `staged` bytes a channel
+inline long long tile_bytes(int ib, int rows, int w, int ccv, int vec,
+                            int staged) {
+  return (long long)ib * (rows + 2) * (w + 2) * ccv * vec * staged;
+}
+
+// the checks the forward and the backward share: the shape, the wrapper's
+// plan (ib, rows, ccv, smem) for `staged` bytes a channel, and alignment;
+// sets the plan's grid, (image groups x bands x channel chunks) blocks
+inline int check_plan(const void* a, const void* b, const void* idx, int n,
+                      int h, int w, int c, int vec, int elem, int ib,
+                      int rows, int ccv, int smem, int staged,
+                      unsigned* blocks) {
+  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || vec <= 0 || c % vec ||
+      ib <= 0 || rows <= 0 || rows > h || (ib > 1 && rows != h) ||
+      ccv <= 0 || ccv > c / vec || (long long)ib * w * ccv > kMaxThreads ||
+      smem > kSmemOptIn ||
+      smem != tile_bytes(ib, rows, w, ccv, vec, staged))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!aligned(a, vec * elem) || !aligned(b, vec * elem) ||
+      (idx != nullptr && !aligned(idx, vec)))
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const long long grid = (long long)((n + ib - 1) / ib) *
+                         ((h + rows - 1) / rows) * ((c / vec + ccv - 1) / ccv);
+  if (grid > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  *blocks = static_cast<unsigned>(grid);
+  return 0;
+}
+
 // vec = channels per thread: c % vec == 0 and every pointer aligned to vec
 // elements (the wrapper picks the widest, up to 16 bytes); (ib, rows, ccv,
 // smem) is the wrapper's plan, checked here
@@ -368,45 +551,41 @@ int forward(const void* x, void* out, void* idx, int n, int h, int w, int c,
             int vec, int ib, int rows, int ccv, int smem,
             void* stream) {
   using S = typename IO::S;
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || vec <= 0 || c % vec ||
-      ib <= 0 || rows <= 0 || rows > h || (ib > 1 && rows != h) ||
-      ccv <= 0 ||
-      ccv > c / vec || (long long)ib * w * ccv > kFwdMaxThreads ||
-      smem > kSmemOptIn ||
-      smem != (long long)ib * (rows + 2) * (w + 2) * ccv * vec * (int)sizeof(S))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned(x, vec * sizeof(S)) || !aligned(out, vec * sizeof(S)) ||
-      (idx != nullptr && !aligned(idx, vec)))
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  unsigned blocks;
+  const int bad = check_plan(x, out, idx, n, h, w, c, vec, sizeof(S), ib, rows,
+                             ccv, smem, sizeof(S), &blocks);
+  if (bad) return bad;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return with_vec<IO>(vec, [&](auto vc) {
     constexpr int V = decltype(vc)::value;
     return idx != nullptr
         ? launch_fwd<IO, V, true>(x, out, idx, n, h, w, c, ib, rows,
-                                  ccv, smem, s)
+                                  ccv, smem, blocks, s)
         : launch_fwd<IO, V, false>(x, out, nullptr, n, h, w, c, ib, rows,
-                                   ccv, smem, s);
+                                   ccv, smem, blocks, s);
   });
 }
 
 template <typename IO>
 int backward(const void* g, const void* idx, void* gi, int n, int h, int w,
-             int c, int vec, void* stream) {
+             int c, int vec, int ib, int rows, int ccv, int smem,
+             void* stream) {
   using S = typename IO::S;
-  long long total = 0;
-  const long long blocks = blocks_for(n, h, w, c, vec, kThreads, &total);
-  if (blocks == 0 || idx == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (!aligned(g, vec * sizeof(S)) || !aligned(gi, vec * sizeof(S)) ||
-      !aligned(idx, vec))
-    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (idx == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  unsigned blocks;
+  const int bad = check_plan(g, gi, idx, n, h, w, c, vec, sizeof(S), ib, rows,
+                             ccv, smem, sizeof(S) + 1, &blocks);
+  if (bad) return bad;
   return with_vec<IO>(vec, [&](auto vc) {
     constexpr int V = decltype(vc)::value;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        max_pool_bwd_kernel<IO, V>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
     max_pool_bwd_kernel<IO, V>
-        <<<static_cast<unsigned>(blocks), kThreads, 0,
-           static_cast<cudaStream_t>(stream)>>>(
+        <<<blocks, ib * w * ccv, smem, static_cast<cudaStream_t>(stream)>>>(
             static_cast<const S*>(g), static_cast<const uint8_t*>(idx),
-            static_cast<S*>(gi), total, h, w, c);
+            static_cast<S*>(gi), n, h, w, c, ib, rows, ccv);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -431,15 +610,20 @@ extern "C" int max_pool3x3_fwd_f32(const void* x, void* out, void* idx, int n,
                       smem, stream);
 }
 
-// g, idx (n, h, w, c) -> gi (n, h, w, c): each window's g to its winner.
+// g, idx (n, h, w, c) -> gi (n, h, w, c): each window's g to its winner;
+// (ib, rows, ccv, smem) is the wrapper's backward plan, checked here.
 extern "C" int max_pool3x3_bwd_bf16(const void* g, const void* idx, void* gi,
                                     int n, int h, int w, int c, int vec,
+                                    int ib, int rows, int ccv, int smem,
                                     void* stream) {
-  return backward<BF16>(g, idx, gi, n, h, w, c, vec, stream);
+  return backward<BF16>(g, idx, gi, n, h, w, c, vec, ib, rows, ccv, smem,
+                        stream);
 }
 
 extern "C" int max_pool3x3_bwd_f32(const void* g, const void* idx, void* gi,
                                    int n, int h, int w, int c, int vec,
+                                   int ib, int rows, int ccv, int smem,
                                    void* stream) {
-  return backward<F32>(g, idx, gi, n, h, w, c, vec, stream);
+  return backward<F32>(g, idx, gi, n, h, w, c, vec, ib, rows, ccv, smem,
+                       stream);
 }

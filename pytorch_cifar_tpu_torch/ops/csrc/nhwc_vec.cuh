@@ -1,8 +1,7 @@
 // Helpers shared by the NHWC stencil kernels (max_pool.cu,
 // depthwise_stencil.cu): element types by their storage, naturally aligned
-// vector loads and stores of V channels, their copies into a shared-memory
-// tile, and the thread -> (pixel, channel vector) decode of a
-// one-thread-per-(pixel, vector) grid.
+// vector loads and stores of V channels, and their copies into a
+// shared-memory tile.
 
 #pragma once
 
@@ -83,36 +82,8 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src,
   }
 }
 
-// thread i -> (global pixel index, y, x, first channel of its vector)
-struct Where {
-  long long pix;
-  int y, x, c0;
-};
-
-template <int V>
-__device__ __forceinline__ Where decode(long long i, int h, int w, int c) {
-  const int cv = c / V;
-  Where p;
-  p.c0 = static_cast<int>(i % cv) * V;
-  p.pix = i / cv;
-  p.x = static_cast<int>(p.pix % w);
-  p.y = static_cast<int>((p.pix / w) % h);
-  return p;
-}
-
 inline bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-// blocks of `threads` for one thread per (pixel, vector of vec channels);
-// 0 if the shape is not taken
-inline long long blocks_for(int n, int h, int w, int c, int vec, int threads,
-                            long long* total) {
-  if (n <= 0 || h <= 0 || w <= 0 || c <= 0 || vec <= 0 || c % vec != 0)
-    return 0;
-  *total = static_cast<long long>(n) * h * w * (c / vec);
-  const long long blocks = (*total + threads - 1) / threads;
-  return blocks > 2147483647LL ? 0 : blocks;
 }
 
 }  // namespace

@@ -16,9 +16,10 @@ of a window is its row-major FIRST maximum (taps 0..8 scanned with a strict
 Under autograd the forward also writes ONE uint8 winner map (the winning
 tap per element), and the backward is a kernel too: each input position
 gathers ``g`` from the up to nine windows whose map names it, summed in
-fp32 in tap order and rounded once. A window whose every real tap is
-``-inf`` keeps tap 0, which at a border lies outside the map: its gradient
-is dropped, as the TPU kernel drops it.
+fp32 in tap order (an unmatched tap adds +0, never ``g * 0``) and rounded
+once. A window whose every real tap is ``-inf`` keeps tap 0, which at a
+border lies outside the map: its gradient is dropped, as the TPU kernel
+drops it.
 
 One difference from the TPU kernel, on purpose: **a NaN wins** (``v > best
 or isnan(v)``). The TPU kernel's strict ``>`` lets a NaN through only at
@@ -26,12 +27,16 @@ tap 0, while ``nn.max_pool``, which the JAX GoogLeNet runs, propagates it;
 a pool that swallowed NaNs would hide a diverged step from the train
 step's ``nonfinite`` metric. Kernel and plain version share the rule.
 
-:func:`plan` picks the forward kernel's tile from the shape and the vector
-width: a block stages a band of ``rows`` output rows (or ``ib`` whole
-images) of a chunk of ``ccv`` channel vectors in shared memory, with a
-one-pixel ``-inf`` border (the halo rows inside the map are the input's),
-and its threads each own a (column, channel vector) and walk down the band
-with the separable ``max_h(max_w(x))``. The kernel checks the plan again.
+:func:`plan` picks either kernel's tile from the shape and the vector
+width: a block stages a band of ``rows`` rows (or ``ib`` whole images) of
+a chunk of ``ccv`` channel vectors in shared memory with a one-pixel
+border (the halo rows inside the map are the input's), and its threads
+each own a (column, channel vector) and walk down the band. The forward
+stages ``x`` with a ``-inf`` border and computes the separable
+``max_h(max_w(x))``; the backward stages ``g`` and the winner map with a
+zero / 255 border (a map value that names no tap) and sums, at each
+position, the nine neighbouring windows' ``g`` whose map names it. The
+kernels check the plan again.
 
 :func:`max_pool3x3_s1` launches the CUDA kernels (``csrc/max_pool.cu``)
 for a CUDA tensor and raises on anything they cannot take; a CPU tensor
@@ -59,7 +64,7 @@ _launch_lock = threading.Lock()
 
 _PAD = (0, 0, 1, 1, 1, 1)  # F.pad of (n, h, w, c): one pixel around h and w
 
-# the forward kernel's constants, as in csrc/max_pool.cu
+# the kernels' constants, as in csrc/max_pool.cu
 THREADS = 256  # threads of a block the plan aims for
 MAX_THREADS = 512  # threads of a block, at most
 CHUNK_BYTES = 128  # channel bytes of one tile pixel, at most
@@ -70,10 +75,10 @@ SMEM_OPT_IN = 232_448  # the most shared memory one block may have (227 KB)
 
 @dataclass(frozen=True)
 class Plan:
-    """One forward launch's tile: ``ib`` whole images, or (``ib`` = 1) a
-    band of ``rows`` output rows, of a chunk of ``ccv`` channel vectors,
-    staged as ``(rows + 2) x (w + 2)`` pixels an image; ``threads`` threads
-    and ``smem`` bytes of shared memory a block."""
+    """One launch's tile: ``ib`` whole images, or (``ib`` = 1) a band of
+    ``rows`` rows, of a chunk of ``ccv`` channel vectors, staged as
+    ``(rows + 2) x (w + 2)`` pixels an image; ``threads`` threads and
+    ``smem`` bytes of shared memory a block."""
 
     ib: int
     rows: int
@@ -83,10 +88,13 @@ class Plan:
 
 
 @functools.lru_cache(maxsize=None)
-def plan(h: int, w: int, c: int, elem: int, vec: int) -> Plan:
-    """The forward kernel's tile for an (h, w, c) map of ``elem``-byte
-    elements moved ``vec`` at a time; raises on a shape it cannot take.
-    Cached: it depends on the shape alone, and every forward asks."""
+def plan(h: int, w: int, c: int, elem: int, vec: int,
+         backward: bool = False) -> Plan:
+    """The tile of the forward kernel (which stages ``x``, ``elem`` bytes a
+    channel) or of the backward kernel (which stages ``g`` and the winner
+    map, ``elem + 1`` bytes a channel) for an (h, w, c) map moved ``vec``
+    channels at a time; raises on a shape it cannot take. Cached: it
+    depends on the shape alone, and every launch asks."""
     if min(h, w, c, vec) <= 0 or c % vec:
         raise ValueError(f"max_pool3x3_s1: h {h}, w {w}, c {c}, vec {vec}")
     if w > MAX_THREADS:
@@ -100,7 +108,8 @@ def plan(h: int, w: int, c: int, elem: int, vec: int) -> Plan:
     chunks = next((k for k in range(fewest, 2 * fewest + 1) if cvt % k == 0),
                   fewest)
     ccv = -(-cvt // chunks)
-    row_bytes = (w + 2) * ccv * vec * elem  # one tile row of the chunk
+    staged = elem + 1 if backward else elem
+    row_bytes = (w + 2) * ccv * vec * staged  # one tile row of the chunk
     ib = max(1, THREADS // (w * ccv))
     while ib > 1 and ib * (h + 2) * row_bytes > TILE_BYTES:
         ib -= 1
@@ -229,9 +238,11 @@ def _backward(g: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     gi = torch.empty_like(g)
     if g.numel() == 0:
         return gi
+    vec = _build.vector_width(c, g, gi, idx)
+    p = plan(h, w, c, g.element_size(), vec, backward=True)
     err = fn(
-        g.data_ptr(), idx.data_ptr(), gi.data_ptr(), n, h, w, c,
-        _build.vector_width(c, g, gi, idx),
+        g.data_ptr(), idx.data_ptr(), gi.data_ptr(), n, h, w, c, vec,
+        p.ib, p.rows, p.ccv, p.smem,
         torch.cuda.current_stream(g.device).cuda_stream,
     )
     if err != 0:

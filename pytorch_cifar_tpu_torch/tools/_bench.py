@@ -86,25 +86,25 @@ STENCIL_SHAPES = [(128, 32, 32, 32, 3, 1), (128, 16, 16, 128, 3, 1),
                   (2, 8, 8, 130, 7, 0)]
 
 
-def googlenet_sites() -> list:
-    """GoogLeNet's fused conv3x3+BN+ReLU sites, one row per distinct
-    (h, w, cin, cout) with the number of launches per forward, read off the
-    model's own fold."""
-    from pytorch_cifar_tpu_torch.models import create_model
+def fused_sites(name: str) -> list:
+    """Any model's fused conv3x3+BN+ReLU sites, one row per distinct (h, w,
+    cin, cout) in forward order with its launches per forward, recorded
+    from one folded forward of one image on the CPU."""
+    from pytorch_cifar_tpu_torch.models import common, create_model
 
-    folded = create_model("GoogLeNet").fold(torch.float32)
     count: dict = {}
-    h = 32
-    for key, site in [("stem", folded["stem"])] + [
-        (None, c) for c in folded["cells"]
-    ]:
-        if site is None:  # a stage transition halves the map
-            h //= 2
-            continue
-        fused = [site] if key else site["b2"] + site["b3"]
-        for f in fused:
-            assert f.fused
-            shape = (h, h, f.weight.shape[2], f.weight.shape[3])
-            count[shape] = count.get(shape, 0) + 1
-    return [(f"{hh}x{ww}x{cin}->{cout}", hh, ww, cin, cout, k)
-            for (hh, ww, cin, cout), k in count.items()]
+    real = common.conv3x3_bn_relu
+
+    def record(x, w, scale, bias):
+        shape = (x.shape[1], x.shape[2], w.shape[2], w.shape[3])
+        count[shape] = count.get(shape, 0) + 1
+        return real(x, w, scale, bias)
+
+    common.conv3x3_bn_relu = record
+    try:
+        with torch.no_grad():
+            create_model(name).eval()(torch.zeros(1, 3, 32, 32))
+    finally:
+        common.conv3x3_bn_relu = real
+    return [(f"{h}x{w}x{cin}->{cout}", h, w, cin, cout, k)
+            for (h, w, cin, cout), k in count.items()]

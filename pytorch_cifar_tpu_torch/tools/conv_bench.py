@@ -36,7 +36,7 @@ from pytorch_cifar_tpu_torch.ops import conv_bn_relu as K
 from pytorch_cifar_tpu_torch.tools._bench import (
     RESNET18_SITES,
     card_line,
-    googlenet_sites,
+    fused_sites,
     time_ms,
 )
 
@@ -111,7 +111,7 @@ def site_row(name, h, w, cin, cout, per_fwd, n, runs, g) -> dict:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--model", nargs="+", default=["ResNet18", "GoogLeNet"],
-                        choices=["ResNet18", "GoogLeNet"])
+                        choices=["ResNet18", "GoogLeNet", "SimpleDLA"])
     parser.add_argument("--n", type=int, default=128)
     parser.add_argument("--runs", type=int, default=15)
     parser.add_argument("--ptxas", action="store_true")
@@ -125,7 +125,7 @@ def main(argv=None) -> int:
     g = torch.Generator().manual_seed(0)
     ok = True
     for model in args.model:
-        sites = RESNET18_SITES if model == "ResNet18" else googlenet_sites()
+        sites = RESNET18_SITES if model == "ResNet18" else fused_sites(model)
         rows = []
         for site in sites:
             try:

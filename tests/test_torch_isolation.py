@@ -13,6 +13,7 @@ import subprocess
 import sys
 
 import pytest
+from _torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, "pytorch_cifar_tpu_torch")
@@ -79,6 +80,7 @@ def test_scan_sees_the_whole_package():
                  *(os.path.join("pytorch_cifar_tpu_torch", *parts) for parts in
                    (("ops", "max_pool.py"), ("ops", "depthwise_stencil.py"),
                     ("models", "googlenet.py"), ("models", "mobilenet.py"),
+                    ("models", "dla_simple.py"),
                     ("tools", "pool_bench.py"),
                     ("tools", "depthwise_bench.py"))),
                  os.path.join("pytorch_cifar_tpu_torch", "config.py")):

@@ -20,8 +20,9 @@ from pytorch_cifar_tpu_torch.ops import depthwise_stencil as D
 from pytorch_cifar_tpu_torch.tools._bench import (
     RESNET18_SITES,
     STENCIL_SHAPES,
-    googlenet_sites,
+    fused_sites,
 )
+from _torch_threads import torch_threads  # noqa: F401
 
 SMEM_LIMIT = 232_448  # 227 KB: the most one block may ask for on an H100
 MOBILENET_STEM = ("mobilenet.stem", 32, 32, 3, 32, 1)
@@ -29,7 +30,7 @@ K3_SITES = RESNET18_SITES + [MOBILENET_STEM]
 
 
 def _zoo_sites():
-    return K3_SITES + googlenet_sites()
+    return K3_SITES + fused_sites("GoogLeNet") + fused_sites("SimpleDLA")
 
 
 def _widest_vec(c: int, elem: int) -> int:
@@ -43,7 +44,7 @@ def _widest_vec(c: int, elem: int) -> int:
                          ids=["bf16", "fp32"])
 def test_every_zoo_site_gets_a_plan_within_shared_memory(dtype):
     sites = _zoo_sites()
-    assert len(sites) == len(K3_SITES) + 24
+    assert len(sites) == len(K3_SITES) + 24 + 8  # GoogLeNet, SimpleDLA
     for name, h, w, cin, cout, _ in sites:
         p = K.plan(h, w, cin, cout, dtype)
         assert 0 < p.smem <= SMEM_LIMIT, (name, p)
@@ -61,8 +62,9 @@ def test_bf16_sites_take_wgmma_but_the_stems():
 
 
 def test_small_maps_fill_the_m_tile_with_whole_images():
-    """At every ResNet-18 and GoogLeNet wgmma site the M tile has at least
-    64 real rows; maps of 64 pixels or fewer take several whole images."""
+    """At every ResNet-18, GoogLeNet and SimpleDLA wgmma site the M tile
+    has at least 64 real rows; maps of 64 pixels or fewer take several
+    whole images."""
     for name, h, w, cin, cout, _ in _zoo_sites():
         p = K.plan(h, w, cin, cout)
         if p.path != "wgmma":

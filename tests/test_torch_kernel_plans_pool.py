@@ -1,14 +1,16 @@
-"""The host-side plan of the port's 3x3 max-pool forward (K4), and the
-separable rule that forward computes, on the CPU.
+"""The host-side plans of the port's 3x3 max-pool kernels (K4, forward and
+backward), and the rules those kernels compute, on the CPU.
 
-The kernel runs only on the card (``chip_smoke.py``,
-``tools/pool_bench.py``); what decides its tiles is plain Python that these
-tests reach: every output is written once, every plan fits the shared
-memory of the blocks an SM it is built for, and the source builds what the
-plans assume. The forward's separable ``max_h(max_w(x))`` with the
-kernel's band split is written here in torch and held bit for bit against
-the plain version on the inputs where it could slip: ties, +-0, NaNs, -inf
-windows and values on band edges.
+The kernels run only on the card (``chip_smoke.py``,
+``tools/pool_bench.py``); what decides their tiles is plain Python that
+these tests reach: every output is written once, every plan fits the
+shared memory of the blocks an SM it is built for, and the source builds
+what the plans assume. The forward's separable ``max_h(max_w(x))`` and the
+backward's banded gather (a 255 / zero border, fp32 sums in tap order, a
+selected +0 for an unmatched tap) are written here in torch with the
+kernels' band split and held bit for bit against the plain versions on the
+inputs where they could slip: ties, +-0, NaNs and infinities, -inf windows
+and values on band edges.
 """
 
 import re
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 from pytorch_cifar_tpu_torch.ops import _build
 from pytorch_cifar_tpu_torch.ops import max_pool as P
 from pytorch_cifar_tpu_torch.tools._bench import POOL_ODD, POOL_SHAPES
+from _torch_threads import torch_threads  # noqa: F401
 
 SM_SMEM = 233_472  # 228 KB: one H100 SM's shared memory
 BLOCK_RESERVED = 1_024  # what the card keeps of it for each block
@@ -40,7 +43,7 @@ def _widths(c: int, elem: int) -> list:
 
 def _pool_cover(n, h, w, c, vec, p):
     """How often each output (image, row, column, channel vector) is
-    written, as the kernel maps blocks (blockIdx.x = (image group, band,
+    written, as both kernels map blocks (blockIdx.x = (image group, band,
     channel chunk), the chunk fastest) and threads (channel vector,
     column, image), each thread walking down its band."""
     cvt = c // vec
@@ -79,6 +82,38 @@ def test_pool_plan_writes_every_output_once(shape, elem):
 
 
 @pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("shape", _COVER, ids=lambda s: "x".join(map(str, s)))
+def test_pool_backward_plan_writes_every_input_gradient_once(shape, elem):
+    """The backward's plan, at the forward's shapes and at every vector
+    width: each element of the input gradient is written by exactly one
+    thread of one block, and its tile stages g and the map (``elem + 1``
+    bytes a channel) with their halo rows and border."""
+    n, h, w, c = shape
+    for vec in _widths(c, elem):
+        p = P.plan(h, w, c, elem, vec, backward=True)
+        assert p.threads == p.ib * w * p.ccv <= P.MAX_THREADS
+        assert p.ib == 1 or p.rows == h
+        assert p.smem == (p.ib * (p.rows + 2) * (w + 2) * p.ccv * vec
+                          * (elem + 1))
+        assert (_pool_cover(n, h, w, c, vec, p) == 1).all(), (vec, p)
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "fp32"])
+def test_pool_backward_plans_fit_the_blocks_an_sm_they_are_built_for(elem):
+    """The backward's tiles hold g and the map within ``TILE_BYTES``, as
+    the forward's hold x: ``BLOCKS_PER_SM`` blocks share one SM; its 32x32
+    maps run in bands, its 8x8 maps whole, in the forward's channel
+    chunks."""
+    for h, w, c, _ in POOL_SHAPES:
+        p = P.plan(h, w, c, elem, 16 // elem, backward=True)
+        f = P.plan(h, w, c, elem, 16 // elem)
+        assert p.smem <= P.TILE_BYTES, (h, w, c, p)
+        assert p.ccv == f.ccv and p.threads <= P.MAX_THREADS
+        assert p.rows < h or h < 32, (h, p)
+    assert P.plan(8, 8, 832, elem, 16 // elem, backward=True).ib >= 2
+
+
+@pytest.mark.parametrize("elem", [2, 4], ids=["bf16", "fp32"])
 def test_pool_plans_fit_the_blocks_an_sm_they_are_built_for(elem):
     """A tile holds at most ``TILE_BYTES``, so ``BLOCKS_PER_SM`` blocks
     share one SM's shared memory and threads; GoogLeNet's 32x32 maps run
@@ -103,10 +138,11 @@ def test_pool_plan_refuses_what_the_kernel_cannot_take():
 
 
 def test_pool_source_builds_what_the_plans_assume():
-    """The forward's tile is a run-time argument, so what the source
+    """Both kernels' tiles are run-time arguments, so what the source
     builds is the rest: the vector widths the wrapper can pick (16, 8, 4
-    and 2 bytes), the forward with and without the map, and the plan's
-    constants."""
+    and 2 bytes), the forward with and without the map, the backward, the
+    plans' constants, and the tile bytes each entry checks: ``elem`` a
+    channel forward, ``elem + 1`` backward."""
     src = (_build.CSRC / "max_pool.cu").read_text()
     widths = {v * e for e in (2, 4) for c in (480, 130, 33)
               for v in _widths(c, e)}
@@ -115,7 +151,10 @@ def test_pool_source_builds_what_the_plans_assume():
         | {2} == widths
     assert "if constexpr (sizeof(S) == 2) return f(" in src
     assert "launch_fwd<IO, V, true>" in src and "launch_fwd<IO, V, false>" in src
-    for name, value in (("kFwdMaxThreads", P.MAX_THREADS),
+    assert "max_pool_bwd_kernel<IO, V>" in src
+    assert re.search(r"ccv, smem, sizeof\(S\), &blocks\);", src)  # forward
+    assert re.search(r"ccv, smem, sizeof\(S\) \+ 1, &blocks\);", src)
+    for name, value in (("kMaxThreads", P.MAX_THREADS),
                         ("kSmemOptIn", P.SMEM_OPT_IN)):
         assert re.search(rf"constexpr int {name} = {value};", src), name
 
@@ -227,3 +266,117 @@ def test_separable_rule_picks_the_last_nan_and_the_first_maximum():
     assert win[0, 1, 1].tolist() == [6, 1]
     assert torch.isnan(out[0, 1, 1, 0]) and out[0, 1, 1, 1] == 7.0
     assert torch.equal(win, P.max_pool3x3_s1_reference(x, True)[1])
+
+
+# -- K4 backward: the banded gather with the kernel's border and sums -----
+
+
+def _wide_bits(g: torch.Tensor) -> torch.Tensor:
+    """g's values as fp32 bits, int32: a bf16 widened by shifting its 16
+    bits up, as the kernel widens it."""
+    if g.dtype == torch.bfloat16:
+        return g.view(torch.int16).to(torch.int32) << 16
+    return g.view(torch.int32)
+
+
+def _banded_backward(g: torch.Tensor, idx: torch.Tensor, rows: int):
+    """The backward kernel's rule in torch, band by band: a band's block
+    stages the g and map rows of windows oy0 - 1 .. oy0 + rows and columns
+    -1 .. w, with g 0 and map 255 (no tap) outside the map; input row oy0 +
+    k sums tap t = 3 dy + dx from the window at tile row k + 2 - dy, column
+    x + 1 - dx, for t = 0..8 in order, in fp32 from +0, each tap adding the
+    bits of g masked by (map == t): +0 where the map names another tap.
+    One rounding to g's type at the end."""
+    n, h, w, c = g.shape
+    pad = (0, 0, 1, 1, 1, rows + 1)
+    gp = F.pad(_wide_bits(g), pad)
+    ip = F.pad(idx.to(torch.int32), pad, value=255)
+    out = torch.empty_like(g)
+    for oy0 in range(0, h, rows):
+        tg, ti = gp[:, oy0:oy0 + rows + 2], ip[:, oy0:oy0 + rows + 2]
+        for k in range(min(rows, h - oy0)):
+            acc = torch.zeros((n, w, c), dtype=torch.float32)
+            for t in range(9):
+                dy, dx = divmod(t, 3)
+                r, cols = k + 2 - dy, slice(2 - dx, 2 - dx + w)
+                mask = -(ti[:, r, cols] == t).to(torch.int32)  # 0 or ~0
+                acc = acc + (tg[:, r, cols] & mask).view(torch.float32)
+            out[:, oy0 + k] = acc.to(g.dtype)
+    return out
+
+
+def _bwd_case(kind: str, shape, e: int, dtype):
+    """(g, map) of one kind; ``e`` is the backward plan's first band edge.
+    The map is the plain forward's on a seeded x, so every window routes
+    its g to its winner."""
+    rs = np.random.RandomState(5)
+    n, h, w, c = shape
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    g = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    if kind == "signed zeros":
+        g = torch.from_numpy(np.where(rs.rand(*shape) < 0.5, 0.0, -0.0)
+                             .astype(np.float32))
+        g[0] = -0.0  # a whole image of -0 cotangents
+    elif kind == "NaN and inf cotangents":
+        # every window's g reaches one position; a NaN, an inf or a -inf
+        # must not reach the other eight around it
+        for v, frac in ((NAN, 0.02), (float("inf"), 0.02),
+                        (float("-inf"), 0.02)):
+            g[torch.from_numpy(rs.rand(*shape) < frac)] = v
+    elif kind == "-inf windows at borders":
+        for border in (np.s_[:2], np.s_[-2:]):
+            x[:, border] = NEG_INF
+            x[:, :, border] = NEG_INF
+        x[1] = NEG_INF  # a whole -inf map: corner windows keep tap 0
+        g[:, 0] = NAN  # dropped with the halo winners, not spread
+    elif kind == "band edges":
+        x[:, e - 1] = 50.0 + torch.from_numpy(rs.rand(n, w, c)
+                                              .astype(np.float32))
+        x[:, e, ::2] = x[:, e - 1, ::2]  # ties across the edge
+        g[:, e - 1:e + 1] = 1e30  # sums that round at the edge
+        g[:, e + 1] = -1e30
+    x, g = x.to(dtype), g.to(dtype)
+    return g, P.max_pool3x3_s1_reference(x, True)[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("kind", ["random", "signed zeros",
+                                  "NaN and inf cotangents",
+                                  "-inf windows at borders", "band edges"])
+def test_banded_backward_reproduces_the_plain_version_bit_for_bit(kind,
+                                                                  dtype):
+    """At the backward plan for a 32x32x64 map (bands with halo rows), the
+    kernel's rule gives the plain version's bits exactly: -0 cotangents
+    sum to +0 as the plain version's do, a NaN or an infinity reaches only
+    the position its window routes it to (an unmatched tap adds +0, not g
+    times 0), a window whose winner is tap 0 in the halo drops its g, and
+    a band's edge rows sum as rows inside it do."""
+    shape = (3, 32, 32, 64)
+    elem = torch.tensor([], dtype=dtype).element_size()
+    p = P.plan(*shape[1:], elem, 16 // elem, backward=True)
+    assert p.ib == 1 and p.rows < 32  # bands, with their halo rows
+    g, idx = _bwd_case(kind, shape, p.rows, dtype)
+    want = P.max_pool3x3_s1_backward_reference(g, idx)
+    got = _banded_backward(g, idx, p.rows)
+    assert torch.equal(_raw(got), _raw(want))
+    if kind == "NaN and inf cotangents":
+        assert torch.isnan(want).any() and not torch.isnan(want).all()
+
+
+def test_multiplying_by_the_mask_would_spread_a_nan():
+    """Why the kernel selects: g * (map == t) puts NaN = NaN * 0 into all
+    eight positions around a NaN cotangent that are not its window's
+    winner; the select leaves them finite."""
+    x = torch.arange(9.0).view(1, 3, 3, 1)  # the window at (1, 1) picks 8
+    idx = P.max_pool3x3_s1_reference(x, True)[1]
+    g = torch.zeros(1, 3, 3, 1)
+    g[0, 1, 1, 0] = NAN
+    got = _banded_backward(g, idx, 3)
+    assert torch.isnan(got).sum() == 1 and torch.isnan(got[0, 2, 2, 0])
+    gp = F.pad(g, (0, 0, 1, 1, 1, 1))
+    ip = F.pad(idx, (0, 0, 1, 1, 1, 1), value=255)
+    times = sum(gp[:, 2 - t // 3:5 - t // 3, 2 - t % 3:5 - t % 3]
+                * (ip[:, 2 - t // 3:5 - t // 3, 2 - t % 3:5 - t % 3] == t)
+                for t in range(9))
+    assert torch.isnan(times).sum() > 1

@@ -16,6 +16,7 @@ from pytorch_cifar_tpu.models import create_model as jax_create_model
 from pytorch_cifar_tpu_torch.compat import state_dict_from_jax
 from pytorch_cifar_tpu_torch.models import count_params, create_model
 from pytorch_cifar_tpu_torch.models.common import FoldedConvBN
+from _torch_threads import torch_threads  # noqa: F401
 
 
 def random_jax_trees(name, seed=0):

@@ -13,6 +13,7 @@ import torch
 
 from pytorch_cifar_tpu.ops import conv_bn_relu as jax_ops
 from pytorch_cifar_tpu_torch.ops import conv_bn_relu as port
+from _torch_threads import torch_threads  # noqa: F401
 
 # (n, h, w, cin, cout): the two interpret-mode shapes plus the stem's cin=3
 SHAPES = [(3, 8, 8, 8, 16), (3, 4, 4, 16, 8), (2, 8, 8, 3, 8)]

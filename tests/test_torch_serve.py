@@ -32,6 +32,7 @@ from pytorch_cifar_tpu_torch.serve import (
     QueueFull,
     run_load,
 )
+from _torch_threads import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BUCKETS = (1, 4, 8)

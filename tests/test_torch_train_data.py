@@ -28,6 +28,7 @@ from pytorch_cifar_tpu_torch.data import augment, cifar10
 from pytorch_cifar_tpu_torch.data.pipeline import DeviceDataset
 from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.train import optim, steps
+from _torch_threads import torch_threads  # noqa: F401
 
 # -- augmentation --------------------------------------------------------
 
@@ -276,7 +277,7 @@ def test_unported_paths_say_so(argv):
 
 def test_unported_models_say_so():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("SimpleDLA")
+        create_model("DLA")
     with pytest.raises(KeyError):
         create_model("NoSuchNet")
 

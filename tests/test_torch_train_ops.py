@@ -21,6 +21,7 @@ from pytorch_cifar_tpu.ops import bn_stats as jax_bn_stats
 from pytorch_cifar_tpu.ops import dma_gather as jax_gather
 from pytorch_cifar_tpu_torch.models.common import BatchNorm, bn_moments_impl
 from pytorch_cifar_tpu_torch.ops import bn_stats, dma_gather
+from _torch_threads import torch_threads  # noqa: F401
 
 # -- K1: dma_row_gather --------------------------------------------------
 

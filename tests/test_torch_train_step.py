@@ -31,6 +31,7 @@ from pytorch_cifar_tpu_torch.models.resnet import BasicBlock, ResNet
 from pytorch_cifar_tpu_torch.train import optim, steps
 from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
 from pytorch_cifar_tpu_torch.train.state import create_train_state
+from _torch_threads import torch_threads  # noqa: F401
 
 RTOL, ATOL = 1e-4, 1e-5
 LR, T_MAX, SPE = 0.1, 4, 3

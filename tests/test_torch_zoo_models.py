@@ -1,5 +1,5 @@
-"""The port's GoogLeNet and MobileNet against the JAX package's, on the
-same weights.
+"""The port's GoogLeNet, MobileNet and SimpleDLA against the JAX package's,
+on the same weights.
 
 Weights, BN statistics and inputs come from numpy seeds; the JAX trees are
 mapped into the port by ``compat.state_dict_from_jax``, which must agree
@@ -28,10 +28,12 @@ from pytorch_cifar_tpu_torch.models import (
     count_params,
     create_model,
 )
+from pytorch_cifar_tpu_torch.models.dla_simple import STEMS, TREES
 from pytorch_cifar_tpu_torch.models.googlenet import CELLS, Inception
 from pytorch_cifar_tpu_torch.models.mobilenet import CFG
+from _torch_threads import torch_threads  # noqa: F401
 
-ZOO = ["GoogLeNet", "MobileNet"]
+ZOO = ["GoogLeNet", "MobileNet", "SimpleDLA"]
 BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
              "num_batches_tracked")
 # the port's Inception sites in the JAX cell's Conv_j/BatchNorm_j order
@@ -87,8 +89,38 @@ def _bn(prefix):
     return [f"{prefix}.{leaf}" for leaf in BN_LEAVES]
 
 
+def _block_keys(p, shortcut):
+    keys = [f"{p}.conv1.weight", *_bn(f"{p}.bn1"), f"{p}.conv2.weight",
+            *_bn(f"{p}.bn2")]
+    if shortcut:
+        keys += [f"{p}.shortcut.0.weight", *_bn(f"{p}.shortcut.1")]
+    return keys
+
+
+def _tree_keys(p, level, shortcut):
+    """A reference Tree: its root first, then the left and right
+    children; only the left child's first block can change width or
+    stride."""
+    keys = [f"{p}.root.conv.weight", *_bn(f"{p}.root.bn")]
+    if level == 1:
+        return keys + _block_keys(f"{p}.left_tree", shortcut) \
+            + _block_keys(f"{p}.right_tree", False)
+    return keys + _tree_keys(f"{p}.left_tree", level - 1, shortcut) \
+        + _tree_keys(f"{p}.right_tree", level - 1, False)
+
+
 def reference_keys(name):
     """state_dict keys in the reference's definition order."""
+    if name == "SimpleDLA":
+        keys = []
+        for stem in ("base", "layer1", "layer2"):
+            keys += [f"{stem}.0.weight", *_bn(f"{stem}.1")]
+        cin = STEMS[-1]
+        for k, (cout, level, stride) in enumerate(TREES):
+            keys += _tree_keys(f"layer{k + 3}", level,
+                               stride != 1 or cin != cout)
+            cin = cout
+        return keys + ["linear.weight", "linear.bias"]
     if name == "MobileNet":
         keys = ["conv1.weight", *_bn("bn1")]
         for i in range(len(CFG)):
@@ -106,7 +138,8 @@ def reference_keys(name):
 
 
 @pytest.mark.parametrize("name,count",
-                         [("GoogLeNet", 6_166_250), ("MobileNet", 3_217_226)])
+                         [("GoogLeNet", 6_166_250), ("MobileNet", 3_217_226),
+                          ("SimpleDLA", 15_142_970)])
 def test_golden_param_counts(name, count):
     assert count_params(create_model(name)) == count
 
@@ -131,17 +164,59 @@ def test_cells_follow_the_jax_plan():
     assert CFG == JAX_CFG
 
 
+def jax_call_order(keys):
+    """``keys`` with each Tree's root moved after its two children: the
+    order the JAX SimpleDLA calls them in (the reference defines the root
+    first). The JAX export pairs modules of one shape first-fit in the
+    template's order, so in the reference's order it would hand a root's BN
+    the first block's; in this order every pair is the named one. Other
+    models' keys come back as they are."""
+    out, roots = [], []  # roots: a stack of (tree prefix, its root keys)
+    for k in keys:
+        while roots and not k.startswith(roots[-1][0]):
+            out += roots.pop()[1]
+        if ".root." in k:
+            prefix = k.split(".root.")[0] + "."
+            if not roots or roots[-1][0] != prefix:
+                roots.append((prefix, []))
+            roots[-1][1].append(k)
+        else:
+            out.append(k)
+    while roots:
+        out += roots.pop()[1]
+    return out
+
+
+def test_jax_call_order_moves_each_root_after_its_children():
+    keys = reference_keys("SimpleDLA")
+    order = jax_call_order(keys)
+    assert sorted(order) == sorted(keys) and order != keys
+    where = {k: i for i, k in enumerate(order)}
+    for k in keys:
+        if ".root." in k:
+            tree = k.split(".root.")[0]
+            kids = [c for c in keys if c.startswith(
+                (f"{tree}.left_tree.", f"{tree}.right_tree."))]
+            assert kids and all(where[k] > where[c] for c in kids), k
+    assert jax_call_order(reference_keys("MobileNet")) == \
+        reference_keys("MobileNet")
+
+
 @pytest.mark.parametrize("name", ZOO)
 def test_state_dict_from_jax_matches_export(name, trees):
+    """Key for key, the JAX package's export with the port's own template
+    in the JAX model's call order; in the reference's key order."""
     params, stats = trees(name)
     template = {
         k: v.numpy() for k, v in create_model(name).state_dict().items()
     }
     want = jax_compat.export_torch_state_dict(
-        name, params, stats, template_sd=template
+        name, params, stats,
+        template_sd={k: template[k] for k in jax_call_order(template)},
     )
     got = state_dict_from_jax(name, params, stats)
-    assert list(got) == list(want)
+    assert list(got) == list(template)
+    assert set(want) == set(got)
     for k in want:
         assert got[k].dtype == want[k].dtype, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
@@ -151,6 +226,41 @@ def test_state_dict_from_jax_refuses_another_models_tree(trees):
     params, stats = trees("MobileNet")
     with pytest.raises((KeyError, ValueError)):
         state_dict_from_jax("GoogLeNet", params, stats)
+
+
+def test_state_dict_from_jax_refuses_a_resnet_tree_for_simpledla():
+    model = jax_create_model("ResNet18")
+    shapes = jax.eval_shape(lambda: model.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False
+    ))
+    params, stats = random_trees(shapes, 3)
+    with pytest.raises((KeyError, ValueError)):
+        state_dict_from_jax("SimpleDLA", params, stats)
+
+
+def _nested_copy(tree):
+    return {k: _nested_copy(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("edit", ["missing", "extra", "extra stats"])
+def test_state_dict_from_jax_refuses_a_dla_tree_with_a_leaf_off(edit,
+                                                                trees):
+    """SimpleDLA's branch raises on a missing leaf and on a leaf the model
+    does not have, as the other branches do."""
+    params, stats = trees("SimpleDLA")
+    params, stats = _nested_copy(params), _nested_copy(stats)
+    node = params["Tree_1"]["Tree_0"]["BasicBlock_1"]
+    if edit == "missing":
+        del node["BatchNorm_1"]["scale"]
+    elif edit == "extra":
+        node["Conv_2"] = {"Conv_0": {"kernel": np.zeros((1, 1, 128, 128),
+                                                        np.float32)}}
+    else:
+        stats["Tree_3"]["BasicBlock_2"] = {
+            "BatchNorm_0": {"mean": np.zeros(512, np.float32)}}
+    with pytest.raises((KeyError, ValueError)):
+        state_dict_from_jax("SimpleDLA", params, stats)
 
 
 def _port(name, params, stats):
@@ -200,7 +310,8 @@ def _bf16_case(name, trees, he):
     return got, want, params, stats, x
 
 
-@pytest.mark.parametrize("name,he", [("GoogLeNet", True), ("MobileNet", False)])
+@pytest.mark.parametrize("name,he", [("GoogLeNet", True), ("MobileNet", False),
+                                     ("SimpleDLA", True)])
 def test_eval_logits_match_jax_bf16(name, he, trees):
     """The two bf16 forwards within 2% of the largest logit of each other.
     Each carries rounding noise of its own against the fp32 logits, and at
@@ -240,12 +351,15 @@ def folded_sites(folded):
 
 
 @pytest.mark.parametrize("name,fused,pools,stencils",
-                         [("GoogLeNet", 28, 9, 0), ("MobileNet", 1, 0, 9)])
+                         [("GoogLeNet", 28, 9, 0), ("MobileNet", 1, 0, 9),
+                          ("SimpleDLA", 12, 0, 0)])
 def test_kernel_sites_per_forward(name, fused, pools, stencils, monkeypatch):
     """GoogLeNet: the stem and each cell's three 3x3 convs are fused sites
     (1 + 9 * 3) and each cell pools once; MobileNet: the stem is fused and
     the 9 stride-1 depthwise convs are stencil sites (the 4 stride-2 ones
-    are not). Counted in the fold and in a forward's calls."""
+    are not); SimpleDLA: its three stems and the conv1 of each of the 9 of
+    its 12 blocks that run at stride 1. Counted in the fold and in a
+    forward's calls."""
     model = create_model(name).eval()
     sites = list(folded_sites(model.fold(torch.float32)))
     assert sum(s.fused for s in sites) == fused

@@ -27,6 +27,7 @@ from pytorch_cifar_tpu_torch.models import common
 from pytorch_cifar_tpu_torch.ops import _build
 from pytorch_cifar_tpu_torch.ops import depthwise_stencil as D
 from pytorch_cifar_tpu_torch.ops import max_pool as P
+from _torch_threads import torch_threads  # noqa: F401
 
 POOL_SHAPES = [(3, 8, 8, 16), (2, 5, 5, 130)]
 

@@ -1,9 +1,10 @@
-"""The zoo slice end to end on the CPU: MobileNet's train step and engine
-against the JAX package, and GoogLeNet and MobileNet through the port's
-trainer, its CLIs and its serving stack.
+"""The zoo slice end to end on the CPU: MobileNet's and SimpleDLA's train
+steps and MobileNet's engine against the JAX package, and GoogLeNet,
+MobileNet and SimpleDLA through the port's trainer, its CLIs and its
+serving stack.
 
-One JAX compile each for the MobileNet train step and the MobileNet
-engine; no whole-GoogLeNet JAX compile (its models are held in
+One JAX compile each for the MobileNet and SimpleDLA train steps and the
+MobileNet engine; no whole-GoogLeNet JAX compile (its models are held in
 ``tests/test_torch_zoo_models.py``).
 """
 
@@ -30,6 +31,7 @@ from pytorch_cifar_tpu_torch.train import optim, steps
 from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
 from pytorch_cifar_tpu_torch.train.state import create_train_state
 from pytorch_cifar_tpu_torch.train.trainer import Trainer
+from _torch_threads import torch_threads  # noqa: F401
 
 LR, T_MAX, SPE = 0.1, 4, 3
 
@@ -80,23 +82,17 @@ def _port_state(name, params, stats):
     )
 
 
-def test_mobilenet_train_step_matches_jax_fp32():
-    """One step from the same weights and batch, augmentation off. The
-    forward's work is held tightly: the metric sums and the BN running
-    statistics within rtol 1e-4. The updated parameters are held at the
-    step's own conditioning: BN's backward subtracts nearly equal terms, so
-    an fp32 step is accurate only to a few percent of its update on its
-    worst tensor (the JAX fp32 step is 12% of an update off a
-    float64-compute step here, the port's 6%). The port's fp32 step must be
-    no further from the port's float64-compute step, in units of each
-    tensor's update, than twice the JAX fp32 step is; the JAX step itself
-    within 25% of an update on its worst tensor and, directly against the
-    port's fp32 step, within 10% on the median tensor (4.4% here). The
-    linear layer sits behind no BN backward and is held directly: its
-    update within 1e-3 of the JAX step's (2.5e-4 here)."""
-    name = "MobileNet"
-    params, stats = _jax_trees(name, seed=0)
-    x, y = _images(32, seed=10)
+def _train_step_vs_jax(name, n=32, seed=0):
+    """One fp32 step of ``name`` from the same weights and batch (``n``
+    images, the last two padded), augmentation off, in the JAX package and
+    in the port, and the port's step in float64 compute as the reference.
+    The forward's work is held here: the metric sums and the BN running
+    statistics within rtol 1e-4. Returns, per tensor, each step's error in
+    units of its update: ``(worst port vs float64, worst JAX vs float64,
+    {tensor: port vs JAX})``, for the caller to hold at the model's own
+    conditioning."""
+    params, stats = _jax_trees(name, seed=seed)
+    x, y = _images(n, seed=10)
     y[-2:] = -1  # padded rows: masked from loss, gradients and metrics
     tx = jax_optim.make_optimizer(lr=LR, t_max=T_MAX, steps_per_epoch=SPE)
     jmodel = jax_create_model(name)
@@ -125,7 +121,7 @@ def test_mobilenet_train_step_matches_jax_fp32():
     for k in steps.METRIC_KEYS:
         np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-4,
                                    atol=1e-5, err_msg=k)
-    assert float(pm["count"]) == 30
+    assert float(pm["count"]) == n - 2
     got, ref = after[torch.float32], after[torch.float64]
     errs = {"port": 0.0, "jax": 0.0}
     direct = {}
@@ -143,11 +139,66 @@ def test_mobilenet_train_step_matches_jax_fp32():
         errs["jax"] = max(errs["jax"],
                           float(np.abs(w - ref[k]).max()) / update)
         direct[k] = float(np.abs(got[k] - w).max()) / update
+    return errs["port"], errs["jax"], direct
+
+
+def test_mobilenet_train_step_matches_jax_fp32():
+    """One step from the same weights and batch, augmentation off. The
+    forward's work is held tightly: the metric sums and the BN running
+    statistics within rtol 1e-4. The updated parameters are held at the
+    step's own conditioning: BN's backward subtracts nearly equal terms, so
+    an fp32 step is accurate only to a few percent of its update on its
+    worst tensor (the JAX fp32 step is 12% of an update off a
+    float64-compute step here, the port's 6%). The port's fp32 step must be
+    no further from the port's float64-compute step, in units of each
+    tensor's update, than twice the JAX fp32 step is; the JAX step itself
+    within 25% of an update on its worst tensor and, directly against the
+    port's fp32 step, within 10% on the median tensor (4.4% here). The
+    linear layer sits behind no BN backward and is held directly: its
+    update within 1e-3 of the JAX step's (2.5e-4 here)."""
+    port, jax_err, direct = _train_step_vs_jax("MobileNet")
+    errs = {"port": port, "jax": jax_err}
     assert errs["port"] <= 2 * errs["jax"], errs
     assert errs["jax"] <= 0.25, errs  # the same step, not merely some step
     assert np.median(list(direct.values())) <= 0.1, direct
     for k in ("linear.weight", "linear.bias"):
         assert direct[k] <= 1e-3, (k, direct[k])
+
+
+def test_simpledla_train_step_matches_jax_fp32():
+    """SimpleDLA's step as MobileNet's above, at 16 images (the last two
+    padded), held at its own conditioning. Measured on the CPU over weight
+    seeds 2, 3 and 4: the JAX fp32 step is 10-22% of an update off the
+    float64-compute step on its worst tensor, the port's 6-18% (0.58-0.81
+    times the JAX step's), the two steps 1.9-2.6% apart on the median
+    tensor and 6e-5 to 9e-5 on the linear layer. Held: the port no further
+    off than twice the JAX step, the JAX step within 30% of an update, the
+    median within 10% and the linear within 1e-3."""
+    port, jax_err, direct = _train_step_vs_jax("SimpleDLA", n=16, seed=2)
+    errs = {"port": port, "jax": jax_err}
+    assert errs["port"] <= 2 * errs["jax"], errs
+    assert errs["jax"] <= 0.3, errs  # the same step, not merely some step
+    assert np.median(list(direct.values())) <= 0.1, direct
+    for k in ("linear.weight", "linear.bias"):
+        assert direct[k] <= 1e-3, (k, direct[k])
+
+
+def test_cli_trains_the_default_model_on_the_cpu(caplog):
+    """``python -m pytorch_cifar_tpu_torch.train --device cpu
+    --synthetic_data --synthetic_train_size 256 --batch_size 32 --epochs 1``
+    with no ``--model``, in-process: the default model, SimpleDLA, trains
+    (bf16, the default) with every image counted and finite losses."""
+    caplog.set_level(logging.INFO)
+    out = train_main([
+        "--device", "cpu", "--synthetic_data", "--synthetic_train_size",
+        "256", "--synthetic_test_size", "64", "--batch_size", "32",
+        "--epochs", "1",
+    ])
+    (h,) = out["history"]
+    assert h["train"]["count"] == 256 and h["eval"]["count"] == 64
+    assert h["train"]["nonfinite"] == 0
+    assert np.isfinite(h["train_loss"]) and np.isfinite(h["eval_loss"])
+    assert "==> model SimpleDLA" in caplog.text
 
 
 def test_mobilenet_port_engine_matches_jax_engine_fp32():
@@ -164,7 +215,7 @@ def test_mobilenet_port_engine_matches_jax_engine_fp32():
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", ["GoogLeNet", "MobileNet"])
+@pytest.mark.parametrize("name", ["GoogLeNet", "MobileNet", "SimpleDLA"])
 def test_engine_serves_the_zoo_models_under_load(name):
     """Engine, batcher and load generator, model-agnostic: padded buckets
     bit-identical to the direct forward, every request answered, and the
