@@ -118,6 +118,28 @@ Then the train CLI's default model:
     ``synthetic_cifar10(10240, 2048)`` (20 steps an epoch; depth cut from
     the recipe's 200 epochs to 2), K3 12 per eval forward.
 
+Then checkpoints (the JAX package's format v2), on ResNet-18 at full width,
+batch 512, bf16, ``synthetic_cifar10(10240, 2048)``, in a temporary
+``output_dir`` under ``runs/``:
+
+17. ckpt: (a) run A, uninterrupted, 2 epochs; (b) run B calls
+    ``request_stop()`` before ``fit``, stops after epoch 0 and writes
+    ``last.msgpack`` and ``ckpt.msgpack``; (c) ``Trainer(resume=True)``
+    restores them: its params, BN stats, momentum buffers and step equal
+    B's live state as raw bits, on the card, each buffer in its
+    parameter's memory format; it starts at epoch 1, launches K1 once and
+    K3 6 times per eval forward, its epoch-1 train loss is finite and
+    within 1% relative of A's (cuDNN's backward is not bit-reproducible),
+    and ``last.msgpack`` is gone when it completes; (d)
+    ``InferenceEngine.from_checkpoint`` serves 256 test images in bf16, 6
+    K3 launches per forward, logits within 2% of the largest logit of the
+    same weights on the CPU in fp32; (e) ``Trainer(evaluate=True)``
+    reproduces the sidecar's ``best_acc`` within 2 of 2,048 images. Then
+    three timed saves of B's state through the async writer and three
+    restores: the payload's bytes, the save's stall on the calling thread,
+    the commit on the writer and the restore, in ms, beside the card's
+    name and power limit and the output directory's filesystem.
+
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -128,7 +150,10 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -860,6 +885,14 @@ def phase_pool_step(P, fails: Failures) -> dict:
     return out
 
 
+def run_dir(prefix: str) -> str:
+    """A fresh directory under the checkout's gitignored ``runs/`` for a
+    phase's checkpoints; the phase removes it."""
+    runs = os.path.join(os.path.dirname(os.path.abspath(__file__)), "runs")
+    os.makedirs(runs, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=runs)
+
+
 def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
                 train_n=TRAIN_N, test_n=TEST_N, k3_per_forward=6,
                 pools_per_forward=0, min_acc=50.0, tag="train") -> dict:
@@ -871,10 +904,12 @@ def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
     epochs = 2
+    out_dir = run_dir(f"{tag}_")  # the trainer writes its best checkpoint
     cfg = TrainConfig(
         model=model, batch_size=BATCH, amp=True, synthetic_data=True,
         synthetic_train_size=train_n, synthetic_test_size=test_n,
         epochs=epochs, cosine_t_max=2, dma_gather=True, device="cuda",
+        output_dir=out_dir,
     )
     t0 = time.perf_counter()
     trainer = Trainer(cfg)
@@ -886,6 +921,7 @@ def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
     P.FWD_LAUNCHES = P.BWD_LAUNCHES = 0
     best = trainer.fit()
     k1, k2, k3 = G.LAUNCHES, M.LAUNCHES, K3.LAUNCHES  # and ends here
+    shutil.rmtree(out_dir, ignore_errors=True)
     k4f, k4b = P.FWD_LAUNCHES, P.BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
     hist = trainer.history
@@ -1166,6 +1202,172 @@ def phase_simpledla(G, M, K, P, D, smi: str, peaks, fails: Failures) -> dict:
     return {"sites": rows, "slice": served, "train": trained}
 
 
+def fs_type(path: str) -> str:
+    """The filesystem type of the mount holding ``path``
+    (``/proc/mounts``)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    with open("/proc/mounts") as f:
+        for line in f:
+            parts = line.split()
+            mnt, typ = parts[1], parts[2]
+            if (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                    and len(mnt) > len(best):
+                best, kind = mnt, typ
+    return kind
+
+
+def phase_ckpt(G, K3, smi: str, fails: Failures) -> dict:
+    """Checkpoints, preemption and resume, serving and evaluating from a
+    checkpoint (phase 17 of the module docstring)."""
+    from pytorch_cifar_tpu_torch.compat import snapshot_state
+    from pytorch_cifar_tpu_torch.config import TrainConfig
+    from pytorch_cifar_tpu_torch.data.cifar10 import synthetic_cifar10
+    from pytorch_cifar_tpu_torch.serve import InferenceEngine
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        CKPT_NAME, LAST_NAME, AsyncCheckpointWriter, meta_path,
+        restore_checkpoint, save_checkpoint)
+    from pytorch_cifar_tpu_torch.train.trainer import Trainer
+
+    train_n, test_n = 10_240, 2_048
+    root = run_dir("ckpt_")
+
+    def config(out_dir, **kw):
+        return TrainConfig(
+            model="ResNet18", batch_size=BATCH, amp=True,
+            synthetic_data=True, synthetic_train_size=train_n,
+            synthetic_test_size=test_n, epochs=2, cosine_t_max=2,
+            dma_gather=True, device="cuda", output_dir=out_dir, **kw)
+
+    try:
+        # (a) the uninterrupted run
+        run_a = Trainer(config(os.path.join(root, "a")))
+        run_a.fit()
+        # (b) a run stopped after epoch 0
+        b_dir = os.path.join(root, "b")
+        run_b = Trainer(config(b_dir))
+        run_b.request_stop()
+        run_b.fit()
+        files_b = sorted(os.listdir(b_dir))
+        fails.check(LAST_NAME in files_b and CKPT_NAME in files_b,
+                    f"ckpt: the stopped run wrote {files_b}")
+        live = snapshot_state(run_b.state).host()
+        # (c) resume
+        run_c = Trainer(config(b_dir, resume=True))
+        back = snapshot_state(run_c.state).host()
+        params = dict(run_c.state.model.named_parameters())
+        bufs = [run_c.state.optimizer.state[p]["momentum_buffer"]
+                for p in params.values()]
+        fails.check(
+            back.spans == live.spans and back.step == live.step
+            and bool(torch.equal(raw_bits(back.flat), raw_bits(live.flat))),
+            "ckpt: the restored state is not the stopped run's, bit for bit")
+        fails.check(
+            all(b.is_cuda and b.stride() == p.stride()
+                for b, p in zip(bufs, params.values()))
+            and all(p.is_cuda for p in params.values()),
+            "ckpt: the restored state is not on the card in its layout")
+        fails.check(run_c.start_epoch == 1,
+                    f"ckpt: resume starts at epoch {run_c.start_epoch}")
+        G.LAUNCHES = K3.LAUNCHES = 0  # the resume path starts here
+        run_c.fit()
+        k1, k3 = G.LAUNCHES, K3.LAUNCHES  # and ends here
+        eval_forwards = -(-test_n // run_c.eval_bs)
+        fails.check(k1 == 1, f"ckpt: the resumed epoch launched K1 {k1} "
+                             "times")
+        fails.check(k3 == 6 * eval_forwards,
+                    f"ckpt: the resumed epoch launched K3 {k3} times for "
+                    f"{eval_forwards} eval forwards")
+        loss_a, loss_c = (run_a.history[1]["train_loss"],
+                          run_c.history[0]["train_loss"])
+        fails.check(
+            len(run_c.history) == 1 and np.isfinite(loss_c)
+            and abs(loss_c - loss_a) <= 0.01 * abs(loss_a),
+            f"ckpt: the resumed epoch-1 loss {loss_c} is not within 1% of "
+            f"the uninterrupted run's {loss_a}")
+        fails.check(not os.path.exists(os.path.join(b_dir, LAST_NAME)),
+                    "ckpt: last.msgpack outlived the completed run")
+        # (d) serve the checkpoint
+        te_x = synthetic_cifar10(n_train=train_n, n_test=test_n)[2][:256]
+        engine = InferenceEngine.from_checkpoint(
+            b_dir, "ResNet18", compute_dtype=torch.bfloat16)
+        forwards0 = engine.forward_count
+        K3.LAUNCHES = 0  # the serving path starts here
+        got = engine.predict(te_x)
+        served_k3, forwards = K3.LAUNCHES, engine.forward_count - forwards0
+        want = InferenceEngine.from_checkpoint(
+            b_dir, "ResNet18", compute_dtype=torch.float32, device="cpu",
+            buckets=(256,)).predict(te_x)
+        err, top = float(np.max(np.abs(got - want))), float(
+            np.max(np.abs(want)))
+        fails.check(served_k3 == 6 * forwards and forwards > 0,
+                    f"ckpt: serving launched K3 {served_k3} times for "
+                    f"{forwards} forwards")
+        fails.check(got.shape == (256, 10) and bool(np.isfinite(got).all())
+                    and err <= 0.02 * top,
+                    f"ckpt: served logits off the CPU by {err:.3g} (max "
+                    f"|logit| {top:.3g})")
+        # (e) evaluate the best checkpoint
+        run_e = Trainer(config(b_dir, evaluate=True))
+        K3.LAUNCHES = 0  # the evaluate path starts here
+        acc = run_e.fit()
+        eval_k3 = K3.LAUNCHES
+        with open(meta_path(b_dir, CKPT_NAME)) as f:
+            best = json.load(f)["best_acc"]
+        fails.check(abs(acc - best) * test_n / 100.0 <= 2.0,
+                    f"ckpt: --evaluate gives {acc}%, the sidecar {best}%")
+        fails.check(eval_k3 == 6 * eval_forwards,
+                    f"ckpt: --evaluate launched K3 {eval_k3} times")
+        # timed saves and restores of B's state
+        timed = os.path.join(root, "timed")
+        writer = AsyncCheckpointWriter()
+        stall, commit, restore = [], [], []
+        for i in range(3):
+            done = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            save_checkpoint(timed, run_b.state, i, 1.0, writer=writer,
+                            on_commit=lambda: done.setdefault(
+                                "t", time.perf_counter()))
+            t1 = time.perf_counter()
+            writer.flush()
+            stall.append((t1 - t0) * 1e3)
+            commit.append((done["t"] - t1) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            restore_checkpoint(timed, run_e.state)
+            torch.cuda.synchronize()
+            restore.append((time.perf_counter() - t0) * 1e3)
+        writer.close()
+        payload = os.path.getsize(os.path.join(timed, CKPT_NAME))
+        out = {
+            "card": smi, "model": "ResNet18", "batch": BATCH,
+            "dtype": "bf16", "train_n": train_n, "test_n": test_n,
+            "output_dir_fs": fs_type(root),
+            "payload_bytes": payload,
+            "save_stall_ms": stall, "commit_ms": commit,
+            "restore_ms": restore,
+            "restored_bits_equal": bool(torch.equal(raw_bits(back.flat),
+                                                    raw_bits(live.flat))),
+            "step": back.step, "resume_start_epoch": run_c.start_epoch,
+            "resume_k1_launches": k1, "resume_k3_launches": k3,
+            "epoch1_train_loss_uninterrupted": loss_a,
+            "epoch1_train_loss_resumed": loss_c,
+            "served_forwards": forwards, "served_k3_launches": served_k3,
+            "served_bf16_vs_cpu_fp32_max_abs": err, "max_abs_logit": top,
+            "evaluate_acc": acc, "sidecar_best_acc": best,
+            "evaluate_k3_launches": eval_k3,
+        }
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"ckpt card {smi}: payload {payload} B, save stall "
+          f"{np.median(stall):.2f} ms, commit {np.median(commit):.2f} ms, "
+          f"restore {np.median(restore):.2f} ms (medians of 3; "
+          f"{out['output_dir_fs']})", flush=True)
+    print("ckpt " + json.dumps(out), flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs only "
@@ -1207,6 +1409,7 @@ def main() -> int:
                      pools_per_forward=9, min_acc=0.0, tag="googlenet_train")
     phase_pool_step(P, fails)
     dla = phase_simpledla(G, M, K, P, D, smi, peaks, fails)
+    phase_ckpt(G, K, smi, fails)
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
     # (and GoogLeNet's 28 beside it)

@@ -1,5 +1,6 @@
 """PyTorch/CUDA port of ``pytorch_cifar_tpu``: training and serving the
-CIFAR-10 zoo (so far LeNet, ResNet, GoogLeNet, MobileNet) on an NVIDIA H100.
+CIFAR-10 zoo (so far LeNet, ResNet, GoogLeNet, MobileNet, SimpleDLA) on an
+NVIDIA H100, with checkpoints in the JAX package's format.
 
 The JAX package beside this one is the reference; this package mirrors its
 layout and names (``models/``, ``ops/``, ``serve/``, ...) so each module has

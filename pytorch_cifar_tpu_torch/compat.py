@@ -1,7 +1,17 @@
-"""Weights from the JAX package's trees into the port's ``state_dict``.
+"""The correspondence between the JAX package's trees and the port's
+``state_dict``, used both ways, and the checkpoint payload's train tree.
 
-The JAX ResNet's flax trees arrive as nested dicts of numpy arrays (no JAX
-needed here). Paths, in the JAX model's forward order:
+The JAX trees arrive as nested dicts of numpy arrays (no JAX needed here).
+Each model's correspondence is one table (:func:`correspondence`): for
+each JAX leaf, its collection (``params`` or ``batch_stats``), its path,
+the port key and the transform between them (:data:`CONV`, the HWIO <->
+OIHW transpose; :data:`DENSE`, the ``(in, out)`` <-> ``(out, in)``
+transpose; a :data:`LINEAR_FLATTEN` permutation; or :data:`IDENTITY`).
+:func:`state_dict_from_jax` reads it one way, :func:`jax_trees_from_state_dict`
+the other, and :func:`train_tree_from_state` / :func:`load_train_tree` build
+and read the whole checkpoint payload (params, BN stats, the optimizer's
+momentum through the params' table, the step). Paths, in the JAX ResNet's
+forward order:
 
 - ``Conv_0/Conv_0/kernel`` (HWIO) -> ``conv1.weight`` (OIHW);
 - ``BatchNorm_0/{scale,bias}`` and ``batch_stats`` ``{mean,var}`` ->
@@ -47,13 +57,24 @@ in the JAX model's call order (each tree's root after its children). The
 export pairs same-shape modules first-fit in the template's order, so with
 the roots first it would hand a root's BN another block's tensors; this
 module maps every tree by name.
+
+The train tree is the JAX ``save_checkpoint`` payload:
+``{"batch_stats", "opt_state": {"0": {} (add_decayed_weights), "1":
+{"trace": <the params' paths>}, "2": {"count"}}, "params", "step"}``, every
+map's keys sorted as ``jax.device_get`` leaves them, ``count`` and
+``step`` int32 0-d arrays. The momentum buffers go through the params'
+entries of the table. One torch has not made yet (before the first step)
+is written as zeros: torch's next update from a zero buffer, ``0.9 * 0 +
+g``, is optax's ``trace`` from its zero init. ``num_batches_tracked`` is
+dropped on write and set to 0 on read.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
+import torch
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models import create_model
@@ -68,27 +89,202 @@ LINEAR_FLATTEN: Dict[str, Dict[int, Tuple[int, int, int]]] = {
     "LeNet": {0: (16, 5, 5)}
 }
 
+IDENTITY = "identity"
+CONV = "conv"  # JAX HWIO <-> port OIHW
+DENSE = "dense"  # JAX (in, out) <-> port (out, in)
+# a linear over a flattened map: DENSE, plus its columns from the JAX
+# model's NHWC flatten order to the port's NCHW order
+Flatten = Tuple[str, Tuple[int, int, int]]
+Transform = Union[str, Flatten]
 
-def _lenet_from_jax(params: Mapping, out: Dict[str, np.ndarray]) -> None:
+
+class Entry(NamedTuple):
+    """One leaf of the correspondence."""
+
+    collection: str  # "params" or "batch_stats"
+    path: Tuple[str, ...]  # inside the collection's tree
+    key: str  # the port's state_dict key
+    transform: Transform
+
+
+def _to_port(arr: np.ndarray, transform: Transform) -> np.ndarray:
+    if transform == CONV:
+        return np.transpose(arr, (3, 2, 0, 1))
+    if transform == DENSE:
+        return arr.T
+    if transform != IDENTITY:
+        c, h, w = transform[1]
+        out = arr.T  # (out, in), in in NHWC order
+        return (out.reshape(-1, h, w, c).transpose(0, 3, 1, 2)
+                .reshape(out.shape[0], -1))
+    return arr
+
+
+def _to_jax(arr: np.ndarray, transform: Transform) -> np.ndarray:
+    if transform == CONV:
+        return np.transpose(arr, (2, 3, 1, 0))
+    if transform == DENSE:
+        return arr.T
+    if transform != IDENTITY:
+        c, h, w = transform[1]
+        return (arr.reshape(-1, c, h, w).transpose(0, 2, 3, 1)
+                .reshape(arr.shape[0], -1).T)
+    return arr
+
+
+def _site(model: nn.Module, out: List[Entry], conv: str, bn: str,
+          base: Tuple[str, ...], j: int) -> None:
+    """A conv (with its bias where the port's has one) and its BN: the JAX
+    ``Conv_j``/``BatchNorm_j`` under ``base``."""
+    node = base + (f"Conv_{j}", "Conv_0")
+    out.append(Entry("params", node + ("kernel",), f"{conv}.weight", CONV))
+    if model.get_submodule(conv).bias is not None:
+        out.append(Entry("params", node + ("bias",), f"{conv}.bias",
+                         IDENTITY))
+    b = base + (f"BatchNorm_{j}",)
+    out += [
+        Entry("params", b + ("scale",), f"{bn}.weight", IDENTITY),
+        Entry("params", b + ("bias",), f"{bn}.bias", IDENTITY),
+        Entry("batch_stats", b + ("mean",), f"{bn}.running_mean", IDENTITY),
+        Entry("batch_stats", b + ("var",), f"{bn}.running_var", IDENTITY),
+    ]
+
+
+def _dense(out: List[Entry], key: str, node: Tuple[str, ...],
+           transform: Transform = DENSE) -> None:
+    out.append(Entry("params", node + ("kernel",), f"{key}.weight",
+                     transform))
+    out.append(Entry("params", node + ("bias",), f"{key}.bias", IDENTITY))
+
+
+def _lenet(model: LeNet, out: List[Entry]) -> None:
     for i in range(2):
-        node = params[f"Conv_{i}"]["Conv_0"]
-        out[f"conv{i + 1}.weight"] = np.transpose(
-            np.asarray(node["kernel"]), (3, 2, 0, 1)
-        )
-        out[f"conv{i + 1}.bias"] = np.asarray(node["bias"])
+        node = (f"Conv_{i}", "Conv_0")
+        out.append(Entry("params", node + ("kernel",), f"conv{i + 1}.weight",
+                         CONV))
+        out.append(Entry("params", node + ("bias",), f"conv{i + 1}.bias",
+                         IDENTITY))
     flatten = LINEAR_FLATTEN["LeNet"]
     for i in range(3):
-        node = params[f"Dense_{i}"]["Dense_0"]
-        w = np.asarray(node["kernel"]).T  # (out, in), in in NHWC order
-        if i in flatten:
-            c, h, wd = flatten[i]
-            w = (
-                w.reshape(-1, h, wd, c)
-                .transpose(0, 3, 1, 2)
-                .reshape(w.shape[0], -1)
-            )
-        out[f"fc{i + 1}.weight"] = w
-        out[f"fc{i + 1}.bias"] = np.asarray(node["bias"])
+        _dense(out, f"fc{i + 1}", (f"Dense_{i}", "Dense_0"),
+               ("flatten", flatten[i]) if i in flatten else DENSE)
+
+
+def _googlenet(model: GoogLeNet, out: List[Entry]) -> None:
+    _site(model, out, "pre_layers.0", "pre_layers.1", (), 0)
+    cells = [cell[0] for cell in CELLS if cell is not None]
+    sites = ("b1.0", "b2.0", "b2.3", "b3.0", "b3.3", "b3.6", "b4.1")
+    for k, cell in enumerate(cells):
+        for j, site in enumerate(sites):
+            branch, i = site.split(".")
+            _site(model, out, f"{cell}.{site}",
+                  f"{cell}.{branch}.{int(i) + 1}", (f"Inception_{k}",), j)
+
+
+def _mobilenet(model: MobileNet, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    for k in range(len(model.layers)):
+        for j in range(2):
+            _site(model, out, f"layers.{k}.conv{j + 1}",
+                  f"layers.{k}.bn{j + 1}", (f"DepthwiseSeparable_{k}",), j)
+
+
+def _block(model, out, prefix, blk, base, nconv=2) -> None:
+    for j in range(nconv):
+        _site(model, out, f"{prefix}.conv{j + 1}", f"{prefix}.bn{j + 1}",
+              base, j)
+    if len(blk.shortcut):
+        _site(model, out, f"{prefix}.shortcut.0", f"{prefix}.shortcut.1",
+              base, nconv)
+
+
+def _dla(model: SimpleDLA, out: List[Entry]) -> None:
+    """SimpleDLA's stems and trees, by name (the linear is the caller's)."""
+    for j, stem in enumerate(("base", "layer1", "layer2")):
+        _site(model, out, f"{stem}.0", f"{stem}.1", (), j)
+
+    def tree(prefix, t, base):
+        kind = "Tree" if isinstance(t.left_tree, Tree) else "BasicBlock"
+        for k, side in enumerate(("left_tree", "right_tree")):
+            child, where = getattr(t, side), base + (f"{kind}_{k}",)
+            if kind == "Tree":
+                tree(f"{prefix}.{side}", child, where)
+            else:
+                _block(model, out, f"{prefix}.{side}", child, where)
+        _site(model, out, f"{prefix}.root.conv", f"{prefix}.root.bn",
+              base + ("Root_0",), 0)
+
+    for k, t in enumerate(model.trees()):
+        tree(f"layer{k + 3}", t, (f"Tree_{k}",))
+
+
+def _resnet(model: nn.Module, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    blocks = model.blocks()
+    kind = "BasicBlock" if isinstance(blocks[0], BasicBlock) else "Bottleneck"
+    k = 0
+    for li in range(1, 5):
+        for bi, block in enumerate(getattr(model, f"layer{li}")):
+            _block(model, out, f"layer{li}.{bi}", block, (f"{kind}_{k}",),
+                   2 if kind == "BasicBlock" else 3)
+            k += 1
+
+
+def correspondence(model: nn.Module) -> List[Entry]:
+    """The port model's table: one entry per JAX leaf, in the port's
+    forward order."""
+    out: List[Entry] = []
+    if isinstance(model, LeNet):
+        _lenet(model, out)
+        return out
+    if isinstance(model, GoogLeNet):
+        _googlenet(model, out)
+    elif isinstance(model, MobileNet):
+        _mobilenet(model, out)
+    elif isinstance(model, SimpleDLA):
+        _dla(model, out)
+    else:
+        _resnet(model, out)
+    _dense(out, "linear", ("Dense_0", "Dense_0"))
+    return out
+
+
+def _at(tree: Mapping, path: Tuple[str, ...]):
+    node = tree
+    for i, k in enumerate(path):
+        if not isinstance(node, Mapping) or k not in node:
+            raise KeyError(f"JAX tree has no {'/'.join(path[:i + 1])}")
+        node = node[k]
+    return node
+
+
+def _leaf_count(tree) -> int:
+    if isinstance(tree, Mapping):
+        return sum(_leaf_count(v) for v in tree.values())
+    return 1
+
+
+def _nested(leaves: Dict[Tuple[str, ...], np.ndarray]) -> dict:
+    """Nested dicts of ``leaves`` with every map's keys sorted, the order
+    ``jax.device_get`` leaves a JAX state's trees in."""
+    root: dict = {}
+    for path, v in leaves.items():
+        node = root
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+
+    def ordered(node):
+        if not isinstance(node, dict):
+            return node
+        return {k: ordered(node[k]) for k in sorted(node)}
+
+    return ordered(root)
+
+
+def _model(name: str, model: Optional[nn.Module], num_classes: int = 10):
+    return create_model(name, num_classes=num_classes) if model is None \
+        else model
 
 
 def state_dict_from_jax(
@@ -103,119 +299,54 @@ def state_dict_from_jax(
     fill (default: a fresh ``create_model(name)``; pass one for an
     unregistered depth such as ``ResNet(BasicBlock, (1, 1, 1, 1))``).
     Raises on any missing, extra or misshapen tensor."""
-    if model is None:
-        model = create_model(name, num_classes=num_classes)
+    model = _model(name, model, num_classes)
+    table = correspondence(model)
+    trees = {"params": params, "batch_stats": batch_stats}
+    out = {e.key: _to_port(np.asarray(_at(trees[e.collection], e.path)),
+                           e.transform) for e in table}
+    if _leaf_count(params) + _leaf_count(batch_stats) != len(table):
+        raise ValueError(f"JAX tree has leaves that {name} does not")
+    for key in model.state_dict():
+        if key.endswith("num_batches_tracked"):
+            out[key] = np.zeros((), np.int64)
+    return _checked(name, model.state_dict(), out)
+
+
+def _host(v) -> np.ndarray:
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+def jax_trees_from_state_dict(
+    name: str,
+    state_dict: Mapping,
+    model: Optional[nn.Module] = None,
+    num_classes: int = 10,
+) -> Tuple[dict, dict]:
+    """``(params, batch_stats)``: the JAX ``name`` model's trees (nested
+    dicts of C-contiguous fp32 numpy arrays, keys sorted) for the port's
+    ``state_dict``. Raises on a missing or extra key or a misshapen
+    tensor; ``num_batches_tracked`` is dropped."""
+    model = _model(name, model, num_classes)
+    table = correspondence(model)
     template = model.state_dict()
-    out: Dict[str, np.ndarray] = {}
-    if isinstance(model, LeNet):
-        _lenet_from_jax(params, out)
-        return _checked(name, template, out)
-
-    def put_conv(prefix, node):
-        out[f"{prefix}.weight"] = np.transpose(
-            np.asarray(node["Conv_0"]["kernel"]), (3, 2, 0, 1)
+    keys = {k for k in state_dict if not k.endswith("num_batches_tracked")}
+    want = {e.key for e in table}
+    if keys != want:
+        raise ValueError(
+            f"key mismatch vs {name}: missing {sorted(want - keys)}, extra "
+            f"{sorted(keys - want)}"
         )
-        if "bias" in node["Conv_0"]:
-            out[f"{prefix}.bias"] = np.asarray(node["Conv_0"]["bias"])
-
-    def put_bn(prefix, p, s):
-        out[f"{prefix}.weight"] = np.asarray(p["scale"])
-        out[f"{prefix}.bias"] = np.asarray(p["bias"])
-        out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
-        out[f"{prefix}.running_var"] = np.asarray(s["var"])
-        out[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
-
-    def put_site(conv_prefix, bn_prefix, p, s, j):
-        put_conv(conv_prefix, p[f"Conv_{j}"])
-        put_bn(bn_prefix, p[f"BatchNorm_{j}"], s[f"BatchNorm_{j}"])
-
-    def put_linear():
-        dense = params["Dense_0"]["Dense_0"]
-        out["linear.weight"] = np.asarray(dense["kernel"]).T
-        out["linear.bias"] = np.asarray(dense["bias"])
-
-    if isinstance(model, GoogLeNet):
-        put_site("pre_layers.0", "pre_layers.1", params, batch_stats, 0)
-        cells = [cell[0] for cell in CELLS if cell is not None]
-        sites = ("b1.0", "b2.0", "b2.3", "b3.0", "b3.3", "b3.6", "b4.1")
-        for k, cell in enumerate(cells):
-            p, st = params[f"Inception_{k}"], batch_stats[f"Inception_{k}"]
-            for j, site in enumerate(sites):
-                branch, i = site.split(".")
-                put_site(f"{cell}.{site}", f"{cell}.{branch}.{int(i) + 1}",
-                         p, st, j)
-        put_linear()
-        return _checked(name, template, out)
-    if isinstance(model, MobileNet):
-        put_site("conv1", "bn1", params, batch_stats, 0)
-        for k in range(len(model.layers)):
-            p = params[f"DepthwiseSeparable_{k}"]
-            st = batch_stats[f"DepthwiseSeparable_{k}"]
-            for j in range(2):
-                put_site(f"layers.{k}.conv{j + 1}", f"layers.{k}.bn{j + 1}",
-                         p, st, j)
-        put_linear()
-        return _checked(name, template, out)
-
-    if isinstance(model, SimpleDLA):
-        _dla_from_jax(model, params, batch_stats, put_site)
-        put_linear()
-        got = sum(1 for k in out if not k.endswith("num_batches_tracked"))
-        if _leaf_count(params) + _leaf_count(batch_stats) != got:
-            raise ValueError(f"JAX tree has leaves that {name} does not")
-        return _checked(name, template, out)
-
-    put_site("conv1", "bn1", params, batch_stats, 0)
-    blocks = model.blocks()
-    kind = "BasicBlock" if isinstance(blocks[0], BasicBlock) else "Bottleneck"
-    nconv = 2 if kind == "BasicBlock" else 3
-    k = 0
-    for li in range(1, 5):
-        for bi, block in enumerate(getattr(model, f"layer{li}")):
-            bp, bs = params[f"{kind}_{k}"], batch_stats[f"{kind}_{k}"]
-            prefix = f"layer{li}.{bi}"
-            for j in range(nconv):
-                put_site(f"{prefix}.conv{j + 1}", f"{prefix}.bn{j + 1}",
-                         bp, bs, j)
-            if len(block.shortcut):
-                put_site(f"{prefix}.shortcut.0", f"{prefix}.shortcut.1",
-                         bp, bs, nconv)
-            k += 1
-    put_linear()
-    if k != sum(1 for key in params if key.startswith(kind)):
-        raise ValueError(f"JAX tree has another number of {kind}s than {name}")
-    return _checked(name, template, out)
-
-
-def _leaf_count(tree) -> int:
-    if isinstance(tree, Mapping):
-        return sum(_leaf_count(v) for v in tree.values())
-    return 1
-
-
-def _dla_from_jax(model: SimpleDLA, params: Mapping, stats: Mapping,
-                  put_site) -> None:
-    """SimpleDLA's stems and trees (the linear is the caller's)."""
-    for j, stem in enumerate(("base", "layer1", "layer2")):
-        put_site(f"{stem}.0", f"{stem}.1", params, stats, j)
-
-    def block(prefix, blk, p, s):
-        for j in range(2):
-            put_site(f"{prefix}.conv{j + 1}", f"{prefix}.bn{j + 1}", p, s, j)
-        if len(blk.shortcut):
-            put_site(f"{prefix}.shortcut.0", f"{prefix}.shortcut.1", p, s, 2)
-
-    def tree(prefix, t, p, s):
-        kind = "Tree" if isinstance(t.left_tree, Tree) else "BasicBlock"
-        for k, side in enumerate(("left_tree", "right_tree")):
-            child = getattr(t, side)
-            walk = tree if kind == "Tree" else block
-            walk(f"{prefix}.{side}", child, p[f"{kind}_{k}"], s[f"{kind}_{k}"])
-        put_site(f"{prefix}.root.conv", f"{prefix}.root.bn", p["Root_0"],
-                 s["Root_0"], 0)
-
-    for k, t in enumerate(model.trees()):
-        tree(f"layer{k + 3}", t, params[f"Tree_{k}"], stats[f"Tree_{k}"])
+    trees: Dict[str, dict] = {"params": {}, "batch_stats": {}}
+    for e in table:
+        v = _host(state_dict[e.key])
+        if tuple(v.shape) != tuple(template[e.key].shape):
+            raise ValueError(f"{e.key}: shape {v.shape}, {name} needs "
+                             f"{tuple(template[e.key].shape)}")
+        trees[e.collection][e.path] = np.ascontiguousarray(
+            _to_jax(v, e.transform), dtype=np.float32)
+    return _nested(trees["params"]), _nested(trees["batch_stats"])
 
 
 def _checked(
@@ -237,5 +368,182 @@ def _checked(
                 f"{tuple(ref.shape)}"
             )
         dtype = np.int64 if key.endswith("num_batches_tracked") else np.float32
-        result[key] = np.ascontiguousarray(val.astype(dtype, copy=False))
+        # astype keeps a 0-d array 0-d (ascontiguousarray makes it 1-d)
+        result[key] = val.astype(dtype, order="C", copy=False)
     return result
+
+
+# -- the checkpoint payload ----------------------------------------------
+
+class StateSnapshot(NamedTuple):
+    """A train state's arrays in one fp32 buffer: the state dict's
+    (``"sd"``) and the momentum buffers' (``"mom"``) tensors in the port's
+    layout (logical NCHW order, whatever their memory format), each at
+    ``spans[(kind, key)] = (offset, shape)``; a momentum buffer torch has
+    not made yet has no span."""
+
+    table: List[Entry]
+    flat: torch.Tensor
+    spans: Dict[Tuple[str, str], Tuple[int, Tuple[int, ...]]]
+    step: int
+
+    def host(self) -> "StateSnapshot":
+        """This snapshot with its buffer on the host: one copy from a
+        device, the only wait for it (none on the CPU)."""
+        return self._replace(flat=self.flat.cpu())
+
+    def array(self, kind: str, key: str) -> Optional[np.ndarray]:
+        if (kind, key) not in self.spans:
+            return None
+        off, shape = self.spans[(kind, key)]
+        n = int(np.prod(shape, dtype=np.int64))
+        return self.flat.numpy()[off:off + n].reshape(shape)
+
+
+def snapshot_state(state) -> StateSnapshot:
+    """A copy of ``state``'s params, BN stats and momentum buffers on their
+    own device, queued with no host sync (the trainer's best snapshot,
+    and the first half of every save)."""
+    table = correspondence(state.model)
+    live = state.model.state_dict()
+    params = dict(state.model.named_parameters())
+    spans, parts, off = {}, [], 0
+    for kind, key, t in (
+        [("sd", e.key, live[e.key]) for e in table]
+        + [("mom", e.key, state.optimizer.state.get(params[e.key], {})
+            .get("momentum_buffer")) for e in table
+           if e.collection == "params"]
+    ):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise ValueError(f"{key} is {t.dtype}; checkpoints hold fp32")
+        spans[(kind, key)] = (off, tuple(t.shape))
+        parts.append(t.detach().reshape(-1))
+        off += t.numel()
+    flat = torch.cat(parts) if parts else torch.zeros(0)
+    return StateSnapshot(table, flat, spans, int(state.step))
+
+
+def train_tree_from_snapshot(snap: StateSnapshot) -> dict:
+    """The JAX checkpoint payload tree of a snapshot, copied to the host
+    first if it is on a device: numpy views of its buffer, transposed
+    lazily (the codec writes them out in C order)."""
+    snap = snap.host()
+    leaves: Dict[str, Dict[Tuple[str, ...], np.ndarray]] = {
+        "params": {}, "batch_stats": {}, "trace": {}}
+    for e in snap.table:
+        v = _to_jax(snap.array("sd", e.key), e.transform)
+        leaves[e.collection][e.path] = v
+        if e.collection == "params":
+            mom = snap.array("mom", e.key)
+            leaves["trace"][e.path] = (
+                np.zeros(v.shape, np.float32) if mom is None
+                else _to_jax(mom, e.transform))
+    step = np.asarray(snap.step, np.int32)
+    return {
+        "batch_stats": _nested(leaves["batch_stats"]),
+        "opt_state": {
+            "0": {},  # add_decayed_weights: EmptyState
+            "1": {"trace": _nested(leaves["trace"])},
+            "2": {"count": step.copy()},
+        },
+        "params": _nested(leaves["params"]),
+        "step": step,
+    }
+
+
+def train_tree_from_state(state) -> dict:
+    """The JAX ``save_checkpoint`` payload tree of the port's train state
+    (see the module docstring)."""
+    return train_tree_from_snapshot(snapshot_state(state))
+
+
+class TrainArrays(NamedTuple):
+    """A payload tree read against a port model: its ``state_dict`` and
+    its momentum buffers (by parameter name) as numpy, and the step."""
+
+    state_dict: Dict[str, np.ndarray]
+    momentum: Dict[str, np.ndarray]
+    step: int
+
+
+def _int0(tree: Mapping, key: str, what: str) -> int:
+    v = tree.get(key) if isinstance(tree, Mapping) else None
+    if (not isinstance(v, np.ndarray) or v.shape != ()
+            or v.dtype.kind not in "iu"):
+        raise ValueError(f"{what} is not an integer 0-d array")
+    return int(v)
+
+
+def train_arrays(model: nn.Module, tree: Mapping,
+                 name: str = "the model") -> TrainArrays:
+    """Check a payload tree against ``model`` and map it to the port's
+    layout, touching no tensor of the model. Raises ValueError (or
+    KeyError) on any missing, extra or misshapen leaf, and when
+    ``opt_state/2/count`` differs from ``step``."""
+    if not isinstance(tree, Mapping) or set(tree) != {
+            "batch_stats", "opt_state", "params", "step"}:
+        raise ValueError("payload is not a train state tree (params, "
+                         "batch_stats, opt_state, step)")
+    opt = tree["opt_state"]
+    if (not isinstance(opt, Mapping) or set(opt) != {"0", "1", "2"}
+            or opt["0"] != {} or not isinstance(opt["1"], Mapping)
+            or set(opt["1"]) != {"trace"}):
+        raise ValueError("opt_state is not the optimizer chain's "
+                         "(add_decayed_weights, trace, scale_by_schedule)")
+    step = _int0(tree, "step", "step")
+    if _int0(opt["2"], "count", "opt_state/2/count") != step:
+        raise ValueError(f"opt_state/2/count {int(opt['2']['count'])} != "
+                         f"step {step}")
+    sd = state_dict_from_jax(name, tree["params"], tree["batch_stats"],
+                             model=model)
+    table = correspondence(model)
+    trace = opt["1"]["trace"]
+    momentum = {e.key: np.ascontiguousarray(
+        _to_port(np.asarray(_at(trace, e.path)), e.transform), np.float32)
+        for e in table if e.collection == "params"}
+    if _leaf_count(trace) != len(momentum):
+        raise ValueError(f"momentum tree has leaves that {name} does not")
+    for key, v in momentum.items():
+        if v.shape != sd[key].shape:
+            raise ValueError(f"momentum of {key}: shape {v.shape}, "
+                             f"{name} needs {sd[key].shape}")
+    return TrainArrays(sd, momentum, step)
+
+
+def apply_train_arrays(state, arrays: TrainArrays) -> None:
+    """Load checked arrays into ``state`` in place, on its device: the
+    model's tensors keep their memory format, each momentum buffer takes
+    its parameter's (``empty_like``), ``num_batches_tracked`` is 0."""
+    params = dict(state.model.named_parameters())
+    with torch.no_grad():
+        live = state.model.state_dict()
+        for key, v in arrays.state_dict.items():
+            live[key].copy_(torch.from_numpy(v))
+        for key, v in arrays.momentum.items():
+            p = params[key]
+            state.optimizer.state[p]["momentum_buffer"] = (
+                torch.empty_like(p).copy_(torch.from_numpy(v)))
+    state.step = arrays.step
+
+
+def load_train_tree(state, tree: Mapping) -> None:
+    """Read a JAX checkpoint payload tree into the port's ``state``."""
+    apply_train_arrays(state, train_arrays(state.model, tree))
+
+
+def normalize_state_dict(obj: Mapping) -> Tuple[Mapping, dict]:
+    """Unwrap the reference's ``{'net': sd, 'acc', 'epoch'}`` envelope and
+    strip DataParallel's ``module.`` prefixes (the port's copy of the JAX
+    ``compat.normalize_state_dict``). Returns ``(state_dict, meta)``."""
+    meta: dict = {}
+    sd = obj
+    if "net" in obj and isinstance(obj["net"], Mapping):
+        sd = obj["net"]
+        if "acc" in obj:
+            meta["acc"] = float(obj["acc"])
+        if "epoch" in obj:
+            meta["epoch"] = int(obj["epoch"])
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in sd.items()}, meta

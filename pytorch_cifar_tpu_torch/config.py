@@ -4,10 +4,10 @@
 reads, under the same names, defaults and flag spellings (booleans take
 ``--flag``/``--no-flag``), plus ``--device``.
 
-Flags of paths not ported yet are not here. ``--resume``, ``--evaluate``
-(checkpoints) and ``--num_devices`` above 1 (data parallelism) are parsed
+Flags of paths not ported yet are not here, with three exceptions parsed
 so that asking for them fails with "not ported yet" instead of an unknown
-flag.
+flag: ``--num_devices`` above 1 (data parallelism), ``--no-device_data``
+(the host loader) and ``--publish staging`` (the canary pipeline).
 """
 
 from __future__ import annotations
@@ -61,9 +61,24 @@ class TrainConfig:
     # parallelism: 0 = all local devices; the port runs on one
     num_devices: int = 0
 
-    # checkpoints (not ported yet)
+    # checkpoints (the JAX package's format v2, train/checkpoint.py)
+    output_dir: str = "./checkpoint"
+    # "live" publishes into output_dir; "staging" (the canary pipeline's
+    # input) is not ported yet
+    publish: str = "live"
+    # "on": a save takes its snapshot on the training thread and commits
+    # on a background writer; "off": it commits inline. Both write the
+    # same bytes.
+    async_save: str = "on"
+    # write the best-state snapshot to disk at most once per this many
+    # epochs (plus the first improvement and a final flush); 0 = every
+    # improvement
+    checkpoint_every: int = 25
+    # rolling history: copies of each file's last N versions as extra
+    # restore candidates; 0 = none
+    keep_last_n: int = 2
     resume: bool = False
-    evaluate: bool = False
+    evaluate: bool = False  # load the best checkpoint, run eval only
 
     seed: int = 0
     device: str = "cuda"  # "cpu" runs the port on the CPU
@@ -75,12 +90,11 @@ class TrainConfig:
 
 def check_ported(config: TrainConfig) -> None:
     """Raise for what the configuration asks of paths not ported yet."""
-    for flag in ("resume", "evaluate"):
-        if getattr(config, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet (checkpoints come with a later "
-                "slice)"
-            )
+    if config.publish == "staging":
+        raise NotImplementedError(
+            "--publish staging is not ported yet (the canary pipeline comes "
+            "with a later slice)"
+        )
     if config.num_devices > 1:
         raise NotImplementedError(
             "--num_devices > 1 is not ported yet (the port trains on one "

@@ -6,10 +6,13 @@ layers (400-120-84-10). 62,006 params. Modules carry the reference's names
 (``conv1``, ``conv2``, ``fc1``..``fc3``). The flatten before ``fc1`` is the
 reference's NCHW order; the JAX model flattens NHWC, and
 ``compat.state_dict_from_jax`` permutes ``fc1``'s columns across the two.
+It has no fused site: its served forward (:meth:`LeNet.folded_forward`) is
+the eval forward on weights cast once to the compute dtype.
 """
 
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as F
 from torch import nn
 
@@ -32,3 +35,19 @@ class LeNet(nn.Module):
         out = F.relu(self.fc1(out))
         out = F.relu(self.fc2(out))
         return self.fc3(out)
+
+    def fold(self, dtype: torch.dtype) -> dict:
+        """Each layer's ``(weight, bias)`` in the compute dtype, once per
+        weight set (the engine's contract; there is no BN to fold)."""
+        with torch.no_grad():
+            return {name: (m.weight.to(dtype), m.bias.to(dtype))
+                    for name, m in self.named_children()}
+
+    def folded_forward(self, folded: dict, x: torch.Tensor) -> torch.Tensor:
+        """:meth:`forward` over :meth:`fold`'s weights; ``x`` is NCHW in
+        the compute dtype."""
+        out = F.max_pool2d(F.relu(F.conv2d(x, *folded["conv1"])), 2)
+        out = F.max_pool2d(F.relu(F.conv2d(out, *folded["conv2"])), 2)
+        out = F.relu(F.linear(out.flatten(1), *folded["fc1"]))
+        out = F.relu(F.linear(out, *folded["fc2"]))
+        return F.linear(out, *folded["fc3"])

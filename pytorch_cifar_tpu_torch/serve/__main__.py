@@ -3,17 +3,18 @@
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --verify
     python -m pytorch_cifar_tpu_torch.serve --model GoogLeNet
     python -m pytorch_cifar_tpu_torch.serve --model MobileNet
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --ckpt checkpoint
 
-Builds an :class:`InferenceEngine` from seeded random weights, warms every
-bucket, optionally checks that the padded bucket path equals the direct
-unpadded forward (``--verify``), drives a :class:`MicroBatcher` with the
-closed-loop load generator, and prints ONE JSON line on stdout under
-``serve.py``'s key names, plus ``kernel_launches`` (launches of the port's
-serving kernels during the run: the fused conv, the 3x3 max pool and the
-depthwise stencil, whichever the model has) and ``launches_by_kernel``.
-Progress goes to stderr. Runs on CUDA unless
-``--device cpu`` is given. Checkpoint loading (``--ckpt``) is not ported
-yet.
+Builds an :class:`InferenceEngine` from seeded random weights, or from
+``--ckpt`` (a trainer's directory, a ``.msgpack`` of either package, or a
+reference ``ckpt.pth``), warms every bucket, optionally checks that the
+padded bucket path equals the direct unpadded forward (``--verify``),
+drives a :class:`MicroBatcher` with the closed-loop load generator, and
+prints ONE JSON line on stdout under ``serve.py``'s key names, plus
+``kernel_launches`` (launches of the port's serving kernels during the
+run: the fused conv, the 3x3 max pool and the depthwise stencil, whichever
+the model has), ``launches_by_kernel`` and, with ``--ckpt``, ``ckpt_epoch``.
+Progress goes to stderr. Runs on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ def _launches() -> dict:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="python -m pytorch_cifar_tpu_torch.serve",
-        description="Serve a seeded random-weight model under closed-loop load.",
+        description="Serve a model under closed-loop load.",
     )
     p.add_argument("--model", default="ResNet18")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
@@ -61,6 +62,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--clients", type=int, default=8)
     p.add_argument("--requests", type=int, default=64, help="per client")
     p.add_argument("--request_images_max", type=int, default=8)
+    p.add_argument("--ckpt", default=None,
+                   help="serve this checkpoint (trainer dir, .msgpack or "
+                        ".pth) instead of seeded random weights")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--verify", action="store_true",
                    help="check padded bucket forward == direct forward")
@@ -73,19 +77,18 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     registry = MetricsRegistry()
     launches0 = _launches()
+    source = f"ckpt {args.ckpt}" if args.ckpt else f"seed {args.seed}"
     print(
-        f"==> building {args.model} (seed {args.seed}, buckets "
+        f"==> building {args.model} ({source}, buckets "
         f"{tuple(args.buckets)}, {args.dtype}, {device})",
         file=sys.stderr,
     )
-    engine = InferenceEngine.from_random(
-        args.model,
-        seed=args.seed,
-        buckets=args.buckets,
-        compute_dtype=DTYPES[args.dtype],
-        registry=registry,
-        device=device,
-    )
+    kw = dict(buckets=args.buckets, compute_dtype=DTYPES[args.dtype],
+              registry=registry, device=device)
+    if args.ckpt:
+        engine = InferenceEngine.from_checkpoint(args.ckpt, args.model, **kw)
+    else:
+        engine = InferenceEngine.from_random(args.model, seed=args.seed, **kw)
     print(
         f"==> warm: {engine.compile_count} buckets in "
         f"{engine.cold_start_s:.2f}s",
@@ -175,6 +178,8 @@ def main(argv=None) -> int:
             ),
         },
     }
+    if args.ckpt:
+        out["ckpt_epoch"] = engine.checkpoint_meta.get("epoch")
     print(json.dumps(out))
     return 0
 

@@ -17,6 +17,10 @@ Counterpart of ``pytorch_cifar_tpu/serve/engine.py`` (single device):
   construction and at every swap) is loaded into a fresh model on the
   device and folded for the compute dtype (BN into its conv, the fused
   sites' weights to HWIO); requests only read it.
+- **Checkpoints.** :meth:`InferenceEngine.from_checkpoint` serves a
+  trainer's directory (the best checkpoint first), a ``.msgpack`` payload
+  (either package's; verified against its sidecar's manifest) or a
+  reference ``ckpt.pth`` (:func:`load_checkpoint_trees`).
 - **Swaps are atomic.** The served ``(model, folded)`` pair sits behind one
   reference; a swap validates that the new ``state_dict`` has the same keys,
   shapes and dtypes, prepares it off the lock and replaces the reference in
@@ -27,14 +31,19 @@ The default compute dtype is bf16 with fp32 logits on the wire.
 
 from __future__ import annotations
 
+import os
 import threading
 import time
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from pytorch_cifar_tpu_torch import resolve_device
+from pytorch_cifar_tpu_torch.compat import (
+    normalize_state_dict,
+    state_dict_from_jax,
+)
 from pytorch_cifar_tpu_torch.data.augment import (
     CIFAR10_MEAN,
     CIFAR10_STD,
@@ -43,9 +52,61 @@ from pytorch_cifar_tpu_torch.data.augment import (
 from pytorch_cifar_tpu_torch.data.pipeline import StagingPool
 from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.obs import trace
+from pytorch_cifar_tpu_torch.train.checkpoint import (
+    best_checkpoint_order,
+    read_meta,
+    read_payload_tree,
+    read_verified_payload,
+)
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 IMAGE_SHAPE = (32, 32, 3)
+
+
+def load_checkpoint_trees(
+    ckpt: str, model_name: str, num_classes: int = 10
+) -> Tuple[dict, dict]:
+    """Serving weights from any checkpoint the port understands, as the
+    port's ``state_dict`` (numpy) and the checkpoint's ``meta`` (the
+    sidecar's ``epoch``/``best_acc``, or the reference envelope's
+    ``epoch``/``acc``). ``ckpt`` may be:
+
+    - a trainer's directory: the first candidate of the best order that
+      exists (a v3 commit marker counts), as the JAX engine picks it;
+    - a ``.msgpack`` payload, verified against its sidecar's manifest
+      (v3 reassembled from its committed shards) and mapped through
+      ``compat.state_dict_from_jax``;
+    - a reference ``ckpt.pth`` (``{'net': sd, 'acc', 'epoch'}``, or a bare
+      ``state_dict``), read with ``weights_only=True``; ``module.``
+      prefixes are stripped and the keys are the port's own.
+
+    Raises FileNotFoundError when there is nothing to load and
+    ``CheckpointCorrupt`` when a payload fails verification or decoding.
+    """
+    path = ckpt
+    if os.path.isdir(path):
+        for name in best_checkpoint_order(path):
+            p = os.path.join(path, name)
+            if os.path.isfile(p) or "shards" in read_meta(path, name):
+                path = p
+                break
+        else:
+            raise FileNotFoundError(
+                f"no checkpoint in {path!r} (looked for "
+                f"{best_checkpoint_order(path)})"
+            )
+    if path.endswith(".pth"):
+        obj = torch.load(path, map_location="cpu", weights_only=True)
+        sd, meta = normalize_state_dict(obj)
+        return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                else np.asarray(v) for k, v in sd.items()}, meta
+    dirpath, name = os.path.dirname(path) or ".", os.path.basename(path)
+    meta = read_meta(dirpath, name)
+    tree = read_payload_tree(path, read_verified_payload(dirpath, name, meta))
+    return state_dict_from_jax(
+        model_name, tree["params"], tree.get("batch_stats", {}),
+        num_classes=num_classes,
+    ), meta
 
 
 def _dtype_name(v) -> str:
@@ -94,6 +155,7 @@ class InferenceEngine:
         self.compile_count = 0  # bucket warmups only (see warmup)
         self.forward_count = 0  # every device forward: warmup, bucket, direct
         self.version = 0  # bumped by every swap_weights
+        self.checkpoint_meta: dict = {}  # set by from_checkpoint
         self.cold_start_s = 0.0  # wall time of the last warmup()
         self._obs = registry
         self._h_device = (
@@ -251,6 +313,19 @@ class InferenceEngine:
     # -- constructors --------------------------------------------------
 
     @classmethod
+    def from_checkpoint(
+        cls, ckpt: str, model_name: str, *, num_classes: int = 10, **kw
+    ) -> "InferenceEngine":
+        """Serve a trainer's directory, a ``.msgpack`` or a reference
+        ``.pth`` (:func:`load_checkpoint_trees`); the checkpoint's meta is
+        in :attr:`checkpoint_meta`."""
+        sd, meta = load_checkpoint_trees(ckpt, model_name,
+                                         num_classes=num_classes)
+        eng = cls(model_name, sd, num_classes=num_classes, **kw)
+        eng.checkpoint_meta = meta
+        return eng
+
+    @classmethod
     def from_random(
         cls, model_name: str, *, seed: int = 0, num_classes: int = 10, **kw
     ) -> "InferenceEngine":
@@ -268,8 +343,6 @@ class InferenceEngine:
     ) -> "InferenceEngine":
         """Serve the JAX package's ``(params, batch_stats)`` trees (nested
         dicts of numpy arrays), mapped by ``compat.state_dict_from_jax``."""
-        from pytorch_cifar_tpu_torch.compat import state_dict_from_jax
-
         sd = state_dict_from_jax(
             model_name, params, batch_stats, num_classes=num_classes
         )

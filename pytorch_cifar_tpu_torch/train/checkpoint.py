@@ -1,0 +1,567 @@
+"""Checkpoint save/restore of the port's train state, in the JAX package's
+on-disk format (counterpart of ``pytorch_cifar_tpu/train/checkpoint.py``).
+
+A checkpoint written here is read by the JAX package's unchanged code, and
+the reverse: the same file names, the same payload bytes for the same
+state, the same sidecar.
+
+- **Payload**: the msgpack of the JAX train tree (``compat``'s
+  :func:`~pytorch_cifar_tpu_torch.compat.train_tree_from_state`: params,
+  BN stats, the optimizer's momentum ``trace`` and ``count``, the step),
+  encoded by the port's own codec (``serialization.py``), byte for byte
+  what ``flax.serialization.to_bytes`` writes.
+- **v2**: the payload file plus a ``<stem>.json`` sidecar ``{"epoch",
+  "best_acc", "manifest": {"format": 2, "crc32", "size"}}``, written
+  payload first, sidecar second, each by tmp + fsync + rename + directory
+  fsync. A sidecar with no manifest is v1: it restores with a warning.
+- **v3** (sharded, several processes): read here, shard by shard against
+  the commit marker's list; shards without their marker are invisible.
+  Writing it waits for the port's data-parallel slice:
+  ``save_checkpoint(num_shards > 1)`` raises "not ported yet".
+- **Rolling history** (``keep_last_n``): copies, never hard links, as extra
+  restore candidates behind each file.
+- **Async saves**: only the snapshot and its one device-to-host copy run on
+  the calling thread; the codec, the CRC and the commit run on an
+  :class:`AsyncCheckpointWriter` thread, which touches host numpy only,
+  never a CUDA tensor.
+
+Restore walks the candidates (each expanded with its history), falls back
+on any :class:`CheckpointCorrupt` with a warning and
+``checkpoint.fallbacks``, and raises ``FileNotFoundError("no usable
+checkpoint ...")`` only when no candidate is usable. It loads onto the
+state's own device.
+"""
+
+from __future__ import annotations
+
+import glob
+import json
+import logging
+import os
+import re
+import threading
+import time
+import zlib
+from typing import Any, Callable, Optional, Sequence, Tuple
+
+from pytorch_cifar_tpu_torch.compat import (
+    StateSnapshot,
+    TrainArrays,
+    apply_train_arrays,
+    snapshot_state,
+    train_arrays,
+    train_tree_from_snapshot,
+)
+from pytorch_cifar_tpu_torch.obs import trace
+from pytorch_cifar_tpu_torch.serialization import (
+    MsgpackError,
+    msgpack_restore,
+    to_bytes,
+)
+
+log = logging.getLogger(__name__)
+
+CKPT_NAME = "ckpt.msgpack"   # best-accuracy checkpoint
+LAST_NAME = "last.msgpack"   # preemption save: exact latest state
+
+MANIFEST_FORMAT = 2
+
+
+class CheckpointCorrupt(RuntimeError):
+    """A checkpoint payload failed verification (checksum/size mismatch,
+    missing/corrupt shard, undeserializable bytes, or a tree that is not
+    the model's). Restore falls back to the next candidate."""
+
+
+def meta_path(output_dir: str, name: str) -> str:
+    """Path of the JSON scalar sidecar paired with checkpoint ``name``."""
+    return os.path.join(output_dir, os.path.splitext(name)[0] + ".json")
+
+
+def payload_manifest(payload: bytes) -> dict:
+    """The sidecar manifest entry that lets any reader verify the payload
+    without deserializing it."""
+    return {
+        "format": MANIFEST_FORMAT,
+        "crc32": zlib.crc32(payload) & 0xFFFFFFFF,
+        "size": len(payload),
+    }
+
+
+def verify_checkpoint_payload(payload: bytes, meta: dict, path: str) -> None:
+    """Check ``payload`` against the sidecar ``meta``'s manifest. Raises
+    :class:`CheckpointCorrupt` on a size or checksum mismatch; a sidecar
+    without a manifest (v1) passes with a logged warning."""
+    manifest = (meta or {}).get("manifest")
+    if not manifest:
+        log.warning(
+            "checkpoint %s has no manifest (format v1): restoring "
+            "unverified — re-save to upgrade to format v2", path
+        )
+        return
+    if len(payload) != int(manifest.get("size", -1)):
+        raise CheckpointCorrupt(
+            f"{path}: payload is {len(payload)} bytes, manifest says "
+            f"{manifest.get('size')} (truncated or torn write)"
+        )
+    crc = zlib.crc32(payload) & 0xFFFFFFFF
+    if crc != int(manifest.get("crc32", -1)):
+        raise CheckpointCorrupt(
+            f"{path}: payload crc32 {crc:#010x} != manifest "
+            f"{int(manifest.get('crc32', -1)):#010x} (bit corruption)"
+        )
+
+
+def _fsync_dir(dirpath: str) -> None:
+    """Durably record a rename in its directory (best effort: some
+    filesystems reject a directory fsync)."""
+    try:
+        fd = os.open(dirpath or ".", os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
+
+
+def _atomic_write(path: str, data: bytes) -> None:
+    """tmp + fsync + rename + dir fsync: a crash at any point leaves the
+    old complete file or the new complete file, never a torn one."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    _fsync_dir(os.path.dirname(path))
+
+
+# -- rolling history -----------------------------------------------------
+
+def _history_stem(name: str) -> str:
+    return os.path.splitext(name)[0]
+
+
+def _history_name(name: str, epoch: int) -> str:
+    return f"{_history_stem(name)}-e{max(int(epoch), 0):05d}.msgpack"
+
+
+def history_names(output_dir: str, name: str):
+    """Rolling-history checkpoint names for ``name``, newest epoch first:
+    payload files and (for v3 entries, which have none) commit sidecars."""
+    stem = _history_stem(name)
+    found = set()
+    for ext in ("msgpack", "json"):
+        pat = re.compile(re.escape(stem) + r"-e(\d+)\." + ext + "$")
+        for path in glob.glob(os.path.join(output_dir, f"{stem}-e*.{ext}")):
+            m = pat.search(os.path.basename(path))
+            if m:
+                found.add((int(m.group(1)),
+                           _history_name(name, int(m.group(1)))))
+    return [n for _, n in sorted(found, reverse=True)]
+
+
+def _remove_candidate_files(output_dir: str, name: str) -> None:
+    """Delete every file of candidate ``name``: payload, sidecar, and any
+    v3 shards with their sidecars."""
+    stem = os.path.splitext(name)[0]
+    targets = [os.path.join(output_dir, name), meta_path(output_dir, name)]
+    for sp in glob.glob(
+        os.path.join(output_dir, stem + ".shard*-of-*.msgpack")
+    ):
+        targets += [sp, meta_path(output_dir, os.path.basename(sp))]
+    for p in targets:
+        try:
+            os.remove(p)
+        except OSError:
+            pass
+
+
+def _prune_history(output_dir: str, name: str, keep_last_n: int) -> None:
+    for stale in history_names(output_dir, name)[keep_last_n:]:
+        _remove_candidate_files(output_dir, stale)
+
+
+def _update_history(
+    output_dir: str, name: str, epoch: int, payload: bytes, meta: dict,
+    keep_last_n: int,
+) -> None:
+    """Publish a history copy of the just-written checkpoint (a separate
+    inode: damage to the primary cannot reach it) and prune the oldest
+    entries beyond ``keep_last_n``."""
+    hname = _history_name(name, epoch)
+    _atomic_write(os.path.join(output_dir, hname), payload)
+    _atomic_write(meta_path(output_dir, hname), json.dumps(meta).encode())
+    _prune_history(output_dir, name, keep_last_n)
+
+
+# -- async writer --------------------------------------------------------
+
+class AsyncCheckpointWriter:
+    """Background commit thread for :func:`save_checkpoint`.
+
+    - At most one pending job per submit ``key`` (the checkpoint name): a
+      newer job for the same name replaces the queued one
+      (``checkpoint.superseded_saves``); jobs of different names queue
+      independently, in submit order.
+    - The error of a failed job is stored and re-raised by the next
+      :meth:`submit`, :meth:`flush` or :meth:`close`.
+    - :meth:`close` drains the queue and joins the thread. The thread
+      starts at the first submit.
+
+    Every attribute the thread shares is mutated under ``self._cond``.
+    """
+
+    def __init__(self, registry=None, name: str = "ckpt-writer"):
+        self._cond = threading.Condition()
+        self._pending: dict = {}  # key -> job, in submit order
+        self._busy = False
+        self._error: Optional[BaseException] = None
+        self._thread: Optional[threading.Thread] = None
+        self._stopping = False
+        self._obs = registry
+        self._name = name
+
+    def _publish_depth_locked(self) -> None:
+        if self._obs is not None:
+            self._obs.gauge("checkpoint.pending_saves").set(
+                len(self._pending) + (1 if self._busy else 0)
+            )
+
+    def _raise_pending_error_locked(self) -> None:
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def submit(self, job: Callable[[], Any], key: str = "") -> None:
+        """Queue ``job``; replaces a still-queued job of the same ``key``;
+        re-raises a stored error of an earlier job."""
+        with self._cond:
+            self._raise_pending_error_locked()
+            if key in self._pending and self._obs is not None:
+                self._obs.counter("checkpoint.superseded_saves").inc()
+            self._pending[key] = job
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._run, name=self._name, daemon=True
+                )
+                self._thread.start()
+            self._publish_depth_locked()
+            self._cond.notify_all()
+
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._pending and not self._stopping:
+                    self._cond.wait()
+                if not self._pending:
+                    return
+                key = next(iter(self._pending))
+                job = self._pending.pop(key)
+                self._busy = True
+                self._publish_depth_locked()
+            t0 = time.perf_counter()
+            err = None
+            try:
+                job()
+            except BaseException as e:  # stored, re-raised on interaction
+                err = e
+            if self._obs is not None:
+                self._obs.histogram("checkpoint.writer_ms").observe(
+                    (time.perf_counter() - t0) * 1e3
+                )
+            with self._cond:
+                if err is not None and self._error is None:
+                    self._error = err
+                self._busy = False
+                self._publish_depth_locked()
+                self._cond.notify_all()
+
+    def flush(self) -> None:
+        """Block until every submitted job has run; re-raise any error."""
+        with self._cond:
+            while self._pending or self._busy:
+                self._cond.wait()
+            self._raise_pending_error_locked()
+
+    def close(self) -> None:
+        """Drain pending work, join the thread, re-raise any error. A
+        later submit starts a new thread."""
+        with self._cond:
+            self._stopping = True
+            t = self._thread
+            self._thread = None
+            self._cond.notify_all()
+        if t is not None:
+            t.join()
+        with self._cond:
+            self._stopping = False
+            self._raise_pending_error_locked()
+
+
+# -- save ----------------------------------------------------------------
+
+def _write_unsharded(
+    output_dir: str, name: str, payload: bytes, epoch: int,
+    best_acc: float, keep_last_n: int,
+) -> str:
+    """Format v2 commit: payload first, sidecar (with the payload's
+    manifest) second."""
+    path = os.path.join(output_dir, name)
+    with trace.span("checkpoint/write", bytes=len(payload)):
+        _atomic_write(path, payload)
+        meta = {
+            "epoch": int(epoch),
+            "best_acc": float(best_acc),
+            "manifest": payload_manifest(payload),
+        }
+        _atomic_write(meta_path(output_dir, name), json.dumps(meta).encode())
+        if keep_last_n > 0:
+            _update_history(output_dir, name, epoch, payload, meta,
+                            keep_last_n)
+    return path
+
+
+def _commit_host_tree(
+    output_dir: str, name: str, tree: dict, epoch: int, best_acc: float,
+    keep_last_n: int, registry, t0: float,
+) -> str:
+    """Codec + CRC + durable publish of a host tree (numpy only): the half
+    of a save that runs on the writer thread, or inline."""
+    payload = to_bytes(tree)
+    path = _write_unsharded(output_dir, name, payload, epoch, best_acc,
+                            keep_last_n)
+    if registry is not None:
+        registry.counter("checkpoint.saves").inc()
+        registry.counter("checkpoint.saved_bytes").inc(len(payload))
+        registry.histogram("checkpoint.save_ms").observe(
+            (time.perf_counter() - t0) * 1e3
+        )
+    return path
+
+
+def save_checkpoint(
+    output_dir: str,
+    state,
+    epoch: int,
+    best_acc: float,
+    name: str = CKPT_NAME,
+    keep_last_n: int = 0,
+    registry=None,
+    writer: Optional[AsyncCheckpointWriter] = None,
+    num_shards: Optional[int] = None,
+    on_commit: Optional[Callable[[], None]] = None,
+) -> str:
+    """Write ``state`` (a ``TrainState``, or a :class:`StateSnapshot` taken
+    earlier) to ``output_dir`` in format v2; returns the payload's path.
+
+    On the calling thread: the snapshot (if ``state`` is not one) and its
+    one device-to-host copy, the only wait for the device. With a
+    ``writer`` the codec, CRC and commit run on its thread, else inline.
+    ``registry`` records ``checkpoint.save_stall_ms`` (the calling
+    thread's time) and, when the commit lands, ``checkpoint.saves``,
+    ``saved_bytes`` and ``save_ms``. ``on_commit`` runs once after a
+    successful commit (never for a failed or superseded one).
+    ``num_shards > 1`` (format v3) raises: sharded writes are not ported.
+    """
+    if num_shards is not None and int(num_shards) > 1:
+        raise NotImplementedError(
+            "sharded (format v3) checkpoint writes are not ported yet "
+            "(they come with data parallelism); v3 reads are"
+        )
+    t0 = time.perf_counter()
+    with trace.span("checkpoint/save", file=name, epoch=int(epoch), shards=1):
+        os.makedirs(output_dir, exist_ok=True)
+        snap = state if isinstance(state, StateSnapshot) \
+            else snapshot_state(state)
+        with trace.span("checkpoint/device_get"):
+            tree = train_tree_from_snapshot(snap)
+
+        def commit():
+            r = _commit_host_tree(output_dir, name, tree, epoch, best_acc,
+                                  keep_last_n, registry, t0)
+            if on_commit is not None:
+                on_commit()
+            return r
+
+        if writer is None:
+            commit()
+        else:
+            writer.submit(commit, key=name)
+    if registry is not None:
+        registry.histogram("checkpoint.save_stall_ms").observe(
+            (time.perf_counter() - t0) * 1e3
+        )
+    return os.path.join(output_dir, name)
+
+
+def newest_checkpoint_order(output_dir: str):
+    """Preference for training resume: whichever of last / ckpt has the
+    newer epoch in its sidecar, a tie to ``last`` (it holds the exact
+    latest optimizer state). An unreadable sidecar counts as epoch -1."""
+
+    def epoch_of(name):
+        try:
+            with open(meta_path(output_dir, name)) as f:
+                return int(json.load(f).get("epoch", -1))
+        except (OSError, ValueError):
+            return -1
+
+    if epoch_of(LAST_NAME) >= epoch_of(CKPT_NAME):
+        return [LAST_NAME, CKPT_NAME]
+    return [CKPT_NAME, LAST_NAME]
+
+
+def best_checkpoint_order(output_dir: str = None):
+    """Preference when the caller wants the best params (``--evaluate``,
+    serving): the best-accuracy ckpt first, the preemption save only as a
+    fallback. ``output_dir`` is taken for symmetry with
+    :func:`newest_checkpoint_order`."""
+    return [CKPT_NAME, LAST_NAME]
+
+
+def remove_stale_last(output_dir: str) -> None:
+    """Delete the preemption save (and its history and shards) after a run
+    completes: a leftover one would roll a later ``--resume`` back."""
+    if not output_dir:
+        return
+    for name in [LAST_NAME] + history_names(output_dir, LAST_NAME):
+        _remove_candidate_files(output_dir, name)
+
+
+# -- restore -------------------------------------------------------------
+
+def read_meta(output_dir: str, name: str) -> dict:
+    """The sidecar of ``name``; ``{}`` when it is absent or unreadable."""
+    try:
+        with open(meta_path(output_dir, name)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return {}
+
+
+def read_verified_payload(
+    output_dir: str, name: str, meta: Optional[dict] = None
+) -> bytes:
+    """The verified payload of candidate ``name``: reassembled from v3
+    shards when the sidecar is a sharded commit marker, else read and
+    checked against the manifest (v1/v2).
+
+    FileNotFoundError means the candidate is absent (a v3 set without its
+    commit marker included); :class:`CheckpointCorrupt` means it exists
+    but is unusable (a bad payload, or a committed shard missing or
+    failing its CRC)."""
+    if meta is None:
+        meta = read_meta(output_dir, name)
+    path = os.path.join(output_dir, name)
+    shards = (meta or {}).get("shards")
+    if shards:
+        parts = []
+        for s in shards:
+            sp = os.path.join(output_dir, s["name"])
+            try:
+                with open(sp, "rb") as f:
+                    blob = f.read()
+            except OSError as e:
+                raise CheckpointCorrupt(
+                    f"{path}: committed shard {s['name']} is missing ({e})"
+                ) from e
+            verify_checkpoint_payload(blob, {"manifest": s}, sp)
+            parts.append(blob)
+        payload = b"".join(parts)
+        total = meta.get("total")
+        if total:
+            verify_checkpoint_payload(payload, {"manifest": total}, path)
+        return payload
+    with open(path, "rb") as f:
+        payload = f.read()
+    verify_checkpoint_payload(payload, meta, path)
+    return payload
+
+
+def read_payload_tree(path: str, payload: bytes) -> dict:
+    """The payload's tree; :class:`CheckpointCorrupt` when it does not
+    decode."""
+    try:
+        return msgpack_restore(payload)
+    except MsgpackError as e:
+        raise CheckpointCorrupt(f"{path}: undeserializable payload: {e}") \
+            from e
+
+
+def _read_verified(
+    output_dir: str, name: str, model
+) -> Tuple[TrainArrays, int, float]:
+    """Read + verify + decode + check one candidate against ``model``."""
+    meta = read_meta(output_dir, name)
+    path = os.path.join(output_dir, name)
+    tree = read_payload_tree(path, read_verified_payload(output_dir, name,
+                                                         meta))
+    try:
+        arrays = train_arrays(model, tree)
+    except (KeyError, ValueError) as e:
+        raise CheckpointCorrupt(f"{path}: not this model's train state: "
+                                f"{e}") from e
+    return arrays, int(meta.get("epoch", -1)), float(meta.get("best_acc", 0.0))
+
+
+def restore_checkpoint(
+    output_dir: str,
+    state,
+    name: str = CKPT_NAME,
+    names: Optional[Sequence[str]] = None,
+    registry=None,
+) -> Tuple[Any, int, float]:
+    """Load ``output_dir``'s checkpoint into ``state`` in place, on its
+    device.
+
+    ``names`` (e.g. :func:`newest_checkpoint_order`) gives the candidate
+    preference; each candidate is followed by its rolling history, and any
+    corruption falls back to the next with a warning. Raises
+    FileNotFoundError only when no candidate is usable. Returns ``(state,
+    start_epoch, best_acc)``, ``start_epoch`` being the saved epoch + 1.
+    """
+    t0 = time.perf_counter()
+    candidates = list(names) if names is not None else [name]
+    expanded = []
+    for cand in candidates:
+        expanded.append(cand)
+        expanded.extend(history_names(output_dir, cand))
+    found = None
+    for cand in expanded:
+        try:
+            with trace.span("checkpoint/restore", file=cand):
+                found = _read_verified(output_dir, cand, state.model)
+        except FileNotFoundError:
+            continue
+        except CheckpointCorrupt as e:
+            log.warning("checkpoint candidate %s is corrupt (%s); "
+                        "falling back", cand, e)
+            if registry is not None:
+                registry.counter("checkpoint.corrupt_candidates").inc()
+            trace.instant("checkpoint/corrupt_candidate", file=cand)
+            continue
+        if cand != expanded[0]:
+            log.warning(
+                "restored fallback checkpoint %s (epoch %d) — the preferred "
+                "candidate was missing or corrupt", cand, found[1],
+            )
+            if registry is not None:
+                registry.counter("checkpoint.fallbacks").inc()
+        break
+    if found is None:
+        raise FileNotFoundError(
+            f"no usable checkpoint in {output_dir!r} (tried {candidates} and "
+            "their history) — run without --resume first"
+        )
+    arrays, epoch, best_acc = found
+    apply_train_arrays(state, arrays)
+    if registry is not None:
+        registry.counter("checkpoint.restores").inc()
+        registry.histogram("checkpoint.restore_ms").observe(
+            (time.perf_counter() - t0) * 1e3
+        )
+    return state, epoch + 1, best_acc

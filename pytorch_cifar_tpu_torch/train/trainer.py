@@ -7,23 +7,52 @@ epoch's rows gathered at once, through kernel K1 on CUDA when
 ``config.dma_gather`` is set), then one eval epoch over the static test
 set, then ONE fetch of both epochs' metric totals: the only host sync of
 the epoch. The log lines, the best-accuracy gate and the returned value
-are the JAX trainer's. No checkpoint is written yet (a later slice): the
-gate records ``best_acc`` and logs it.
+are the JAX trainer's.
+
+Checkpoints are the JAX package's format v2 (``train/checkpoint.py``), in
+``config.output_dir``:
+
+- the gate snapshots the best state on the device at every improvement (a
+  clone, no sync) and writes ``ckpt.msgpack`` at most once per
+  ``checkpoint_every`` epochs, on a background writer under ``async_save
+  on``; ``flush_checkpoints`` makes the newest best durable before ``fit``
+  returns;
+- ``request_stop`` (SIGTERM, in the main thread) ends the run after the
+  current epoch with the exact state saved as ``last.msgpack``; a run
+  that completes removes a stale one;
+- ``resume`` restores the newest of the two (their history behind them),
+  ``evaluate`` the best, onto the trainer's device, with the step, the
+  next epoch and ``best_acc``. The epoch permutation depends on (seed,
+  epoch) and the augmentation draws on (seed, step), so a resumed run
+  takes the steps an uninterrupted one would.
 """
 
 from __future__ import annotations
 
 import logging
+import signal
+import threading
 import time
 from typing import Dict, List, Tuple
 
 import torch
 
 from pytorch_cifar_tpu_torch import resolve_device
+from pytorch_cifar_tpu_torch.compat import snapshot_state
 from pytorch_cifar_tpu_torch.config import TrainConfig, check_ported
 from pytorch_cifar_tpu_torch.data.cifar10 import load_cifar10, synthetic_cifar10
 from pytorch_cifar_tpu_torch.data.pipeline import DeviceDataset
 from pytorch_cifar_tpu_torch.models import create_model
+from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+from pytorch_cifar_tpu_torch.train.checkpoint import (
+    LAST_NAME,
+    AsyncCheckpointWriter,
+    best_checkpoint_order,
+    newest_checkpoint_order,
+    remove_stale_last,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from pytorch_cifar_tpu_torch.train.optim import (
     cosine_epoch_schedule,
     make_optimizer,
@@ -45,8 +74,17 @@ log = logging.getLogger(__name__)
 class Trainer:
     def __init__(self, config: TrainConfig):
         check_ported(config)
+        if config.async_save not in ("on", "off"):
+            raise ValueError(
+                f"async_save must be on/off, got {config.async_save!r}"
+            )
+        if config.publish != "live":
+            raise ValueError(
+                f"publish must be live/staging, got {config.publish!r}"
+            )
         self.config = config
         self.device = resolve_device(config.device)
+        self.obs = MetricsRegistry()
 
         # -- data ------------------------------------------------------
         if config.synthetic_data:
@@ -111,8 +149,34 @@ class Trainer:
             n_data=n_eval,
             num_steps=max(-(-n_eval // self.eval_bs), 1),
         )
+        self.start_epoch = 0
         self.best_acc = 0.0
         self.history: List[dict] = []
+
+        # -- checkpoints ----------------------------------------------
+        self.ckpt_dir = config.output_dir
+        if config.resume or config.evaluate:
+            # resume wants the newest state (a stale last.msgpack must not
+            # roll training back); eval wants the best params
+            names = (best_checkpoint_order(self.ckpt_dir) if config.evaluate
+                     else newest_checkpoint_order(self.ckpt_dir))
+            _, self.start_epoch, self.best_acc = restore_checkpoint(
+                self.ckpt_dir, self.state, names=names, registry=self.obs
+            )
+            log.info("resumed from %s: epoch %d, best_acc %.2f",
+                     self.ckpt_dir, self.start_epoch, self.best_acc)
+        self._stop_requested = False
+        self._snapshot = None  # (device StateSnapshot, epoch, best_acc)
+        self._ckpt_writer = (AsyncCheckpointWriter(registry=self.obs)
+                             if config.async_save == "on" else None)
+        # _submitted_epoch (this thread only): newest epoch handed to
+        # save_checkpoint, for throttling. _written_epoch (under
+        # _ckpt_lock; the writer thread's on_commit advances it): newest
+        # epoch durably on disk, so a failed background commit is
+        # re-submitted by flush_checkpoints, never assumed written.
+        self._ckpt_lock = threading.Lock()
+        self._submitted_epoch = None
+        self._written_epoch = None
 
     def dispatch_epoch(self, epoch: int) -> Tuple[Metrics, Metrics]:
         """Queue one train and one eval epoch on the device and return
@@ -154,13 +218,95 @@ class Trainer:
         return loss, acc
 
     def maybe_checkpoint(self, epoch: int, acc: float) -> bool:
-        """The best-accuracy gate. Checkpoint writing is not ported yet:
-        the gate records ``best_acc`` and logs."""
-        if acc > self.best_acc:
-            self.best_acc = acc
-            log.info("Saving.. (best acc %.2f%%)", acc)
+        """The best-accuracy gate. Every improvement snapshots the state
+        on the device (a clone, no sync); disk writes are throttled to
+        ``checkpoint_every`` epochs and, under ``async_save on``, commit on
+        the background writer after one device-to-host copy here."""
+        if acc <= self.best_acc:
+            return False
+        self.best_acc = acc
+        log.info("Saving.. (best acc %.2f%%)", acc)
+        if self._ckpt_writer is None:
+            save_checkpoint(
+                self.ckpt_dir, self.state, epoch, self.best_acc,
+                keep_last_n=self.config.keep_last_n, registry=self.obs,
+            )
             return True
-        return False
+        self._snapshot = (snapshot_state(self.state), epoch, self.best_acc)
+        self._write_snapshot_async()
+        return True
+
+    def _mark_epoch_written(self, epoch: int) -> None:
+        with self._ckpt_lock:
+            self._written_epoch = epoch
+
+    def _epoch_written(self):
+        with self._ckpt_lock:
+            return self._written_epoch
+
+    def _submit_snapshot(self, snap) -> None:
+        epoch = snap[1]
+        save_checkpoint(
+            self.ckpt_dir, snap[0], epoch, snap[2],
+            keep_last_n=self.config.keep_last_n, registry=self.obs,
+            writer=self._ckpt_writer,
+            on_commit=lambda: self._mark_epoch_written(epoch),
+        )
+        self._submitted_epoch = epoch
+
+    def _write_snapshot_async(self) -> None:
+        """Hand the best snapshot to the writer unless a write went out
+        fewer than ``checkpoint_every`` epochs ago."""
+        snap = self._snapshot
+        if snap is None or snap[1] == self._submitted_epoch:
+            return
+        every = self.config.checkpoint_every
+        if (self._submitted_epoch is not None and every > 0
+                and snap[1] - self._submitted_epoch < every):
+            log.info(
+                "checkpoint write throttled (epoch %d; last saved best is "
+                "epoch %d, next write at epoch >= %d) — a crash before then "
+                "resumes from the on-disk state",
+                snap[1], self._submitted_epoch, self._submitted_epoch + every,
+            )
+            return
+        self._submit_snapshot(snap)
+
+    def flush_checkpoints(self) -> None:
+        """Block until the newest best snapshot is durably on disk. A
+        failed background write is re-raised here; a snapshot whose
+        earlier commit failed (its error already raised once) is written
+        again rather than assumed on disk."""
+        snap = self._snapshot
+        if snap is not None and snap[1] != self._submitted_epoch:
+            self._submit_snapshot(snap)
+        if self._ckpt_writer is not None:
+            try:
+                self._ckpt_writer.flush()
+            except BaseException:
+                self._submitted_epoch = self._epoch_written()
+                raise
+        if snap is not None and snap[1] != self._epoch_written():
+            self._submitted_epoch = self._epoch_written()
+            self._submit_snapshot(snap)
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.flush()
+
+    def request_stop(self) -> None:
+        """Ask ``fit`` to stop after the current epoch and write
+        ``last.msgpack``."""
+        self._stop_requested = True
+
+    def evaluate(self) -> float:
+        """One eval epoch of the restored state (``--evaluate``); returns
+        its accuracy."""
+        ev = self.eval_epoch_fn(
+            self.state, self.eval_loader.images, self.eval_loader.labels
+        )
+        m = dict(zip(METRIC_KEYS,
+                     torch.stack([ev[k] for k in METRIC_KEYS]).tolist()))
+        _, acc = self._log_eval_totals(max(self.start_epoch - 1, 0), m)
+        return acc
 
     def fit(self) -> float:
         cfg = self.config
@@ -168,19 +314,52 @@ class Trainer:
             "==> model %s | %d devices | global batch %d | %d steps/epoch",
             cfg.model, 1, self.global_batch, self.steps_per_epoch,
         )
+        if cfg.evaluate:
+            return self.evaluate()
+        # SIGTERM: finish the epoch, save last.msgpack, return (handlers
+        # attach only in the main thread)
+        old_handler = None
+        if threading.current_thread() is threading.main_thread():
+            old_handler = signal.signal(
+                signal.SIGTERM, lambda s, f: self.request_stop()
+            )
         last_mark = time.perf_counter()
-        for epoch in range(cfg.epochs):
-            log.info("\nEpoch: %d", epoch)
-            train_m, eval_m = self._run_epoch(epoch)
-            now = time.perf_counter()
-            dt, last_mark = now - last_mark, now
-            train_loss, train_acc = self._log_train_totals(epoch, train_m, dt)
-            eval_loss, eval_acc = self._log_eval_totals(epoch, eval_m)
-            self.maybe_checkpoint(epoch, eval_acc)
-            self.history.append({
-                "epoch": epoch, "train": train_m, "eval": eval_m,
-                "train_loss": train_loss, "train_acc": train_acc,
-                "eval_loss": eval_loss, "eval_acc": eval_acc,
-                "epoch_s": dt, "img_per_sec": train_m["count"] / max(dt, 1e-9),
-            })
+        try:
+            for epoch in range(self.start_epoch, cfg.epochs):
+                log.info("\nEpoch: %d", epoch)
+                train_m, eval_m = self._run_epoch(epoch)
+                now = time.perf_counter()
+                dt, last_mark = now - last_mark, now
+                train_loss, train_acc = self._log_train_totals(
+                    epoch, train_m, dt)
+                eval_loss, eval_acc = self._log_eval_totals(epoch, eval_m)
+                self.maybe_checkpoint(epoch, eval_acc)
+                self.history.append({
+                    "epoch": epoch, "train": train_m, "eval": eval_m,
+                    "train_loss": train_loss, "train_acc": train_acc,
+                    "eval_loss": eval_loss, "eval_acc": eval_acc,
+                    "epoch_s": dt,
+                    "img_per_sec": train_m["count"] / max(dt, 1e-9),
+                })
+                if self._stop_requested:
+                    log.info("stop requested: saving preemption checkpoint "
+                             "at epoch %d", epoch)
+                    save_checkpoint(
+                        self.ckpt_dir, self.state, epoch, self.best_acc,
+                        name=LAST_NAME, keep_last_n=cfg.keep_last_n,
+                        registry=self.obs, writer=self._ckpt_writer,
+                    )
+                    break
+            else:
+                remove_stale_last(self.ckpt_dir)
+        finally:
+            # the newest best must be on disk before fit returns; the
+            # writer is joined on every exit path
+            try:
+                self.flush_checkpoints()
+            finally:
+                if self._ckpt_writer is not None:
+                    self._ckpt_writer.close()
+                if old_handler is not None:
+                    signal.signal(signal.SIGTERM, old_handler)
         return self.best_acc

@@ -1,0 +1,500 @@
+"""Shared pieces of the zoo's test files (``tests/test_torch_zoo_*.py``):
+seeded JAX trees and inputs, the reference's ``state_dict`` key order, the
+JAX call order of SimpleDLA's trees, the JAX and port forwards and train
+steps they compare, and one narrow Inception cell of both packages.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pytorch_cifar_tpu.models import create_model as jax_create_model
+from pytorch_cifar_tpu.models.googlenet import Inception as JaxInception
+from pytorch_cifar_tpu.train import optim as jax_optim
+from pytorch_cifar_tpu.train import state as jax_state
+from pytorch_cifar_tpu.train import steps as jax_steps
+from pytorch_cifar_tpu_torch.compat import state_dict_from_jax
+from pytorch_cifar_tpu_torch.models import common, create_model
+from pytorch_cifar_tpu_torch.models.dla_simple import STEMS, TREES
+from pytorch_cifar_tpu_torch.models.googlenet import Inception
+from pytorch_cifar_tpu_torch.models.mobilenet import CFG
+from pytorch_cifar_tpu_torch.train import optim, steps
+from pytorch_cifar_tpu_torch.train.state import create_train_state
+
+
+ZOO = ["GoogLeNet", "MobileNet", "SimpleDLA"]
+
+
+BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
+             "num_batches_tracked")
+# the port's Inception sites in the JAX cell's Conv_j/BatchNorm_j order
+
+
+CELL_SITES = ("b1.0", "b2.0", "b2.3", "b3.0", "b3.3", "b3.6", "b4.1")
+
+
+def random_trees(shapes, seed, he=True):
+    """(params, batch_stats) as numpy for a flax ``init`` shape tree:
+    non-trivial biases, BN affine and stats. Conv kernels are He-uniform
+    (bound sqrt(6 / fan_in)), which keeps the activations' scale through
+    the ReLUs, so the logits are O(1-10) as a trained network's are;
+    ``he=False`` draws them with bound 1 / sqrt(fan_in), under which the
+    signal shrinks with depth until the logits are the last bias."""
+    rs = np.random.RandomState(seed)
+
+    def param(path, s):
+        leaf = path[-1].key
+        if leaf == "kernel":
+            fan_in = np.prod(s.shape[:-1])
+            he_conv = he and len(s.shape) == 4
+            bound = np.sqrt((6.0 if he_conv else 1.0) / fan_in)
+            return rs.uniform(-bound, bound, s.shape).astype(np.float32)
+        if leaf == "scale":
+            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
+
+    def stat(path, s):
+        if path[-1].key == "var":
+            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
+
+    return (jax.tree_util.tree_map_with_path(param, shapes["params"]),
+            jax.tree_util.tree_map_with_path(stat, shapes["batch_stats"]))
+
+
+@pytest.fixture(scope="module")
+def trees():
+    cache = {}
+
+    def get(name, he=True):
+        if (name, he) not in cache:
+            model = jax_create_model(name)
+            shapes = jax.eval_shape(lambda: model.init(
+                jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False
+            ))
+            cache[name, he] = random_trees(shapes, 20 + ZOO.index(name), he)
+        return cache[name, he]
+
+    return get
+
+
+def bn_keys(prefix):
+    return [f"{prefix}.{leaf}" for leaf in BN_LEAVES]
+
+
+def block_keys(p, shortcut):
+    keys = [f"{p}.conv1.weight", *bn_keys(f"{p}.bn1"), f"{p}.conv2.weight",
+            *bn_keys(f"{p}.bn2")]
+    if shortcut:
+        keys += [f"{p}.shortcut.0.weight", *bn_keys(f"{p}.shortcut.1")]
+    return keys
+
+
+def tree_keys(p, level, shortcut):
+    """A reference Tree: its root first, then the left and right
+    children; only the left child's first block can change width or
+    stride."""
+    keys = [f"{p}.root.conv.weight", *bn_keys(f"{p}.root.bn")]
+    if level == 1:
+        return keys + block_keys(f"{p}.left_tree", shortcut) \
+            + block_keys(f"{p}.right_tree", False)
+    return keys + tree_keys(f"{p}.left_tree", level - 1, shortcut) \
+        + tree_keys(f"{p}.right_tree", level - 1, False)
+
+
+def reference_keys(name):
+    """state_dict keys in the reference's definition order."""
+    if name == "SimpleDLA":
+        keys = []
+        for stem in ("base", "layer1", "layer2"):
+            keys += [f"{stem}.0.weight", *bn_keys(f"{stem}.1")]
+        cin = STEMS[-1]
+        for k, (cout, level, stride) in enumerate(TREES):
+            keys += tree_keys(f"layer{k + 3}", level,
+                               stride != 1 or cin != cout)
+            cin = cout
+        return keys + ["linear.weight", "linear.bias"]
+    if name == "MobileNet":
+        keys = ["conv1.weight", *bn_keys("bn1")]
+        for i in range(len(CFG)):
+            p = f"layers.{i}"
+            keys += [f"{p}.conv1.weight", *bn_keys(f"{p}.bn1"),
+                     f"{p}.conv2.weight", *bn_keys(f"{p}.bn2")]
+        return keys + ["linear.weight", "linear.bias"]
+    keys = ["pre_layers.0.weight", "pre_layers.0.bias", *bn_keys("pre_layers.1")]
+    for cell in ("a3", "b3", "a4", "b4", "c4", "d4", "e4", "a5", "b5"):
+        for site in CELL_SITES:
+            branch, i = site.split(".")
+            keys += [f"{cell}.{site}.weight", f"{cell}.{site}.bias",
+                     *bn_keys(f"{cell}.{branch}.{int(i) + 1}")]
+    return keys + ["linear.weight", "linear.bias"]
+
+
+def jax_call_order(keys):
+    """``keys`` with each Tree's root moved after its two children: the
+    order the JAX SimpleDLA calls them in (the reference defines the root
+    first). The JAX export pairs modules of one shape first-fit in the
+    template's order, so in the reference's order it would hand a root's BN
+    the first block's; in this order every pair is the named one. Other
+    models' keys come back as they are."""
+    out, roots = [], []  # roots: a stack of (tree prefix, its root keys)
+    for k in keys:
+        while roots and not k.startswith(roots[-1][0]):
+            out += roots.pop()[1]
+        if ".root." in k:
+            prefix = k.split(".root.")[0] + "."
+            if not roots or roots[-1][0] != prefix:
+                roots.append((prefix, []))
+            roots[-1][1].append(k)
+        else:
+            out.append(k)
+    while roots:
+        out += roots.pop()[1]
+    return out
+
+
+def nested_copy(tree):
+    return {k: nested_copy(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+def port_model_from_jax(name, params, stats):
+    model = create_model(name)
+    model.load_state_dict({
+        k: torch.from_numpy(v)
+        for k, v in state_dict_from_jax(name, params, stats).items()
+    })
+    return model.eval()
+
+
+def logits(name, params, stats, x, dtype):
+    jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    jmodel = jax_create_model(
+        name, dtype=None if dtype == torch.float32 else jnp.bfloat16
+    )
+    want = np.asarray(
+        jmodel.apply(
+            {"params": params, "batch_stats": stats},
+            jnp.asarray(x).astype(jdtype), train=False,
+        ).astype(jnp.float32)
+    )
+    with torch.no_grad():
+        xt = torch.from_numpy(x).to(dtype).permute(0, 3, 1, 2)
+        got = port_model_from_jax(name, params, stats)(xt).float().numpy()
+    return got, want
+
+
+def bf16_case(name, trees, he):
+    params, stats = trees(name, he)
+    x = np.random.RandomState(31).standard_normal((2, 32, 32, 3)).astype(
+        np.float32
+    )
+    got, want = logits(name, params, stats, x, torch.bfloat16)
+    assert np.all(np.isfinite(got))
+    return got, want, params, stats, x
+
+
+def folded_sites(folded):
+    """Every ``FoldedConvBN`` of a model's ``fold()`` result (nested dicts
+    and lists), in forward order."""
+    if isinstance(folded, common.FoldedConvBN):
+        yield folded
+    elif isinstance(folded, dict):
+        for v in folded.values():
+            yield from folded_sites(v)
+    elif isinstance(folded, (list, tuple)):
+        for v in folded:
+            yield from folded_sites(v)
+
+
+WIDTHS = (8, 8, 16, 4, 8, 8)
+
+
+CIN = 12
+
+
+def cell_pair(merged, seed=40):
+    """A JAX cell's trees and the port cell loaded with them."""
+    jcell = JaxInception(*WIDTHS, merged_1x1=merged)
+    shapes = jax.eval_shape(lambda: jcell.init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 8, 8, CIN)), False
+    ))
+    params, stats = random_trees(shapes, seed)
+    cell = Inception(CIN, *WIDTHS, merged_1x1=merged)
+    sd = {}
+    for j, site in enumerate(CELL_SITES):
+        branch, i = site.split(".")
+        node = params[f"Conv_{j}"]["Conv_0"]
+        sd[f"{site}.weight"] = np.transpose(node["kernel"], (3, 2, 0, 1))
+        sd[f"{site}.bias"] = node["bias"]
+        bn = f"{branch}.{int(i) + 1}"
+        sd[f"{bn}.weight"] = params[f"BatchNorm_{j}"]["scale"]
+        sd[f"{bn}.bias"] = params[f"BatchNorm_{j}"]["bias"]
+        sd[f"{bn}.running_mean"] = stats[f"BatchNorm_{j}"]["mean"]
+        sd[f"{bn}.running_var"] = stats[f"BatchNorm_{j}"]["var"]
+        sd[f"{bn}.num_batches_tracked"] = np.zeros((), np.int64)
+    assert set(sd) == set(cell.state_dict())
+    cell.load_state_dict({k: torch.from_numpy(np.ascontiguousarray(v))
+                          for k, v in sd.items()})
+    return jcell, params, stats, cell
+
+
+def cell_input(seed=41):
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((4, 8, 8, CIN)).astype(np.float32)
+    cot = rs.standard_normal((4, 8, 8, sum(WIDTHS) - 8 - 4)).astype(np.float32)
+    return x, cot
+
+
+LR, T_MAX, SPE = 0.1, 4, 3
+
+
+def jax_trees(name, seed):
+    """(params, batch_stats) as numpy: fan-in-scaled kernels, non-trivial
+    biases, BN affine and running stats."""
+    shapes = jax.eval_shape(lambda: jax_create_model(name).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False
+    ))
+    rs = np.random.RandomState(seed)
+
+    def param(path, s):
+        leaf = path[-1].key
+        if leaf == "kernel":
+            bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
+            return rs.uniform(-bound, bound, s.shape).astype(np.float32)
+        if leaf == "scale":
+            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
+
+    def stat(path, s):
+        if path[-1].key == "var":
+            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
+        return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
+
+    return (jax.tree_util.tree_map_with_path(param, shapes["params"]),
+            jax.tree_util.tree_map_with_path(stat, shapes["batch_stats"]))
+
+
+def images(n, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
+    y = rs.randint(0, 10, n).astype(np.int32)
+    return x, y
+
+
+def port_state_from_jax(name, params, stats):
+    model = create_model(name)
+    model.load_state_dict({
+        k: torch.from_numpy(v)
+        for k, v in state_dict_from_jax(name, params, stats).items()
+    })
+    model = model.to(memory_format=torch.channels_last)
+    return create_train_state(
+        model, optim.make_optimizer(model.parameters(), lr=LR),
+        optim.cosine_epoch_schedule(LR, T_MAX, SPE), device="cpu",
+    )
+
+
+def train_step_vs_jax(name, n=32, seed=0):
+    """One fp32 step of ``name`` from the same weights and batch (``n``
+    images, the last two padded), augmentation off, in the JAX package and
+    in the port, and the port's step in float64 compute as the reference.
+    The forward's work is held here: the metric sums and the BN running
+    statistics within rtol 1e-4. Returns, per tensor, each step's error in
+    units of its update: ``(worst port vs float64, worst JAX vs float64,
+    {tensor: port vs JAX})``, for the caller to hold at the model's own
+    conditioning."""
+    params, stats = jax_trees(name, seed=seed)
+    x, y = images(n, seed=10)
+    y[-2:] = -1  # padded rows: masked from loss, gradients and metrics
+    tx = jax_optim.make_optimizer(lr=LR, t_max=T_MAX, steps_per_epoch=SPE)
+    jmodel = jax_create_model(name)
+    st = jax_state.create_train_state(jmodel, jax.random.PRNGKey(0), tx)
+    as_jax = jax.tree_util.tree_map(jnp.asarray, params)
+    st = st.replace(params=as_jax, opt_state=tx.init(as_jax),
+                    batch_stats=jax.tree_util.tree_map(jnp.asarray, stats))
+    st, jm = jax.jit(jax_steps.make_train_step(augment=False))(
+        st, (jnp.asarray(x), jnp.asarray(y)), jax.random.PRNGKey(1)
+    )
+    want = state_dict_from_jax(name, jax.device_get(st.params),
+                               jax.device_get(st.batch_stats))
+    batch = (torch.from_numpy(x), torch.from_numpy(y))
+    after, metrics = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        state = port_state_from_jax(name, params, stats)
+        before = {k: v.detach().clone().numpy()
+                  for k, v in state.model.state_dict().items()}
+        metrics[dtype] = steps.make_train_step(
+            augment=False, device="cpu", compute_dtype=dtype
+        )(state, batch)
+        after[dtype] = {k: v.detach().numpy()
+                        for k, v in state.model.state_dict().items()}
+        assert state.step == 1
+    pm = metrics[torch.float32]
+    for k in steps.METRIC_KEYS:
+        np.testing.assert_allclose(float(pm[k]), float(jm[k]), rtol=1e-4,
+                                   atol=1e-5, err_msg=k)
+    assert float(pm["count"]) == n - 2
+    got, ref = after[torch.float32], after[torch.float64]
+    errs = {"port": 0.0, "jax": 0.0}
+    direct = {}
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        if "running_" in k:
+            np.testing.assert_allclose(got[k], w, rtol=1e-4, atol=1e-5,
+                                       err_msg=k)
+            continue
+        update = max(float(np.abs(ref[k] - before[k]).max()), 1e-30)
+        assert update > 1e-30, f"{k} did not move"
+        errs["port"] = max(errs["port"],
+                           float(np.abs(got[k] - ref[k]).max()) / update)
+        errs["jax"] = max(errs["jax"],
+                          float(np.abs(w - ref[k]).max()) / update)
+        direct[k] = float(np.abs(got[k] - w).max()) / update
+    return errs["port"], errs["jax"], direct
+
+
+# -- checks the family files share ---------------------------------------
+
+def check_export(name, trees):
+    """Key for key, the JAX package's export with the port's own template
+    in the JAX model's call order; in the reference's key order."""
+    from pytorch_cifar_tpu import compat as jax_compat
+
+    params, stats = trees(name)
+    template = {
+        k: v.numpy() for k, v in create_model(name).state_dict().items()
+    }
+    want = jax_compat.export_torch_state_dict(
+        name, params, stats,
+        template_sd={k: template[k] for k in jax_call_order(template)},
+    )
+    got = state_dict_from_jax(name, params, stats)
+    assert list(got) == list(template)
+    assert set(want) == set(got)
+    for k in want:
+        assert got[k].dtype == want[k].dtype, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def check_eval_fp32(name, trees):
+    params, stats = trees(name)
+    x = np.random.RandomState(30).standard_normal((2, 32, 32, 3)).astype(
+        np.float32
+    )
+    got, want = logits(name, params, stats, x, torch.float32)
+    assert got.shape == (2, 10)
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def check_eval_bf16(name, he, trees):
+    """The two bf16 forwards within 2% of the largest logit of each other.
+    Each carries rounding noise of its own against the fp32 logits, and at
+    these depths it is of the bound's size (JAX bf16 against JAX fp32, He
+    kernels, three seeds: GoogLeNet 1.6-1.7%, MobileNet 1.3-2.4%), so the
+    bound is held where the noise leaves room for it: GoogLeNet on He
+    kernels (on 1 / sqrt(fan_in) kernels its logits shrink to 0.3, where
+    one bf16 ulp alone is 0.7% of the largest), MobileNet on
+    1 / sqrt(fan_in) kernels. :func:`check_bf16_error` holds both at He
+    kernels against the fp32 logits."""
+    got, want, *_ = bf16_case(name, trees, he)
+    assert np.max(np.abs(got - want)) <= 0.02 * np.max(np.abs(want))
+
+
+def check_bf16_error(name, trees):
+    """On He kernels, against the fp32 logits: the port's bf16 forward is
+    no further off than 1.5 times the JAX bf16 forward's own error (on the
+    CPU it is closer: its fused sites sum and apply BN in fp32 and round
+    once)."""
+    got, want, params, stats, x = bf16_case(name, trees, True)
+    _, ref = logits(name, params, stats, x, torch.float32)
+    assert np.max(np.abs(got - ref)) <= 1.5 * np.max(np.abs(want - ref))
+
+
+def check_kernel_sites(name, fused, pools, stencils, monkeypatch):
+    """GoogLeNet: the stem and each cell's three 3x3 convs are fused sites
+    (1 + 9 * 3) and each cell pools once; MobileNet: the stem is fused and
+    the 9 stride-1 depthwise convs are stencil sites (the 4 stride-2 ones
+    are not); SimpleDLA: its three stems and the conv1 of each of the 9 of
+    its 12 blocks that run at stride 1. Counted in the fold and in a
+    forward's calls."""
+    model = create_model(name).eval()
+    sites = list(folded_sites(model.fold(torch.float32)))
+    assert sum(s.fused for s in sites) == fused
+    assert sum(s.stencil for s in sites) == stencils
+    for s in sites:
+        if s.fused:
+            assert s.weight.shape[:2] == (3, 3) and s.stride == 1 and s.relu
+        if s.stencil:
+            assert s.weight.shape[:2] == (3, 3) and s.stride == 1
+            assert s.weight.shape[2] == s.groups
+        else:
+            assert s.groups == 1 or s.stride == 2
+    calls = {"fused": 0, "pool": 0, "stencil": 0}
+    for key, fn in (("fused", "conv3x3_bn_relu"), ("pool", "max_pool3x3_s1"),
+                    ("stencil", "depthwise_stencil")):
+        real = getattr(common, fn)
+
+        def counted(*a, _real=real, _key=key):
+            calls[_key] += 1
+            return _real(*a)
+
+        monkeypatch.setattr(common, fn, counted)
+    with torch.no_grad():
+        model(torch.randn(1, 3, 32, 32))
+    assert calls == {"fused": fused, "pool": pools, "stencil": stencils}
+
+
+def check_engine_under_load(name):
+    """Engine, batcher and load generator, model-agnostic: padded buckets
+    bit-identical to the direct forward, every request answered, and the
+    served logits those of the model's own folded forward."""
+    from pytorch_cifar_tpu_torch.data.augment import (
+        CIFAR10_MEAN, CIFAR10_STD, normalize)
+    from pytorch_cifar_tpu_torch.serve import (
+        InferenceEngine, MicroBatcher, run_load)
+
+    engine = InferenceEngine.from_random(
+        name, seed=0, buckets=(1, 4), compute_dtype=torch.float32,
+        device="cpu",
+    )
+    x, _ = images(3, seed=12)
+    padded = engine.predict(x)
+    np.testing.assert_array_equal(padded, engine.direct_forward(x))
+    model = create_model(name, generator=torch.Generator().manual_seed(0))
+    model.eval()
+    with torch.no_grad():
+        xn = normalize(torch.from_numpy(x), torch.tensor(CIFAR10_MEAN),
+                       torch.tensor(CIFAR10_STD), torch.float32)
+        want = model(xn.permute(0, 3, 1, 2)).numpy()
+    np.testing.assert_allclose(padded, want, rtol=1e-5, atol=1e-6)
+    batcher = MicroBatcher(engine, max_wait_ms=1.0)
+    try:
+        report = run_load(batcher, clients=2, requests_per_client=3,
+                          images_max=3, seed=0)
+    finally:
+        batcher.close()
+    assert report["failed"] == 0 and report["requests"] == 6
+    assert engine.compile_count == 2
+
+
+def check_serve_cli(name, capsys):
+    import json
+
+    from pytorch_cifar_tpu_torch.serve.__main__ import main as serve_main
+
+    rc = serve_main([
+        "--device", "cpu", "--model", name, "--dtype", "float32",
+        "--buckets", "1", "4", "--clients", "2", "--requests", "2",
+        "--verify",
+    ])
+    assert rc == 0
+    rec = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rec["model"] == name and rec["failed"] == 0
+    assert rec["kernel_launches"] == 0  # CPU tensors launch nothing
+    assert set(rec["launches_by_kernel"]) == {
+        "conv3x3_bn_relu", "max_pool3x3_s1", "depthwise_stencil"
+    }

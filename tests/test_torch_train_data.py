@@ -267,12 +267,19 @@ def test_config_flags_keep_the_jax_spellings():
     assert defaults.device == "cuda" and defaults.t_max == defaults.epochs
 
 
-@pytest.mark.parametrize("argv", [["--resume"], ["--evaluate"],
+@pytest.mark.parametrize("argv", [["--publish", "staging"],
+                                  ["--resume", "--publish", "staging"],
                                   ["--num_devices", "2"],
                                   ["--no-device_data"]])
 def test_unported_paths_say_so(argv):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         check_ported(parse_config(argv))
+
+
+@pytest.mark.parametrize("argv", [["--resume"], ["--evaluate"],
+                                  ["--publish", "live"]])
+def test_checkpoint_paths_are_ported(argv):
+    check_ported(parse_config(argv))
 
 
 def test_unported_models_say_so():

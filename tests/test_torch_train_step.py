@@ -252,7 +252,7 @@ def test_eval_epoch_matches_jax():
     assert float(got["count"]) == 10
 
 
-def test_cli_trains_lenet_on_the_cpu(caplog):
+def test_cli_trains_lenet_on_the_cpu(caplog, tmp_path):
     """``python -m pytorch_cifar_tpu_torch.train --device cpu --model LeNet
     --synthetic_data --epochs 2``, in-process: the JAX trainer's log lines
     and metric keys, a falling loss, every image counted once per epoch."""
@@ -262,6 +262,7 @@ def test_cli_trains_lenet_on_the_cpu(caplog):
         "--epochs", "2", "--no-amp", "--synthetic_train_size", "500",
         "--synthetic_test_size", "150", "--batch_size", "64",
         "--eval_batch_size", "128", "--lr", "0.05",
+        "--output_dir", str(tmp_path),
     ])
     hist = out["history"]
     assert len(hist) == 2
