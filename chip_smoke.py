@@ -140,6 +140,42 @@ batch 512, bf16, ``synthetic_cifar10(10240, 2048)``, in a temporary
     the commit on the writer and the restore, in ms, beside the card's
     name and power limit and the output directory's filesystem.
 
+Then data parallelism, through the train CLI (``train_main``, ranks of
+``torch.distributed``, one process per card):
+
+18. dp: (a) NCCL at world = the visible cards, capped at 4 (``--num_devices
+    N``, spawned; on one card ``--distributed`` with a world of 1, which
+    still makes the process group and runs every collective), ResNet-18 at
+    full width, global batch 512, bf16, ``synthetic_cifar10(50000,
+    10000)``, device data, K1 gather, 2 epochs, ``cosine_t_max`` 2; each
+    rank's launches counted over its ``fit``, from 0 in its fresh process:
+    K1 once per epoch and K3 six times per eval forward per rank, K2 none;
+    the global counts 50,000 and 10,000 per epoch, finite and falling
+    losses, eval accuracy above 50%, the same metrics and (SHA-256 of the
+    params, BN and momentum buffers) the same state on every rank; after
+    ``fit`` each rank takes one bf16 b512 step under cross-replica BN with
+    ``bn_moments_impl(fused_moments)``, K2 launched 20 times, times its
+    step's flat all-reduce (gradients and BN buffers) and dispatches one
+    more epoch under ``torch.cuda.set_sync_debug_mode("error")``. (b) On a
+    one-card machine, where NCCL refuses two ranks on one card, also two
+    gloo ranks, both on ``cuda:0``, the group made by the script with the
+    gloo backend (the trainer itself takes NCCL on CUDA), on
+    ``synthetic_cifar10(10240, 2048)``, with the same checks but the
+    accuracy and the sync check (gloo copies CUDA tensors through the
+    host). (c) At the first world of 2 or more that ran (the gloo pair on
+    one card): one fp32 and one float64-compute step of a seeded
+    ResNet-18 under cross-replica BN on each rank's shard of a 64-image
+    batch (5 padded rows on the last rank), against one process's steps on
+    the whole batch: metrics and BN buffers within rtol 1e-4, atol 1e-5,
+    the float64-compute step's parameters within rtol 1e-3, atol 1e-5 (as
+    in phase 9). (d) That run's ranks write a format v3 ``last.msgpack``
+    (one shard each), and a one-process ``--resume`` restores its state as
+    raw bits. Prints img/s and the flat all-reduce's ms per step of each
+    run, beside the card's name and power limit.
+
+``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
+every visible card (the four-card call), and prints no kernels or ok line.
+
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
 outside a checkout of the repository, it exits non-zero and prints no
@@ -148,6 +184,7 @@ result.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import os
@@ -1123,7 +1160,8 @@ def phase_card_vs_cpu(fails: Failures) -> dict:
     from pytorch_cifar_tpu_torch.train.optim import (
         cosine_epoch_schedule, make_optimizer)
     from pytorch_cifar_tpu_torch.train.state import create_train_state
-    from pytorch_cifar_tpu_torch.train.steps import METRIC_KEYS, make_train_step
+    from pytorch_cifar_tpu_torch.train.steps import (
+        METRIC_KEYS, make_train_step)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1368,7 +1406,340 @@ def phase_ckpt(G, K3, smi: str, fails: Failures) -> dict:
     return out
 
 
-def main() -> int:
+# -- data parallelism -------------------------------------------------------
+
+PARITY_BATCH = 64  # the parity step's global batch
+DP_RTOL, DP_ATOL = 1e-4, 1e-5  # the parity step's loss and BN buffers
+
+
+def _seeded_state(device, seed: int):
+    from pytorch_cifar_tpu_torch.models import create_model
+    from pytorch_cifar_tpu_torch.train.optim import (
+        cosine_epoch_schedule, make_optimizer)
+    from pytorch_cifar_tpu_torch.train.state import create_train_state
+
+    net = create_model(
+        "ResNet18", generator=torch.Generator().manual_seed(seed)
+    ).to(device, memory_format=torch.channels_last)
+    return create_train_state(
+        net, make_optimizer(net.parameters()),
+        cosine_epoch_schedule(0.1, 200, 98), seed=seed, device=device)
+
+
+def _shard_of(n: int, seed: int, device, axis) -> tuple:
+    """This rank's contiguous shard (all of it without ``axis``) of a
+    seeded global batch of ``n`` images, 5 trailing rows labelled -1."""
+    from pytorch_cifar_tpu_torch.parallel.mesh import rank, world_size
+
+    g = torch.Generator().manual_seed(seed)
+    images = torch.randint(0, 256, (n, 32, 32, 3), generator=g,
+                           dtype=torch.uint8)
+    labels = torch.randint(0, 10, (n,), generator=g, dtype=torch.int32)
+    labels[-5:] = -1  # on the last rank only: a ragged shard
+    w, r = (world_size(), rank()) if axis else (1, 0)
+    rows = slice(r * n // w, (r + 1) * n // w)
+    return images[rows].to(device), labels[rows].to(device)
+
+
+def parity_steps(device, axis) -> dict:
+    """One fp32 and one float64-compute step (fp32 parameters, TF32 off,
+    augmentation off) of a seeded ResNet-18 on this rank's shard of a
+    seeded global batch, under cross-replica BN when ``axis`` is given:
+    the fp32 step's metrics, BN buffers and parameters, the float64 step's
+    parameters, as CPU tensors."""
+    from pytorch_cifar_tpu_torch.train.steps import METRIC_KEYS, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, y = _shard_of(PARITY_BATCH, 13, device, axis)
+    out = {}
+    for name, dtype in (("fp32", torch.float32), ("f64", torch.float64)):
+        state = _seeded_state(device, 12)
+        step = make_train_step(augment=False, compute_dtype=dtype,
+                               axis_name=axis, sync_bn=axis is not None,
+                               device=device)
+        m = step(state, (x, y))
+        out[name] = {"metrics": {k: float(m[k]) for k in METRIC_KEYS},
+                     "tensors": _tensors(state.model)}
+    return out
+
+
+def k2_step(device, axis, batch: int) -> tuple:
+    """One bf16 ResNet-18 step (global batch ``batch``) under cross-replica
+    BN with the BN moments through K2: (K2 launches, the step's loss
+    sum)."""
+    from pytorch_cifar_tpu_torch.models.common import bn_moments_impl
+    from pytorch_cifar_tpu_torch.ops import bn_stats as M
+    from pytorch_cifar_tpu_torch.train.steps import make_train_step
+
+    state = _seeded_state(device, 14)
+    step = make_train_step(compute_dtype=torch.bfloat16, axis_name=axis,
+                           sync_bn=True, device=device)
+    shard = _shard_of(batch, 15, device, axis)
+    with bn_moments_impl(M.fused_moments):
+        M.LAUNCHES = 0  # the hooked step starts here
+        m = step(state, shard)
+        launches = M.LAUNCHES  # and ends here
+    return launches, float(m["loss_sum"])
+
+
+def state_digest(trainer) -> dict:
+    """A rank hook: the SHA-256 of the rank's params, BN buffers and
+    momentum buffers as raw bits (``compat.snapshot_state``), its step."""
+    import hashlib
+
+    from pytorch_cifar_tpu_torch.compat import snapshot_state
+
+    snap = snapshot_state(trainer.state).host()
+    return {"digest": hashlib.sha256(snap.flat.numpy().tobytes()).hexdigest(),
+            "step": snap.step}
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def dp_rank_hook(trainer, sync_check: bool, batch: int = BATCH) -> dict:
+    """What each rank of a data-parallel run checks after ``fit``, inside
+    its process group: the state's digest; over several ranks a format v3
+    ``last.msgpack`` of it and the parity steps (rank 0 returns them); the
+    K2 step at global batch ``batch``; the time of the step's flat
+    all-reduce (gradients and BN running buffers); and, when
+    ``sync_check``, one more epoch dispatched with host syncs made
+    errors."""
+    import torch.distributed as dist
+
+    from pytorch_cifar_tpu_torch.parallel.dp import (
+        all_reduce_mean_, bn_running_buffers)
+    from pytorch_cifar_tpu_torch.parallel.mesh import DATA_AXIS
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        LAST_NAME, save_checkpoint)
+
+    dev = trainer.device
+    out = {**state_digest(trainer), "backend": dist.get_backend(),
+           "world": trainer.world, "device": str(dev)}
+    if trainer.world > 1:
+        save_checkpoint(trainer.ckpt_dir, trainer.state,
+                        trainer.history[-1]["epoch"], trainer.best_acc,
+                        name=LAST_NAME)
+        parity = parity_steps(dev, DATA_AXIS)
+        out["parity"] = parity if trainer.rank == 0 else None
+    out["k2_launches"], out["k2_loss_sum"] = k2_step(dev, DATA_AXIS, batch)
+    model = trainer.state.model
+    flat = [p.grad for p in model.parameters() if p.grad is not None] \
+        + bn_running_buffers(model)
+    out["allreduce_bytes"] = sum(t.numel() * t.element_size() for t in flat)
+    reps = 10
+    all_reduce_mean_(flat)  # warm
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_reduce_mean_(flat)
+    _sync(dev)
+    out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / reps
+    if sync_check and dev.type == "cuda":
+        _sync(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            totals, _ = trainer.dispatch_epoch(trainer.config.epochs)
+            synced = None
+        except RuntimeError as e:
+            synced = str(e).splitlines()[0]
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        out["sync_error"] = synced
+        out["sync_epoch_count"] = (float(totals["count"]) if synced is None
+                                   else None)
+    return out
+
+
+def _dp_run_checks(tag: str, ranks: list, train_n: int, test_n: int,
+                   fails: Failures, min_acc: float) -> dict:
+    """The checks every data-parallel run is held to, from its ranks'
+    results: launches per rank, global counts, falling finite losses, the
+    same metrics and state on every rank, K2 on the hooked step, and the
+    sync-checked epoch where it ran."""
+    epochs = 2
+    h0 = ranks[0]["history"]
+    world = ranks[0]["world"]
+    eval_forwards = epochs * -(-test_n // (1000 // world * world))
+    for res in ranks:
+        r, L, hook = res["rank"], res["launches_by_kernel"], res["hook"]
+        fails.check(L["dma_row_gather"] == epochs,
+                    f"{tag}: rank {r} launched K1 {L['dma_row_gather']} "
+                    f"times in {epochs} epochs")
+        fails.check(L["conv3x3_bn_relu"] == 6 * eval_forwards,
+                    f"{tag}: rank {r} launched K3 {L['conv3x3_bn_relu']} "
+                    f"times for {eval_forwards} eval forwards (want 6 each)")
+        fails.check(L["fused_moments"] == 0,
+                    f"{tag}: rank {r} launched K2 {L['fused_moments']} "
+                    "times with the hook off")
+        fails.check(hook["k2_launches"] == 20 and
+                    np.isfinite(hook["k2_loss_sum"]),
+                    f"{tag}: rank {r}'s sync_bn step launched K2 "
+                    f"{hook['k2_launches']} times (want 20), loss sum "
+                    f"{hook['k2_loss_sum']}")
+        fails.check([h["train"] for h in res["history"]]
+                    == [h["train"] for h in h0]
+                    and [h["eval"] for h in res["history"]]
+                    == [h["eval"] for h in h0],
+                    f"{tag}: rank {r}'s metrics differ from rank 0's")
+        fails.check(hook["digest"] == ranks[0]["hook"]["digest"],
+                    f"{tag}: rank {r}'s state differs from rank 0's")
+        if "sync_error" in hook:
+            fails.check(hook["sync_error"] is None,
+                        f"{tag}: rank {r}'s epoch synced with the host: "
+                        f"{hook['sync_error']}")
+            fails.check(hook["sync_error"] is not None
+                        or hook["sync_epoch_count"] == train_n,
+                        f"{tag}: rank {r}'s sync-checked epoch counted "
+                        f"{hook['sync_epoch_count']} images")
+    for h in h0:
+        fails.check(h["train"]["count"] == train_n
+                    and h["eval"]["count"] == test_n,
+                    f"{tag}: epoch {h['epoch']} counted "
+                    f"{h['train']['count']} / {h['eval']['count']} images")
+        fails.check(np.isfinite(h["train_loss"]) and
+                    h["train"]["nonfinite"] == 0,
+                    f"{tag}: epoch {h['epoch']} loss not finite")
+    fails.check(len(h0) == epochs
+                and h0[1]["train_loss"] < h0[0]["train_loss"],
+                f"{tag}: the second epoch's loss is not below the first's")
+    fails.check(h0[-1]["eval_acc"] > min_acc,
+                f"{tag}: final eval accuracy {h0[-1]['eval_acc']:.2f}%")
+    return {
+        "backend": ranks[0]["backend"], "world": ranks[0]["world"],
+        "devices": [res["device"] for res in ranks],
+        "train_n": train_n, "test_n": test_n,
+        "launches_per_rank": [res["launches_by_kernel"] for res in ranks],
+        "k2_launches_per_rank": [res["hook"]["k2_launches"] for res in ranks],
+        "allreduce_bytes": ranks[0]["hook"]["allreduce_bytes"],
+        "allreduce_ms": [res["hook"]["allreduce_ms"] for res in ranks],
+        "sync_error": ranks[0]["hook"].get("sync_error"),
+        "epochs": [{k: h[k] for k in ("epoch", "train_loss", "train_acc",
+                                      "eval_loss", "eval_acc", "epoch_s",
+                                      "img_per_sec")} for h in h0],
+    }
+
+
+def _parity_checks(tag: str, got: dict, fails: Failures) -> dict:
+    """Rank 0's cross-replica BN steps against one process's steps on the
+    whole global batch (plain BN), on the card."""
+    want = parity_steps("cuda", None)
+    metrics_ok = all(
+        abs(got["fp32"]["metrics"][k] - want["fp32"]["metrics"][k])
+        <= DP_ATOL + DP_RTOL * abs(want["fp32"]["metrics"][k])
+        for k in want["fp32"]["metrics"])
+    fails.check(metrics_ok, f"{tag} parity: fp32 metrics "
+                            f"{got['fp32']['metrics']} vs one process's "
+                            f"{want['fp32']['metrics']}")
+    stats = [k for k in want["fp32"]["tensors"] if "running_" in k]
+    ok32, where32, worst32 = _close(
+        {k: got["fp32"]["tensors"][k] for k in stats},
+        {k: want["fp32"]["tensors"][k] for k in stats}, DP_RTOL, DP_ATOL)
+    fails.check(ok32, f"{tag} parity: fp32 BN buffers off at {where32} by "
+                      f"{worst32:.3g} beyond rtol")
+    ok64, where64, worst64 = _close(got["f64"]["tensors"],
+                                    want["f64"]["tensors"], 1e-3, 1e-5)
+    fails.check(ok64, f"{tag} parity: float64-compute step off at "
+                      f"{where64} by {worst64:.3g} beyond rtol")
+    _, where_p, worst_p = _close(got["fp32"]["tensors"],
+                                 want["fp32"]["tensors"], 1e-3, 1e-5)
+    return {"fp32_loss_sum": got["fp32"]["metrics"]["loss_sum"],
+            "one_process_loss_sum": want["fp32"]["metrics"]["loss_sum"],
+            "fp32_stats_worst_excess": worst32, "f64_worst_excess": worst64,
+            "f64_at": where64, "fp32_params_worst_excess_not_held": worst_p,
+            "fp32_at": where_p}
+
+
+def phase_dp(G, M, K3, smi: str, fails: Failures) -> dict:
+    """Data parallelism through the train CLI (phase 18 of the module
+    docstring)."""
+    import functools
+
+    from pytorch_cifar_tpu_torch.tools import dp_runs
+    from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
+    from pytorch_cifar_tpu_torch.train.launch import free_port
+
+    count = torch.cuda.device_count()
+    world = min(count, 4)
+    root = run_dir("dp_")
+    out = {"card": smi, "visible_cards": count, "runs": []}
+    try:
+        # (a) NCCL at world = the visible cards (capped at 4)
+        nccl_dir = os.path.join(root, "nccl")
+        argv = dp_runs.run_argv(nccl_dir, TRAIN_N, TEST_N)
+        argv += (["--distributed", "--dist_coord", f"localhost:{free_port()}",
+                  "--dist_procs", "1", "--dist_rank", "0"] if world == 1
+                 else ["--num_devices", str(world)])
+        hook = functools.partial(dp_rank_hook, sync_check=True, batch=BATCH)
+        # the data-parallel path starts here (ranks spawned for world > 1
+        # start with their own counts at 0)
+        G.LAUNCHES = M.LAUNCHES = K3.LAUNCHES = 0
+        nccl = train_main(argv, rank_hook=hook)["ranks"]  # and ends here
+        out["runs"].append(_dp_run_checks("dp nccl", nccl, TRAIN_N, TEST_N,
+                                          fails, min_acc=50.0))
+        multi, multi_dir, parity_tag = nccl, nccl_dir, "nccl"
+        # (b) on one card, also two gloo ranks on cuda:0
+        if count == 1:
+            gloo_dir = os.path.join(root, "gloo")
+            gloo = dp_runs.gloo_pair(
+                dp_runs.run_argv(gloo_dir),
+                functools.partial(dp_rank_hook, sync_check=False,
+                                  batch=BATCH))
+            out["runs"].append(_dp_run_checks(
+                "dp gloo", gloo, dp_runs.TRAIN_N, dp_runs.TEST_N, fails,
+                min_acc=0.0))
+            multi, multi_dir, parity_tag = gloo, gloo_dir, "gloo"
+        # (c) parity of the cross-replica BN step at world >= 2
+        if multi[0]["world"] > 1:
+            out["parity"] = _parity_checks(f"dp {parity_tag}",
+                                           multi[0]["hook"]["parity"], fails)
+            out["parity"]["world"] = multi[0]["world"]
+            out["parity"]["backend"] = multi[0]["backend"]
+            # (d) its v3 checkpoint, resumed by one process
+            with open(os.path.join(multi_dir, "last.json")) as f:
+                meta = json.load(f)
+            fails.check(meta.get("format") == 3
+                        and len(meta["shards"]) == multi[0]["world"],
+                        f"dp: the {parity_tag} run's last.msgpack is not a "
+                        f"v3 set of {multi[0]['world']} shards: {meta}")
+            resumed = train_main(
+                dp_runs.run_argv(multi_dir) + ["--resume", "--num_devices",
+                                               "1"],
+                rank_hook=state_digest)["ranks"][0]
+            fails.check(resumed["hook"] == {
+                "digest": multi[0]["hook"]["digest"],
+                "step": multi[0]["hook"]["step"]},
+                f"dp: the one-process resume of the {parity_tag} run's v3 "
+                "checkpoint does not hold its state as raw bits")
+            out["resume"] = {"shards": len(meta["shards"]),
+                             "bits_equal": resumed["hook"]["digest"]
+                             == multi[0]["hook"]["digest"],
+                             "step": resumed["hook"]["step"]}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for run in out["runs"]:
+        e1 = run["epochs"][-1]
+        print(f"dp card {smi}: {run['backend']} world {run['world']} on "
+              f"{run['devices']}: {e1['img_per_sec']:.0f} img/s (epoch 1, "
+              f"eval included), flat all-reduce of "
+              f"{run['allreduce_bytes']} B: "
+              f"{np.median(run['allreduce_ms']):.3f} ms a step", flush=True)
+    print("dp " + json.dumps(out), flush=True)
+    return out
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(
+        description="Smoke run of the PyTorch/CUDA port on the card")
+    parser.add_argument(
+        "--only", choices=["dp"],
+        help="run the device, build and this phase alone (dp: over every "
+             "visible card, the four-card call); prints no kernels or ok "
+             "line")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: CUDA is not available; this script runs only "
                  "on the card")
@@ -1386,6 +1757,11 @@ def main() -> int:
     peaks = peaks_for(name)
     fails = Failures()
     phase_build(_build)
+    if args.only == "dp":
+        phase_dp(G, M, K, smi, fails)
+        print(f"chip_smoke --only dp: {time.perf_counter() - t_start:.1f}s, "
+              f"{len(fails)} check(s) failed", flush=True)
+        return 1 if fails else 0
     rows = phase_kernels(K, peaks, fails)
     sl = phase_slice(K, smi, fails)
     k1 = phase_gather(G, peaks, fails)
@@ -1410,6 +1786,8 @@ def main() -> int:
     phase_pool_step(P, fails)
     dla = phase_simpledla(G, M, K, P, D, smi, peaks, fails)
     phase_ckpt(G, K, smi, fails)
+    dp = phase_dp(G, M, K, smi, fails)
+    dp_nccl = dp["runs"][0]
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
     # (and GoogLeNet's 28 beside it)
@@ -1446,6 +1824,9 @@ def main() -> int:
         "earlier_design_ms": k3["earlier_design_ms"],
         "googlenet_forward": forward(grows),
         "simpledla_forward": forward(dla["sites"]),
+        # per rank, in the data-parallel run's 2 epochs (eval forwards)
+        "dp_launches_per_rank": [L["conv3x3_bn_relu"] for L in
+                                 dp_nccl["launches_per_rank"]],
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -1454,6 +1835,8 @@ def main() -> int:
         "launches": tr["k1_launches"],
         **{k: k1[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms", "copy_ms")},
+        "dp_launches_per_rank": [L["dma_row_gather"] for L in
+                                 dp_nccl["launches_per_rank"]],
         "redesigned": "one row per warp, each lane's loads of a row issued "
                       "before its stores; the design it replaced (a capped "
                       "grid, each load stored at once) and a cp.async.bulk "
@@ -1483,6 +1866,8 @@ def main() -> int:
                       "finalize launch) is not in the tree: PERF.md section "
                       "6 keeps its time",
         "kernels_per_call": max(r["kernels_per_call"] for r in k2),
+        # per rank, in the data-parallel run's one sync_bn step
+        "dp_launches_per_rank": dp_nccl["k2_launches_per_rank"],
     })
     # K4 over one b512 bf16 GoogLeNet train step: its 9 forwards with the
     # winner map and its 9 backwards, at their shapes

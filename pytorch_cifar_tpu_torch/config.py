@@ -4,10 +4,10 @@
 reads, under the same names, defaults and flag spellings (booleans take
 ``--flag``/``--no-flag``), plus ``--device``.
 
-Flags of paths not ported yet are not here, with three exceptions parsed
+Flags of paths not ported yet are not here, with two exceptions parsed
 so that asking for them fails with "not ported yet" instead of an unknown
-flag: ``--num_devices`` above 1 (data parallelism), ``--no-device_data``
-(the host loader) and ``--publish staging`` (the canary pipeline).
+flag: ``--no-device_data`` (the host loader) and ``--publish staging``
+(the canary pipeline).
 """
 
 from __future__ import annotations
@@ -58,8 +58,23 @@ class TrainConfig:
     # precision: bf16 compute, fp32 params/BN stats/loss
     amp: bool = True
 
-    # parallelism: 0 = all local devices; the port runs on one
+    # parallelism: one process per device, data parallel over the
+    # default process group (parallel/). num_devices: local devices the
+    # CLI starts one rank each for (0 = every visible card; one process
+    # on the CPU)
     num_devices: int = 0
+    # join a multi-process job: torch.distributed.init_process_group,
+    # NCCL on CUDA, gloo on the CPU. dist_coord "host:port" (rank 0's TCP
+    # store) with the world size and this rank; left empty, the group
+    # reads torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK
+    distributed: bool = False
+    dist_coord: str = ""
+    dist_procs: int = 0
+    dist_rank: int = 0
+    # cross-replica BatchNorm: the ranks' batch moments are averaged so
+    # normalization uses global-batch statistics. Default off = the
+    # reference's per-replica BN under DDP
+    sync_bn: bool = False
 
     # checkpoints (the JAX package's format v2, train/checkpoint.py)
     output_dir: str = "./checkpoint"
@@ -94,11 +109,6 @@ def check_ported(config: TrainConfig) -> None:
         raise NotImplementedError(
             "--publish staging is not ported yet (the canary pipeline comes "
             "with a later slice)"
-        )
-    if config.num_devices > 1:
-        raise NotImplementedError(
-            "--num_devices > 1 is not ported yet (the port trains on one "
-            "device)"
         )
     if not config.device_data:
         raise NotImplementedError(

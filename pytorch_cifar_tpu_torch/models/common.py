@@ -31,6 +31,8 @@ from dataclasses import dataclass
 from typing import Callable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+import torch.distributed.nn.functional as dist_fn
 import torch.nn.functional as F
 from torch import nn
 
@@ -92,6 +94,39 @@ def bn_batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xf.mean(dim=(0, 2, 3)), (xf * xf).mean(dim=(0, 2, 3))
 
 
+# Cross-replica BatchNorm: the data-parallel axis whose ranks pool their
+# batch moments, or None (each rank normalizes its own shard, the
+# reference's BN under DDP). torch has one group, the default process
+# group; the axis names it.
+_SYNC_BN_AXIS: contextvars.ContextVar = contextvars.ContextVar(
+    "sync_bn_axis", default=None
+)
+
+
+@contextlib.contextmanager
+def sync_batchnorm(axis_name: Optional[str]):
+    """Within the block, every :class:`BatchNorm` in train mode averages
+    its batch moments ``(E[x], E[x^2])`` over the ranks of ``axis_name``
+    (the default process group), so it normalizes with the global batch's
+    statistics (JAX ``models/common.py:44-66``). ``None`` leaves BN
+    local."""
+    token = _SYNC_BN_AXIS.set(axis_name)
+    try:
+        yield
+    finally:
+        _SYNC_BN_AXIS.reset(token)
+
+
+def _sync_moments(mean: torch.Tensor, sq: torch.Tensor):
+    """``(E[x], E[x^2])`` averaged over the ranks in one all-reduce of the
+    stacked 2C values; its backward all-reduces the cotangents (the
+    transpose of the JAX ``pmean``). Returns them with the world size."""
+    world = dist.get_world_size()
+    both = dist_fn.all_reduce(torch.cat([mean, sq])) / world
+    c = mean.shape[0]
+    return both[:c], both[c:], world
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm with the JAX package's ``BatchNorm`` semantics (torch-exact
     ``BatchNorm2d``): eps 1e-5, momentum 0.1 (new = 0.9 old + 0.1 batch).
@@ -99,8 +134,10 @@ class BatchNorm(nn.BatchNorm2d):
     Train mode normalizes with the one-pass biased variance
     ``max(E[x^2] - E[x]^2, 0)`` and updates the running var with the
     unbiased one (n / (n - 1)); the running stats are fp32 and updated in
-    place. The normalization is one per-channel FMA ``x * mul + add`` whose
-    scalars are computed in fp32 and applied in ``x``'s dtype. Eval mode
+    place. Under :func:`sync_batchnorm` the moments are the ranks' mean
+    and n counts the global batch. The normalization is one per-channel
+    FMA ``x * mul + add`` whose scalars are computed in fp32 and applied
+    in ``x``'s dtype. Eval mode
     applies the same fold to the running stats. ``num_batches_tracked``
     stays in the ``state_dict`` (reference layout) and is not advanced:
     only ``momentum=None`` reads it."""
@@ -116,9 +153,12 @@ class BatchNorm(nn.BatchNorm2d):
             mean, var = self.running_mean, self.running_var
         else:
             mean, sq = bn_batch_moments(x) if moments is None else moments
+            world = 1
+            if _SYNC_BN_AXIS.get() is not None:
+                mean, sq, world = _sync_moments(mean, sq)
             var = torch.clamp(sq - mean * mean, min=0.0)
             with torch.no_grad():
-                n = x.numel() // x.shape[1]
+                n = x.numel() // x.shape[1] * world  # the global count
                 unbiased = var * (n / max(n - 1, 1))
                 m = self.momentum
                 self.running_mean.copy_(

@@ -14,32 +14,49 @@ trainer resumes the other's run; ``--resume`` continues from the newest
 checkpoint there, ``--evaluate`` runs one eval epoch of the best one and
 prints its accuracy. SIGTERM stops after the current epoch with the state
 saved as ``last.msgpack``.
+
+Data parallelism, one process per device:
+
+    python -m pytorch_cifar_tpu_torch.train --num_devices 4 ...
+    python -m pytorch_cifar_tpu_torch.train --device cpu --num_devices 2 \\
+        --model LeNet --synthetic_data
+    python -m pytorch_cifar_tpu_torch.train --distributed \\
+        --dist_coord HOST:PORT --dist_procs N --dist_rank K ...
+
+``--num_devices N`` (0, the default: every visible card; one process on
+the CPU) starts N local ranks in one launch, spawned, over a free
+localhost port: NCCL on N cards, or gloo under ``--device cpu``. It is
+the counterpart of the JAX package's one-process N-device mesh; a
+SIGTERM to the launch is passed to every rank, and the launch fails if
+any rank fails. ``--distributed`` makes this process one rank of a job
+(``--dist_*``, or ``torchrun``'s environment when ``--dist_coord`` is
+empty). Rank 0 logs to the console and ``<output_dir>/train.log``, rank
+K > 0 to ``train.rankK.log`` and warnings only to the console.
 """
 
 from __future__ import annotations
 
-import logging
-import sys
-
 from pytorch_cifar_tpu_torch.config import parse_config
+from pytorch_cifar_tpu_torch.train.launch import launch, local_ranks, run
 
 
-def main(argv=None) -> dict:
+def main(argv=None, rank_hook=None) -> dict:
     """Train; returns the best test accuracy (``fit``'s value, what
-    ``train.py`` returns) and the per-epoch history, whose ``train`` and
+    ``train.py`` returns), rank 0's per-epoch history, whose ``train`` and
     ``eval`` entries carry the JAX step's metric totals (``loss_sum``,
-    ``correct``, ``count``, ``nonfinite``)."""
+    ``correct``, ``count``, ``nonfinite``; global under data
+    parallelism), and every rank's result (``train.launch.run``) under
+    ``ranks``. ``rank_hook(trainer)`` (a picklable callable, for checks
+    and tools) runs on every rank after ``fit``."""
     config = parse_config(argv)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s",
-                            stream=sys.stderr)
-    from pytorch_cifar_tpu_torch.train.trainer import Trainer
-
-    trainer = Trainer(config)
-    best = trainer.fit()
-    what = "test accuracy" if config.evaluate else "best test accuracy"
-    print(f"{what}: {best:.2f}%")
-    return {"best_acc": best, "history": trainer.history}
+    n = local_ranks(config)
+    ranks = (launch(config, n, rank_hook) if n > 1
+             else [run(config, rank_hook)])
+    best = ranks[0]["best_acc"]
+    if ranks[0]["rank"] == 0:
+        what = "test accuracy" if config.evaluate else "best test accuracy"
+        print(f"{what}: {best:.2f}%")
+    return {"best_acc": best, "history": ranks[0]["history"], "ranks": ranks}
 
 
 if __name__ == "__main__":

@@ -14,10 +14,14 @@ state, the same sidecar.
   "best_acc", "manifest": {"format": 2, "crc32", "size"}}``, written
   payload first, sidecar second, each by tmp + fsync + rename + directory
   fsync. A sidecar with no manifest is v1: it restores with a warning.
-- **v3** (sharded, several processes): read here, shard by shard against
-  the commit marker's list; shards without their marker are invisible.
-  Writing it waits for the port's data-parallel slice:
-  ``save_checkpoint(num_shards > 1)`` raises "not ported yet".
+- **v3** (sharded, several processes): every rank writes its byte range
+  of the payload as ``<stem>.shardKKKKK-of-NNNNN.msgpack`` with a shard
+  sidecar ``{"epoch", "manifest"}``; rank 0 waits until every shard of
+  this publish verifies on disk (a filesystem barrier: no collective) and
+  writes the commit marker ``<stem>.json`` ``{"format": 3, "epoch",
+  "best_acc", "total", "shards"}`` last. Read shard by shard against the
+  marker's list; shards without their marker are invisible. One process
+  asked for ``num_shards > 1`` writes every shard itself (tests, tools).
 - **Rolling history** (``keep_last_n``): copies, never hard links, as extra
   restore candidates behind each file.
 - **Async saves**: only the snapshot and its one device-to-host copy run on
@@ -29,7 +33,8 @@ Restore walks the candidates (each expanded with its history), falls back
 on any :class:`CheckpointCorrupt` with a warning and
 ``checkpoint.fallbacks``, and raises ``FileNotFoundError("no usable
 checkpoint ...")`` only when no candidate is usable. It loads onto the
-state's own device.
+state's own device. Under several processes rank 0 walks and decides, and
+every rank decodes the payload bytes rank 0 broadcasts.
 """
 
 from __future__ import annotations
@@ -53,6 +58,11 @@ from pytorch_cifar_tpu_torch.compat import (
     train_tree_from_snapshot,
 )
 from pytorch_cifar_tpu_torch.obs import trace
+from pytorch_cifar_tpu_torch.parallel.mesh import (
+    broadcast_bytes,
+    rank,
+    world_size,
+)
 from pytorch_cifar_tpu_torch.serialization import (
     MsgpackError,
     msgpack_restore,
@@ -65,6 +75,11 @@ CKPT_NAME = "ckpt.msgpack"   # best-accuracy checkpoint
 LAST_NAME = "last.msgpack"   # preemption save: exact latest state
 
 MANIFEST_FORMAT = 2
+SHARDED_FORMAT = 3
+# how long rank 0 waits for the peers' shards of a v3 publish, and how often
+# it looks
+_SHARD_BARRIER_TIMEOUT_S = 120.0
+_SHARD_BARRIER_POLL_S = 0.05
 
 
 class CheckpointCorrupt(RuntimeError):
@@ -76,6 +91,14 @@ class CheckpointCorrupt(RuntimeError):
 def meta_path(output_dir: str, name: str) -> str:
     """Path of the JSON scalar sidecar paired with checkpoint ``name``."""
     return os.path.join(output_dir, os.path.splitext(name)[0] + ".json")
+
+
+def shard_name(name: str, index: int, num_shards: int) -> str:
+    """On-disk name of byte-range shard ``index`` of ``name`` (format v3).
+    The ``-of-N`` suffix is part of the identity: a save from another
+    process count never overwrites part of this one."""
+    stem = os.path.splitext(name)[0]
+    return f"{stem}.shard{int(index):05d}-of-{int(num_shards):05d}.msgpack"
 
 
 def payload_manifest(payload: bytes) -> dict:
@@ -325,16 +348,113 @@ def _write_unsharded(
     return path
 
 
+def _await_shard(
+    output_dir: str, sname: str, epoch: int, deadline: float
+) -> dict:
+    """Wait until shard ``sname`` of THIS publish is durably on disk: its
+    sidecar's epoch matches and the shard verifies against the sidecar's
+    manifest. Returns the shard's manifest. The epoch check keeps a stale
+    same-name shard of an earlier publish out of the commit; atomic
+    renames mean no torn file is ever seen."""
+    spath = os.path.join(output_dir, sname)
+    while True:
+        try:
+            with open(meta_path(output_dir, sname)) as f:
+                smeta = json.load(f)
+            if (int(smeta.get("epoch", -2)) == int(epoch)
+                    and smeta.get("manifest")):
+                with open(spath, "rb") as f:
+                    blob = f.read()
+                verify_checkpoint_payload(blob, smeta, spath)
+                return smeta["manifest"]
+        except (OSError, ValueError, CheckpointCorrupt):
+            pass
+        if time.monotonic() > deadline:
+            raise RuntimeError(
+                f"sharded checkpoint barrier timed out waiting for {sname} "
+                f"(epoch {epoch}): a peer process dead, or the checkpoint "
+                "directory not shared?"
+            )
+        time.sleep(_SHARD_BARRIER_POLL_S)
+
+
+def _write_sharded(
+    output_dir: str, name: str, payload: bytes, epoch: int,
+    best_acc: float, keep_last_n: int, num_shards: int,
+    shard_index: Optional[int],
+) -> Optional[str]:
+    """Format v3 commit: every process writes its own byte-range shard and
+    shard sidecar (and their history copies); rank 0 waits for the full
+    set and then publishes the commit marker last. ``shard_index`` None:
+    this process writes every shard. Returns the path on the committing
+    process, None on the others."""
+    n = int(num_shards)
+    chunk = max(1, -(-len(payload) // n))
+    names = [shard_name(name, k, n) for k in range(n)]
+    hname = _history_name(name, epoch) if keep_last_n > 0 else None
+    mine = range(n) if shard_index is None else (int(shard_index),)
+    for k in mine:
+        blob = payload[k * chunk:(k + 1) * chunk]
+        smeta = json.dumps(
+            {"epoch": int(epoch), "manifest": payload_manifest(blob)}
+        ).encode()
+        _atomic_write(os.path.join(output_dir, names[k]), blob)
+        _atomic_write(meta_path(output_dir, names[k]), smeta)
+        if hname is not None:
+            hs = shard_name(hname, k, n)
+            _atomic_write(os.path.join(output_dir, hs), blob)
+            _atomic_write(meta_path(output_dir, hs), smeta)
+    if shard_index not in (None, 0):
+        return None  # this shard is down; rank 0 owns the commit marker
+    deadline = time.monotonic() + _SHARD_BARRIER_TIMEOUT_S
+    manifests = []
+    for k in range(n):
+        manifests.append(_await_shard(output_dir, names[k], epoch, deadline))
+        if hname is not None:
+            _await_shard(output_dir, shard_name(hname, k, n), epoch,
+                         deadline)
+    meta = {
+        "format": SHARDED_FORMAT,
+        "epoch": int(epoch),
+        "best_acc": float(best_acc),
+        "total": payload_manifest(payload),
+        "shards": [
+            {"name": nm, "crc32": mf["crc32"], "size": mf["size"]}
+            for nm, mf in zip(names, manifests)
+        ],
+    }
+    _atomic_write(meta_path(output_dir, name), json.dumps(meta).encode())
+    if hname is not None:
+        hmeta = dict(meta)
+        hmeta["shards"] = [
+            {"name": shard_name(hname, k, n), "crc32": mf["crc32"],
+             "size": mf["size"]}
+            for k, mf in enumerate(manifests)
+        ]
+        _atomic_write(meta_path(output_dir, hname),
+                      json.dumps(hmeta).encode())
+        _prune_history(output_dir, name, keep_last_n)
+    return os.path.join(output_dir, name)
+
+
 def _commit_host_tree(
     output_dir: str, name: str, tree: dict, epoch: int, best_acc: float,
-    keep_last_n: int, registry, t0: float,
-) -> str:
+    keep_last_n: int, registry, t0: float, num_shards: int = 1,
+    shard_index: Optional[int] = None,
+) -> Optional[str]:
     """Codec + CRC + durable publish of a host tree (numpy only): the half
     of a save that runs on the writer thread, or inline."""
     payload = to_bytes(tree)
-    path = _write_unsharded(output_dir, name, payload, epoch, best_acc,
-                            keep_last_n)
-    if registry is not None:
+    if num_shards > 1:
+        with trace.span("checkpoint/write", bytes=len(payload),
+                        shards=num_shards):
+            path = _write_sharded(output_dir, name, payload, epoch,
+                                  best_acc, keep_last_n, num_shards,
+                                  shard_index)
+    else:
+        path = _write_unsharded(output_dir, name, payload, epoch, best_acc,
+                                keep_last_n)
+    if registry is not None and shard_index in (None, 0):
         registry.counter("checkpoint.saves").inc()
         registry.counter("checkpoint.saved_bytes").inc(len(payload))
         registry.histogram("checkpoint.save_ms").observe(
@@ -354,9 +474,19 @@ def save_checkpoint(
     writer: Optional[AsyncCheckpointWriter] = None,
     num_shards: Optional[int] = None,
     on_commit: Optional[Callable[[], None]] = None,
-) -> str:
+) -> Optional[str]:
     """Write ``state`` (a ``TrainState``, or a :class:`StateSnapshot` taken
-    earlier) to ``output_dir`` in format v2; returns the payload's path.
+    earlier) to ``output_dir``; returns the checkpoint's path on the
+    committing process (rank 0), None on the others.
+
+    One process writes format v2. Under several processes every rank
+    takes part in a format v3 publish: it writes its own byte range and
+    rank 0 the commit marker, last. ``num_shards > 1`` asks one process
+    for a v3 layout (every shard written by it); under several processes
+    it must equal the process count. A v3 save of several processes
+    commits inline even when given a ``writer``: each rank's writer
+    would supersede queued saves by its own timing, and the ranks could
+    then publish different epochs and starve rank 0's barrier.
 
     On the calling thread: the snapshot (if ``state`` is not one) and its
     one device-to-host copy, the only wait for the device. With a
@@ -365,15 +495,26 @@ def save_checkpoint(
     thread's time) and, when the commit lands, ``checkpoint.saves``,
     ``saved_bytes`` and ``save_ms``. ``on_commit`` runs once after a
     successful commit (never for a failed or superseded one).
-    ``num_shards > 1`` (format v3) raises: sharded writes are not ported.
     """
-    if num_shards is not None and int(num_shards) > 1:
-        raise NotImplementedError(
-            "sharded (format v3) checkpoint writes are not ported yet "
-            "(they come with data parallelism); v3 reads are"
+    pidx, pcount = rank(), world_size()
+    n = int(num_shards) if num_shards else (pcount if pcount > 1 else 1)
+    if pcount > 1 and n > 1 and n != pcount:
+        raise ValueError(
+            f"num_shards={n} must equal the process count ({pcount}): "
+            "each process writes exactly its own shard"
         )
+    if n <= 1 and pidx != 0:
+        return None
+    shard_index = pidx if (pcount > 1 and n > 1) else None
+    if writer is not None and shard_index is not None:
+        log.warning(
+            "async checkpoint writer ignored for the multi-process sharded "
+            "save of %s: per-process supersede decisions would desync the "
+            "shard barrier; committing inline", name,
+        )
+        writer = None
     t0 = time.perf_counter()
-    with trace.span("checkpoint/save", file=name, epoch=int(epoch), shards=1):
+    with trace.span("checkpoint/save", file=name, epoch=int(epoch), shards=n):
         os.makedirs(output_dir, exist_ok=True)
         snap = state if isinstance(state, StateSnapshot) \
             else snapshot_state(state)
@@ -382,7 +523,7 @@ def save_checkpoint(
 
         def commit():
             r = _commit_host_tree(output_dir, name, tree, epoch, best_acc,
-                                  keep_last_n, registry, t0)
+                                  keep_last_n, registry, t0, n, shard_index)
             if on_commit is not None:
                 on_commit()
             return r
@@ -395,7 +536,8 @@ def save_checkpoint(
         registry.histogram("checkpoint.save_stall_ms").observe(
             (time.perf_counter() - t0) * 1e3
         )
-    return os.path.join(output_dir, name)
+    return os.path.join(output_dir, name) if shard_index in (None, 0) \
+        else None
 
 
 def newest_checkpoint_order(output_dir: str):
@@ -492,20 +634,26 @@ def read_payload_tree(path: str, payload: bytes) -> dict:
             from e
 
 
-def _read_verified(
-    output_dir: str, name: str, model
-) -> Tuple[TrainArrays, int, float]:
-    """Read + verify + decode + check one candidate against ``model``."""
-    meta = read_meta(output_dir, name)
-    path = os.path.join(output_dir, name)
-    tree = read_payload_tree(path, read_verified_payload(output_dir, name,
-                                                         meta))
+def _decode(path: str, payload: bytes, model) -> TrainArrays:
+    """Decode a verified payload and check it against ``model``."""
+    tree = read_payload_tree(path, payload)
     try:
-        arrays = train_arrays(model, tree)
+        return train_arrays(model, tree)
     except (KeyError, ValueError) as e:
         raise CheckpointCorrupt(f"{path}: not this model's train state: "
                                 f"{e}") from e
-    return arrays, int(meta.get("epoch", -1)), float(meta.get("best_acc", 0.0))
+
+
+def _read_verified(
+    output_dir: str, name: str, model
+) -> Tuple[bytes, TrainArrays, int, float]:
+    """Read + verify + decode + check one candidate against ``model``:
+    its payload, arrays, epoch and best accuracy."""
+    meta = read_meta(output_dir, name)
+    path = os.path.join(output_dir, name)
+    payload = read_verified_payload(output_dir, name, meta)
+    return (payload, _decode(path, payload, model),
+            int(meta.get("epoch", -1)), float(meta.get("best_acc", 0.0)))
 
 
 def restore_checkpoint(
@@ -523,41 +671,59 @@ def restore_checkpoint(
     corruption falls back to the next with a warning. Raises
     FileNotFoundError only when no candidate is usable. Returns ``(state,
     start_epoch, best_acc)``, ``start_epoch`` being the saved epoch + 1.
+
+    Under several processes rank 0 walks the candidates and decides, then
+    broadcasts the verdict with the epoch and best accuracy, and the
+    payload's bytes; every rank decodes those same bytes, so no rank can
+    restore another candidate or raise where the others proceed. Any
+    save's world restores into any other (the payload is the whole
+    state).
     """
     t0 = time.perf_counter()
     candidates = list(names) if names is not None else [name]
-    expanded = []
-    for cand in candidates:
-        expanded.append(cand)
-        expanded.extend(history_names(output_dir, cand))
-    found = None
-    for cand in expanded:
-        try:
-            with trace.span("checkpoint/restore", file=cand):
-                found = _read_verified(output_dir, cand, state.model)
-        except FileNotFoundError:
-            continue
-        except CheckpointCorrupt as e:
-            log.warning("checkpoint candidate %s is corrupt (%s); "
-                        "falling back", cand, e)
-            if registry is not None:
-                registry.counter("checkpoint.corrupt_candidates").inc()
-            trace.instant("checkpoint/corrupt_candidate", file=cand)
-            continue
-        if cand != expanded[0]:
-            log.warning(
-                "restored fallback checkpoint %s (epoch %d) — the preferred "
-                "candidate was missing or corrupt", cand, found[1],
-            )
-            if registry is not None:
-                registry.counter("checkpoint.fallbacks").inc()
-        break
+    found = None  # (payload, arrays, epoch, best_acc)
+    if rank() == 0:
+        expanded = []
+        for cand in candidates:
+            expanded.append(cand)
+            expanded.extend(history_names(output_dir, cand))
+        for cand in expanded:
+            try:
+                with trace.span("checkpoint/restore", file=cand):
+                    found = _read_verified(output_dir, cand, state.model)
+            except FileNotFoundError:
+                continue
+            except CheckpointCorrupt as e:
+                log.warning("checkpoint candidate %s is corrupt (%s); "
+                            "falling back", cand, e)
+                if registry is not None:
+                    registry.counter("checkpoint.corrupt_candidates").inc()
+                trace.instant("checkpoint/corrupt_candidate", file=cand)
+                continue
+            if cand != expanded[0]:
+                log.warning(
+                    "restored fallback checkpoint %s (epoch %d) — the "
+                    "preferred candidate was missing or corrupt", cand,
+                    found[2],
+                )
+                if registry is not None:
+                    registry.counter("checkpoint.fallbacks").inc()
+            break
+    if world_size() > 1:
+        head = None if found is None else [found[2], found[3]]
+        head = json.loads(broadcast_bytes(json.dumps(head).encode()))
+        if head is not None:
+            payload = broadcast_bytes(found[0] if found else None)
+            if found is None:
+                arrays = _decode(f"{output_dir} (rank 0's payload)",
+                                 payload, state.model)
+                found = (payload, arrays, *head)
     if found is None:
         raise FileNotFoundError(
             f"no usable checkpoint in {output_dir!r} (tried {candidates} and "
             "their history) — run without --resume first"
         )
-    arrays, epoch, best_acc = found
+    _, arrays, epoch, best_acc = found
     apply_train_arrays(state, arrays)
     if registry is not None:
         registry.counter("checkpoint.restores").inc()

@@ -11,7 +11,7 @@ generator.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -31,13 +31,18 @@ class TrainState:
     step: int = 0  # updates taken so far; indexes the LR schedule
 
     def draw_augment(
-        self, n: int, padding: int = 4
+        self, n: int, padding: int = 4, shard: Optional[int] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """This step's crop offsets ``(n, 2)`` in ``[0, 2 * padding]`` and
         flip bits ``(n,)``, from the generator reseeded with
         ``(seed, step)``: the draw depends on the step alone, as the JAX
-        step folds ``state.step`` into its key."""
-        self.generator.manual_seed(mix_seed(self.seed, self.step))
+        step folds ``state.step`` into its key. A data-parallel step
+        passes its ``shard`` index, folded in after the step as the JAX
+        step folds ``axis_index``, so the ranks draw apart."""
+        seed = mix_seed(self.seed, self.step)
+        if shard is not None:
+            seed = mix_seed(seed, shard)
+        self.generator.manual_seed(seed)
         dev = self.generator.device
         offsets = torch.randint(
             0, 2 * padding + 1, (n, 2), generator=self.generator, device=dev

@@ -1,6 +1,6 @@
-"""Trainer of the port: ``Trainer(config).fit()`` on one device over the
-device-resident data plane (counterpart of
-``pytorch_cifar_tpu/train/trainer.py``).
+"""Trainer of the port: ``Trainer(config).fit()`` over the
+device-resident data plane, on one device or as one rank of a
+data-parallel job (counterpart of ``pytorch_cifar_tpu/train/trainer.py``).
 
 Each epoch is one train epoch program (``steps.make_train_epoch``: the
 epoch's rows gathered at once, through kernel K1 on CUDA when
@@ -25,6 +25,20 @@ Checkpoints are the JAX package's format v2 (``train/checkpoint.py``), in
   next epoch and ``best_acc``. The epoch permutation depends on (seed,
   epoch) and the augmentation draws on (seed, step), so a resumed run
   takes the steps an uninterrupted one would.
+
+Data parallelism (``config.distributed``, or a process group the caller
+made): the trainer joins the default process group
+(``parallel.mesh.initialize_distributed`` from ``dist_coord``,
+``dist_procs``, ``dist_rank``), trains on ``cuda:<local rank>`` (or the
+CPU), starts from rank 0's weights, and runs the data-parallel epoch
+programs over ``DATA_AXIS``: each rank gathers and steps on its shard of
+every global batch, and every rank holds the same state and the same
+global metrics. The batch sizes are rounded down to a multiple of the
+world, with the JAX trainer's warning. Checkpoints are format v3, each
+rank writing its shard, inline (``async_save on`` is ignored, with the
+JAX trainer's note); a stop requested on any rank stops every rank after
+the same epoch (``_agreed_stop``). ``close`` leaves the process group the
+trainer made.
 """
 
 from __future__ import annotations
@@ -36,6 +50,7 @@ import time
 from typing import Dict, List, Tuple
 
 import torch
+import torch.distributed as dist
 
 from pytorch_cifar_tpu_torch import resolve_device
 from pytorch_cifar_tpu_torch.compat import snapshot_state
@@ -44,6 +59,17 @@ from pytorch_cifar_tpu_torch.data.cifar10 import load_cifar10, synthetic_cifar10
 from pytorch_cifar_tpu_torch.data.pipeline import DeviceDataset
 from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+from pytorch_cifar_tpu_torch.parallel.dp import broadcast_module_
+from pytorch_cifar_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    any_rank,
+    initialize_distributed,
+    is_distributed,
+    is_primary,
+    rank,
+    rank_device,
+    world_size,
+)
 from pytorch_cifar_tpu_torch.train.checkpoint import (
     LAST_NAME,
     AsyncCheckpointWriter,
@@ -83,7 +109,25 @@ class Trainer:
                 f"publish must be live/staging, got {config.publish!r}"
             )
         self.config = config
-        self.device = resolve_device(config.device)
+        self._owns_group = config.distributed and initialize_distributed(
+            config.dist_coord or None, config.dist_procs or None,
+            config.dist_rank if config.dist_coord else None,
+            device=config.device,
+        )
+        self.data_parallel = is_distributed()
+        self.world, self.rank = world_size(), rank()
+        if config.num_devices > 1 and config.num_devices != self.world:
+            raise ValueError(
+                f"num_devices={config.num_devices} but the process group "
+                f"has {self.world} ranks: the train CLI starts one process "
+                "per device"
+            )
+        if self.data_parallel:
+            self.device = rank_device(config.device)
+            if self.device.type == "cuda":
+                torch.cuda.set_device(self.device)
+        else:
+            self.device = resolve_device(config.device)
         self.obs = MetricsRegistry()
 
         # -- data ------------------------------------------------------
@@ -96,14 +140,19 @@ class Trainer:
             tr_x, tr_y, te_x, te_y = load_cifar10(
                 config.data_dir, synthetic_ok=False
             )
-        self.global_batch = config.batch_size
+        n_dev = self.world
+        if config.batch_size % n_dev:
+            # parity with main_dist.py:112-115's divisibility warning
+            log.warning("batch_size %d not divisible by %d devices; "
+                        "rounding down", config.batch_size, n_dev)
+        self.global_batch = max(config.batch_size // n_dev, 1) * n_dev
         self.loader = DeviceDataset(
             tr_x, tr_y, batch_size=self.global_batch, shuffle=True,
             drop_last=config.drop_last, seed=config.seed,
             device_perm=config.device_perm, device=self.device,
         )
         self.steps_per_epoch = len(self.loader)
-        self.eval_bs = config.eval_batch_size
+        self.eval_bs = max(config.eval_batch_size // n_dev, 1) * n_dev
         self.eval_loader = DeviceDataset(
             te_x, te_y, batch_size=self.eval_bs, shuffle=False,
             device=self.device,
@@ -114,6 +163,8 @@ class Trainer:
             config.model, num_classes=config.num_classes,
             generator=torch.Generator().manual_seed(config.seed),
         ).to(self.device, memory_format=torch.channels_last)
+        if self.data_parallel:
+            broadcast_module_(model)  # every rank starts from rank 0's
         optimizer = make_optimizer(
             model.parameters(), lr=config.lr, momentum=config.momentum,
             weight_decay=config.weight_decay,
@@ -130,24 +181,32 @@ class Trainer:
 
         # -- epoch programs -------------------------------------------
         compute = torch.bfloat16 if config.amp else torch.float32
+        # cross-replica BN over one process is local BN: the same math
+        axis = DATA_AXIS if self.data_parallel else None
         self.train_epoch_fn = make_train_epoch(
             make_train_step(
                 crop=config.random_crop, flip=config.random_flip,
                 mean=config.mean, std=config.std, compute_dtype=compute,
+                axis_name=axis, sync_bn=config.sync_bn and axis is not None,
                 device=self.device,
             ),
             global_batch=self.global_batch,
             n_data=tr_x.shape[0],
             num_steps=self.steps_per_epoch,
+            axis_name=axis,
+            n_shards=self.world,
             dma_gather=config.dma_gather,
         )
         n_eval = te_x.shape[0]
         self.eval_epoch_fn = make_eval_epoch(
             make_eval_step(mean=config.mean, std=config.std,
-                           compute_dtype=compute, device=self.device),
+                           compute_dtype=compute, axis_name=axis,
+                           device=self.device),
             global_batch=self.eval_bs,
             n_data=n_eval,
             num_steps=max(-(-n_eval // self.eval_bs), 1),
+            axis_name=axis,
+            n_shards=self.world,
         )
         self.start_epoch = 0
         self.best_acc = 0.0
@@ -167,8 +226,16 @@ class Trainer:
                      self.ckpt_dir, self.start_epoch, self.best_acc)
         self._stop_requested = False
         self._snapshot = None  # (device StateSnapshot, epoch, best_acc)
-        self._ckpt_writer = (AsyncCheckpointWriter(registry=self.obs)
-                             if config.async_save == "on" else None)
+        # several processes commit every save inline: each rank's writer
+        # would supersede queued saves by its own timing, and the ranks
+        # could publish different epochs (save_checkpoint's rule)
+        self._ckpt_writer = (
+            AsyncCheckpointWriter(registry=self.obs)
+            if config.async_save == "on" and self.world == 1 else None)
+        if config.async_save == "on" and self._ckpt_writer is None:
+            log.info("--async_save on ignored under %d processes: sharded "
+                     "saves commit inline so every rank publishes the same "
+                     "epoch sequence", self.world)
         # _submitted_epoch (this thread only): newest epoch handed to
         # save_checkpoint, for throttling. _written_epoch (under
         # _ckpt_lock; the writer thread's on_commit advances it): newest
@@ -297,6 +364,18 @@ class Trainer:
         ``last.msgpack``."""
         self._stop_requested = True
 
+    def _agreed_stop(self) -> bool:
+        """The stop flag agreed by every rank (an all-reduce MAX): SIGTERM
+        can reach the ranks at different epoch boundaries, and a rank that
+        stops alone strands the others in a collective."""
+        return any_rank(self._stop_requested)
+
+    def close(self) -> None:
+        """Leave the process group if this trainer made it."""
+        if self._owns_group:
+            dist.destroy_process_group()
+            self._owns_group = False
+
     def evaluate(self) -> float:
         """One eval epoch of the restored state (``--evaluate``); returns
         its accuracy."""
@@ -312,7 +391,7 @@ class Trainer:
         cfg = self.config
         log.info(
             "==> model %s | %d devices | global batch %d | %d steps/epoch",
-            cfg.model, 1, self.global_batch, self.steps_per_epoch,
+            cfg.model, self.world, self.global_batch, self.steps_per_epoch,
         )
         if cfg.evaluate:
             return self.evaluate()
@@ -341,7 +420,7 @@ class Trainer:
                     "epoch_s": dt,
                     "img_per_sec": train_m["count"] / max(dt, 1e-9),
                 })
-                if self._stop_requested:
+                if self._agreed_stop():
                     log.info("stop requested: saving preemption checkpoint "
                              "at epoch %d", epoch)
                     save_checkpoint(
@@ -351,7 +430,8 @@ class Trainer:
                     )
                     break
             else:
-                remove_stale_last(self.ckpt_dir)
+                if is_primary():
+                    remove_stale_last(self.ckpt_dir)
         finally:
             # the newest best must be on disk before fit returns; the
             # writer is joined on every exit path

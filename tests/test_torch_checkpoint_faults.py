@@ -173,12 +173,6 @@ def test_undecodable_or_foreign_payload_falls_back(tmp_path, payload):
     _state_equal(got, last)
 
 
-def test_sharded_writes_are_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        save_checkpoint(str(tmp_path), port_state("LeNet"), 1, 1.0,
-                        num_shards=2)
-
-
 def test_remove_stale_last_removes_its_history_and_shards(tmp_path):
     out = str(tmp_path)
     state = random_port_state("LeNet", 1)

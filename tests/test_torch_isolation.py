@@ -88,7 +88,13 @@ def test_scan_sees_the_whole_package():
                  os.path.join("pytorch_cifar_tpu_torch", "config.py"),
                  os.path.join("pytorch_cifar_tpu_torch", "serialization.py"),
                  os.path.join("pytorch_cifar_tpu_torch", "train",
-                              "checkpoint.py")):
+                              "checkpoint.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "train",
+                              "launch.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "parallel",
+                              "mesh.py"),
+                 os.path.join("pytorch_cifar_tpu_torch", "parallel",
+                              "dp.py")):
         assert must in files
 
 

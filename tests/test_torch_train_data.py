@@ -269,7 +269,7 @@ def test_config_flags_keep_the_jax_spellings():
 
 @pytest.mark.parametrize("argv", [["--publish", "staging"],
                                   ["--resume", "--publish", "staging"],
-                                  ["--num_devices", "2"],
+                                  ["--no-device_data", "--num_devices", "2"],
                                   ["--no-device_data"]])
 def test_unported_paths_say_so(argv):
     with pytest.raises(NotImplementedError, match="not ported yet"):
@@ -293,4 +293,4 @@ def test_unported_step_options_raise():
     with pytest.raises(NotImplementedError, match="not ported yet"):
         steps.make_train_step(remat=True)
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        steps.make_train_epoch(None, 8, 20, 3, axis_name="data")
+        steps.make_train_epoch(None, 8, 20, 3, batch_sharding=object())
