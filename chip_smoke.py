@@ -173,6 +173,36 @@ Then data parallelism, through the train CLI (``train_main``, ranks of
     raw bits. Prints img/s and the flat all-reduce's ms per step of each
     run, beside the card's name and power limit.
 
+Then the depthwise slice (DLA, MobileNetV2, EfficientNetB0, ShuffleNetV2,
+PNASNet A and B), run after phase 16:
+
+19. stencil_zoo: K5 (phase 11's checks and tolerances) at every distinct
+    ``(h, w, c, k)`` of the depthwise families' stride-1 depthwise sites at
+    n = 128 (38 shapes: k = 3, 5 and 7, maps from 32x32 to 2x2 of 24 to
+    1,152 channels, ShuffleNetV2's 58 / 116 / 232 / 244 and PNASNetA's 44
+    on the narrow vectors), bf16 and fp32, each row with the launches per
+    forward of every model that has it; pool_zoo: K4 (phase 10's
+    per-shape checks, as raw bits) at PNASNet's six pool inputs at n =
+    512; site_zoo: K3 (phase 3) at the new stems (3 -> 24, 32, 44; DLA's
+    sites are SimpleDLA's, held in phase 16);
+20. slices: DLA, MobileNetV2, EfficientNetB0, PNASNetA, PNASNetB and
+    ShuffleNetV2_1 served as in phase 4 at buckets 8 and 128 (8 clients x
+    64 requests), every launch count per forward pinned: (K3, K4, K5) =
+    (12, 0, 0), (1, 0, 14), (0, 0, 12), (1, 18, 18), (1, 18, 54), (1, 0,
+    13), no K4 backward;
+21. efficientnetb0_train and pnasnetb_train: phase 7 on
+    ``synthetic_cifar10(10240, 2048)`` at full width (EfficientNetB0 with
+    its drop-connect and dropout masks drawn from the train state's model
+    stream; PNASNetB with 18 K4 forwards and 18 backwards a step): K1 once
+    an epoch, the eval forwards' K3 / K4 / K5 launches, finite and falling
+    losses, the sync-checked third epoch, epoch 1's wall apart;
+22. moments_efficientnet: one b512 bf16 EfficientNetB0 step under
+    ``bn_moments_impl``: K2 at its 48 live BNs (2x2 maps of 1,152
+    channels among them), each launch's moments within rtol 1e-4, atol
+    1e-5 of float64, a finite loss;
+23. ``depthwise_s``: each of these phases' seconds (``phase_s`` prints
+    every phase's).
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call), and prints no kernels or ok line.
 
@@ -206,6 +236,8 @@ from pytorch_cifar_tpu_torch.tools._bench import (
     card_line,
     fused_sites,
     library_pool,
+    pool_sites,
+    stencil_sites,
     time_ms,
 )
 
@@ -762,95 +794,113 @@ def phase_pool(P, peaks, fails: Failures) -> list:
         cot[2, e - 2:e + 2, 7] = float("-inf")
         _pool_checks(P, pool_edge_input(P, shape, dt, g, backward=True), cot,
                      f"{dname} {shape} backward band edges", fails)
-        for h, w, c, per_fwd in POOL_SHAPES:
-            shape = (BATCH, h, w, c)
-            x = torch.randn(shape, generator=g).to("cuda", dt)
-            cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
-            fwd_err, bwd_err = _pool_checks(P, x, cot, f"{dname} {shape}",
-                                            fails)
-            # the library pool and its backward compute the same function
-            xr = x.detach().requires_grad_()
-            lib = library_pool(xr)
-            (glib,) = torch.autograd.grad(lib, xr, cot, retain_graph=True)
-            _, idx = P._forward(x, True)
-            gi = P._backward(cot, idx)
-            fails.check(torch.equal(lib.detach(), P.max_pool3x3_s1(x))
-                        and torch.equal(glib, gi),
-                        f"K4 {dname} {shape}: differs from F.max_pool2d "
-                        "(integer cotangents)")
-            e, s = x.numel(), x.element_size()
-            t_train = (2 * s + 1) * e / peaks["bytes"] * 1e3
-            with torch.no_grad():
-                row = {
-                    "x": list(shape), "dtype": dname,
-                    "pools_per_forward": per_fwd,
-                    "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
-                    "fwd_ms": time_ms(lambda: P._forward(x, False), 7, 3),
-                    "fwd_map_ms": time_ms(lambda: P._forward(x, True), 7, 3),
-                    "bwd_ms": time_ms(lambda: P._backward(cot, idx), 7, 3),
-                    "plain_fwd_map_ms": time_ms(
-                        lambda: P.max_pool3x3_s1_reference(x, True), 3, 2),
-                    "plain_bwd_ms": time_ms(
-                        lambda: P.max_pool3x3_s1_backward_reference(cot, idx),
-                        3, 2),
-                    "library_fwd_ms": time_ms(lambda: library_pool(x), 7, 3),
-                    "bound_fwd_ms": 2 * s * e / peaks["bytes"] * 1e3,
-                    "bound_fwd_map_ms": t_train, "bound_bwd_ms": t_train,
-                    "mbytes_train_each_way": (2 * s + 1) * e / 1e6,
-                }
-            row["library_bwd_ms"] = time_ms(
-                lambda: torch.autograd.grad(lib, xr, cot, retain_graph=True),
-                7, 3)
-            rows.append(row)
-            print("pool " + json.dumps(row), flush=True)
-            del x, cot, xr, lib, glib, idx, gi
+        rows += _pool_rows(P, peaks, fails, POOL_SHAPES, dname, dt, g)
+    return rows
+
+
+def _pool_rows(P, peaks, fails: Failures, shapes, dname: str, dt, g,
+               tag: str = "pool") -> list:
+    """K4 at each ``(h, w, c, pools per forward)`` of ``shapes`` at n =
+    512 in ``dt``: forward with and without map and backward against the
+    plain version (``_pool_checks``), against ``F.max_pool2d``, and timed
+    beside it and the byte bounds."""
+    rows = []
+    for h, w, c, per_fwd in shapes:
+        shape = (BATCH, h, w, c)
+        x = torch.randn(shape, generator=g).to("cuda", dt)
+        cot = torch.randint(0, 9, shape, generator=g).to("cuda", dt)
+        fwd_err, bwd_err = _pool_checks(P, x, cot, f"{dname} {shape}",
+                                        fails)
+        # the library pool and its backward compute the same function
+        xr = x.detach().requires_grad_()
+        lib = library_pool(xr)
+        (glib,) = torch.autograd.grad(lib, xr, cot, retain_graph=True)
+        _, idx = P._forward(x, True)
+        gi = P._backward(cot, idx)
+        fails.check(torch.equal(lib.detach(), P.max_pool3x3_s1(x))
+                    and torch.equal(glib, gi),
+                    f"K4 {dname} {shape}: differs from F.max_pool2d "
+                    "(integer cotangents)")
+        e, s = x.numel(), x.element_size()
+        t_train = (2 * s + 1) * e / peaks["bytes"] * 1e3
+        with torch.no_grad():
+            row = {
+                "x": list(shape), "dtype": dname,
+                "pools_per_forward": per_fwd,
+                "fwd_max_abs_err": fwd_err, "bwd_max_abs_err": bwd_err,
+                "fwd_ms": time_ms(lambda: P._forward(x, False), 7, 3),
+                "fwd_map_ms": time_ms(lambda: P._forward(x, True), 7, 3),
+                "bwd_ms": time_ms(lambda: P._backward(cot, idx), 7, 3),
+                "plain_fwd_map_ms": time_ms(
+                    lambda: P.max_pool3x3_s1_reference(x, True), 3, 2),
+                "plain_bwd_ms": time_ms(
+                    lambda: P.max_pool3x3_s1_backward_reference(cot, idx),
+                    3, 2),
+                "library_fwd_ms": time_ms(lambda: library_pool(x), 7, 3),
+                "bound_fwd_ms": 2 * s * e / peaks["bytes"] * 1e3,
+                "bound_fwd_map_ms": t_train, "bound_bwd_ms": t_train,
+                "mbytes_train_each_way": (2 * s + 1) * e / 1e6,
+            }
+        row["library_bwd_ms"] = time_ms(
+            lambda: torch.autograd.grad(lib, xr, cot, retain_graph=True),
+            7, 3)
+        rows.append(row)
+        print(f"{tag} " + json.dumps(row), flush=True)
+        del x, cot, xr, lib, glib, idx, gi
     return rows
 
 
 def phase_stencil(D, peaks, fails: Failures) -> list:
     """K5 against its plain version at MobileNet's five stride-1 depthwise
     shapes (n = 128, k = 3), PNASNet's (k = 5, 7) and a narrow-vector
-    shape, bf16 and fp32. fp32: rtol/atol 2e-5 (the fp32 sums' order);
-    bf16: against the fp32 plain version on the same bf16-rounded inputs,
-    rtol 2^-7 (one bf16 ulp: half for the rounding, the rest for a
-    rounding flipped by the sums' order), atol 1e-4."""
+    shape, bf16 and fp32 (tolerances in :func:`_stencil_row`)."""
     g = torch.Generator().manual_seed(6)
     rows = []
     for n, h, w, c, k, per_fwd in STENCIL_SHAPES:
         for dname, dt in DTYPES.items():
-            x = torch.randn(n, h, w, c, generator=g).to("cuda", dt)
-            wt = (torch.randn(k, k, c, generator=g) / k).to("cuda", dt)
-            out = D.depthwise_stencil(x, wt)
-            torch.cuda.synchronize()
-            ref = D.depthwise_stencil_reference(x.float(), wt.float())
-            diff = (out.float() - ref).abs()
-            rtol, atol = (2e-5, 2e-5) if dname == "fp32" else (2.0 ** -7, 1e-4)
-            what = f"K5 {dname} {(n, h, w, c)} k={k}"
-            fails.check(bool((diff <= atol + rtol * ref.abs()).all()),
-                        f"{what}: off the plain version by "
-                        f"{diff.max().item():.3g}")
-            fails.check(bool(torch.isfinite(out).all()),
-                        f"{what}: non-finite output")
-            x_cl = x.permute(0, 3, 1, 2)
-            w_cl = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
-            s = x.element_size()
-            b_ms, b_by = bound(2 * s * x.numel() + wt.numel() * s,
-                               2 * k * k * x.numel(), peaks, "fp32")
-            row = {
-                "x": [n, h, w, c], "k": k, "dtype": dname,
-                "sites_per_forward": per_fwd,
-                "max_abs_err": diff.max().item(),
-                "ms": time_ms(lambda: D.depthwise_stencil(x, wt), 9, 3),
-                "plain_ms": time_ms(
-                    lambda: D.depthwise_stencil_reference(x, wt), 3, 2),
-                "library_ms": time_ms(
-                    lambda: F.conv2d(x_cl, w_cl, padding=k // 2, groups=c),
-                    9, 3),
-                "bound_ms": b_ms, "bound_by": b_by,
-            }
+            row = _stencil_row(D, peaks, fails, g, (n, h, w, c), k, dname,
+                               dt)
+            row["sites_per_forward"] = per_fwd
             rows.append(row)
             print("stencil " + json.dumps(row), flush=True)
     return rows
+
+
+def _stencil_row(D, peaks, fails: Failures, g, shape, k: int, dname: str,
+                 dt, runs: int = 9) -> dict:
+    """K5 at one shape against its plain version: fp32 rtol/atol 2e-5 (the
+    fp32 sums' order); bf16 against the fp32 plain version on the same
+    bf16-rounded inputs, rtol 2^-7 (one bf16 ulp: half for the rounding,
+    the rest for a rounding flipped by the sums' order), atol 1e-4. Times
+    of the kernel, the plain version and ``F.conv2d(groups=C)``, and the
+    bound."""
+    n, h, w, c = shape
+    x = torch.randn(n, h, w, c, generator=g).to("cuda", dt)
+    wt = (torch.randn(k, k, c, generator=g) / k).to("cuda", dt)
+    out = D.depthwise_stencil(x, wt)
+    torch.cuda.synchronize()
+    ref = D.depthwise_stencil_reference(x.float(), wt.float())
+    diff = (out.float() - ref).abs()
+    rtol, atol = (2e-5, 2e-5) if dname == "fp32" else (2.0 ** -7, 1e-4)
+    what = f"K5 {dname} {(n, h, w, c)} k={k}"
+    fails.check(bool((diff <= atol + rtol * ref.abs()).all()),
+                f"{what}: off the plain version by {diff.max().item():.3g}")
+    fails.check(bool(torch.isfinite(out).all()), f"{what}: non-finite output")
+    x_cl = x.permute(0, 3, 1, 2)
+    w_cl = wt.permute(2, 0, 1).unsqueeze(1).contiguous()
+    s = x.element_size()
+    b_ms, b_by = bound(2 * s * x.numel() + wt.numel() * s,
+                       2 * k * k * x.numel(), peaks, "fp32")
+    return {
+        "x": [n, h, w, c], "k": k, "dtype": dname,
+        "max_abs_err": diff.max().item(),
+        "ms": time_ms(lambda: D.depthwise_stencil(x, wt), runs, 3),
+        "plain_ms": time_ms(
+            lambda: D.depthwise_stencil_reference(x, wt), 3, 2),
+        "library_ms": time_ms(
+            lambda: F.conv2d(x_cl, w_cl, padding=k // 2, groups=c), runs, 3),
+        "bound_ms": b_ms, "bound_by": b_by,
+    }
 
 
 def phase_pool_step(P, fails: Failures) -> dict:
@@ -932,11 +982,14 @@ def run_dir(prefix: str) -> str:
 
 def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
                 train_n=TRAIN_N, test_n=TEST_N, k3_per_forward=6,
-                pools_per_forward=0, min_acc=50.0, tag="train") -> dict:
+                pools_per_forward=0, min_acc=50.0, tag="train", D=None,
+                stencils_per_forward=0) -> dict:
     """A training slice through ``Trainer.fit``: K1 once per epoch, K3 in
     every eval forward, K4 (``pools_per_forward`` pool branches) forward
-    and backward in every train step and forward in every eval forward.
-    Then one more epoch dispatched with host syncs made errors."""
+    and backward in every train step and forward in every eval forward,
+    K5 (``stencils_per_forward`` sites, counted through ``D``) in every
+    eval forward. Then one more epoch dispatched with host syncs made
+    errors."""
     from pytorch_cifar_tpu_torch.config import TrainConfig
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
@@ -956,8 +1009,11 @@ def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
     # the main path starts here
     G.LAUNCHES = M.LAUNCHES = K3.LAUNCHES = 0
     P.FWD_LAUNCHES = P.BWD_LAUNCHES = 0
+    if D is not None:
+        D.LAUNCHES = 0
     best = trainer.fit()
     k1, k2, k3 = G.LAUNCHES, M.LAUNCHES, K3.LAUNCHES  # and ends here
+    k5 = 0 if D is None else D.LAUNCHES
     shutil.rmtree(out_dir, ignore_errors=True)
     k4f, k4b = P.FWD_LAUNCHES, P.BWD_LAUNCHES
     peak = torch.cuda.max_memory_allocated()
@@ -976,6 +1032,9 @@ def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
         f"{tag}: K4 launched {k4f} forward, {k4b} backward for {train_steps} "
         f"steps and {eval_forwards} eval forwards (want {pools_per_forward} "
         "each)")
+    fails.check(k5 == stencils_per_forward * eval_forwards,
+                f"{tag}: K5 launched {k5} times for {eval_forwards} eval "
+                f"forwards (want {stencils_per_forward} each)")
     for h in hist:
         fails.check(h["train"]["count"] == train_n,
                     f"{tag}: epoch {h['epoch']} counted "
@@ -1015,7 +1074,8 @@ def phase_train(G, M, K3, P, smi: str, fails: Failures, model="ResNet18",
         "steps_per_epoch": trainer.steps_per_epoch,
         "setup_s": setup_s, "best_acc": best,
         "k1_launches": k1, "k2_launches": k2, "k3_launches": k3,
-        "k4_fwd_launches": k4f, "k4_bwd_launches": k4b,
+        "k4_fwd_launches": k4f, "k4_bwd_launches": k4b, "k5_launches": k5,
+        "first_epoch_s": hist[0]["epoch_s"],
         "peak_mem_gib": peak / 2**30, "epoch_sync_error": synced,
         "epochs": [{k: h[k] for k in ("epoch", "train_loss", "train_acc",
                                       "eval_loss", "eval_acc", "epoch_s",
@@ -1238,6 +1298,136 @@ def phase_simpledla(G, M, K, P, D, smi: str, peaks, fails: Failures) -> dict:
                           train_n=10_240, test_n=2_048, k3_per_forward=12,
                           min_acc=0.0, tag="simpledla_train")
     return {"sites": rows, "slice": served, "train": trained}
+
+
+# the depthwise slice's served models: (K3, K4 forward, K5) launches a
+# forward, as the CPU tests pin them; the other three ShuffleNetV2 widths
+# are held at their sites
+DEPTHWISE_SERVED = {
+    "DLA": (12, 0, 0), "MobileNetV2": (1, 0, 14),
+    "EfficientNetB0": (0, 0, 12), "PNASNetA": (1, 18, 18),
+    "PNASNetB": (1, 18, 54), "ShuffleNetV2_1": (1, 0, 13),
+}
+DEPTHWISE_FAMILIES = ("MobileNetV2", "EfficientNetB0", "ShuffleNetV2_0.5",
+                      "ShuffleNetV2_1", "ShuffleNetV2_1.5", "ShuffleNetV2_2",
+                      "PNASNetA", "PNASNetB")
+DEPTHWISE_TRAINED = ("EfficientNetB0", "PNASNetB")
+DEPTHWISE_REQUESTS = 64  # per client, 8 clients, each served model
+EFFICIENTNET_BNS = 48  # live BNs a forward: the stem, 2 in block 0, 3 x 15
+
+
+def phase_depthwise(G, M, K, P, D, smi: str, peaks,
+                    fails: Failures) -> dict:
+    """The depthwise slice (phases 19-23 of the module docstring)."""
+    secs, t0 = {}, time.perf_counter()
+    # K5 at every distinct (h, w, c, k) of the four families, n = 128
+    sites: dict = {}
+    for name in DEPTHWISE_FAMILIES:
+        for h, w, c, k, per in stencil_sites(name):
+            sites.setdefault((h, w, c, k), {})[name] = per
+    g = torch.Generator().manual_seed(11)
+    sten = []
+    for (h, w, c, k), per in sites.items():
+        for dname, dt in DTYPES.items():
+            row = _stencil_row(D, peaks, fails, g, (128, h, w, c), k, dname,
+                               dt, runs=5)
+            row["sites_per_forward"] = per
+            sten.append(row)
+            print("stencil_zoo " + json.dumps(row), flush=True)
+    secs["stencil_zoo"] = time.perf_counter() - t0
+    # K4 at PNASNet's pool inputs, n = 512 (the train batch)
+    t0 = time.perf_counter()
+    pools = {name: pool_sites(name) for name in ("PNASNetA", "PNASNetB")}
+    pool = []
+    for dname, dt in DTYPES.items():
+        for name, shapes in pools.items():
+            for row in _pool_rows(P, peaks, fails, shapes, dname, dt, g,
+                                  tag="pool_zoo"):
+                row["model"] = name
+                pool.append(row)
+    secs["pool_zoo"] = time.perf_counter() - t0
+    # K3 at the new stems; DLA's sites are SimpleDLA's, held in its phase
+    t0 = time.perf_counter()
+    held = {r[1:5] for r in fused_sites("SimpleDLA")}
+    stems = {}
+    for name in DEPTHWISE_SERVED:
+        for r in fused_sites(name):
+            if r[1:5] not in held:
+                stems.setdefault(r[1:5], r)
+    k3_rows = phase_kernels(K, peaks, fails, sites=list(stems.values()),
+                            tag="site_zoo", runs=5)
+    secs["site_zoo"] = time.perf_counter() - t0
+    served = {}
+    for name, (k3, k4, k5) in DEPTHWISE_SERVED.items():
+        t0 = time.perf_counter()
+        served[name] = phase_slice(
+            K, smi, fails, model=name, requests=DEPTHWISE_REQUESTS,
+            buckets=(8, 128),
+            per_forward=[(D, "LAUNCHES", k5), (K, "LAUNCHES", k3),
+                         (P, "FWD_LAUNCHES", k4), (P, "BWD_LAUNCHES", 0)])
+        secs[f"slice_{name}"] = time.perf_counter() - t0
+    trained = {}
+    for name in DEPTHWISE_TRAINED:
+        t0 = time.perf_counter()
+        k3, k4, k5 = DEPTHWISE_SERVED[name]
+        trained[name] = phase_train(
+            G, M, K, P, smi, fails, model=name, train_n=10_240,
+            test_n=2_048, k3_per_forward=k3, pools_per_forward=k4,
+            min_acc=0.0, tag=f"{name.lower()}_train", D=D,
+            stencils_per_forward=k5)
+        secs[f"train_{name}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moments = phase_moments_efficientnet(M, fails)
+    secs["moments_efficientnet"] = time.perf_counter() - t0
+    print("depthwise_s " + json.dumps(secs), flush=True)
+    return {"stencil": sten, "pool": pool, "sites": k3_rows,
+            "served": served, "trained": trained, "moments": moments}
+
+
+def phase_moments_efficientnet(M, fails: Failures) -> dict:
+    """One b512 bf16 EfficientNetB0 train step under
+    ``bn_moments_impl(fused_moments)``: K2 at each of its 48 live BNs
+    (2x2 maps of 1,152 channels among them), every launch's moments held
+    against the plain version in float64 (rtol 1e-4, atol 1e-5), a finite
+    loss."""
+    from pytorch_cifar_tpu_torch.models import common
+
+    state, step = _train_state(12, torch.bfloat16, "EfficientNetB0")
+    g = torch.Generator().manual_seed(12)
+    images = torch.randint(0, 256, (BATCH, 32, 32, 3), generator=g,
+                           dtype=torch.uint8).cuda()
+    labels = torch.randint(0, 10, (BATCH,), generator=g,
+                           dtype=torch.int32).cuda()
+    shapes, worst = [], [0.0]
+
+    def checked(x):
+        got = M.fused_moments(x)
+        ref = M.fused_moments_reference(x.detach().double())
+        for a, b in zip(got, ref):
+            d = (a.detach().double() - b).abs()
+            worst[0] = max(worst[0], d.max().item())
+            fails.check(bool((d <= 1e-5 + 1e-4 * b.abs()).all()),
+                        f"moments_efficientnet: K2 at {tuple(x.shape)} off "
+                        f"the float64 moments by {d.max().item():.3g}")
+        shapes.append(tuple(x.shape[1:]))
+        return got
+
+    M.LAUNCHES = 0  # the hooked step starts here
+    with common.bn_moments_impl(checked):
+        metrics = step(state, (images, labels))
+    launches = M.LAUNCHES  # and ends here
+    loss = float(metrics["loss_sum"]) / float(metrics["count"])
+    fails.check(launches == EFFICIENTNET_BNS == len(shapes),
+                f"moments_efficientnet: K2 launched {launches} times for "
+                f"{len(shapes)} BNs (want {EFFICIENTNET_BNS})")
+    fails.check((2, 2, 1152) in shapes,
+                "moments_efficientnet: no BN at 2x2 x 1,152")
+    fails.check(np.isfinite(loss) and float(metrics["nonfinite"]) == 0,
+                f"moments_efficientnet: loss {loss}")
+    out = {"k2_launches": launches, "max_abs_err_vs_f64": worst[0],
+           "loss": loss, "shapes": sorted(set(shapes))}
+    print("moments_efficientnet " + json.dumps(out), flush=True)
+    return out
 
 
 def fs_type(path: str) -> str:
@@ -1731,6 +1921,28 @@ def phase_dp(G, M, K3, smi: str, fails: Failures) -> dict:
     return out
 
 
+def zoo_forwards(dw: dict) -> dict:
+    """Per served depthwise model: K5's launches in its served run and the
+    times of one bucket-128 bf16 forward's launches at their shapes."""
+    out = {}
+    for model, (_, _, k5) in DEPTHWISE_SERVED.items():
+        fwd = [r for r in dw["stencil"] if r["dtype"] == "bf16"
+               and model in r["sites_per_forward"]]
+        if not fwd:
+            continue
+        per = [r["sites_per_forward"][model] for r in fwd]
+        b_ms, b_by = launches_bound(fwd, per)
+        out[model] = {
+            "launches_per_forward": k5,
+            "launches": dw["served"][model]["launches"][
+                "depthwise_stencil.LAUNCHES"],
+            **{k: sum(r[k] * n for r, n in zip(fwd, per))
+               for k in ("ms", "plain_ms", "library_ms")},
+            "bound_ms": b_ms, "bound_by": b_by,
+        }
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -1762,31 +1974,47 @@ def main(argv=None) -> int:
         print(f"chip_smoke --only dp: {time.perf_counter() - t_start:.1f}s, "
               f"{len(fails)} check(s) failed", flush=True)
         return 1 if fails else 0
-    rows = phase_kernels(K, peaks, fails)
-    sl = phase_slice(K, smi, fails)
-    k1 = phase_gather(G, peaks, fails)
-    k2 = phase_moments(M, peaks, fails)
-    tr = phase_train(G, M, K, P, smi, fails)
-    bb = phase_bn_bench(M, fails)
-    phase_card_vs_cpu(fails)
+    phase_s = {}
+
+    def timed(phase, fn, *a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        phase_s[phase] = time.perf_counter() - t0
+        return out
+
+    rows = timed("site", phase_kernels, K, peaks, fails)
+    sl = timed("slice", phase_slice, K, smi, fails)
+    k1 = timed("gather", phase_gather, G, peaks, fails)
+    k2 = timed("moments", phase_moments, M, peaks, fails)
+    tr = timed("train", phase_train, G, M, K, P, smi, fails)
+    bb = timed("bn_bench", phase_bn_bench, M, fails)
+    timed("card_vs_cpu", phase_card_vs_cpu, fails)
     # the zoo slice: GoogLeNet and MobileNet, kernels K4 and K5
-    pool = phase_pool(P, peaks, fails)
-    sten = phase_stencil(D, peaks, fails)
-    grows = phase_kernels(K, peaks, fails, sites=fused_sites("GoogLeNet"),
-                          tag="site_googlenet", runs=5)
-    phase_slice(K, smi, fails, model="GoogLeNet", requests=64, per_forward=[
-        (P, "FWD_LAUNCHES", 9), (K, "LAUNCHES", 28), (P, "BWD_LAUNCHES", 0),
-        (D, "LAUNCHES", 0)])
-    zs = phase_slice(K, smi, fails, model="MobileNet", requests=64,
-                     per_forward=[(D, "LAUNCHES", 9), (K, "LAUNCHES", 1),
-                                  (P, "FWD_LAUNCHES", 0)])
-    gt = phase_train(G, M, K, P, smi, fails, model="GoogLeNet",
-                     train_n=10_240, test_n=2_048, k3_per_forward=28,
-                     pools_per_forward=9, min_acc=0.0, tag="googlenet_train")
-    phase_pool_step(P, fails)
-    dla = phase_simpledla(G, M, K, P, D, smi, peaks, fails)
-    phase_ckpt(G, K, smi, fails)
-    dp = phase_dp(G, M, K, smi, fails)
+    pool = timed("pool", phase_pool, P, peaks, fails)
+    sten = timed("stencil", phase_stencil, D, peaks, fails)
+    grows = timed("site_googlenet", phase_kernels, K, peaks, fails,
+                  sites=fused_sites("GoogLeNet"), tag="site_googlenet",
+                  runs=5)
+    timed("slice_googlenet", phase_slice, K, smi, fails, model="GoogLeNet",
+          requests=64, per_forward=[
+              (P, "FWD_LAUNCHES", 9), (K, "LAUNCHES", 28),
+              (P, "BWD_LAUNCHES", 0), (D, "LAUNCHES", 0)])
+    zs = timed("slice_mobilenet", phase_slice, K, smi, fails,
+               model="MobileNet", requests=64,
+               per_forward=[(D, "LAUNCHES", 9), (K, "LAUNCHES", 1),
+                            (P, "FWD_LAUNCHES", 0)])
+    gt = timed("googlenet_train", phase_train, G, M, K, P, smi, fails,
+               model="GoogLeNet", train_n=10_240, test_n=2_048,
+               k3_per_forward=28, pools_per_forward=9, min_acc=0.0,
+               tag="googlenet_train")
+    timed("pool_step", phase_pool_step, P, fails)
+    dla = timed("simpledla", phase_simpledla, G, M, K, P, D, smi, peaks,
+                fails)
+    dw = timed("depthwise", phase_depthwise, G, M, K, P, D, smi, peaks,
+               fails)
+    timed("ckpt", phase_ckpt, G, K, smi, fails)
+    dp = timed("dp", phase_dp, G, M, K, smi, fails)
+    print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
@@ -1824,6 +2052,11 @@ def main(argv=None) -> int:
         "earlier_design_ms": k3["earlier_design_ms"],
         "googlenet_forward": forward(grows),
         "simpledla_forward": forward(dla["sites"]),
+        # one launch a forward at the depthwise families' new stems
+        "zoo_stems_max_abs_err": max(
+            [r["max_abs_err"] for r in dw["sites"]] or [0.0]),
+        "zoo_launches": {m: r["launches"]["conv_bn_relu.LAUNCHES"]
+                         for m, r in dw["served"].items()},
         # per rank, in the data-parallel run's 2 epochs (eval forwards)
         "dp_launches_per_rank": [L["conv3x3_bn_relu"] for L in
                                  dp_nccl["launches_per_rank"]],
@@ -1899,7 +2132,7 @@ def main(argv=None) -> int:
             "source": "pytorch_cifar_tpu_torch/ops/csrc/max_pool.cu",
             "replaces": f"pytorch_cifar_tpu/ops/max_pool.py:{line}",
             "launches": launches,
-            "max_abs_err": max(r[err] for r in pool),
+            "max_abs_err": max(r[err] for r in pool + dw["pool"]),
             "ms": pool_total(ms),
             "plain_ms": pool_total(plain),
             "bound_ms": pool_total("bound_bwd_ms"),
@@ -1907,6 +2140,17 @@ def main(argv=None) -> int:
             "library_ms": pool_total(lib),
         })
         kernels[-1]["redesigned"] = redesigned
+        # one b512 bf16 PNASNetB step: its 18 pools each way
+        pz = [r for r in dw["pool"] if r["dtype"] == "bf16"
+              and r["model"] == "PNASNetB"]
+        kernels[-1]["pnasnetb_step"] = {
+            "launches": dw["trained"]["PNASNetB"][
+                "k4_fwd_launches" if kernel == "max_pool3x3_s1"
+                else "k4_bwd_launches"],
+            **{key: sum(r[src] * r["pools_per_forward"] for r in pz)
+               for key, src in (("ms", ms), ("plain_ms", plain),
+                                ("library_ms", lib),
+                                ("bound_ms", "bound_bwd_ms"))}}
         if kernel == "max_pool3x3_s1":
             kernels[-1]["no_map_ms"] = pool_total("fwd_ms")
             kernels[-1]["no_map_bound_ms"] = pool_total("bound_fwd_ms")
@@ -1932,6 +2176,9 @@ def main(argv=None) -> int:
         "library_ms": sten_total("library_ms"),
         "redesigned": "shared-memory halo tile; the design it replaced is "
                       "not in the tree: PERF.md section 6 keeps its time",
+        "max_abs_err_zoo": max(r["max_abs_err"] for r in dw["stencil"]),
+        # one bucket-128 bf16 forward of each depthwise model at its sites
+        "zoo_forwards": zoo_forwards(dw),
     })
     print(f"card: {smi}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)

@@ -47,7 +47,28 @@ The JAX SimpleDLA: ``Conv_{0..2}``/``BatchNorm_{0..2}`` -> the stems
 ResNet block's sites) -> ``left_tree``/``right_tree``, a level-2 tree
 ``Tree_{0,1}`` -> the same; each tree's ``Root_0`` ``Conv_0``/``BatchNorm_0``
 -> ``root.conv``/``root.bn``. Its 4x4 pool leaves a 1x1 map, so its linear
-needs no :data:`LINEAR_FLATTEN` entry either.
+needs no :data:`LINEAR_FLATTEN` entry either. The paper's DLA has the same
+stems; its level-1 trees hold ``BasicBlock_{0,1}`` -> ``left_node``/
+``right_node``, its level-2 trees ``BasicBlock_0`` -> ``prev_root``,
+``Tree_0`` -> ``level_1``, ``BasicBlock_{1,2}`` -> ``left_node``/
+``right_node``, and every tree ``Root_0`` -> ``root``.
+
+The other depthwise families, each numbered in the JAX model's call order:
+MobileNetV2 ``Conv_0``/``BatchNorm_0`` -> ``conv1``/``bn1``,
+``InvertedResidual_k`` ``Conv_{0..2}`` -> ``layers.k.conv{1..3}`` and
+``Conv_3`` -> ``layers.k.shortcut.0`` (each with its ``BatchNorm_j``), the
+head's ``Conv_1`` -> ``conv2``; ShuffleNetV2 ``DownBlock_{0..2}``
+``Conv_{0..4}`` -> the stage's ``layer{s}.0.conv{1..5}``,
+``BasicBlock_k`` ``Conv_{0..2}`` -> the k-th basic block's
+``conv{1..3}``, the head's ``Conv_1`` -> ``conv2``; PNASNet ``CellA_k`` /
+``CellB_k`` (the 20 cells in order) ``SepConv_j`` ``Conv_0``/
+``BatchNorm_0`` -> ``sep_conv{j+1}.conv1``/``bn1``, a stride-2 cell's
+``Conv_0`` -> ``conv1`` (the pool's 1x1) and a CellB's last ``Conv_j`` ->
+``conv2`` (the reduce); EfficientNet ``MBConv_k`` ``Conv_{0..2}`` ->
+``layers.k.conv{1..3}`` (``Conv_0``/``BatchNorm_0`` also at expand ratio
+1, where both are dead) and ``SE_0`` ``Conv_{0,1}`` (with bias, no BN) ->
+``layers.k.se.se{1,2}``. Every one of them pools to a 1x1 map before its
+linear: no :data:`LINEAR_FLATTEN` entry.
 
 ``num_batches_tracked`` is zero (torch reads it only under
 ``momentum=None``). The result equals what the JAX package's
@@ -78,11 +99,19 @@ import torch
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models import create_model
+from pytorch_cifar_tpu_torch.models.dla import DLA
 from pytorch_cifar_tpu_torch.models.dla_simple import SimpleDLA, Tree
+from pytorch_cifar_tpu_torch.models.efficientnet import EfficientNet
 from pytorch_cifar_tpu_torch.models.googlenet import CELLS, GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
+from pytorch_cifar_tpu_torch.models.mobilenetv2 import MobileNetV2
+from pytorch_cifar_tpu_torch.models.pnasnet import PNASNet
 from pytorch_cifar_tpu_torch.models.resnet import BasicBlock
+from pytorch_cifar_tpu_torch.models.shufflenetv2 import (
+    DownBlock,
+    ShuffleNetV2,
+)
 
 # linears whose input is a flattened feature map: linear index -> (c, h, w)
 LINEAR_FLATTEN: Dict[str, Dict[int, Tuple[int, int, int]]] = {
@@ -132,15 +161,22 @@ def _to_jax(arr: np.ndarray, transform: Transform) -> np.ndarray:
     return arr
 
 
+def _conv(model: nn.Module, out: List[Entry], key: str,
+          node: Tuple[str, ...]) -> None:
+    """A conv (with its bias where the port's has one): the JAX
+    ``node/Conv_0`` kernel (and bias)."""
+    node = node + ("Conv_0",)
+    out.append(Entry("params", node + ("kernel",), f"{key}.weight", CONV))
+    if model.get_submodule(key).bias is not None:
+        out.append(Entry("params", node + ("bias",), f"{key}.bias",
+                         IDENTITY))
+
+
 def _site(model: nn.Module, out: List[Entry], conv: str, bn: str,
           base: Tuple[str, ...], j: int) -> None:
-    """A conv (with its bias where the port's has one) and its BN: the JAX
-    ``Conv_j``/``BatchNorm_j`` under ``base``."""
-    node = base + (f"Conv_{j}", "Conv_0")
-    out.append(Entry("params", node + ("kernel",), f"{conv}.weight", CONV))
-    if model.get_submodule(conv).bias is not None:
-        out.append(Entry("params", node + ("bias",), f"{conv}.bias",
-                         IDENTITY))
+    """A conv and its BN: the JAX ``Conv_j``/``BatchNorm_j`` under
+    ``base``."""
+    _conv(model, out, conv, base + (f"Conv_{j}",))
     b = base + (f"BatchNorm_{j}",)
     out += [
         Entry("params", b + ("scale",), f"{bn}.weight", IDENTITY),
@@ -159,11 +195,7 @@ def _dense(out: List[Entry], key: str, node: Tuple[str, ...],
 
 def _lenet(model: LeNet, out: List[Entry]) -> None:
     for i in range(2):
-        node = (f"Conv_{i}", "Conv_0")
-        out.append(Entry("params", node + ("kernel",), f"conv{i + 1}.weight",
-                         CONV))
-        out.append(Entry("params", node + ("bias",), f"conv{i + 1}.bias",
-                         IDENTITY))
+        _conv(model, out, f"conv{i + 1}", (f"Conv_{i}",))
     flatten = LINEAR_FLATTEN["LeNet"]
     for i in range(3):
         _dense(out, f"fc{i + 1}", (f"Dense_{i}", "Dense_0"),
@@ -218,6 +250,87 @@ def _dla(model: SimpleDLA, out: List[Entry]) -> None:
         tree(f"layer{k + 3}", t, (f"Tree_{k}",))
 
 
+def _paper_dla(model: DLA, out: List[Entry]) -> None:
+    """The paper DLA's stems and trees, by name."""
+    for j, stem in enumerate(("base", "layer1", "layer2")):
+        _site(model, out, f"{stem}.0", f"{stem}.1", (), j)
+
+    def tree(prefix, t, base):
+        children = ([("prev_root", t.prev_root)] if t.level > 1 else []) \
+            + [(f"level_{i}", sub) for i, sub in
+               zip(reversed(range(1, t.level)), t.subtrees())] \
+            + [("left_node", t.left_node), ("right_node", t.right_node)]
+        k = 0
+        for name, child in children:
+            if name.startswith("level_"):
+                tree(f"{prefix}.{name}", child, base + ("Tree_0",))
+            else:
+                _block(model, out, f"{prefix}.{name}", child,
+                       base + (f"BasicBlock_{k}",))
+                k += 1
+        _site(model, out, f"{prefix}.root.conv", f"{prefix}.root.bn",
+              base + ("Root_0",), 0)
+
+    for k, t in enumerate(model.trees()):
+        tree(f"layer{k + 3}", t, (f"Tree_{k}",))
+
+
+def _mobilenetv2(model: MobileNetV2, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    for k, blk in enumerate(model.layers):
+        p, base = f"layers.{k}", (f"InvertedResidual_{k}",)
+        for j in range(3):
+            _site(model, out, f"{p}.conv{j + 1}", f"{p}.bn{j + 1}", base, j)
+        if len(blk.shortcut):
+            _site(model, out, f"{p}.shortcut.0", f"{p}.shortcut.1", base, 3)
+    _site(model, out, "conv2", "bn2", (), 1)
+
+
+def _shufflenetv2(model: ShuffleNetV2, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    counts = {"DownBlock": 0, "BasicBlock": 0}
+    for s in range(1, 4):
+        for i, blk in enumerate(getattr(model, f"layer{s}")):
+            kind = "DownBlock" if isinstance(blk, DownBlock) else "BasicBlock"
+            base = (f"{kind}_{counts[kind]}",)
+            counts[kind] += 1
+            for j in range(5 if kind == "DownBlock" else 3):
+                _site(model, out, f"layer{s}.{i}.conv{j + 1}",
+                      f"layer{s}.{i}.bn{j + 1}", base, j)
+    _site(model, out, "conv2", "bn2", (), 1)
+
+
+def _pnasnet(model: PNASNet, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    kind = model.cell_type.__name__
+    prefixes = [f"layer1.{i}" for i in range(len(model.layer1))] + [
+        "layer2"] + [f"layer3.{i}" for i in range(len(model.layer3))] + [
+        "layer4"] + [f"layer5.{i}" for i in range(len(model.layer5))]
+    for k, (p, cell) in enumerate(zip(prefixes, model.cells())):
+        base = (f"{kind}_{k}",)
+        seps = [n for n in ("sep_conv1", "sep_conv2", "sep_conv3")
+                if hasattr(cell, n)]
+        for j, sep in enumerate(seps):
+            _site(model, out, f"{p}.{sep}.conv1", f"{p}.{sep}.bn1",
+                  base + (f"SepConv_{j}",), 0)
+        j = 0
+        for c, b in (("conv1", "bn1"), ("conv2", "bn2")):
+            if hasattr(cell, c):
+                _site(model, out, f"{p}.{c}", f"{p}.{b}", base, j)
+                j += 1
+
+
+def _efficientnet(model: EfficientNet, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    for k in range(len(model.layers)):
+        p, base = f"layers.{k}", (f"MBConv_{k}",)
+        for j in range(3):
+            _site(model, out, f"{p}.conv{j + 1}", f"{p}.bn{j + 1}", base, j)
+        for j in range(2):
+            _conv(model, out, f"{p}.se.se{j + 1}", base + ("SE_0",
+                                                          f"Conv_{j}"))
+
+
 def _resnet(model: nn.Module, out: List[Entry]) -> None:
     _site(model, out, "conv1", "bn1", (), 0)
     blocks = model.blocks()
@@ -243,6 +356,16 @@ def correspondence(model: nn.Module) -> List[Entry]:
         _mobilenet(model, out)
     elif isinstance(model, SimpleDLA):
         _dla(model, out)
+    elif isinstance(model, DLA):
+        _paper_dla(model, out)
+    elif isinstance(model, MobileNetV2):
+        _mobilenetv2(model, out)
+    elif isinstance(model, ShuffleNetV2):
+        _shufflenetv2(model, out)
+    elif isinstance(model, PNASNet):
+        _pnasnet(model, out)
+    elif isinstance(model, EfficientNet):
+        _efficientnet(model, out)
     else:
         _resnet(model, out)
     _dense(out, "linear", ("Dense_0", "Dense_0"))

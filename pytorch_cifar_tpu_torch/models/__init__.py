@@ -1,5 +1,6 @@
 """Model registry of the port (LeNet, the ResNet family, GoogLeNet,
-MobileNet and SimpleDLA so far).
+MobileNet, SimpleDLA, DLA, MobileNetV2, EfficientNetB0, ShuffleNetV2 and
+PNASNet so far).
 
 Counterpart of ``pytorch_cifar_tpu/models/__init__.py``: models are named
 factories selected by ``--model``. Factories take ``num_classes`` and return
@@ -17,10 +18,14 @@ from pytorch_cifar_tpu_torch.models.common import (  # noqa: F401
     count_params,
     reset_parameters,
 )
+from pytorch_cifar_tpu_torch.models.dla import DLA
 from pytorch_cifar_tpu_torch.models.dla_simple import SimpleDLA
+from pytorch_cifar_tpu_torch.models.efficientnet import EfficientNetB0
 from pytorch_cifar_tpu_torch.models.googlenet import GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
+from pytorch_cifar_tpu_torch.models.mobilenetv2 import MobileNetV2
+from pytorch_cifar_tpu_torch.models.pnasnet import PNASNetA, PNASNetB
 from pytorch_cifar_tpu_torch.models.resnet import (
     ResNet18,
     ResNet34,
@@ -28,29 +33,42 @@ from pytorch_cifar_tpu_torch.models.resnet import (
     ResNet101,
     ResNet152,
 )
+from pytorch_cifar_tpu_torch.models.shufflenetv2 import (
+    ShuffleNetV2_1,
+    ShuffleNetV2_2,
+    ShuffleNetV2_05,
+    ShuffleNetV2_15,
+)
 
 MODEL_REGISTRY: Dict[str, Callable[..., nn.Module]] = {
+    "DLA": DLA,
+    "EfficientNetB0": EfficientNetB0,
     "GoogLeNet": GoogLeNet,
     "LeNet": LeNet,
     "MobileNet": MobileNet,
+    "MobileNetV2": MobileNetV2,
+    "PNASNetA": PNASNetA,
+    "PNASNetB": PNASNetB,
     "ResNet18": ResNet18,
     "ResNet34": ResNet34,
     "ResNet50": ResNet50,
     "ResNet101": ResNet101,
     "ResNet152": ResNet152,
+    "ShuffleNetV2_0.5": ShuffleNetV2_05,
+    "ShuffleNetV2_1": ShuffleNetV2_1,
+    "ShuffleNetV2_1.5": ShuffleNetV2_15,
+    "ShuffleNetV2_2": ShuffleNetV2_2,
     "SimpleDLA": SimpleDLA,
 }
 
 # the JAX package's other registry models, which later slices port
 NOT_PORTED = (
-    "DLA", "DPN26", "DPN92", "DenseNet121", "DenseNet161", "DenseNet169",
-    "DenseNet201", "DenseNetCifar", "EfficientNetB0", "MobileNetV2", "PNASNetA", "PNASNetB", "PreActResNet101",
-    "PreActResNet152", "PreActResNet18", "PreActResNet34", "PreActResNet50",
-    "RegNetX_200MF", "RegNetX_400MF", "RegNetY_400MF", "ResNeXt29_2x64d",
-    "ResNeXt29_32x4d", "ResNeXt29_4x64d", "ResNeXt29_8x64d", "SENet18",
-    "ShuffleNetG2", "ShuffleNetG3", "ShuffleNetV2_0.5", "ShuffleNetV2_1",
-    "ShuffleNetV2_1.5", "ShuffleNetV2_2", "VGG11", "VGG13",
-    "VGG16", "VGG19",
+    "DPN26", "DPN92", "DenseNet121", "DenseNet161", "DenseNet169",
+    "DenseNet201", "DenseNetCifar", "PreActResNet101", "PreActResNet152",
+    "PreActResNet18", "PreActResNet34", "PreActResNet50", "RegNetX_200MF",
+    "RegNetX_400MF", "RegNetY_400MF", "ResNeXt29_2x64d", "ResNeXt29_32x4d",
+    "ResNeXt29_4x64d", "ResNeXt29_8x64d", "SENet18", "ShuffleNetG2",
+    "ShuffleNetG3", "VGG11", "VGG13", "VGG16", "VGG19",
 )
 
 

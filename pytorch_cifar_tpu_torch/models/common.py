@@ -1,5 +1,4 @@
-"""Shared building blocks for the port's models (what LeNet, ResNet,
-GoogLeNet and MobileNet need).
+"""Shared building blocks for the port's models.
 
 Counterpart of ``pytorch_cifar_tpu/models/common.py``. The layers subclass
 PyTorch's own, so ``state_dict()`` keeps the reference layout:
@@ -20,6 +19,11 @@ Activations are NCHW-logical tensors in ``torch.channels_last`` memory, so
 ``x.permute(0, 2, 3, 1)`` is a zero-copy NHWC view for the NHWC kernels:
 the fused conv3x3+BN+ReLU (eval), the 3x3 / stride 1 max pool (train and
 eval) and the depthwise stencil (eval).
+
+The models' random draws (EfficientNet's drop-connect and dropout) come
+from the draw function the train step sets with :func:`stochastic_draws`,
+never from the global RNG; :func:`keep_mask` asks it, and
+:func:`drop_connect` applies a mask it is given.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from pytorch_cifar_tpu_torch.ops.depthwise_stencil import (
 from pytorch_cifar_tpu_torch.ops.max_pool import max_pool3x3_s1
 
 BN_EPS = 1e-5
+RELU, SWISH = "relu", "swish"  # the activations a folded site applies
 
 
 class Conv2d(nn.Conv2d):
@@ -62,6 +67,73 @@ class Linear(nn.Linear):
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+def swish(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, written as the JAX EfficientNet writes it."""
+    return x * torch.sigmoid(x)
+
+
+def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
+    """``act`` (None, :data:`RELU` or :data:`SWISH`) applied to ``x``."""
+    if act is None:
+        return x
+    if act == RELU:
+        return torch.relu(x)
+    if act == SWISH:
+        return swish(x)
+    raise ValueError(f"unknown activation {act!r}")
+
+
+def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """ShuffleNet's channel shuffle of an NCHW activation: C -> (g, C/g)
+    -> transposed -> C, the reference's view/permute (JAX
+    ``models/common.py:508``). Computed on the NHWC view, so a
+    channels_last input gives a channels_last output (one copy)."""
+    n, c, h, w = x.shape
+    y = x.permute(0, 2, 3, 1).reshape(n, h, w, groups, c // groups)
+    return y.transpose(3, 4).reshape(n, h, w, c).permute(0, 3, 1, 2)
+
+
+# The models' random draws: fn(shape, keep) -> bool mask, True with
+# probability ``keep``. The train step sets it (TrainState.model_draws);
+# a train-mode forward that draws without one raises.
+_STOCHASTIC: contextvars.ContextVar = contextvars.ContextVar(
+    "stochastic_draws", default=None
+)
+
+
+@contextlib.contextmanager
+def stochastic_draws(fn: Optional[Callable]):
+    """Within the block, :func:`keep_mask` draws with ``fn(shape, keep)``
+    (the JAX model's ``"stochastic"`` rng stream)."""
+    token = _STOCHASTIC.set(fn)
+    try:
+        yield
+    finally:
+        _STOCHASTIC.reset(token)
+
+
+def keep_mask(shape: Tuple[int, ...], keep: float) -> torch.Tensor:
+    """A bool mask of ``shape``, True with probability ``keep``, from the
+    draw function :func:`stochastic_draws` set."""
+    fn = _STOCHASTIC.get()
+    if fn is None:
+        raise RuntimeError(
+            "a train-mode forward draws random masks: run it under "
+            "models.common.stochastic_draws (the train step does)"
+        )
+    return fn(tuple(shape), keep)
+
+
+def drop_connect(x: torch.Tensor, mask: torch.Tensor,
+                 rate: float) -> torch.Tensor:
+    """``where(mask, x / (1 - rate), 0)`` in ``x``'s dtype: with a
+    per-sample ``mask`` ``(n, 1, 1, 1)`` stochastic depth (JAX
+    ``efficientnet.py:38``), with an elementwise one flax ``nn.Dropout``'s
+    arithmetic."""
+    keep = 1.0 - rate
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
 
 
 # Pluggable batch-moments implementation: fn(x_nhwc) -> (E[x], E[x^2]) in
@@ -213,17 +285,18 @@ def fold_bn(bn: nn.BatchNorm2d) -> Tuple[torch.Tensor, torch.Tensor]:
 
 @dataclass(frozen=True)
 class FoldedConvBN:
-    """One eval-mode conv -> BN [-> ReLU] site with the BN (and the conv's
-    bias) folded, its weights already in the layout and dtype the forward
-    consumes. Three kinds of site:
+    """One eval-mode conv -> BN [-> activation] site with the BN (and the
+    conv's bias) folded, its weights already in the layout and dtype the
+    forward consumes; ``act`` is None, :data:`RELU` or :data:`SWISH`.
+    Three kinds of site:
 
     - ``fused`` (dense 3x3, stride 1, followed by ReLU) runs the NHWC
       kernel ``conv3x3_bn_relu``: ``weight`` is HWIO in the compute dtype,
       ``mul``/``add`` fp32 ``(c,)``.
     - ``stencil`` (depthwise k x k with k in 3, 5, 7, stride 1, SAME) runs
       the NHWC kernel ``depthwise_stencil``: ``weight`` is ``(k, k, c)`` in
-      the compute dtype; the affine and the ReLU follow in the compute
-      dtype, which is where the JAX model rounds.
+      the compute dtype; the affine and the activation follow in the
+      compute dtype, which is where the JAX model rounds.
     - every other site runs ``F.conv2d(groups=groups)``: ``weight`` is OIHW
       channels_last in the compute dtype.
 
@@ -235,7 +308,7 @@ class FoldedConvBN:
     add: torch.Tensor
     stride: int
     padding: int
-    relu: bool
+    act: Optional[str]
     fused: bool
     groups: int = 1
     stencil: bool = False
@@ -243,18 +316,21 @@ class FoldedConvBN:
 
 @torch.no_grad()
 def fold_conv_bn(
-    conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype, relu: bool
+    conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+    act: Optional[str] = None,
 ) -> FoldedConvBN:
-    """Fold one site for ``dtype`` compute (once per weight set). A conv
-    bias goes into the affine: ``bn((x * w) + b) = (x * w) * mul + (bn.bias
-    + (b - running_mean) * mul)``."""
+    """Fold one site for ``dtype`` compute (once per weight set), ``act``
+    after it. A conv bias goes into the affine: ``bn((x * w) + b) = (x * w)
+    * mul + (bn.bias + (b - running_mean) * mul)``. Only a ReLU site can be
+    fused (the kernel applies ReLU); a depthwise conv with a channel
+    multiplier (``out != in``) is no stencil site."""
     mul, add = fold_bn(bn)
     if conv.bias is not None:
         add = add + conv.bias.float() * mul
     stride, padding, groups = conv.stride[0], conv.padding[0], conv.groups
     k = conv.kernel_size[0]
     same = conv.kernel_size == (k, k) and padding == k // 2 and stride == 1
-    fused = relu and groups == 1 and k == 3 and same
+    fused = act == RELU and groups == 1 and k == 3 and same
     stencil = (
         groups > 1 and groups == conv.in_channels == conv.out_channels
         and k in KERNEL_SIZES and same
@@ -270,7 +346,7 @@ def fold_conv_bn(
             )
         mul = mul.to(dtype).view(1, -1, 1, 1)
         add = add.to(dtype).view(1, -1, 1, 1)
-    return FoldedConvBN(weight, mul, add, stride, padding, relu, fused,
+    return FoldedConvBN(weight, mul, add, stride, padding, act, fused,
                         groups, stencil)
 
 
@@ -282,22 +358,24 @@ def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
         y = conv3x3_bn_relu(x.permute(0, 2, 3, 1), f.weight, f.mul, f.add)
         return y.permute(0, 3, 1, 2)
     if f.stencil:
+        # a conv of a channel slice (ShuffleNetV2) need not come out dense
+        x = x.contiguous(memory_format=torch.channels_last)
         y = depthwise_stencil(x.permute(0, 2, 3, 1), f.weight)
         y = y.permute(0, 3, 1, 2)
     else:
         y = F.conv2d(x, f.weight, stride=f.stride, padding=f.padding,
                      groups=f.groups)
-    y = y * f.mul + f.add
-    return torch.relu(y) if f.relu else y
+    return activate(y * f.mul + f.add, f.act)
 
 
 def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
              padding: int = 0) -> torch.Tensor:
     """Max pool of a channels_last NCHW activation (``stride`` defaults to
     ``window``, as in the JAX ``max_pool``). The 3 / 1 / 1 pool of the
-    Inception cells goes through ``ops.max_pool.max_pool3x3_s1`` (forward
-    and backward kernels on a CUDA tensor); every other pool, such as
-    GoogLeNet's 3 / 2 / 1 stage transitions, through ``F.max_pool2d``."""
+    Inception cells and of PNASNet's stride-1 cells goes through
+    ``ops.max_pool.max_pool3x3_s1`` (forward and backward kernels on a CUDA
+    tensor); every other pool, such as GoogLeNet's 3 / 2 / 1 stage
+    transitions and PNASNet's stride-2 cells, through ``F.max_pool2d``."""
     stride = stride or window
     if (window, stride, padding) == (3, 1, 1):
         x = x.contiguous(memory_format=torch.channels_last)

@@ -41,6 +41,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
+    RELU,
     FoldedConvBN,
     Linear,
     avg_pool,
@@ -73,7 +74,7 @@ class Root(nn.Module):
         return F.relu(self.bn(self.conv(torch.cat(xs, dim=1))))
 
     def fold(self, dtype) -> FoldedConvBN:
-        return fold_conv_bn(self.conv, self.bn, dtype, relu=True)
+        return fold_conv_bn(self.conv, self.bn, dtype, act=RELU)
 
 
 class Tree(nn.Module):
@@ -150,7 +151,7 @@ class SimpleDLA(nn.Module):
         :meth:`.resnet.ResNet.fold`)."""
         with torch.no_grad():
             return {
-                "stems": [fold_conv_bn(s[0], s[1], dtype, relu=True)
+                "stems": [fold_conv_bn(s[0], s[1], dtype, act=RELU)
                           for s in self.stems()],
                 "trees": [t.fold(dtype) for t in self.trees()],
                 "linear": (

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
+    RELU,
     FoldedConvBN,
     Linear,
     avg_pool,
@@ -136,7 +137,7 @@ class Inception(nn.Module):
         """``heads``: the three 1x1 sites as one folded conv, with the
         widths to split its output by; ``b2``/``b3``: the 3x3 sites that
         follow (fused); ``b4``: the 1x1 after the pool."""
-        heads = [fold_conv_bn(c, bn, dtype, relu=True)
+        heads = [fold_conv_bn(c, bn, dtype, act=RELU)
                  for c, bn in self._heads()]
         merged = FoldedConvBN(
             torch.cat([f.weight for f in heads]).contiguous(
@@ -144,15 +145,15 @@ class Inception(nn.Module):
             ),
             torch.cat([f.mul for f in heads], dim=1),
             torch.cat([f.add for f in heads], dim=1),
-            stride=1, padding=0, relu=True, fused=False,
+            stride=1, padding=0, act=RELU, fused=False,
         )
         return {
             "heads": merged,
             "widths": [f.weight.shape[0] for f in heads],
-            "b2": [fold_conv_bn(self.b2[3], self.b2[4], dtype, relu=True)],
-            "b3": [fold_conv_bn(self.b3[3], self.b3[4], dtype, relu=True),
-                   fold_conv_bn(self.b3[6], self.b3[7], dtype, relu=True)],
-            "b4": fold_conv_bn(self.b4[1], self.b4[2], dtype, relu=True),
+            "b2": [fold_conv_bn(self.b2[3], self.b2[4], dtype, act=RELU)],
+            "b3": [fold_conv_bn(self.b3[3], self.b3[4], dtype, act=RELU),
+                   fold_conv_bn(self.b3[6], self.b3[7], dtype, act=RELU)],
+            "b4": fold_conv_bn(self.b4[1], self.b4[2], dtype, act=RELU),
         }
 
 
@@ -203,7 +204,7 @@ class GoogLeNet(nn.Module):
         with torch.no_grad():
             return {
                 "stem": fold_conv_bn(self.pre_layers[0], self.pre_layers[1],
-                                     dtype, relu=True),
+                                     dtype, act=RELU),
                 "cells": [None if c is None else c.fold(dtype)
                           for c in self.cells()],
                 "linear": (

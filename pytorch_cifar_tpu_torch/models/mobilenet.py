@@ -33,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
+    RELU,
     FoldedConvBN,
     Linear,
     avg_pool,
@@ -64,8 +65,8 @@ class DepthwiseSeparable(nn.Module):
 
     def fold(self, dtype) -> List[FoldedConvBN]:
         return [
-            fold_conv_bn(self.conv1, self.bn1, dtype, relu=True),
-            fold_conv_bn(self.conv2, self.bn2, dtype, relu=True),
+            fold_conv_bn(self.conv1, self.bn1, dtype, act=RELU),
+            fold_conv_bn(self.conv2, self.bn2, dtype, act=RELU),
         ]
 
 
@@ -97,7 +98,7 @@ class MobileNet(nn.Module):
         ``(k, k, c)`` here, once per weight set."""
         with torch.no_grad():
             return {
-                "stem": fold_conv_bn(self.conv1, self.bn1, dtype, relu=True),
+                "stem": fold_conv_bn(self.conv1, self.bn1, dtype, act=RELU),
                 "blocks": [b.fold(dtype) for b in self.layers],
                 "linear": (
                     self.linear.weight.to(dtype),

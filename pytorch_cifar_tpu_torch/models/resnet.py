@@ -34,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
+    RELU,
     FoldedConvBN,
     Linear,
     avg_pool,
@@ -47,7 +48,7 @@ from pytorch_cifar_tpu_torch.models.common import (
 def _fold_shortcut(shortcut: nn.Sequential, dtype) -> Optional[FoldedConvBN]:
     if len(shortcut) == 0:
         return None
-    return fold_conv_bn(shortcut[0], shortcut[1], dtype, relu=False)
+    return fold_conv_bn(shortcut[0], shortcut[1], dtype)
 
 
 class BasicBlock(nn.Module):
@@ -76,8 +77,8 @@ class BasicBlock(nn.Module):
     def fold(self, dtype) -> Dict[str, Optional[FoldedConvBN]]:
         return {
             "convs": [
-                fold_conv_bn(self.conv1, self.bn1, dtype, relu=True),
-                fold_conv_bn(self.conv2, self.bn2, dtype, relu=False),
+                fold_conv_bn(self.conv1, self.bn1, dtype, act=RELU),
+                fold_conv_bn(self.conv2, self.bn2, dtype),
             ],
             "shortcut": _fold_shortcut(self.shortcut, dtype),
         }
@@ -112,9 +113,9 @@ class Bottleneck(nn.Module):
     def fold(self, dtype) -> Dict[str, Optional[FoldedConvBN]]:
         return {
             "convs": [
-                fold_conv_bn(self.conv1, self.bn1, dtype, relu=True),
-                fold_conv_bn(self.conv2, self.bn2, dtype, relu=True),
-                fold_conv_bn(self.conv3, self.bn3, dtype, relu=False),
+                fold_conv_bn(self.conv1, self.bn1, dtype, act=RELU),
+                fold_conv_bn(self.conv2, self.bn2, dtype, act=RELU),
+                fold_conv_bn(self.conv3, self.bn3, dtype),
             ],
             "shortcut": _fold_shortcut(self.shortcut, dtype),
         }
@@ -173,7 +174,7 @@ class ResNet(nn.Module):
         once per weight set; :meth:`folded_forward` only reads it."""
         with torch.no_grad():
             return {
-                "stem": fold_conv_bn(self.conv1, self.bn1, dtype, relu=True),
+                "stem": fold_conv_bn(self.conv1, self.bn1, dtype, act=RELU),
                 "blocks": [b.fold(dtype) for b in self.blocks()],
                 "linear": (
                     self.linear.weight.to(dtype),

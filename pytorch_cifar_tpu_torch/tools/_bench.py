@@ -86,25 +86,50 @@ STENCIL_SHAPES = [(128, 32, 32, 32, 3, 1), (128, 16, 16, 128, 3, 1),
                   (2, 8, 8, 130, 7, 0)]
 
 
-def fused_sites(name: str) -> list:
-    """Any model's fused conv3x3+BN+ReLU sites, one row per distinct (h, w,
-    cin, cout) in forward order with its launches per forward, recorded
-    from one folded forward of one image on the CPU."""
+def _recorded(name: str, op: str, key) -> dict:
+    """``{key(*args): calls}`` of the ``models.common`` op ``op`` in one
+    folded forward of ``name`` on one image on the CPU."""
     from pytorch_cifar_tpu_torch.models import common, create_model
 
     count: dict = {}
-    real = common.conv3x3_bn_relu
+    real = getattr(common, op)
 
-    def record(x, w, scale, bias):
-        shape = (x.shape[1], x.shape[2], w.shape[2], w.shape[3])
-        count[shape] = count.get(shape, 0) + 1
-        return real(x, w, scale, bias)
+    def record(*args):
+        k = key(*args)
+        count[k] = count.get(k, 0) + 1
+        return real(*args)
 
-    common.conv3x3_bn_relu = record
+    setattr(common, op, record)
     try:
         with torch.no_grad():
             create_model(name).eval()(torch.zeros(1, 3, 32, 32))
     finally:
-        common.conv3x3_bn_relu = real
+        setattr(common, op, real)
+    return count
+
+
+def fused_sites(name: str) -> list:
+    """Any model's fused conv3x3+BN+ReLU sites, one row per distinct (h, w,
+    cin, cout) in forward order with its launches per forward, recorded
+    from one folded forward of one image on the CPU."""
+    count = _recorded(name, "conv3x3_bn_relu", lambda x, w, scale, bias: (
+        x.shape[1], x.shape[2], w.shape[2], w.shape[3]))
     return [(f"{h}x{w}x{cin}->{cout}", h, w, cin, cout, k)
             for (h, w, cin, cout), k in count.items()]
+
+
+def stencil_sites(name: str) -> list:
+    """Any model's depthwise stencil sites: ``(h, w, c, k, launches per
+    forward)`` per distinct shape, in forward order (as
+    :func:`fused_sites`)."""
+    count = _recorded(name, "depthwise_stencil", lambda x, w: (
+        x.shape[1], x.shape[2], x.shape[3], w.shape[0]))
+    return [(*shape, k) for shape, k in count.items()]
+
+
+def pool_sites(name: str) -> list:
+    """Any model's 3x3 / stride 1 max-pool sites: ``(h, w, c, launches per
+    forward)`` per distinct shape, in forward order."""
+    count = _recorded(name, "max_pool3x3_s1",
+                      lambda x: (x.shape[1], x.shape[2], x.shape[3]))
+    return [(*shape, k) for shape, k in count.items()]

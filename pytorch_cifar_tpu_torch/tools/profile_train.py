@@ -3,7 +3,11 @@
     python -m pytorch_cifar_tpu_torch.tools.profile_train [--model GoogLeNet]
 
 Builds a seeded train state of ``--model`` (ResNet-18 unless named; batch
-512, bf16 compute, crop and flip on) and times ``ITERS`` warm steps on one fixed batch with no
+512, bf16 compute, crop and flip on). Its first step, the cold one that
+pays every first call (cuDNN's plans and kernel loads for each new shape),
+runs under ``torch.profiler``'s CPU activity: a first line gives its wall,
+the second step's, and its five costliest host ops by self time. Then it
+times ``ITERS`` warm steps on one fixed batch with no
 profiler attached, with BN moments stock and under
 ``bn_moments_impl(fused_moments)`` (kernel K2) in turns (stock, fused,
 fused, stock; the wall per step is the faster of each mode's two runs,
@@ -68,6 +72,25 @@ def group_of(name: str) -> str:
     return "elementwise_other"
 
 
+def cold_steps(state, step, batch) -> dict:
+    """The first two steps' walls, the first under the CPU profiler, and
+    the first's five costliest host ops by self time."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        t = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t
+    t = time.perf_counter()
+    step(state, batch)
+    torch.cuda.synchronize()
+    second = time.perf_counter() - t
+    top = sorted(prof.key_averages(),
+                 key=lambda e: -e.self_cpu_time_total)[:5]
+    return {"cold_step_s": first, "second_step_s": second,
+            "cold_top_host_ops_ms": [[e.key[:90], e.self_cpu_time_total / 1e3]
+                                     for e in top]}
+
+
 def wall_ms(state, step, batch) -> tuple:
     """(wall ms per step over ``ITERS`` warm steps, each step's host issue
     ms), no profiler attached."""
@@ -129,6 +152,9 @@ def main(argv=None) -> int:
         cosine_epoch_schedule(0.1, 200, STEPS_PER_EPOCH), device="cuda",
     )
     step = make_train_step(compute_dtype=torch.bfloat16, device="cuda")
+    print(json.dumps({"card": smi, "model": args.model,
+                      **cold_steps(state, step, (images, labels))}),
+          flush=True)
     impls = {"stock": None, "fused_moments": fused_moments}
     # walls first, in turns, before any profiler capture: a finished
     # capture can leave the host's launches slower for the rest of the run

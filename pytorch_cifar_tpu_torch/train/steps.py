@@ -3,8 +3,10 @@
 
 A train step is augmentation (on the device), forward, the masked
 cross-entropy, backward and the SGD update, with the step's metrics left
-on the device. The epoch program gathers the whole epoch's rows in one
-pass (kernel K1 on a CUDA tensor when ``dma_gather`` is on), labels the
+on the device. The forward draws its own random masks (EfficientNet's)
+from the state's model generator, seeded apart from the augmentation's.
+The epoch program gathers the whole epoch's rows in one pass (kernel K1
+on a CUDA tensor when ``dma_gather`` is on), labels the
 wrap-padded tail -1, runs the steps on contiguous slices and sums their
 metrics on the device: nothing inside an epoch waits for the host, and the
 one sync is the caller's fetch of the totals.
@@ -37,7 +39,10 @@ from pytorch_cifar_tpu_torch.data.augment import (
     augment_batch,
     normalize,
 )
-from pytorch_cifar_tpu_torch.models.common import sync_batchnorm
+from pytorch_cifar_tpu_torch.models.common import (
+    stochastic_draws,
+    sync_batchnorm,
+)
 from pytorch_cifar_tpu_torch.ops.dma_gather import dma_row_gather
 from pytorch_cifar_tpu_torch.parallel.dp import (
     all_reduce_mean_,
@@ -171,7 +176,8 @@ def make_train_step(
             x = normalize(images, mean, std, dtype=compute_dtype)
         model = state.model
         model.train()
-        with sync_batchnorm(axis_name if sync_bn else None):
+        with sync_batchnorm(axis_name if sync_bn else None), \
+                stochastic_draws(state.model_draws(shard)):
             logits = model(x.permute(0, 3, 1, 2))  # NCHW view, channels_last
         loss_sum, n_valid = cross_entropy_sums(logits, labels)
         if axis_name is None:
@@ -185,7 +191,14 @@ def make_train_step(
             loss = loss_sum * world_size() / metrics["count"].clamp(min=1)
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
+        params = list(model.parameters())
+        for p in params:
+            if p.grad is None:
+                # a parameter the forward never reads (EfficientNet's dead
+                # expand conv) has a zero gradient in the JAX step, so
+                # decay and momentum move it there: give it one here too
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in params]
         if axis_name is None:
             metrics = _metrics(logits.detach(), labels)
             bad = ~torch.isfinite(loss.detach())

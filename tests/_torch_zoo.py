@@ -1,8 +1,11 @@
 """Shared pieces of the zoo's test files (``tests/test_torch_zoo_*.py``):
 seeded JAX trees and inputs, the reference's ``state_dict`` key order, the
-JAX call order of SimpleDLA's trees, the JAX and port forwards and train
-steps they compare, and one narrow Inception cell of both packages.
+JAX call order of the DLA trees and of PNASNet's stride-2 B cells, the JAX
+and port forwards and train steps they compare, and one narrow Inception
+cell of both packages.
 """
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -24,7 +27,9 @@ from pytorch_cifar_tpu_torch.train import optim, steps
 from pytorch_cifar_tpu_torch.train.state import create_train_state
 
 
-ZOO = ["GoogLeNet", "MobileNet", "SimpleDLA"]
+ZOO = ["GoogLeNet", "MobileNet", "SimpleDLA", "DLA", "MobileNetV2",
+       "EfficientNetB0", "PNASNetA", "PNASNetB", "ShuffleNetV2_0.5",
+       "ShuffleNetV2_1", "ShuffleNetV2_1.5", "ShuffleNetV2_2"]
 
 
 BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
@@ -104,8 +109,89 @@ def tree_keys(p, level, shortcut):
         + tree_keys(f"{p}.right_tree", level - 1, False)
 
 
+def paper_tree_keys(p, level, shortcut):
+    """A reference paper-DLA Tree: its root, then (level 2) ``level_1`` and
+    ``prev_root``, then the left and right nodes."""
+    keys = [f"{p}.root.conv.weight", *bn_keys(f"{p}.root.bn")]
+    if level == 1:
+        return keys + block_keys(f"{p}.left_node", shortcut) \
+            + block_keys(f"{p}.right_node", False)
+    return keys + paper_tree_keys(f"{p}.level_1", 1, shortcut) \
+        + block_keys(f"{p}.prev_root", shortcut) \
+        + block_keys(f"{p}.left_node", False) \
+        + block_keys(f"{p}.right_node", False)
+
+
+def convbn_keys(p, conv="conv1", bn="bn1"):
+    return [f"{p}.{conv}.weight", *bn_keys(f"{p}.{bn}")]
+
+
+def _zoo_keys(name):
+    """The depthwise families' reference keys."""
+    from pytorch_cifar_tpu_torch.models import efficientnet as E
+    from pytorch_cifar_tpu_torch.models import mobilenetv2 as M2
+    from pytorch_cifar_tpu_torch.models import shufflenetv2 as S2
+
+    keys = ["conv1.weight", *bn_keys("bn1")]
+    if name == "MobileNetV2":
+        cin, i = 32, 0
+        for _, cout, n, stride in M2.CFG:
+            for s in [stride] + [1] * (n - 1):
+                p = f"layers.{i}"
+                for j in (1, 2, 3):
+                    keys += convbn_keys(p, f"conv{j}", f"bn{j}")
+                if s == 1 and cin != cout:
+                    keys += [f"{p}.shortcut.0.weight",
+                             *bn_keys(f"{p}.shortcut.1")]
+                cin, i = cout, i + 1
+        keys += ["conv2.weight", *bn_keys("bn2")]
+    elif name == "EfficientNetB0":
+        for i in range(sum(E.B0["num_blocks"])):
+            p = f"layers.{i}"
+            keys += convbn_keys(p) + convbn_keys(p, "conv2", "bn2")
+            keys += [f"{p}.se.se1.weight", f"{p}.se.se1.bias",
+                     f"{p}.se.se2.weight", f"{p}.se.se2.bias"]
+            keys += convbn_keys(p, "conv3", "bn3")
+    elif name.startswith("ShuffleNetV2"):
+        size = float(name.split("_")[1])
+        _, blocks = S2.CONFIGS[int(size) if size.is_integer() else size]
+        for s, n in enumerate(blocks):
+            for j in range(1, 6):
+                keys += convbn_keys(f"layer{s + 1}.0", f"conv{j}", f"bn{j}")
+            for i in range(1, n + 1):
+                for j in range(1, 4):
+                    keys += convbn_keys(f"layer{s + 1}.{i}", f"conv{j}",
+                                        f"bn{j}")
+        keys += ["conv2.weight", *bn_keys("bn2")]
+    else:  # PNASNet
+        cells = [f"layer1.{i}" for i in range(6)] + ["layer2"] + [
+            f"layer3.{i}" for i in range(6)] + ["layer4"] + [
+            f"layer5.{i}" for i in range(6)]
+        for p in cells:
+            seps = 1 if name == "PNASNetA" else 3
+            for j in range(1, seps + 1):
+                keys += convbn_keys(f"{p}.sep_conv{j}")
+            if "." not in p:  # a stride-2 cell
+                keys += convbn_keys(p)
+            if name == "PNASNetB":
+                keys += convbn_keys(p, "conv2", "bn2")
+    return keys + ["linear.weight", "linear.bias"]
+
+
 def reference_keys(name):
     """state_dict keys in the reference's definition order."""
+    if name in ZOO[3:]:
+        if name == "DLA":
+            keys = []
+            for stem in ("base", "layer1", "layer2"):
+                keys += [f"{stem}.0.weight", *bn_keys(f"{stem}.1")]
+            cin = STEMS[-1]
+            for k, (cout, level, stride) in enumerate(TREES):
+                keys += paper_tree_keys(f"layer{k + 3}", level,
+                                        stride != 1 or cin != cout)
+                cin = cout
+            return keys + ["linear.weight", "linear.bias"]
+        return _zoo_keys(name)
     if name == "SimpleDLA":
         keys = []
         for stem in ("base", "layer1", "layer2"):
@@ -132,13 +218,38 @@ def reference_keys(name):
     return keys + ["linear.weight", "linear.bias"]
 
 
+def _move_before(keys, moved, anchor):
+    """``keys`` with those starting with ``moved`` placed just before the
+    first starting with ``anchor``."""
+    mk = [k for k in keys if k.startswith(moved)]
+    rest = [k for k in keys if not k.startswith(moved)]
+    i = next(i for i, k in enumerate(rest) if k.startswith(anchor))
+    return rest[:i] + mk + rest[i:]
+
+
 def jax_call_order(keys):
-    """``keys`` with each Tree's root moved after its two children: the
-    order the JAX SimpleDLA calls them in (the reference defines the root
-    first). The JAX export pairs modules of one shape first-fit in the
-    template's order, so in the reference's order it would hand a root's BN
-    the first block's; in this order every pair is the named one. Other
-    models' keys come back as they are."""
+    """``keys`` in the order the JAX model calls their modules, where it
+    differs from the reference's definition order: each DLA Tree's root
+    after its children, a paper-DLA tree's ``prev_root`` before its
+    ``level_1``, a stride-2 PNASNet B cell's pool 1x1 (``conv1``/``bn1``)
+    before its ``sep_conv3``. The JAX export pairs modules of one shape
+    first-fit in the template's order, so in the reference's order it would
+    hand, say, a root's BN the first block's; in this order every pair is
+    the named one. Other models' keys come back as they are."""
+    keys = _roots_last(keys)
+    for k in list(keys):
+        if k.endswith(".prev_root.conv1.weight"):
+            tree = k[:-len("prev_root.conv1.weight")]
+            keys = _move_before(keys, tree + "prev_root.", tree + "level_1.")
+        if k.endswith(".sep_conv3.conv1.weight") and "." not in k[:-len(
+                ".sep_conv3.conv1.weight")]:
+            cell = k[:-len("sep_conv3.conv1.weight")]
+            keys = _move_before(keys, (cell + "conv1.", cell + "bn1."),
+                                cell + "sep_conv3.")
+    return keys
+
+
+def _roots_last(keys):
     out, roots = [], []  # roots: a stack of (tree prefix, its root keys)
     for k in keys:
         while roots and not k.startswith(roots[-1][0]):
@@ -251,30 +362,31 @@ def cell_input(seed=41):
 LR, T_MAX, SPE = 0.1, 4, 3
 
 
-def jax_trees(name, seed):
-    """(params, batch_stats) as numpy: fan-in-scaled kernels, non-trivial
-    biases, BN affine and running stats."""
-    shapes = jax.eval_shape(lambda: jax_create_model(name).init(
+def fan_in_trees(jmodel, seed):
+    """(params, batch_stats) as numpy for the JAX model ``jmodel`` (a
+    narrow variant too): fan-in-scaled kernels, non-trivial biases, BN
+    affine and running stats."""
+    shapes = jax.eval_shape(lambda: jmodel.init(
         jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False
     ))
     rs = np.random.RandomState(seed)
 
-    def param(path, s):
-        leaf = path[-1].key
-        if leaf == "kernel":
+    def leaf(path, s):
+        key = path[-1].key
+        if key == "kernel":
             bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
             return rs.uniform(-bound, bound, s.shape).astype(np.float32)
-        if leaf == "scale":
+        if key in ("scale", "var"):
             return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
         return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
 
-    def stat(path, s):
-        if path[-1].key == "var":
-            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
-        return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
+    return (jax.tree_util.tree_map_with_path(leaf, shapes["params"]),
+            jax.tree_util.tree_map_with_path(leaf, shapes["batch_stats"]))
 
-    return (jax.tree_util.tree_map_with_path(param, shapes["params"]),
-            jax.tree_util.tree_map_with_path(stat, shapes["batch_stats"]))
+
+def jax_trees(name, seed):
+    """:func:`fan_in_trees` of the registered JAX ``name``."""
+    return fan_in_trees(jax_create_model(name), seed)
 
 
 def images(n, seed):
@@ -357,7 +469,175 @@ def train_step_vs_jax(name, n=32, seed=0):
     return errs["port"], errs["jax"], direct
 
 
+def step_f64_vs_jax(name, jmodel, pmodel, n=4, seed=0, masks=False):
+    """One step of the same weights and batch (``n`` images, the last one
+    padded), augmentation off, computed in float64 on both sides: the JAX
+    step on float64 parameters (``jax.enable_x64``), the port's on its fp32
+    parameters with ``compute_dtype=torch.float64``. ``jmodel``/``pmodel``
+    are the two packages' models of ``name`` (a narrow variant is fine).
+
+    The JAX step runs eagerly, never as one compiled program: compiled on
+    XLA:CPU, the JAX float64 step of a narrow PNASNetB moved its own loss
+    by 3.3e-7 relative and its stem gradient by 0.4% against the eager
+    step, which the port's step matches to 1e-7.
+
+    With ``masks`` every mask the JAX step draws (``jax.random.bernoulli``:
+    EfficientNet's drop-connect masks, then its dropout mask, from the
+    step's own key) is recorded; the port's step draws exactly those, in
+    the same order, through its model draw hook.
+
+    Returns ``(port, jax)``, each ``{"metrics", "sd" (state dict after the
+    step), "trace" (momentum: gradient + weight decay, in the port's
+    layout), "before"}`` as numpy."""
+    params, stats = fan_in_trees(jmodel, seed)
+    x, y = images(n, seed=10)
+    y[-1] = -1  # a padded row: masked from loss, gradients and metrics
+    tx = jax_optim.make_optimizer(lr=LR, t_max=T_MAX, steps_per_epoch=SPE)
+    drawn = []
+    with jax.enable_x64(True):
+        cast = functools.partial(jnp.asarray, dtype=jnp.float64)
+        p64 = jax.tree_util.tree_map(cast, params)
+        st = jax_state.TrainState(
+            step=jnp.zeros((), jnp.int32), params=p64,
+            batch_stats=jax.tree_util.tree_map(cast, stats),
+            opt_state=tx.init(p64), apply_fn=jmodel.apply, tx=tx)
+        fn = jax_steps.make_train_step(augment=False,
+                                       compute_dtype=jnp.float64)
+        real = jax.random.bernoulli
+        if masks:
+            def record(key, p=0.5, shape=None, *a, **kw):
+                m = real(key, p, shape, *a, **kw)
+                drawn.append((float(p), np.asarray(m)))
+                return m
+
+            jax.random.bernoulli = record
+        try:
+            st, jm = fn(st, (jnp.asarray(x), jnp.asarray(y)),
+                        jax.random.PRNGKey(1))
+        finally:
+            jax.random.bernoulli = real
+        host = jax.device_get((st.params, st.batch_stats,
+                               st.opt_state[1].trace, jm))
+    jax_out = {
+        "metrics": {k: float(v) for k, v in host[3].items()},
+        "sd": state_dict_from_jax(name, host[0], host[1], model=pmodel),
+        "trace": state_dict_from_jax(name, host[2], host[1], model=pmodel),
+    }
+    assert not masks or drawn, "the JAX step drew no mask"
+    pmodel.load_state_dict({
+        k: torch.from_numpy(v)
+        for k, v in state_dict_from_jax(name, params, stats,
+                                        model=pmodel).items()
+    })
+    pmodel = pmodel.to(memory_format=torch.channels_last)
+    state = create_train_state(
+        pmodel, optim.make_optimizer(pmodel.parameters(), lr=LR),
+        optim.cosine_epoch_schedule(LR, T_MAX, SPE), device="cpu",
+    )
+    if masks:
+        queue = list(drawn)
+
+        def replay(shape, keep):
+            p, m = queue.pop(0)
+            assert (p, m.shape) == (keep, shape), (p, m.shape, keep, shape)
+            return torch.from_numpy(np.array(m))
+
+        state.model_draws = lambda shard=None: replay
+    before = {k: v.detach().clone().numpy()
+              for k, v in pmodel.state_dict().items()}
+    pm = steps.make_train_step(augment=False, device="cpu",
+                               compute_dtype=torch.float64)(
+        state, (torch.from_numpy(x), torch.from_numpy(y)))
+    assert not masks or not queue, f"{len(queue)} masks left undrawn"
+    params_by_key = dict(pmodel.named_parameters())
+    port_out = {
+        "metrics": {k: float(v) for k, v in pm.items()},
+        "sd": {k: v.detach().numpy() for k, v in
+               pmodel.state_dict().items()},
+        "trace": {k: state.optimizer.state[p]["momentum_buffer"].numpy()
+                  for k, p in params_by_key.items()},
+        "before": before,
+    }
+    jax_out["before"] = before
+    return port_out, jax_out
+
+
+def check_step_f64(port, jax_out, n):
+    """The port's float64-compute step against the JAX float64 step:
+    metric sums within rtol 1e-6; the momentum (gradient + weight decay),
+    the updated parameters and the BN running statistics within rtol
+    1e-5, atol 1e-6 of the tensor's largest value. Both steps compute in
+    float64; the port keeps fp32 parameters, gradients, statistics and
+    momentum, and the comparison reads the JAX tensors rounded to fp32, so
+    each side carries fp32 rounding (6e-8 relative) and nothing more."""
+    for k in steps.METRIC_KEYS:
+        np.testing.assert_allclose(port["metrics"][k], jax_out["metrics"][k],
+                                   rtol=1e-6, err_msg=k)
+    assert port["metrics"]["count"] == n - 1
+    moved = 0
+    for kind in ("trace", "sd"):
+        for k, got in port[kind].items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            w = jax_out[kind][k]
+            tol = 1e-6 * float(np.abs(w).max())
+            np.testing.assert_allclose(got, w, rtol=1e-5, atol=tol,
+                                       err_msg=f"{kind} {k}")
+            moved += kind == "sd" and not np.array_equal(
+                w, port["before"][k])
+    assert moved > 0
+
+
 # -- checks the family files share ---------------------------------------
+
+def check_round_trip(name, trees):
+    """JAX trees -> the port's state dict -> JAX trees, as raw bits."""
+    from pytorch_cifar_tpu_torch.compat import jax_trees_from_state_dict
+
+    params, stats = trees(name)
+    sd = state_dict_from_jax(name, params, stats)
+    back = jax_trees_from_state_dict(name, sd)
+    for got, want in zip(back, (params, stats)):
+        flat_got = jax.tree_util.tree_leaves_with_path(got)
+        flat_want = jax.tree_util.tree_leaves_with_path(want)
+        assert [p for p, _ in flat_got] == [p for p, _ in flat_want]
+        for (path, g), (_, w) in zip(flat_got, flat_want):
+            assert g.dtype == w.dtype == np.float32, path
+            np.testing.assert_array_equal(g.view(np.uint32),
+                                          w.view(np.uint32), err_msg=path)
+
+
+def _nested_bn_node(tree):
+    """The first node below the top that holds a ``BatchNorm_j``."""
+    for k in sorted(tree):
+        v = tree[k]
+        if not isinstance(v, dict):
+            continue
+        if any(c.startswith("BatchNorm") for c in v):
+            return v, k
+        found = _nested_bn_node(v)
+        if found:
+            return found
+    return None
+
+
+def check_refuses_a_leaf_off(name, edit, trees):
+    """A tree with a BN leaf missing, an extra conv or extra statistics in
+    a nested block is refused."""
+    params, stats = trees(name)
+    params, stats = nested_copy(params), nested_copy(stats)
+    node, _ = _nested_bn_node(params)
+    bn = next(k for k in sorted(node) if k.startswith("BatchNorm"))
+    if edit == "missing":
+        del node[bn]["scale"]
+    elif edit == "extra":
+        node["Conv_99"] = {"Conv_0": {"kernel": np.zeros((1, 1, 4, 4),
+                                                         np.float32)}}
+    else:
+        snode, _ = _nested_bn_node(stats)
+        snode["BatchNorm_99"] = {"mean": np.zeros(4, np.float32)}
+    with pytest.raises((KeyError, ValueError)):
+        state_dict_from_jax(name, params, stats)
 
 def check_export(name, trees):
     """Key for key, the JAX package's export with the port's own template
@@ -414,12 +694,31 @@ def check_bf16_error(name, trees):
     assert np.max(np.abs(got - ref)) <= 1.5 * np.max(np.abs(want - ref))
 
 
+# the slice's models' (K3, K4 forward, K5) launches a folded forward, as
+# the code gives them; chip_smoke.py's DEPTHWISE_SERVED holds the same on
+# the card
+KERNEL_SITES = {
+    "DLA": (12, 0, 0), "MobileNetV2": (1, 0, 14),
+    "EfficientNetB0": (0, 0, 12), "ShuffleNetV2_0.5": (1, 0, 13),
+    "ShuffleNetV2_1": (1, 0, 13), "ShuffleNetV2_1.5": (1, 0, 13),
+    "ShuffleNetV2_2": (1, 0, 13), "PNASNetA": (1, 18, 18),
+    "PNASNetB": (1, 18, 54),
+}
+
+
+def kernel_sites(*names):
+    """``(name, fused, pools, stencils)`` rows of :data:`KERNEL_SITES`,
+    for ``test_kernel_sites_per_forward``'s parameters."""
+    return [(n, *KERNEL_SITES[n]) for n in names]
+
+
 def check_kernel_sites(name, fused, pools, stencils, monkeypatch):
     """GoogLeNet: the stem and each cell's three 3x3 convs are fused sites
     (1 + 9 * 3) and each cell pools once; MobileNet: the stem is fused and
     the 9 stride-1 depthwise convs are stencil sites (the 4 stride-2 ones
-    are not); SimpleDLA: its three stems and the conv1 of each of the 9 of
-    its 12 blocks that run at stride 1. Counted in the fold and in a
+    are not); SimpleDLA and DLA: their three stems and the conv1 of each
+    block that runs at stride 1 (9 of 12; 9 of 14). The depthwise
+    families' counts are in their files. Counted in the fold and in a
     forward's calls."""
     model = create_model(name).eval()
     sites = list(folded_sites(model.fold(torch.float32)))
@@ -427,10 +726,12 @@ def check_kernel_sites(name, fused, pools, stencils, monkeypatch):
     assert sum(s.stencil for s in sites) == stencils
     for s in sites:
         if s.fused:
-            assert s.weight.shape[:2] == (3, 3) and s.stride == 1 and s.relu
-        if s.stencil:
             assert s.weight.shape[:2] == (3, 3) and s.stride == 1
-            assert s.weight.shape[2] == s.groups
+            assert s.act == "relu"
+        if s.stencil:
+            k = s.weight.shape[0]
+            assert s.weight.shape[1] == k and k in (3, 5, 7)
+            assert s.stride == 1 and s.weight.shape[2] == s.groups
         else:
             assert s.groups == 1 or s.stride == 2
     calls = {"fused": 0, "pool": 0, "stencil": 0}

@@ -82,7 +82,10 @@ def test_scan_sees_the_whole_package():
                  *(os.path.join("pytorch_cifar_tpu_torch", *parts) for parts in
                    (("ops", "max_pool.py"), ("ops", "depthwise_stencil.py"),
                     ("models", "googlenet.py"), ("models", "mobilenet.py"),
-                    ("models", "dla_simple.py"),
+                    ("models", "dla_simple.py"), ("models", "dla.py"),
+                    ("models", "mobilenetv2.py"),
+                    ("models", "efficientnet.py"),
+                    ("models", "shufflenetv2.py"), ("models", "pnasnet.py"),
                     ("tools", "pool_bench.py"),
                     ("tools", "depthwise_bench.py"))),
                  os.path.join("pytorch_cifar_tpu_torch", "config.py"),

@@ -179,7 +179,8 @@ def test_fused_sites_per_forward(name, fused):
     assert sum(s.fused for s in sites) == fused
     for s in sites:
         if s.fused:
-            assert s.weight.shape[:2] == (3, 3) and s.stride == 1 and s.relu
+            assert s.weight.shape[:2] == (3, 3) and s.stride == 1
+            assert s.act == "relu"
 
 
 def test_seeded_init_is_deterministic_pytorch_default():

@@ -284,7 +284,7 @@ def test_checkpoint_paths_are_ported(argv):
 
 def test_unported_models_say_so():
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("DLA")
+        create_model("DenseNet121")
     with pytest.raises(KeyError):
         create_model("NoSuchNet")
 

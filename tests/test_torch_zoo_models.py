@@ -37,7 +37,7 @@ def test_golden_param_counts(name, count):
 def test_registered_and_no_longer_listed_as_unported(name):
     assert name in available_models() and name not in NOT_PORTED
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("PNASNetA")
+        create_model("VGG16")
 
 
 @pytest.mark.parametrize("name", ["GoogLeNet"])

@@ -134,7 +134,8 @@ def test_fold_conv_bn_carries_the_conv_bias(k, relu):
     with torch.no_grad():
         want = bn(conv(x))
         want = torch.relu(want) if relu else want
-        f = common.fold_conv_bn(conv, bn, torch.float32, relu=relu)
+        f = common.fold_conv_bn(conv, bn, torch.float32,
+                                act="relu" if relu else None)
         got = common.conv_bn(x, f)
     assert f.fused == (k == 3 and relu)
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
@@ -158,7 +159,7 @@ def test_fold_conv_bn_depthwise_sites(k, stride, stencil):
     x = torch.randn(2, 12, 8, 8, generator=g).contiguous(
         memory_format=torch.channels_last
     )
-    f = common.fold_conv_bn(conv, bn, torch.float32, relu=True)
+    f = common.fold_conv_bn(conv, bn, torch.float32, act="relu")
     assert (f.stencil, f.fused, f.groups) == (stencil, False, 12)
     assert f.weight.shape == ((k, k, 12) if stencil else (12, 1, k, k))
     with torch.no_grad():
@@ -170,7 +171,7 @@ def test_fold_conv_bn_depthwise_sites(k, stride, stencil):
 def test_fold_conv_bn_grouped_but_not_depthwise_stays_on_conv2d():
     conv = common.conv(8, 16, 3, groups=4)
     f = common.fold_conv_bn(conv, common.batchnorm(16).eval(), torch.float32,
-                            relu=True)
+                            act="relu")
     assert (f.stencil, f.fused, f.groups) == (False, False, 4)
     x = torch.randn(1, 8, 4, 4)
     with torch.no_grad():

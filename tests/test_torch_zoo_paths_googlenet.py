@@ -57,7 +57,7 @@ def test_nothing_model_specific_is_left_in_config_and_trainer():
         cfg = TrainConfig(model=name, synthetic_data=True, device="cpu")
         assert cfg.model == name
     with pytest.raises(NotImplementedError, match="GoogLeNet.*MobileNet"):
-        Trainer(TrainConfig(model="PNASNetA", synthetic_data=True,
+        Trainer(TrainConfig(model="VGG16", synthetic_data=True,
                             synthetic_train_size=8, synthetic_test_size=8,
                             batch_size=8, device="cpu"))
 
