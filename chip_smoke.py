@@ -203,6 +203,38 @@ PNASNet A and B), run after phase 16:
 23. ``depthwise_s``: each of these phases' seconds (``phase_s`` prints
     every phase's).
 
+Then the zoo's last families (VGG, PreActResNet, SENet, ResNeXt, RegNet,
+DenseNet, DPN, ShuffleNet G2/G3), run after phase 23:
+
+24. site_zoo_rest: K3 (phase 3's checks) at VGG16's nine site shapes at
+    n = 128, 3 -> 64 at 32x32 down to 512 -> 512 at 2x2 (PreActResNet18/
+    50's and SENet18's shapes are among them), bf16 and fp32, each row with
+    the launches per forward of each of the four models that has it;
+    stencil_zoo_rest: K5 (phase 11's checks) at ShuffleNet G2/G3's six
+    stride-1 shapes at n = 128 (C = 50, 100, 200 and 60, 120, 240 at
+    16x16, 8x8 and 4x4);
+25. slices: VGG16, PreActResNet18, SENet18, ResNeXt29_2x64d,
+    RegNetY_400MF, DenseNet121, DPN26 and ShuffleNetG2 served as in phase
+    4 at buckets 8 and 128 (8 clients x 64 requests), (K3, K4, K5) a
+    forward pinned: (13, 0, 0), (5, 0, 0), (6, 0, 0), (0, 0, 0), (1, 0,
+    0), (0, 0, 0), (1, 0, 0), (0, 0, 13);
+26. vgg16_train and densenet121_train: phase 7 on
+    ``synthetic_cifar10(10240, 2048)`` at full width (DenseNet121 on its
+    shared-stats path): K1 once an epoch, 13 K3 launches a VGG16 eval
+    forward, finite and falling losses, the sync-checked third epoch,
+    epoch 1's wall apart;
+27. moments_densenet: one b512 bf16 DenseNet121 step under
+    ``bn_moments_impl``: K2 at its 120 moments (the stem's output, 58 new
+    chunks, 3 transitions' outputs, 58 ``bn2`` inputs), as many launches as
+    the same step makes ``bn_batch_moments`` calls on the CPU, each within
+    rtol 1e-4, atol 1e-5 of float64, the path (16-byte vectors or scalar)
+    each took, K2's times at the step's shapes beside
+    ``torch.batch_norm_stats``, K2 at DenseNetCifar's chunk widths (C = 12
+    on its scalar path, and 24) against float64; then an fp32
+    shared-stats step's loss within rtol 1e-5 of the per-layer step's
+    from the same start;
+28. ``zoo_rest_s``: each of these phases' seconds.
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call), and prints no kernels or ok line.
 
@@ -1430,6 +1462,230 @@ def phase_moments_efficientnet(M, fails: Failures) -> dict:
     return out
 
 
+# the zoo's last families, one served name each: (K3, K4 forward, K5)
+# launches a forward, as the CPU tests pin them (tests/_torch_zoo.py
+# KERNEL_SITES)
+ZOO_REST_SERVED = {
+    "VGG16": (13, 0, 0), "PreActResNet18": (5, 0, 0), "SENet18": (6, 0, 0),
+    "ResNeXt29_2x64d": (0, 0, 0), "RegNetY_400MF": (1, 0, 0),
+    "DenseNet121": (0, 0, 0), "DPN26": (1, 0, 0), "ShuffleNetG2": (0, 0, 13),
+}
+# their K3 sites: VGG16's nine shapes hold the other three models'
+ZOO_REST_FUSED = ("VGG16", "PreActResNet18", "PreActResNet50", "SENet18")
+ZOO_REST_STENCILS = ("ShuffleNetG2", "ShuffleNetG3")
+ZOO_REST_TRAINED = ("VGG16", "DenseNet121")
+# BN moments a DenseNet121 train forward reduces on the shared-stats path:
+# the stem's output, 58 new chunks and 3 transition outputs, and 58 bn2
+# inputs
+DENSENET121_MOMENTS = 120
+
+
+def phase_zoo_rest(G, M, K, P, D, smi: str, peaks,
+                   fails: Failures) -> dict:
+    """The last families (phases 24-28 of the module docstring)."""
+    secs, t0 = {}, time.perf_counter()
+    vgg = fused_sites("VGG16")
+    per = {name: {r[1:5]: r[5] for r in fused_sites(name)}
+           for name in ZOO_REST_FUSED}
+    for name, shapes in per.items():
+        fails.check(set(shapes) <= set(per["VGG16"]),
+                    f"site_zoo_rest: {name}'s K3 shapes {sorted(shapes)} "
+                    "are not all VGG16's")
+    k3_rows = phase_kernels(K, peaks, fails, sites=vgg,
+                            tag="site_zoo_rest", runs=5)
+    for r in k3_rows:
+        key = (*r["x"], r["cout"])
+        r["sites_per_forward"] = {n: s[key] for n, s in per.items()
+                                  if key in s}
+    secs["site_zoo_rest"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sites: dict = {}
+    for name in ZOO_REST_STENCILS:
+        for h, w, c, k, n in stencil_sites(name):
+            sites.setdefault((h, w, c, k), {})[name] = n
+    g = torch.Generator().manual_seed(15)
+    sten = []
+    for (h, w, c, k), n in sites.items():
+        for dname, dt in DTYPES.items():
+            row = _stencil_row(D, peaks, fails, g, (128, h, w, c), k, dname,
+                               dt, runs=5)
+            row["sites_per_forward"] = n
+            sten.append(row)
+            print("stencil_zoo_rest " + json.dumps(row), flush=True)
+    fails.check(len(sites) == 6, f"stencil_zoo_rest: {len(sites)} shapes")
+    secs["stencil_zoo_rest"] = time.perf_counter() - t0
+    served = {}
+    for name, (k3, k4, k5) in ZOO_REST_SERVED.items():
+        t0 = time.perf_counter()
+        served[name] = phase_slice(
+            K, smi, fails, model=name, requests=DEPTHWISE_REQUESTS,
+            buckets=(8, 128),
+            per_forward=[(K, "LAUNCHES", k3), (D, "LAUNCHES", k5),
+                         (P, "FWD_LAUNCHES", k4), (P, "BWD_LAUNCHES", 0)])
+        secs[f"slice_{name}"] = time.perf_counter() - t0
+    trained = {}
+    for name in ZOO_REST_TRAINED:
+        t0 = time.perf_counter()
+        k3, k4, k5 = ZOO_REST_SERVED[name]
+        trained[name] = phase_train(
+            G, M, K, P, smi, fails, model=name, train_n=10_240,
+            test_n=2_048, k3_per_forward=k3, pools_per_forward=k4,
+            min_acc=0.0, tag=f"{name.lower()}_train", D=D,
+            stencils_per_forward=k5)
+        secs[f"train_{name}"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    moments = phase_moments_densenet(M, peaks, fails)
+    secs["moments_densenet"] = time.perf_counter() - t0
+    print("zoo_rest_s " + json.dumps(secs), flush=True)
+    return {"sites": k3_rows, "stencil": sten, "served": served,
+            "trained": trained, "moments": moments}
+
+
+def _bn_calls_on_the_cpu(model: str) -> list:
+    """The channel counts of every ``bn_batch_moments`` call that one
+    train step of ``model`` (2 images, fp32) makes on the CPU, in order."""
+    from pytorch_cifar_tpu_torch.models import common, create_model
+    from pytorch_cifar_tpu_torch.ops.bn_stats import fused_moments_reference
+    from pytorch_cifar_tpu_torch.train.optim import (
+        cosine_epoch_schedule, make_optimizer)
+    from pytorch_cifar_tpu_torch.train.state import create_train_state
+    from pytorch_cifar_tpu_torch.train.steps import make_train_step
+
+    net = create_model(model, generator=torch.Generator().manual_seed(0))
+    net = net.to(memory_format=torch.channels_last)
+    state = create_train_state(net, make_optimizer(net.parameters()),
+                               cosine_epoch_schedule(0.1, 200, 98),
+                               device="cpu")
+    calls = []
+
+    def counted(v):
+        calls.append(v.shape[-1])
+        return fused_moments_reference(v)
+
+    g = torch.Generator().manual_seed(1)
+    batch = (torch.randint(0, 256, (2, 32, 32, 3), generator=g,
+                           dtype=torch.uint8),
+             torch.randint(0, 10, (2,), generator=g, dtype=torch.int32))
+    with common.bn_moments_impl(counted):
+        make_train_step(augment=False, compute_dtype=torch.float32,
+                        device="cpu")(state, batch)
+    return calls
+
+
+def phase_moments_densenet(M, peaks, fails: Failures) -> dict:
+    """One b512 bf16 DenseNet121 train step under
+    ``bn_moments_impl(fused_moments)`` on the shared-stats path: K2 at
+    every chunk moment and every ``bn2`` moment, as many launches as the
+    same step makes ``bn_batch_moments`` calls on the CPU, each launch's
+    moments within rtol 1e-4, atol 1e-5 of float64, which path (16-byte
+    vectors or scalar) each took, and K2's times at the step's shapes
+    beside ``torch.batch_norm_stats``; K2 at DenseNetCifar's chunk widths
+    (C = 12, its scalar path, and 24). Then, in fp32, the shared-stats
+    step's loss against the per-layer step's from the same start (rtol
+    1e-5)."""
+    from pytorch_cifar_tpu_torch.models import common
+
+    cpu_calls = _bn_calls_on_the_cpu("DenseNet121")
+    state, step = _train_state(13, torch.bfloat16, "DenseNet121")
+    g = torch.Generator().manual_seed(13)
+    images = torch.randint(0, 256, (BATCH, 32, 32, 3), generator=g,
+                           dtype=torch.uint8).cuda()
+    labels = torch.randint(0, 10, (BATCH,), generator=g,
+                           dtype=torch.int32).cuda()
+    seen, worst, paths = [], [0.0], {}
+
+    def checked(x):
+        got = M.fused_moments(x)
+        ref = M.fused_moments_reference(x.detach().double())
+        for a, b in zip(got, ref):
+            d = (a.detach().double() - b).abs()
+            worst[0] = max(worst[0], d.max().item())
+            fails.check(bool((d <= 1e-5 + 1e-4 * b.abs()).all()),
+                        f"moments_densenet: K2 at {tuple(x.shape)} off "
+                        f"the float64 moments by {d.max().item():.3g}")
+        c, esize = x.shape[-1], x.element_size()
+        vec = c % (16 // esize) == 0 and x.data_ptr() % 16 == 0
+        key = f"C={c} {'vector' if vec else 'scalar'}"
+        paths[key] = paths.get(key, 0) + 1
+        seen.append(tuple(x.shape))
+        return got
+
+    M.LAUNCHES = 0  # the hooked step starts here
+    with common.bn_moments_impl(checked):
+        metrics = step(state, (images, labels))
+    launches = M.LAUNCHES  # and ends here
+    loss = float(metrics["loss_sum"]) / float(metrics["count"])
+    fails.check(launches == len(seen) == len(cpu_calls)
+                == DENSENET121_MOMENTS,
+                f"moments_densenet: K2 launched {launches} times for "
+                f"{len(seen)} moments; the CPU step makes {len(cpu_calls)} "
+                f"calls (want {DENSENET121_MOMENTS})")
+    fails.check([s[-1] for s in seen] == cpu_calls,
+                "moments_densenet: the card's channel counts are not the "
+                "CPU step's")
+    fails.check(np.isfinite(loss) and float(metrics["nonfinite"]) == 0,
+                f"moments_densenet: loss {loss}")
+    # K2's time over the step's launches, at each distinct shape
+    shapes: dict = {}
+    for s in seen:
+        shapes[s] = shapes.get(s, 0) + 1
+    rows = []
+    for s, n in shapes.items():
+        x = (torch.randn(s, generator=g) + 0.5).to("cuda", torch.bfloat16)
+        x_nchw = x.permute(0, 3, 1, 2)
+        b_ms, b_by = bound(x.numel() * 2 + 2 * s[-1] * 4, 3 * x.numel(),
+                           peaks, "fp32")
+        with torch.no_grad():
+            rows.append({
+                "x": list(s), "launches": n, "bound_ms": b_ms,
+                "bound_by": b_by,
+                "ms": time_ms(lambda: M.fused_moments(x), 5, 3),
+                "plain_ms": time_ms(lambda: M.fused_moments_reference(x),
+                                    5, 3),
+                "library_ms": time_ms(
+                    lambda: torch.batch_norm_stats(x_nchw, 1e-5), 5, 3)})
+    step_k2 = {k: sum(r[k] * r["launches"] for r in rows)
+               for k in ("ms", "plain_ms", "library_ms")}
+    b_ms, b_by = launches_bound(rows, [r["launches"] for r in rows])
+    # DenseNetCifar's chunks: growth 12, not a multiple of 8 bf16 values,
+    # so K2 takes its scalar path there (never on this step's path)
+    narrow = []
+    for c in (12, 24):
+        x = (torch.randn(BATCH, 32, 32, c, generator=g) + 0.5).to(
+            "cuda", torch.bfloat16)
+        err, det = _moments_checks(M, x, f"bf16 {(BATCH, 32, 32, c)}", fails)
+        x_nchw = x.permute(0, 3, 1, 2)
+        nb_ms, nb_by = bound(x.numel() * 2 + 2 * c * 4, 3 * x.numel(), peaks,
+                             "fp32")
+        with torch.no_grad():
+            narrow.append({
+                "x": [BATCH, 32, 32, c], "path": "scalar" if c % 8
+                else "vector", "max_abs_err": err, "deterministic": det,
+                "bound_ms": nb_ms, "bound_by": nb_by,
+                "ms": time_ms(lambda: M.fused_moments(x), 5, 3),
+                "library_ms": time_ms(
+                    lambda: torch.batch_norm_stats(x_nchw, 1e-5), 5, 3)})
+    # fp32, stock moments: the shared-stats step against the per-layer one
+    losses = {}
+    for shared in (True, False):
+        st, step32 = _train_state(14, torch.float32, "DenseNet121")
+        st.model.shared_stats = shared
+        m32 = step32(st, (images[:128], labels[:128]))
+        losses[shared] = float(m32["loss_sum"]) / float(m32["count"])
+    rel = abs(losses[True] - losses[False]) / abs(losses[False])
+    fails.check(rel <= 1e-5, f"moments_densenet: fp32 shared-stats loss "
+                             f"{losses[True]!r} vs per-layer "
+                             f"{losses[False]!r} (rel {rel:.3g})")
+    out = {"k2_launches": launches, "cpu_calls": len(cpu_calls),
+           "max_abs_err_vs_f64": worst[0], "loss": loss, "paths": paths,
+           "step": {**step_k2, "bound_ms": b_ms, "bound_by": b_by},
+           "shapes": rows, "densenet_cifar_chunks": narrow,
+           "fp32_shared_loss": losses[True],
+           "fp32_per_layer_loss": losses[False], "fp32_rel_diff": rel}
+    print("moments_densenet " + json.dumps(out), flush=True)
+    return out
+
+
 def fs_type(path: str) -> str:
     """The filesystem type of the mount holding ``path``
     (``/proc/mounts``)."""
@@ -1921,11 +2177,13 @@ def phase_dp(G, M, K3, smi: str, fails: Failures) -> dict:
     return out
 
 
-def zoo_forwards(dw: dict) -> dict:
-    """Per served depthwise model: K5's launches in its served run and the
-    times of one bucket-128 bf16 forward's launches at their shapes."""
+def zoo_forwards(dw: dict, served=None) -> dict:
+    """Per served model with stencil sites (``served``: name -> (K3, K4,
+    K5), the depthwise slice's by default): K5's launches in its served run
+    and the times of one bucket-128 bf16 forward's launches at their
+    shapes."""
     out = {}
-    for model, (_, _, k5) in DEPTHWISE_SERVED.items():
+    for model, (_, _, k5) in (served or DEPTHWISE_SERVED).items():
         fwd = [r for r in dw["stencil"] if r["dtype"] == "bf16"
                and model in r["sites_per_forward"]]
         if not fwd:
@@ -2012,6 +2270,7 @@ def main(argv=None) -> int:
                 fails)
     dw = timed("depthwise", phase_depthwise, G, M, K, P, D, smi, peaks,
                fails)
+    zr = timed("zoo_rest", phase_zoo_rest, G, M, K, P, D, smi, peaks, fails)
     timed("ckpt", phase_ckpt, G, K, smi, fails)
     dp = timed("dp", phase_dp, G, M, K, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
@@ -2019,14 +2278,18 @@ def main(argv=None) -> int:
 
     # K3 over one bucket-128 bf16 forward: its 6 launches at their shapes
     # (and GoogLeNet's 28 beside it)
-    def forward(site_rows):
-        fwd = [r for r in site_rows if r["dtype"] == "bf16"]
+    def forward(site_rows, model=None):
+        """One forward's K3 launches at their shapes: ``model``'s counts
+        from a row's ``sites_per_forward``, else its own model's."""
+        fwd = [r for r in site_rows if r["dtype"] == "bf16"
+               and (model is None or model in r["sites_per_forward"])]
+        per = [r["launches_per_forward"] if model is None
+               else r["sites_per_forward"][model] for r in fwd]
 
         def total(key):
-            return sum(r[key] * r["launches_per_forward"] for r in fwd)
+            return sum(r[key] * n for r, n in zip(fwd, per))
 
-        b_ms, b_by = launches_bound(
-            fwd, [r["launches_per_forward"] for r in fwd])
+        b_ms, b_by = launches_bound(fwd, per)
         return {
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": b_ms, "bound_by": b_by,
@@ -2042,7 +2305,7 @@ def main(argv=None) -> int:
         "replaces": "pytorch_cifar_tpu/ops/conv_bn_relu.py:54",
         "launches": sl["kernel_launches"],
         "max_abs_err": max(r["max_abs_err"] for r in rows + grows
-                           + dla["sites"]),
+                           + dla["sites"] + zr["sites"]),
         **{k: k3[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
                               "library_ms")},
         # the mma.sync path, timed at the same sites in this run, is the
@@ -2057,6 +2320,14 @@ def main(argv=None) -> int:
             [r["max_abs_err"] for r in dw["sites"]] or [0.0]),
         "zoo_launches": {m: r["launches"]["conv_bn_relu.LAUNCHES"]
                          for m, r in dw["served"].items()},
+        # the last families: VGG16's 13 sites (its conv bias folded, 2x2
+        # x 512 among them), PreActResNet18's 5, SENet18's 6, at one
+        # bucket-128 bf16 forward each, and each served name's launches
+        **{f"{m.lower()}_forward": forward(zr["sites"], m)
+           for m in ("VGG16", "PreActResNet18", "SENet18")},
+        "zoo_rest_launches": {m: r["launches"]["conv_bn_relu.LAUNCHES"]
+                              for m, r in zr["served"].items()},
+        "vgg16_train_launches": zr["trained"]["VGG16"]["k3_launches"],
         # per rank, in the data-parallel run's 2 epochs (eval forwards)
         "dp_launches_per_rank": [L["conv3x3_bn_relu"] for L in
                                  dp_nccl["launches_per_rank"]],
@@ -2099,6 +2370,13 @@ def main(argv=None) -> int:
                       "finalize launch) is not in the tree: PERF.md section "
                       "6 keeps its time",
         "kernels_per_call": max(r["kernels_per_call"] for r in k2),
+        # one hooked b512 bf16 DenseNet121 step: its 120 launches at their
+        # shapes (the chunks' moments and each bn2's), beside
+        # batch_norm_stats
+        "densenet121_step": {
+            "launches": zr["moments"]["k2_launches"],
+            "max_abs_err_vs_f64": zr["moments"]["max_abs_err_vs_f64"],
+            **zr["moments"]["step"], "paths": zr["moments"]["paths"]},
         # per rank, in the data-parallel run's one sync_bn step
         "dp_launches_per_rank": dp_nccl["k2_launches_per_rank"],
     })
@@ -2176,9 +2454,12 @@ def main(argv=None) -> int:
         "library_ms": sten_total("library_ms"),
         "redesigned": "shared-memory halo tile; the design it replaced is "
                       "not in the tree: PERF.md section 6 keeps its time",
-        "max_abs_err_zoo": max(r["max_abs_err"] for r in dw["stencil"]),
+        "max_abs_err_zoo": max(r["max_abs_err"] for r in dw["stencil"]
+                               + zr["stencil"]),
         # one bucket-128 bf16 forward of each depthwise model at its sites
-        "zoo_forwards": zoo_forwards(dw),
+        "zoo_forwards": {**zoo_forwards(dw), **zoo_forwards(
+            {"stencil": zr["stencil"], "served": zr["served"]},
+            {m: ZOO_REST_SERVED[m] for m in ("ShuffleNetG2",)})},
     })
     print(f"card: {smi}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)

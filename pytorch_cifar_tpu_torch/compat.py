@@ -99,19 +99,30 @@ import torch
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models import create_model
+from pytorch_cifar_tpu_torch.models.densenet import DenseNet
 from pytorch_cifar_tpu_torch.models.dla import DLA
 from pytorch_cifar_tpu_torch.models.dla_simple import SimpleDLA, Tree
+from pytorch_cifar_tpu_torch.models.dpn import DPN
 from pytorch_cifar_tpu_torch.models.efficientnet import EfficientNet
 from pytorch_cifar_tpu_torch.models.googlenet import CELLS, GoogLeNet
 from pytorch_cifar_tpu_torch.models.lenet import LeNet
 from pytorch_cifar_tpu_torch.models.mobilenet import MobileNet
 from pytorch_cifar_tpu_torch.models.mobilenetv2 import MobileNetV2
 from pytorch_cifar_tpu_torch.models.pnasnet import PNASNet
+from pytorch_cifar_tpu_torch.models.preact_resnet import (
+    PreActBottleneck,
+    PreActResNet,
+)
+from pytorch_cifar_tpu_torch.models.regnet import RegNet
 from pytorch_cifar_tpu_torch.models.resnet import BasicBlock
+from pytorch_cifar_tpu_torch.models.resnext import ResNeXt
+from pytorch_cifar_tpu_torch.models.senet import SENet
+from pytorch_cifar_tpu_torch.models.shufflenet import ShuffleNet
 from pytorch_cifar_tpu_torch.models.shufflenetv2 import (
     DownBlock,
     ShuffleNetV2,
 )
+from pytorch_cifar_tpu_torch.models.vgg import VGG
 
 # linears whose input is a flattened feature map: linear index -> (c, h, w)
 LINEAR_FLATTEN: Dict[str, Dict[int, Tuple[int, int, int]]] = {
@@ -177,7 +188,11 @@ def _site(model: nn.Module, out: List[Entry], conv: str, bn: str,
     """A conv and its BN: the JAX ``Conv_j``/``BatchNorm_j`` under
     ``base``."""
     _conv(model, out, conv, base + (f"Conv_{j}",))
-    b = base + (f"BatchNorm_{j}",)
+    _bn(out, bn, base + (f"BatchNorm_{j}",))
+
+
+def _bn(out: List[Entry], bn: str, b: Tuple[str, ...]) -> None:
+    """A BN: the JAX ``BatchNorm_j`` node ``b``."""
     out += [
         Entry("params", b + ("scale",), f"{bn}.weight", IDENTITY),
         Entry("params", b + ("bias",), f"{bn}.bias", IDENTITY),
@@ -343,6 +358,84 @@ def _resnet(model: nn.Module, out: List[Entry]) -> None:
             k += 1
 
 
+def _layers(model: nn.Module, n: int):
+    """``(prefix, block)`` of ``layer1`` .. ``layer{n}`` in order."""
+    return [(f"layer{i}.{j}", b) for i in range(1, n + 1)
+            for j, b in enumerate(getattr(model, f"layer{i}"))]
+
+
+def _vgg(model: VGG, out: List[Entry]) -> None:
+    convs = [i for i, m in enumerate(model.features)
+             if isinstance(m, nn.Conv2d)]
+    for j, i in enumerate(convs):  # each conv's BN follows it
+        _site(model, out, f"features.{i}", f"features.{i + 1}", (), j)
+
+
+def _preact(model: nn.Module, out: List[Entry]) -> None:
+    """PreActResNet and SENet: a block's BNs in order, its convs in the
+    JAX call order (the shortcut first, off the pre-activated input; then
+    ``conv1``.., then SENet's gate ``fc1``/``fc2``)."""
+    if isinstance(model, SENet):
+        _site(model, out, "conv1", "bn1", (), 0)
+        kind, gate = "SEPreActBlock", ["fc1", "fc2"]
+    else:
+        _conv(model, out, "conv1", ("Conv_0",))
+        kind, gate = type(model.layer1[0]).__name__, []
+    n = 3 if isinstance(model.layer1[0], PreActBottleneck) else 2
+    for k, (p, blk) in enumerate(_layers(model, 4)):
+        base = (f"{kind}_{k}",)
+        for j in range(n):
+            _bn(out, f"{p}.bn{j + 1}", base + (f"BatchNorm_{j}",))
+        convs = (["shortcut.0"] if len(blk.shortcut) else []) + [
+            f"conv{j + 1}" for j in range(n)] + gate
+        for j, c in enumerate(convs):
+            _conv(model, out, f"{p}.{c}", base + (f"Conv_{j}",))
+
+
+def _bottlenecks(model: nn.Module, out: List[Entry], kind: str,
+                 stages: int) -> None:
+    """ResNeXt, DPN and ShuffleNet: the stem's conv and BN, then each
+    block's ``conv1..3``/``bn1..3`` and a shortcut's conv and BN as the JAX
+    ``{kind}_k`` ``Conv_j``/``BatchNorm_j``."""
+    _site(model, out, "conv1", "bn1", (), 0)
+    for k, (p, blk) in enumerate(_layers(model, stages)):
+        base = (f"{kind}_{k}",)
+        for j in range(3):
+            _site(model, out, f"{p}.conv{j + 1}", f"{p}.bn{j + 1}", base, j)
+        if len(getattr(blk, "shortcut", ())):  # ShuffleNet's has none
+            _site(model, out, f"{p}.shortcut.0", f"{p}.shortcut.1", base, 3)
+
+
+def _regnet(model: RegNet, out: List[Entry]) -> None:
+    _site(model, out, "conv1", "bn1", (), 0)
+    for k, (p, blk) in enumerate(_layers(model, 4)):
+        base = (f"RegNetBlock_{k}",)
+        for j in range(3):
+            _site(model, out, f"{p}.conv{j + 1}", f"{p}.bn{j + 1}", base, j)
+        if blk.with_se:
+            for j in range(2):
+                _conv(model, out, f"{p}.se.se{j + 1}",
+                      base + ("SE_0", f"Conv_{j}"))
+        if len(blk.shortcut):
+            _site(model, out, f"{p}.shortcut.0", f"{p}.shortcut.1", base, 3)
+
+
+def _densenet(model: DenseNet, out: List[Entry]) -> None:
+    _conv(model, out, "conv1", ("Conv_0",))
+    k = 0
+    for s in range(model.stages):
+        for i in range(len(getattr(model, f"dense{s + 1}"))):
+            p, base = f"dense{s + 1}.{i}", (f"DenseLayer_{k}",)
+            for j in range(2):
+                _site(model, out, f"{p}.conv{j + 1}", f"{p}.bn{j + 1}",
+                      base, j)
+            k += 1
+        if s < model.stages - 1:
+            _site(model, out, f"trans{s + 1}.conv", f"trans{s + 1}.bn",
+                  (f"Transition_{s}",), 0)
+    _bn(out, "bn", ("BatchNorm_0",))
+
+
 def correspondence(model: nn.Module) -> List[Entry]:
     """The port model's table: one entry per JAX leaf, in the port's
     forward order."""
@@ -366,9 +459,24 @@ def correspondence(model: nn.Module) -> List[Entry]:
         _pnasnet(model, out)
     elif isinstance(model, EfficientNet):
         _efficientnet(model, out)
+    elif isinstance(model, VGG):
+        _vgg(model, out)
+    elif isinstance(model, (PreActResNet, SENet)):
+        _preact(model, out)
+    elif isinstance(model, ResNeXt):
+        _bottlenecks(model, out, "ResNeXtBlock", 3)
+    elif isinstance(model, DPN):
+        _bottlenecks(model, out, "DualPathBlock", 4)
+    elif isinstance(model, ShuffleNet):
+        _bottlenecks(model, out, "ShuffleBottleneck", 3)
+    elif isinstance(model, RegNet):
+        _regnet(model, out)
+    elif isinstance(model, DenseNet):
+        _densenet(model, out)
     else:
         _resnet(model, out)
-    _dense(out, "linear", ("Dense_0", "Dense_0"))
+    head = "classifier" if isinstance(model, VGG) else "linear"
+    _dense(out, head, ("Dense_0", "Dense_0"))
     return out
 
 

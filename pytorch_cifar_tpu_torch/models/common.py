@@ -301,11 +301,12 @@ class FoldedConvBN:
       channels_last in the compute dtype.
 
     Outside fused sites ``mul``/``add`` are ``(1, c, 1, 1)`` in the compute
-    dtype."""
+    dtype, or both None for a conv with no BN after it (a pre-activation
+    block's last conv, DenseNet's 3x3), which is no fused site."""
 
     weight: torch.Tensor
-    mul: torch.Tensor
-    add: torch.Tensor
+    mul: Optional[torch.Tensor]
+    add: Optional[torch.Tensor]
     stride: int
     padding: int
     act: Optional[str]
@@ -316,17 +317,23 @@ class FoldedConvBN:
 
 @torch.no_grad()
 def fold_conv_bn(
-    conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype,
+    conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d], dtype: torch.dtype,
     act: Optional[str] = None,
 ) -> FoldedConvBN:
     """Fold one site for ``dtype`` compute (once per weight set), ``act``
     after it. A conv bias goes into the affine: ``bn((x * w) + b) = (x * w)
     * mul + (bn.bias + (b - running_mean) * mul)``. Only a ReLU site can be
     fused (the kernel applies ReLU); a depthwise conv with a channel
-    multiplier (``out != in``) is no stencil site."""
-    mul, add = fold_bn(bn)
-    if conv.bias is not None:
-        add = add + conv.bias.float() * mul
+    multiplier (``out != in``) is no stencil site. ``bn=None`` is a
+    bias-free conv with nothing after it: no affine, no fused site."""
+    if bn is None:
+        if conv.bias is not None or act is not None:
+            raise ValueError("a conv with no BN takes no bias or activation")
+        mul = add = None
+    else:
+        mul, add = fold_bn(bn)
+        if conv.bias is not None:
+            add = add + conv.bias.float() * mul
     stride, padding, groups = conv.stride[0], conv.padding[0], conv.groups
     k = conv.kernel_size[0]
     same = conv.kernel_size == (k, k) and padding == k // 2 and stride == 1
@@ -344,8 +351,9 @@ def fold_conv_bn(
             weight = conv.weight.to(dtype).contiguous(
                 memory_format=torch.channels_last
             )
-        mul = mul.to(dtype).view(1, -1, 1, 1)
-        add = add.to(dtype).view(1, -1, 1, 1)
+        if mul is not None:
+            mul = mul.to(dtype).view(1, -1, 1, 1)
+            add = add.to(dtype).view(1, -1, 1, 1)
     return FoldedConvBN(weight, mul, add, stride, padding, act, fused,
                         groups, stencil)
 
@@ -365,7 +373,38 @@ def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
     else:
         y = F.conv2d(x, f.weight, stride=f.stride, padding=f.padding,
                      groups=f.groups)
+    if f.mul is None:
+        return y
     return activate(y * f.mul + f.add, f.act)
+
+
+@torch.no_grad()
+def fold_affine(bn: nn.BatchNorm2d, dtype: torch.dtype) -> Tuple[
+        torch.Tensor, torch.Tensor]:
+    """An eval-mode BN with no conv before it to fold into (a
+    pre-activation block's first BN, DenseNet's BNs over the stack): its
+    ``(mul, add)``, ``(1, c, 1, 1)`` in the compute dtype."""
+    mul, add = fold_bn(bn)
+    return mul.to(dtype).view(1, -1, 1, 1), add.to(dtype).view(1, -1, 1, 1)
+
+
+def affine_relu(x: torch.Tensor, f: Tuple[torch.Tensor, torch.Tensor]
+                ) -> torch.Tensor:
+    """``relu(x * mul + add)`` of a :func:`fold_affine` result, in ``x``'s
+    dtype (where the JAX BN rounds)."""
+    return torch.relu(x * f[0] + f[1])
+
+
+def se_gate(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+            w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """Squeeze-excitation on an NCHW activation (SENet, RegNetY): the
+    global mean, a 1x1 conv with bias, ReLU, a 1x1 conv with bias, sigmoid,
+    and ``x`` times the gate, all in ``x``'s dtype (the weights are cast to
+    it, as the JAX model computes the gate in the compute dtype)."""
+    dt = x.dtype
+    w = x.mean(dim=(2, 3), keepdim=True)
+    w = torch.relu(F.conv2d(w, w1.to(dt), b1.to(dt)))
+    return x * torch.sigmoid(F.conv2d(w, w2.to(dt), b2.to(dt)))
 
 
 def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
@@ -383,9 +422,18 @@ def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
     return F.max_pool2d(x, window, stride, padding)
 
 
-def avg_pool(x: torch.Tensor, window: int,
-             stride: Optional[int] = None) -> torch.Tensor:
-    return F.avg_pool2d(x, window, stride or window)
+def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
+             padding: int = 0) -> torch.Tensor:
+    """Average pool (``stride`` defaults to ``window``); padding counts in
+    the divisor (``count_include_pad``, flax's ``avg_pool`` default, as
+    ShuffleNet's 3 / 2 / 1 shortcut pool needs)."""
+    return F.avg_pool2d(x, window, stride or window, padding)
+
+
+def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+    """``adaptive_avg_pool2d(1)`` + flatten of an NCHW activation: ``(n,
+    c)``."""
+    return x.mean(dim=(2, 3))
 
 
 def count_params(model: nn.Module) -> int:

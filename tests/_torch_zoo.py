@@ -1,8 +1,9 @@
 """Shared pieces of the zoo's test files (``tests/test_torch_zoo_*.py``):
 seeded JAX trees and inputs, the reference's ``state_dict`` key order, the
-JAX call order of the DLA trees and of PNASNet's stride-2 B cells, the JAX
-and port forwards and train steps they compare, and one narrow Inception
-cell of both packages.
+JAX call order of the DLA trees, of PNASNet's stride-2 B cells and of the
+pre-activation blocks' shortcuts, the JAX and port forwards and train steps
+they compare, the registry checks, and one narrow Inception cell of both
+packages.
 """
 
 import functools
@@ -30,6 +31,14 @@ from pytorch_cifar_tpu_torch.train.state import create_train_state
 ZOO = ["GoogLeNet", "MobileNet", "SimpleDLA", "DLA", "MobileNetV2",
        "EfficientNetB0", "PNASNetA", "PNASNetB", "ShuffleNetV2_0.5",
        "ShuffleNetV2_1", "ShuffleNetV2_1.5", "ShuffleNetV2_2"]
+# the plain and residual families, the last 26 names ported
+REST = ["VGG11", "VGG13", "VGG16", "VGG19", "PreActResNet18",
+        "PreActResNet34", "PreActResNet50", "PreActResNet101",
+        "PreActResNet152", "SENet18", "ResNeXt29_2x64d", "ResNeXt29_4x64d",
+        "ResNeXt29_8x64d", "ResNeXt29_32x4d", "RegNetX_200MF",
+        "RegNetX_400MF", "RegNetY_400MF", "DenseNet121", "DenseNet161",
+        "DenseNet169", "DenseNet201", "DenseNetCifar", "DPN26", "DPN92",
+        "ShuffleNetG2", "ShuffleNetG3"]
 
 
 BN_LEAVES = ("weight", "bias", "running_mean", "running_var",
@@ -79,7 +88,8 @@ def trees():
             shapes = jax.eval_shape(lambda: model.init(
                 jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False
             ))
-            cache[name, he] = random_trees(shapes, 20 + ZOO.index(name), he)
+            cache[name, he] = random_trees(shapes,
+                                           20 + (ZOO + REST).index(name), he)
         return cache[name, he]
 
     return get
@@ -178,8 +188,103 @@ def _zoo_keys(name):
     return keys + ["linear.weight", "linear.bias"]
 
 
+def _sc(p, bn=True):
+    """A projection shortcut's keys: its conv (and its BN)."""
+    return [f"{p}.shortcut.0.weight"] + (bn_keys(f"{p}.shortcut.1") if bn
+                                         else [])
+
+
+def _rest_keys(name):
+    """The plain and residual families' reference keys, from the JAX
+    models' plans (kuangliu/pytorch-cifar's definition order)."""
+    from pytorch_cifar_tpu.models.vgg import CFG as VGG_CFG
+
+    jmodel = jax_create_model(name)
+    if name.startswith("VGG"):
+        keys, i = [], 0
+        for item in VGG_CFG[name]:
+            if item == "M":
+                i += 1
+                continue
+            keys += [f"features.{i}.weight", f"features.{i}.bias",
+                     *bn_keys(f"features.{i + 1}")]
+            i += 3  # conv, BN, ReLU
+        return keys + ["classifier.weight", "classifier.bias"]
+    if name.startswith(("PreActResNet", "SENet")):
+        se = name.startswith("SENet")
+        keys = ["conv1.weight"] + (bn_keys("bn1") if se else [])
+        deep = not se and jmodel.block.expansion == 4
+        cin, n = 64, 3 if deep else 2
+        for li, (planes, stride) in enumerate(zip((64, 128, 256, 512),
+                                                  (1, 2, 2, 2))):
+            for b in range(jmodel.num_blocks[li]):
+                p, s_ = f"layer{li + 1}.{b}", stride if b == 0 else 1
+                cout = planes * (4 if deep else 1)
+                for j in range(1, n + 1):
+                    keys += bn_keys(f"{p}.bn{j}") + [f"{p}.conv{j}.weight"]
+                if s_ != 1 or cin != cout:
+                    keys += _sc(p, bn=False)
+                if se:
+                    keys += [f"{p}.fc1.weight", f"{p}.fc1.bias",
+                             f"{p}.fc2.weight", f"{p}.fc2.bias"]
+                cin = cout
+        return keys + ["linear.weight", "linear.bias"]
+    keys = ["conv1.weight"] + ([] if name.startswith("DenseNet")
+                               else bn_keys("bn1"))
+
+    def convs(p, n=3):
+        return [k for j in range(1, n + 1)
+                for k in convbn_keys(p, f"conv{j}", f"bn{j}")]
+
+    if name.startswith("ResNeXt"):
+        card, width = jmodel.cardinality, jmodel.bottleneck_width
+        cin = 64
+        for s, n in enumerate(jmodel.num_blocks):
+            for b in range(n):
+                p, cout = f"layer{s + 1}.{b}", 2 * card * width
+                stride = 2 if b == 0 and s > 0 else 1
+                keys += convs(p) + (_sc(p) if stride != 1 or cin != cout
+                                    else [])
+                cin = cout
+            width *= 2
+    elif name.startswith("RegNet"):
+        cfg, cin = jmodel.cfg, 64
+        for s, (depth, w) in enumerate(zip(cfg["depths"], cfg["widths"])):
+            for b in range(depth):
+                p = f"layer{s + 1}.{b}"
+                keys += convs(p, 2)
+                if cfg["se_ratio"] > 0:
+                    keys += [f"{p}.se.se1.weight", f"{p}.se.se1.bias",
+                             f"{p}.se.se2.weight", f"{p}.se.se2.bias"]
+                keys += convbn_keys(p, "conv3", "bn3")
+                stride = cfg["strides"][s] if b == 0 else 1
+                keys += _sc(p) if stride != 1 or cin != w else []
+                cin = w
+    elif name.startswith("DenseNet"):
+        for s, n in enumerate(jmodel.nblocks):
+            for b in range(n):
+                p = f"dense{s + 1}.{b}"
+                keys += [*bn_keys(f"{p}.bn1"), f"{p}.conv1.weight",
+                         *bn_keys(f"{p}.bn2"), f"{p}.conv2.weight"]
+            if s < 3:
+                keys += [*bn_keys(f"trans{s + 1}.bn"),
+                         f"trans{s + 1}.conv.weight"]
+        keys += bn_keys("bn")
+    elif name.startswith("DPN"):
+        for s, n in enumerate(jmodel.cfg["num_blocks"]):
+            for b in range(n):
+                p = f"layer{s + 1}.{b}"
+                keys += convs(p) + (_sc(p) if b == 0 else [])
+    else:  # ShuffleNet: no parameters in the shortcut
+        for s, n in enumerate(jmodel.cfg["num_blocks"]):
+            keys += [k for b in range(n) for k in convs(f"layer{s + 1}.{b}")]
+    return keys + ["linear.weight", "linear.bias"]
+
+
 def reference_keys(name):
     """state_dict keys in the reference's definition order."""
+    if name in REST:
+        return _rest_keys(name)
     if name in ZOO[3:]:
         if name == "DLA":
             keys = []
@@ -232,12 +337,20 @@ def jax_call_order(keys):
     differs from the reference's definition order: each DLA Tree's root
     after its children, a paper-DLA tree's ``prev_root`` before its
     ``level_1``, a stride-2 PNASNet B cell's pool 1x1 (``conv1``/``bn1``)
-    before its ``sep_conv3``. The JAX export pairs modules of one shape
-    first-fit in the template's order, so in the reference's order it would
-    hand, say, a root's BN the first block's; in this order every pair is
-    the named one. Other models' keys come back as they are."""
+    before its ``sep_conv3``, a pre-activation block's projection (a lone
+    conv, off the activated input) before its ``conv1``. The JAX export
+    pairs modules of one shape first-fit in the template's order, so in the
+    reference's order it would hand, say, a root's BN the first block's, or
+    PreActResNet50's first shortcut the block's ``conv3`` (both 64 -> 256
+    1x1); in this order every pair is the named one. Other models' keys
+    come back as they are."""
     keys = _roots_last(keys)
     for k in list(keys):
+        if k.endswith(".shortcut.0.weight"):
+            block = k[:-len("shortcut.0.weight")]
+            if block + "shortcut.1.weight" not in keys:
+                keys = _move_before(keys, block + "shortcut.",
+                                    block + "conv1.")
         if k.endswith(".prev_root.conv1.weight"):
             tree = k[:-len("prev_root.conv1.weight")]
             keys = _move_before(keys, tree + "prev_root.", tree + "level_1.")
@@ -280,15 +393,20 @@ def port_model_from_jax(name, params, stats):
     return model.eval()
 
 
-def logits(name, params, stats, x, dtype):
+def logits(name, params, stats, x, dtype, jit=False):
+    """The port's and the JAX model's eval logits of ``x`` in ``dtype``.
+    The JAX forward runs eagerly unless ``jit`` (one compiled program: a
+    deep model's eager forward compiles every op of each new shape, ~45 s
+    for DenseNetCifar on the CPU)."""
     jdtype = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
     jmodel = jax_create_model(
         name, dtype=None if dtype == torch.float32 else jnp.bfloat16
     )
+    apply = functools.partial(jmodel.apply, train=False)
     want = np.asarray(
-        jmodel.apply(
+        (jax.jit(apply) if jit else apply)(
             {"params": params, "batch_stats": stats},
-            jnp.asarray(x).astype(jdtype), train=False,
+            jnp.asarray(x).astype(jdtype),
         ).astype(jnp.float32)
     )
     with torch.no_grad():
@@ -297,12 +415,12 @@ def logits(name, params, stats, x, dtype):
     return got, want
 
 
-def bf16_case(name, trees, he):
+def bf16_case(name, trees, he, jit=False):
     params, stats = trees(name, he)
     x = np.random.RandomState(31).standard_normal((2, 32, 32, 3)).astype(
         np.float32
     )
-    got, want = logits(name, params, stats, x, torch.bfloat16)
+    got, want = logits(name, params, stats, x, torch.bfloat16, jit)
     assert np.all(np.isfinite(got))
     return got, want, params, stats, x
 
@@ -623,10 +741,10 @@ def _nested_bn_node(tree):
 
 def check_refuses_a_leaf_off(name, edit, trees):
     """A tree with a BN leaf missing, an extra conv or extra statistics in
-    a nested block is refused."""
+    a nested block (at the top of a flat tree, VGG's) is refused."""
     params, stats = trees(name)
     params, stats = nested_copy(params), nested_copy(stats)
-    node, _ = _nested_bn_node(params)
+    node, _ = _nested_bn_node(params) or (params, None)
     bn = next(k for k in sorted(node) if k.startswith("BatchNorm"))
     if edit == "missing":
         del node[bn]["scale"]
@@ -634,24 +752,46 @@ def check_refuses_a_leaf_off(name, edit, trees):
         node["Conv_99"] = {"Conv_0": {"kernel": np.zeros((1, 1, 4, 4),
                                                          np.float32)}}
     else:
-        snode, _ = _nested_bn_node(stats)
+        snode, _ = _nested_bn_node(stats) or (stats, None)
         snode["BatchNorm_99"] = {"mean": np.zeros(4, np.float32)}
     with pytest.raises((KeyError, ValueError)):
         state_dict_from_jax(name, params, stats)
+
+def _traced_init(create):
+    """``create`` (a JAX ``create_model``) whose models' ``init`` runs
+    under ``jax.eval_shape``: the JAX export records its model's call order
+    through ``init``, and a traced ``init`` calls the modules in the same
+    order (the recording interceptor runs at trace time) without running
+    the model op by op (a minute for the zoo's deep models on the CPU)."""
+    def make(*args, **kwargs):
+        model = create(*args, **kwargs)
+        init = model.init
+        object.__setattr__(model, "init", lambda rng, x, **kw: jax.eval_shape(
+            lambda r, v: init(r, v, **kw), rng, x))
+        return model
+
+    return make
+
 
 def check_export(name, trees):
     """Key for key, the JAX package's export with the port's own template
     in the JAX model's call order; in the reference's key order."""
     from pytorch_cifar_tpu import compat as jax_compat
+    from pytorch_cifar_tpu import models as jax_models
 
     params, stats = trees(name)
     template = {
         k: v.numpy() for k, v in create_model(name).state_dict().items()
     }
-    want = jax_compat.export_torch_state_dict(
-        name, params, stats,
-        template_sd={k: template[k] for k in jax_call_order(template)},
-    )
+    real = jax_models.create_model
+    jax_models.create_model = _traced_init(real)
+    try:
+        want = jax_compat.export_torch_state_dict(
+            name, params, stats,
+            template_sd={k: template[k] for k in jax_call_order(template)},
+        )
+    finally:
+        jax_models.create_model = real
     got = state_dict_from_jax(name, params, stats)
     assert list(got) == list(template)
     assert set(want) == set(got)
@@ -660,12 +800,12 @@ def check_export(name, trees):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def check_eval_fp32(name, trees):
-    params, stats = trees(name)
+def check_eval_fp32(name, trees, he=True, jit=False):
+    params, stats = trees(name, he)
     x = np.random.RandomState(30).standard_normal((2, 32, 32, 3)).astype(
         np.float32
     )
-    got, want = logits(name, params, stats, x, torch.float32)
+    got, want = logits(name, params, stats, x, torch.float32, jit)
     assert got.shape == (2, 10)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 
@@ -684,25 +824,41 @@ def check_eval_bf16(name, he, trees):
     assert np.max(np.abs(got - want)) <= 0.02 * np.max(np.abs(want))
 
 
-def check_bf16_error(name, trees):
+def check_bf16_error(name, trees, jit=False):
     """On He kernels, against the fp32 logits: the port's bf16 forward is
     no further off than 1.5 times the JAX bf16 forward's own error (on the
     CPU it is closer: its fused sites sum and apply BN in fp32 and round
-    once)."""
-    got, want, params, stats, x = bf16_case(name, trees, True)
-    _, ref = logits(name, params, stats, x, torch.float32)
+    once). ``jit``: both JAX forwards compiled (see :func:`logits`)."""
+    got, want, params, stats, x = bf16_case(name, trees, True, jit)
+    _, ref = logits(name, params, stats, x, torch.float32, jit)
     assert np.max(np.abs(got - ref)) <= 1.5 * np.max(np.abs(want - ref))
 
 
-# the slice's models' (K3, K4 forward, K5) launches a folded forward, as
-# the code gives them; chip_smoke.py's DEPTHWISE_SERVED holds the same on
-# the card
+# the zoo's models' (K3, K4 forward, K5) launches a folded forward, as
+# the code gives them; chip_smoke.py's DEPTHWISE_SERVED and ZOO_REST_SERVED
+# hold the same on the card. VGG: every conv; PreActResNet: each stride-1
+# conv followed by a BN (a basic block's conv1, a bottleneck's conv2) and,
+# in the bottleneck models, the stem with the first block's bn1; SENet,
+# RegNet, DPN: the 3x3 stem (SENet also its stride-1 conv1s); ShuffleNet:
+# the 13 stride-1 depthwise convs
 KERNEL_SITES = {
     "DLA": (12, 0, 0), "MobileNetV2": (1, 0, 14),
     "EfficientNetB0": (0, 0, 12), "ShuffleNetV2_0.5": (1, 0, 13),
     "ShuffleNetV2_1": (1, 0, 13), "ShuffleNetV2_1.5": (1, 0, 13),
     "ShuffleNetV2_2": (1, 0, 13), "PNASNetA": (1, 18, 18),
     "PNASNetB": (1, 18, 54),
+    "VGG11": (8, 0, 0), "VGG13": (10, 0, 0), "VGG16": (13, 0, 0),
+    "VGG19": (16, 0, 0), "PreActResNet18": (5, 0, 0),
+    "PreActResNet34": (13, 0, 0), "PreActResNet50": (14, 0, 0),
+    "PreActResNet101": (31, 0, 0), "PreActResNet152": (48, 0, 0),
+    "SENet18": (6, 0, 0), "ResNeXt29_2x64d": (0, 0, 0),
+    "ResNeXt29_4x64d": (0, 0, 0), "ResNeXt29_8x64d": (0, 0, 0),
+    "ResNeXt29_32x4d": (0, 0, 0), "RegNetX_200MF": (1, 0, 0),
+    "RegNetX_400MF": (1, 0, 0), "RegNetY_400MF": (1, 0, 0),
+    "DenseNet121": (0, 0, 0), "DenseNet161": (0, 0, 0),
+    "DenseNet169": (0, 0, 0), "DenseNet201": (0, 0, 0),
+    "DenseNetCifar": (0, 0, 0), "DPN26": (1, 0, 0), "DPN92": (1, 0, 0),
+    "ShuffleNetG2": (0, 0, 13), "ShuffleNetG3": (0, 0, 13),
 }
 
 
@@ -717,9 +873,12 @@ def check_kernel_sites(name, fused, pools, stencils, monkeypatch):
     (1 + 9 * 3) and each cell pools once; MobileNet: the stem is fused and
     the 9 stride-1 depthwise convs are stencil sites (the 4 stride-2 ones
     are not); SimpleDLA and DLA: their three stems and the conv1 of each
-    block that runs at stride 1 (9 of 12; 9 of 14). The depthwise
-    families' counts are in their files. Counted in the fold and in a
-    forward's calls."""
+    block that runs at stride 1 (9 of 12; 9 of 14). The other families'
+    counts are in :data:`KERNEL_SITES`. Counted in the fold and in a
+    forward's calls. A stencil site is depthwise (``groups == in == out``),
+    k in 3, 5, 7, stride 1, and every such conv is one; a grouped conv that
+    is not depthwise (ResNeXt's, RegNet's, DPN's 3x3s, ShuffleNet's 1x1s)
+    and a depthwise conv at stride 2 stay ``F.conv2d`` sites."""
     model = create_model(name).eval()
     sites = list(folded_sites(model.fold(torch.float32)))
     assert sum(s.fused for s in sites) == fused
@@ -727,13 +886,15 @@ def check_kernel_sites(name, fused, pools, stencils, monkeypatch):
     for s in sites:
         if s.fused:
             assert s.weight.shape[:2] == (3, 3) and s.stride == 1
-            assert s.act == "relu"
-        if s.stencil:
+            assert s.act == "relu" and s.groups == 1
+        elif s.stencil:
             k = s.weight.shape[0]
             assert s.weight.shape[1] == k and k in (3, 5, 7)
             assert s.stride == 1 and s.weight.shape[2] == s.groups
-        else:
-            assert s.groups == 1 or s.stride == 2
+        else:  # OIHW: depthwise is (groups, 1, k, k)
+            o, i, k, _ = s.weight.shape
+            depthwise = s.groups == o and i == 1 and s.groups > 1
+            assert not (depthwise and k in (3, 5, 7) and s.stride == 1)
     calls = {"fused": 0, "pool": 0, "stencil": 0}
     for key, fn in (("fused", "conv3x3_bn_relu"), ("pool", "max_pool3x3_s1"),
                     ("stencil", "depthwise_stencil")):
@@ -747,6 +908,40 @@ def check_kernel_sites(name, fused, pools, stencils, monkeypatch):
     with torch.no_grad():
         model(torch.randn(1, 3, 32, 32))
     assert calls == {"fused": fused, "pool": pools, "stencil": stencils}
+
+
+def check_registry_is_the_jax_registry():
+    """The port's registry holds exactly the JAX registry's 44 names, and
+    an unknown name raises ``KeyError`` naming what the port has."""
+    from pytorch_cifar_tpu.models import available_models as jax_models
+    from pytorch_cifar_tpu_torch import models
+
+    assert models.available_models() == jax_models()
+    assert len(models.available_models()) == 44
+    assert not hasattr(models, "NOT_PORTED")
+    with pytest.raises(KeyError, match="NoSuchNet.*VGG16"):
+        create_model("NoSuchNet")
+
+
+def check_checkpoint_round_trip(name, tmp_path):
+    """A JAX checkpoint (params, BN stats, momentum) restored by the port
+    through the family's table and saved again gives the JAX payload's and
+    sidecar's bytes back."""
+    import os
+
+    from pytorch_cifar_tpu.train import checkpoint as jax_ckpt
+    from pytorch_cifar_tpu_torch.train import checkpoint as ckpt
+    from _torch_ckpt import jax_state, port_state
+
+    a, b = str(tmp_path / "jax"), str(tmp_path / "port")
+    jax_ckpt.save_checkpoint(a, jax_state(name, seed=4, step=11), 6, 12.5)
+    ps = port_state(name)
+    ckpt.restore_checkpoint(a, ps)
+    ckpt.save_checkpoint(b, ps, 6, 12.5)
+    for f in ("ckpt.msgpack", "ckpt.json"):
+        with open(os.path.join(a, f), "rb") as fa, \
+                open(os.path.join(b, f), "rb") as fb:
+            assert fa.read() == fb.read(), f
 
 
 def check_engine_under_load(name):

@@ -62,12 +62,21 @@ def _same_state(a, b):
     assert a.step == b.step
 
 
-def _no_writer_thread():
-    return not [t for t in threading.enumerate()
-                if t.name == "ckpt-writer" and t.is_alive()]
+def _writer_threads():
+    """The live threads named as checkpoint writers are (the JAX package's
+    are named so too, and its trainer tests may leave theirs running in
+    the same worker process)."""
+    return {t for t in threading.enumerate()
+            if t.name == "ckpt-writer" and t.is_alive()}
+
+
+def _no_writer_thread(before):
+    """No writer thread but those alive at ``before`` (the test's start)."""
+    return not _writer_threads() - before
 
 
 def test_stopped_and_resumed_run_equals_an_uninterrupted_one(tmp_path):
+    before = _writer_threads()
     runs = []
     for i in range(2):
         t = Trainer(_config(tmp_path / f"full{i}"))
@@ -94,7 +103,7 @@ def test_stopped_and_resumed_run_equals_an_uninterrupted_one(tmp_path):
         assert split[f] == full[f], f
     assert not [f for f in split if f.startswith("last")]
     _same_state(resumed.state, runs[0].state)
-    assert _no_writer_thread()
+    assert _no_writer_thread(before)
 
 
 def test_sigterm_stops_after_the_epoch_and_saves_last(tmp_path):
@@ -150,6 +159,7 @@ def test_evaluate_takes_the_best_checkpoint(tmp_path):
 
 
 def test_no_writer_thread_outlives_a_failing_fit(tmp_path):
+    before = _writer_threads()
     trainer = Trainer(_config(tmp_path, epochs=3))
     run_epoch = trainer._run_epoch
 
@@ -161,7 +171,7 @@ def test_no_writer_thread_outlives_a_failing_fit(tmp_path):
     trainer._run_epoch = failing
     with pytest.raises(RuntimeError, match="device lost"):
         trainer.fit()
-    assert _no_writer_thread()
+    assert _no_writer_thread(before)
     # the epoch-0 best is durable all the same
     assert (tmp_path / CKPT_NAME).exists()
 

@@ -283,9 +283,13 @@ def test_checkpoint_paths_are_ported(argv):
 
 
 def test_unported_models_say_so():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("DenseNet121")
-    with pytest.raises(KeyError):
+    """No registry name is left unported: the port's registry is the JAX
+    package's, and an unknown name raises ``KeyError`` naming them."""
+    from pytorch_cifar_tpu.models import available_models as jax_models
+    from pytorch_cifar_tpu_torch.models import available_models
+
+    assert available_models() == jax_models()
+    with pytest.raises(KeyError, match="DenseNet121"):
         create_model("NoSuchNet")
 
 

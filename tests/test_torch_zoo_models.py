@@ -17,7 +17,6 @@ import pytest
 
 from pytorch_cifar_tpu_torch.compat import state_dict_from_jax
 from pytorch_cifar_tpu_torch.models import (
-    NOT_PORTED,
     available_models,
     count_params,
     create_model,
@@ -25,7 +24,12 @@ from pytorch_cifar_tpu_torch.models import (
 from pytorch_cifar_tpu_torch.models.googlenet import CELLS
 from pytorch_cifar_tpu_torch.models.mobilenet import CFG
 from _torch_threads import torch_threads  # noqa: F401
-from _torch_zoo import check_export, reference_keys, trees  # noqa: F401
+from _torch_zoo import (  # noqa: F401
+    check_export,
+    check_registry_is_the_jax_registry,
+    reference_keys,
+    trees,
+)
 
 
 @pytest.mark.parametrize("name,count", [("GoogLeNet", 6_166_250)])
@@ -35,9 +39,10 @@ def test_golden_param_counts(name, count):
 
 @pytest.mark.parametrize("name", ["GoogLeNet"])
 def test_registered_and_no_longer_listed_as_unported(name):
-    assert name in available_models() and name not in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("VGG16")
+    """The name is registered, and the registry is the JAX
+    registry's (no name is left unported)."""
+    assert name in available_models()
+    check_registry_is_the_jax_registry()
 
 
 @pytest.mark.parametrize("name", ["GoogLeNet"])

@@ -8,7 +8,6 @@ kernel sites per forward (1 fused, 9 stencils). Helpers in
 import pytest
 
 from pytorch_cifar_tpu_torch.models import (
-    NOT_PORTED,
     available_models,
     count_params,
     create_model,
@@ -20,6 +19,7 @@ from _torch_zoo import (  # noqa: F401
     check_eval_fp32,
     check_export,
     check_kernel_sites,
+    check_registry_is_the_jax_registry,
     reference_keys,
     trees,
 )
@@ -32,9 +32,10 @@ def test_golden_param_counts(name, count):
 
 @pytest.mark.parametrize("name", ["MobileNet"])
 def test_registered_and_no_longer_listed_as_unported(name):
-    assert name in available_models() and name not in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("VGG16")
+    """The name is registered, and the registry is the JAX
+    registry's (no name is left unported)."""
+    assert name in available_models()
+    check_registry_is_the_jax_registry()
 
 
 @pytest.mark.parametrize("name", ["MobileNet"])

@@ -19,7 +19,6 @@ from pytorch_cifar_tpu.ops.depthwise_stencil import (
 )
 from pytorch_cifar_tpu.ops.max_pool import max_pool3x3_s1 as jax_max_pool
 from pytorch_cifar_tpu_torch.models import (
-    NOT_PORTED,
     available_models,
     common,
     count_params,
@@ -35,6 +34,7 @@ from _torch_zoo import (  # noqa: F401
     check_export,
     check_kernel_sites,
     check_refuses_a_leaf_off,
+    check_registry_is_the_jax_registry,
     check_round_trip,
     folded_sites,
     jax_call_order,
@@ -53,9 +53,10 @@ def test_golden_param_counts(name, count):
 
 @pytest.mark.parametrize("name", list(COUNTS))
 def test_registered_and_no_longer_listed_as_unported(name):
-    assert name in available_models() and name not in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("DPN26")
+    """The name is registered, and the registry is the JAX
+    registry's (no name is left unported)."""
+    assert name in available_models()
+    check_registry_is_the_jax_registry()
 
 
 @pytest.mark.parametrize("name", list(COUNTS))

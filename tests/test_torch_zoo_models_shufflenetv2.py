@@ -17,7 +17,6 @@ from pytorch_cifar_tpu.models.common import (
 )
 from pytorch_cifar_tpu.models.shufflenetv2 import _CONFIGS as JAX_CONFIGS
 from pytorch_cifar_tpu_torch.models import (
-    NOT_PORTED,
     available_models,
     common,
     count_params,
@@ -31,6 +30,7 @@ from _torch_zoo import (  # noqa: F401
     check_export,
     check_kernel_sites,
     check_refuses_a_leaf_off,
+    check_registry_is_the_jax_registry,
     check_round_trip,
     folded_sites,
     kernel_sites,
@@ -50,9 +50,10 @@ def test_golden_param_counts(name, count):
 
 @pytest.mark.parametrize("name", NAMES)
 def test_registered_and_no_longer_listed_as_unported(name):
-    assert name in available_models() and name not in NOT_PORTED
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        create_model("ShuffleNetG2")
+    """The name is registered, and the registry is the JAX
+    registry's (no name is left unported)."""
+    assert name in available_models()
+    check_registry_is_the_jax_registry()
 
 
 @pytest.mark.parametrize("name", NAMES)

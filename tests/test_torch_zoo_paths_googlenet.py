@@ -51,13 +51,13 @@ def test_trainer_trains_googlenet_through_the_pool_op(monkeypatch, tmp_path):
 
 
 def test_nothing_model_specific_is_left_in_config_and_trainer():
-    """Any registered model's name passes the config check; an unported one
-    raises from the registry, naming what is there."""
-    for name in ("GoogLeNet", "MobileNet", "ResNet18", "LeNet"):
+    """Any registered model's name passes the config check; an unknown one
+    raises from the registry (``KeyError``), naming what is there."""
+    for name in ("GoogLeNet", "MobileNet", "ResNet18", "LeNet", "VGG16"):
         cfg = TrainConfig(model=name, synthetic_data=True, device="cpu")
         assert cfg.model == name
-    with pytest.raises(NotImplementedError, match="GoogLeNet.*MobileNet"):
-        Trainer(TrainConfig(model="VGG16", synthetic_data=True,
+    with pytest.raises(KeyError, match="GoogLeNet.*MobileNet.*VGG16"):
+        Trainer(TrainConfig(model="NoSuchNet", synthetic_data=True,
                             synthetic_train_size=8, synthetic_test_size=8,
                             batch_size=8, device="cpu"))
 

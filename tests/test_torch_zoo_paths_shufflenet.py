@@ -1,0 +1,53 @@
+"""ShuffleNet end to end on the CPU: one float64 train step of a narrow
+ShuffleNet G2 (widths 48 / 96 / 192; 2, 1 and 1 blocks) against the JAX
+package's, the train CLI, the serving engine and the serving CLI. Helpers
+in ``tests/_torch_zoo.py``.
+"""
+
+import logging
+
+import pytest
+
+from pytorch_cifar_tpu.models.shufflenet import ShuffleNet as JaxShuffleNet
+from pytorch_cifar_tpu_torch.models.shufflenet import ShuffleNet
+from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
+from _torch_threads import torch_threads  # noqa: F401
+from _torch_zoo import (
+    check_engine_under_load,
+    check_serve_cli,
+    check_step_f64,
+    step_f64_vs_jax,
+)
+
+# every stage's first block concatenates the pooled input; the first
+# stage's second block adds it (groups 2 there, 1 in the stem-fed block)
+NARROW = {"out_planes": (48, 96, 192), "num_blocks": (2, 1, 1), "groups": 2}
+
+
+def test_train_step_matches_jax_float64():
+    port, want = step_f64_vs_jax("ShuffleNetG2", JaxShuffleNet(NARROW),
+                                 ShuffleNet(NARROW), n=4)
+    check_step_f64(port, want, 4)
+
+
+def test_cli_trains_shufflenet_on_the_cpu(caplog, tmp_path):
+    caplog.set_level(logging.INFO)
+    out = train_main([
+        "--device", "cpu", "--model", "ShuffleNetG2", "--synthetic_data",
+        "--synthetic_train_size", "32", "--synthetic_test_size", "16",
+        "--batch_size", "16", "--eval_batch_size", "16", "--epochs", "1",
+        "--no-amp", "--output_dir", str(tmp_path),
+    ])
+    (h,) = out["history"]
+    assert h["train"]["count"] == 32 and h["train"]["nonfinite"] == 0
+    assert "==> model ShuffleNetG2" in caplog.text
+
+
+@pytest.mark.parametrize("name", ["ShuffleNetG3"])
+def test_engine_serves_the_zoo_models_under_load(name):
+    check_engine_under_load(name)
+
+
+@pytest.mark.parametrize("name", ["ShuffleNetG2"])
+def test_serve_cli_runs_the_zoo_models_on_the_cpu(name, capsys):
+    check_serve_cli(name, capsys)
