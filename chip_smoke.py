@@ -235,8 +235,41 @@ DenseNet, DPN, ShuffleNet G2/G3), run after phase 23:
     from the same start;
 28. ``zoo_rest_s``: each of these phases' seconds.
 
+Then the rest of the trainer, run after phase 28, each on ResNet-18 at full
+width, b512, on googlenet_train's cut split (10,240 / 2,048, 20 steps an
+epoch), with the launch counts reset just before each run of the main path
+and read just after:
+
+29. sentinel: ``Trainer.fit`` (bf16, device data, K1 gather, the default
+    ``sentinel="skip"``) for 2 epochs with ``faults.inject("nan_loss",
+    25)``: K1 twice, 6 K3 per eval forward, ``fault_stats`` naming step
+    25 alone, every parameter finite; one more guarded epoch dispatched
+    under ``torch.cuda.set_sync_debug_mode("error")``; the poisoned step
+    run alone from the state the run left: params, momentum and BN buffers
+    equal to it as raw bits, the step counter + 1; a ``rollback`` run with
+    ``sentinel_budget=1`` and step 23 poisoned, whose state after epoch 1
+    equals the epoch-0 checkpoint (``ckpt-e00000.msgpack``) byte for byte;
+    the guarded and the unguarded bf16 b512 step's wall and device ms at
+    ResNet-18 and SimpleDLA (``tools/profile_train.py``'s method, in
+    turns);
+30. remat: one fp32 step (TF32 off, cuDNN deterministic) of ResNet-18 at
+    b512 and of EfficientNetB0 at b128 (drop-connect drawn and replayed)
+    from one state with ``remat`` off and on: the largest gradient
+    difference within 1e-5 of each tensor's largest gradient, the BN
+    running stats as raw bits, then 3 warm steps' ms and the peak memory
+    each way;
+31. host_loader: the train CLI with ``--no-device_data`` for 2 epochs,
+    with ``--async_input`` on (and ``--metrics_out``, ``--trace_out``),
+    off, and with ``--host_augment``: no K1, 6 K3 per eval forward, every
+    image once an epoch, a falling loss; epoch 0's first 8 batches' SHA-256
+    equal with async on and off; the warm epoch's img/s against phase 29's
+    device-resident run; ``data.prefetch_depth`` and the
+    ``train.input_wait_ms`` p50; the JSONL and trace files parse and hold
+    the JAX trainer's names.
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
-every visible card (the four-card call), and prints no kernels or ok line.
+every visible card (the four-card call), and prints neither the kernels
+nor the ok line.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -2201,6 +2234,398 @@ def zoo_forwards(dw: dict, served=None) -> dict:
     return out
 
 
+# -- the rest of the trainer: the sentinel, remat, the host loader ---------
+
+CUT_TRAIN, CUT_TEST = 10_240, 2_048  # googlenet_train's cut: 20 steps
+CUT_STEPS, CUT_EVAL_FORWARDS = 20, 3  # a step per 512, 1000-image evals
+SENTINEL_STEP = 25  # the poisoned global step: epoch 1's sixth
+ROLLBACK_STEP = 23  # the rollback run's: epoch 1's fourth
+GUARD_MODELS = ("ResNet18", "SimpleDLA")
+REMAT_RUNS = (("ResNet18", 512), ("EfficientNetB0", 128))
+# the JAX trainer's names on the host-loader path (its OBSERVABILITY.md)
+HOST_METRICS = {
+    "counters": {"train.epochs", "train.epoch_s", "train.input_wait_s"},
+    "gauges": {"data.prefetch_depth"},
+    "histograms": {"train.epoch_ms", "train.step_time_ms",
+                   "train.input_wait_ms", "data.host_batch_ms",
+                   "data.producer_batch_ms"},
+}
+HOST_SPANS = {"train/epoch", "train/step", "eval/epoch"}
+
+
+def _cut_config(out_dir: str, **kw):
+    """ResNet-18 at full width, b512 bf16, device data with K1, on the
+    cut split for 2 epochs."""
+    from pytorch_cifar_tpu_torch.config import TrainConfig
+
+    return TrainConfig(**{**dict(
+        model="ResNet18", batch_size=BATCH, amp=True, synthetic_data=True,
+        synthetic_train_size=CUT_TRAIN, synthetic_test_size=CUT_TEST,
+        epochs=2, cosine_t_max=2, dma_gather=True, device="cuda",
+        output_dir=out_dir), **kw})
+
+
+def zero_launches(mods: dict) -> None:
+    """Sets every kernel's launch counter to 0; ``train.launch._launches``
+    reads them (a recomputed forward under remat launches K2, when hooked,
+    and K4's forward again, and they count it)."""
+    for m in ("G", "M", "K", "D"):
+        mods[m].LAUNCHES = 0
+    mods["P"].FWD_LAUNCHES = mods["P"].BWD_LAUNCHES = 0
+
+
+def _check_path_launches(tag: str, got: dict, k1: int, k3: int,
+                         fails: Failures) -> None:
+    want = {name: 0 for name in got}
+    want.update(dma_row_gather=k1, conv3x3_bn_relu=k3)
+    fails.check(got == want, f"{tag}: launches {got}, want {want}")
+
+
+def _raw_state(state) -> torch.Tensor:
+    """Params, BN stats and momentum buffers as raw bits, on the card."""
+    from pytorch_cifar_tpu_torch.compat import snapshot_state
+
+    return snapshot_state(state).flat.view(torch.int32)
+
+
+def _trees_equal(got, want, path="") -> list:
+    """The paths where two payload trees differ (as raw bytes)."""
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or sorted(got) != sorted(want):
+            return [path]
+        return [p for k in want
+                for p in _trees_equal(got[k], want[k], f"{path}/{k}")]
+    a, b = np.asarray(got), np.asarray(want)
+    same = (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+    return [] if same else [path]
+
+
+def _epochs(hist) -> list:
+    return [{k: h[k] for k in ("epoch", "train_loss", "eval_loss",
+                               "eval_acc", "epoch_s", "img_per_sec")}
+            | {"nonfinite": h["train"]["nonfinite"]} for h in hist]
+
+
+def _sync_checked_epoch(trainer, epoch: int):
+    """One more epoch dispatched with every host sync an error; its
+    totals, or the first line of the sync error."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        totals, _ = trainer.dispatch_epoch(epoch)
+        return totals, None
+    except RuntimeError as e:
+        return None, str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _guard_cost(model: str) -> dict:
+    """The guarded and the unguarded b512 bf16 step of ``model`` from one
+    state, PERF.md section 5's method (``tools/profile_train.py``): the
+    wall per step, the faster of two unprofiled runs of 20 steps each, in
+    turns; then 20 steps of each under ``torch.profiler``."""
+    from pytorch_cifar_tpu_torch.tools.profile_train import (
+        profile_steps, wall_ms)
+    from pytorch_cifar_tpu_torch.train.steps import make_train_step
+
+    state, _ = _train_state(0, torch.bfloat16, model)
+    g = torch.Generator().manual_seed(21)
+    batch = (torch.randint(0, 256, (BATCH, 32, 32, 3), generator=g,
+                           dtype=torch.uint8).cuda(),
+             torch.randint(0, 10, (BATCH,), generator=g,
+                           dtype=torch.int32).cuda())
+    steps = {mode: make_train_step(compute_dtype=torch.bfloat16,
+                                   skip_nonfinite=mode == "guarded",
+                                   device="cuda")
+             for mode in ("unguarded", "guarded")}
+    walls = {mode: [] for mode in steps}
+    for mode in ("unguarded", "guarded", "guarded", "unguarded"):
+        walls[mode].append(wall_ms(state, steps[mode], batch)[0])
+    out = {}
+    for mode, step in steps.items():
+        rec = profile_steps(state, step, batch, min(walls[mode]))
+        out[mode] = {"wall_ms_runs": walls[mode],
+                     **{k: rec[k] for k in ("wall_ms_per_step",
+                                            "device_busy_ms_per_step",
+                                            "idle_share",
+                                            "groups_ms_per_step")}}
+    out["guard_wall_ms"] = (out["guarded"]["wall_ms_per_step"]
+                            - out["unguarded"]["wall_ms_per_step"])
+    out["guard_device_ms"] = (out["guarded"]["device_busy_ms_per_step"]
+                              - out["unguarded"]["device_busy_ms_per_step"])
+    return out
+
+
+def phase_sentinel(mods: dict, smi: str, fails: Failures) -> dict:
+    """The divergence sentinel on the main path (phase 29 of the module
+    docstring)."""
+    from pytorch_cifar_tpu_torch import faults
+    from pytorch_cifar_tpu_torch.compat import train_tree_from_state
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        read_meta, read_payload_tree, read_verified_payload)
+    from pytorch_cifar_tpu_torch.train.launch import _launches
+    from pytorch_cifar_tpu_torch.train.steps import make_train_step
+    from pytorch_cifar_tpu_torch.train.trainer import Trainer
+
+    out_dir = run_dir("sentinel_")
+    out = {"card": smi, "model": "ResNet18", "batch": BATCH,
+           "dtype": "bf16", "train_n": CUT_TRAIN, "test_n": CUT_TEST}
+    secs, t0 = {}, time.perf_counter()
+    try:
+        faults.clear()
+        faults.inject("nan_loss", SENTINEL_STEP)
+        trainer = Trainer(_cut_config(os.path.join(out_dir, "skip")))
+        faults.clear()  # the step read it when it was built
+        fails.check(trainer.config.sentinel == "skip",
+                    f"sentinel: the default policy is "
+                    f"{trainer.config.sentinel}")
+        torch.cuda.synchronize()
+        zero_launches(mods)  # the main path starts here
+        trainer.fit()
+        launches = _launches()  # and ends here
+        _check_path_launches("sentinel", launches, 2,
+                             6 * 2 * CUT_EVAL_FORWARDS, fails)
+        stats = trainer.fault_stats
+        fails.check(stats["bad_step_indices"] == [SENTINEL_STEP]
+                    and stats["bad_steps"] == 1,
+                    f"sentinel: fault_stats {stats}")
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in trainer.state.model.parameters())
+        fails.check(finite, "sentinel: a parameter is not finite")
+        hist = trainer.history
+        fails.check([h["train"]["nonfinite"] for h in hist] == [0.0, 1.0],
+                    f"sentinel: nonfinite totals "
+                    f"{[h['train']['nonfinite'] for h in hist]}")
+        fails.check(all(np.isfinite(h["train_loss"]) for h in hist),
+                    "sentinel: a loss is not finite")
+        out.update(launches=launches, fault_stats=stats,
+                   epochs=_epochs(hist))
+
+        # a guarded epoch with every host sync an error
+        totals, synced = _sync_checked_epoch(trainer, 2)
+        fails.check(synced is None,
+                    f"sentinel: the guarded epoch synced: {synced}")
+        if synced is None:
+            fails.check(float(totals["count"]) == CUT_TRAIN,
+                        "sentinel: the sync-checked epoch counted "
+                        f"{float(totals['count'])} images")
+        out["epoch_sync_error"] = synced
+
+        # the poisoned step alone, from the state the run left
+        faults.inject("nan_loss", trainer.state.step)
+        step = make_train_step(compute_dtype=torch.bfloat16,
+                               skip_nonfinite=True, device="cuda")
+        faults.clear()
+        before, s0 = _raw_state(trainer.state).clone(), trainer.state.step
+        m = step(trainer.state, (trainer.loader.images[:BATCH],
+                                 trainer.loader.labels[:BATCH]))
+        same = torch.equal(_raw_state(trainer.state), before)
+        fails.check(same and trainer.state.step == s0 + 1
+                    and float(m["nonfinite"]) == 1.0,
+                    f"sentinel: the skipped step changed the state "
+                    f"(same bits {same}, step {s0} -> "
+                    f"{trainer.state.step}, nonfinite "
+                    f"{float(m['nonfinite'])})")
+        out["skipped_step_same_bits"] = same
+        secs["skip"] = time.perf_counter() - t0
+
+        # rollback with a budget of 1: epoch 1's bad step restores epoch 0
+        rb_dir = os.path.join(out_dir, "rollback")
+        faults.inject("nan_loss", ROLLBACK_STEP)
+        rb = Trainer(_cut_config(rb_dir, sentinel="rollback",
+                                 sentinel_budget=1))
+        faults.clear()
+        rb.fit()
+        name = "ckpt-e00000.msgpack"
+        want = read_payload_tree(name, read_verified_payload(
+            rb_dir, name, read_meta(rb_dir, name)))
+        differ = _trees_equal(train_tree_from_state(rb.state), want)
+        stats = rb.fault_stats
+        fails.check(stats["rollbacks"] == 1
+                    and stats["bad_step_indices"] == [ROLLBACK_STEP],
+                    f"sentinel: rollback fault_stats {stats}")
+        fails.check(not differ, f"sentinel: the rolled-back state differs "
+                                f"from the epoch-0 checkpoint at {differ}")
+        out["rollback"] = {"fault_stats": stats, "differs_at": differ,
+                           "step": rb.state.step}
+        secs["rollback"] = time.perf_counter() - t0 - secs["skip"]
+    finally:
+        faults.clear()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    out["guard_cost"] = {}
+    for model in GUARD_MODELS:
+        t1 = time.perf_counter()
+        out["guard_cost"][model] = _guard_cost(model)
+        secs[f"guard_{model}"] = time.perf_counter() - t1
+    out["secs"] = secs
+    print("sentinel " + json.dumps(out), flush=True)
+    return out
+
+
+def _remat_pair(model: str, batch: int, mods: dict, fails: Failures) -> dict:
+    """One fp32 step of ``model`` from one seeded state with remat off and
+    on: the largest gradient difference (held within 1e-5 of each
+    tensor's largest gradient), the BN running stats as raw bits, then
+    the warm step's ms and its peak memory each way."""
+    from pytorch_cifar_tpu_torch.train.launch import _launches
+    from pytorch_cifar_tpu_torch.train.steps import make_train_step
+
+    g = torch.Generator().manual_seed(31)
+    x = (torch.randint(0, 256, (batch, 32, 32, 3), generator=g,
+                       dtype=torch.uint8).cuda(),
+         torch.randint(0, 10, (batch,), generator=g,
+                       dtype=torch.int32).cuda())
+    got, rec = {}, {"model": model, "batch": batch, "dtype": "fp32"}
+    for remat in (False, True):
+        state, _ = _train_state(11, torch.float32, model)
+        step = make_train_step(augment=False, compute_dtype=torch.float32,
+                               remat=remat, device="cuda")
+        torch.cuda.synchronize()
+        zero_launches(mods)
+        step(state, x)
+        torch.cuda.synchronize()
+        launches = _launches()
+        got[remat] = (
+            {k: p.grad.detach().clone()
+             for k, p in state.model.named_parameters()},
+            {k: v.detach().clone() for k, v in
+             state.model.state_dict().items() if "running_" in k})
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            step(state, x)
+        torch.cuda.synchronize()
+        tag = "on" if remat else "off"
+        rec[f"step_ms_{tag}"] = (time.perf_counter() - t0) * 1e3 / 3
+        rec[f"peak_mem_gib_{tag}"] = torch.cuda.max_memory_allocated() / 2**30
+        rec[f"peak_above_state_gib_{tag}"] = (
+            torch.cuda.max_memory_allocated() - base) / 2**30
+        rec[f"launches_{tag}"] = launches
+    (g_off, s_off), (g_on, s_on) = got[False], got[True]
+    worst, at = 0.0, None
+    for k, gr in g_off.items():
+        rel = ((g_on[k] - gr).abs().max() / gr.abs().max().clamp(
+            min=1e-30)).item()
+        if rel >= worst:
+            worst, at = rel, k
+    rec["grad_max_abs_diff"] = max((g_on[k] - v).abs().max().item()
+                                   for k, v in g_off.items())
+    rec["grad_worst_rel"], rec["grad_worst_at"] = worst, at
+    stats_same = all(torch.equal(s_on[k], v) for k, v in s_off.items())
+    rec["bn_stats_bit_equal"] = stats_same
+    fails.check(worst <= 1e-5, f"remat {model}: gradient {at} off by "
+                               f"{worst:.3g} of its largest value")
+    fails.check(stats_same, f"remat {model}: BN running stats differ")
+    fails.check(rec["launches_on"] == rec["launches_off"],
+                f"remat {model}: launches {rec['launches_on']} against "
+                f"{rec['launches_off']}")
+    return rec
+
+
+def phase_remat(mods: dict, smi: str, fails: Failures) -> dict:
+    """Remat against the plain step (phase 30 of the module docstring),
+    with TF32 off and cuDNN's deterministic algorithms."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = {"card": smi, "runs": [_remat_pair(m, b, mods, fails)
+                                     for m, b in REMAT_RUNS]}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    print("remat " + json.dumps(out), flush=True)
+    return out
+
+
+def loader_hook(trainer) -> dict:
+    """A rank hook of the host-loader runs: the SHA-256 of epoch 0's
+    first 8 batches (images and labels as the step gets them), and the
+    loader's and the input wait's instruments."""
+    import hashlib
+    import itertools
+
+    sums = []
+    for x, y in itertools.islice(trainer.loader.epoch(0), 8):
+        sums.append(hashlib.sha256(x.cpu().numpy().tobytes()
+                                   + y.cpu().numpy().tobytes()).hexdigest())
+    s = trainer.obs.summary()
+    return {"sha256": sums,
+            **{k: s.get(k) for k in ("data.prefetch_depth.max",
+                                     "train.input_wait_ms.p50",
+                                     "train.input_wait_s", "train.epoch_s",
+                                     "data.producer_batch_ms.p50",
+                                     "data.host_batch_ms.p50")}}
+
+
+def phase_host_loader(mods: dict, smi: str, fails: Failures,
+                      device_img_s: float) -> dict:
+    """The train CLI on the host loader (phase 31 of the module
+    docstring)."""
+    from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
+    from pytorch_cifar_tpu_torch.train.launch import _launches
+
+    out_dir = run_dir("host_loader_")
+    base = ["--model", "ResNet18", "--batch_size", str(BATCH),
+            "--synthetic_data", "--synthetic_train_size", str(CUT_TRAIN),
+            "--synthetic_test_size", str(CUT_TEST), "--epochs", "2",
+            "--cosine_t_max", "2", "--no-device_data"]
+    metrics = os.path.join(out_dir, "m.jsonl")
+    spans = os.path.join(out_dir, "trace.json")
+    runs = {"async_on": ["--metrics_out", metrics, "--trace_out", spans],
+            "async_off": ["--async_input", "off"],
+            "host_augment": ["--host_augment"]}
+    out = {"card": smi, "model": "ResNet18", "batch": BATCH,
+           "dtype": "bf16", "train_n": CUT_TRAIN, "test_n": CUT_TEST,
+           "device_data_warm_img_per_sec": device_img_s}
+    try:
+        for tag, extra in runs.items():
+            argv = base + extra + ["--output_dir",
+                                   os.path.join(out_dir, tag)]
+            torch.cuda.synchronize()
+            zero_launches(mods)  # the main path starts here
+            res = train_main(argv, rank_hook=loader_hook)
+            launches = _launches()  # and ends here
+            _check_path_launches(f"host_loader {tag}", launches, 0,
+                                 6 * 2 * CUT_EVAL_FORWARDS, fails)
+            hist = res["history"]
+            for h in hist:
+                fails.check(h["train"]["count"] == CUT_TRAIN
+                            and h["eval"]["count"] == CUT_TEST,
+                            f"host_loader {tag}: epoch {h['epoch']} counted "
+                            f"{h['train']['count']} / {h['eval']['count']}")
+            fails.check(all(np.isfinite(h["train_loss"]) for h in hist)
+                        and hist[1]["train_loss"] < hist[0]["train_loss"],
+                        f"host_loader {tag}: losses "
+                        f"{[h['train_loss'] for h in hist]}")
+            hook = res["ranks"][0]["hook"]
+            out[tag] = {"launches": launches, "epochs": _epochs(hist),
+                        "warm_vs_device_data": hist[1]["img_per_sec"]
+                        / device_img_s, **hook}
+        fails.check(out["async_on"]["sha256"] == out["async_off"]["sha256"],
+                    "host_loader: async on and off gave other batches")
+        with open(metrics) as f:
+            last = json.loads(f.read().splitlines()[-1])["metrics"]
+        missing = {kind: sorted(names - set(last.get(kind, {})))
+                   for kind, names in HOST_METRICS.items()}
+        fails.check(not any(missing.values()),
+                    f"host_loader: --metrics_out lacks {missing}")
+        with open(spans) as f:
+            names = {e["name"] for e in json.load(f)["traceEvents"]}
+        fails.check(HOST_SPANS <= names,
+                    f"host_loader: --trace_out holds only {sorted(names)}")
+        out["metrics_lines"] = True
+        out["spans"] = sorted(names)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for tag in runs:
+        out[tag].pop("sha256")
+    print("host_loader " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -2271,6 +2696,12 @@ def main(argv=None) -> int:
     dw = timed("depthwise", phase_depthwise, G, M, K, P, D, smi, peaks,
                fails)
     zr = timed("zoo_rest", phase_zoo_rest, G, M, K, P, D, smi, peaks, fails)
+    # the rest of the trainer: the sentinel, remat and the host loader
+    mods = {"G": G, "M": M, "K": K, "P": P, "D": D}
+    sen = timed("sentinel", phase_sentinel, mods, smi, fails)
+    timed("remat", phase_remat, mods, smi, fails)
+    hl = timed("host_loader", phase_host_loader, mods, smi, fails,
+               sen["epochs"][1]["img_per_sec"])
     timed("ckpt", phase_ckpt, G, K, smi, fails)
     dp = timed("dp", phase_dp, G, M, K, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
@@ -2331,6 +2762,11 @@ def main(argv=None) -> int:
         # per rank, in the data-parallel run's 2 epochs (eval forwards)
         "dp_launches_per_rank": [L["conv3x3_bn_relu"] for L in
                                  dp_nccl["launches_per_rank"]],
+        # the eval forwards of the sentinel run and of each host-loader run
+        "sentinel_launches": sen["launches"]["conv3x3_bn_relu"],
+        "host_loader_launches": {
+            tag: hl[tag]["launches"]["conv3x3_bn_relu"]
+            for tag in ("async_on", "async_off", "host_augment")},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -2341,6 +2777,8 @@ def main(argv=None) -> int:
                               "bound_by", "library_ms", "copy_ms")},
         "dp_launches_per_rank": [L["dma_row_gather"] for L in
                                  dp_nccl["launches_per_rank"]],
+        # the sentinel phase's run (2 epochs of the cut split)
+        "sentinel_launches": sen["launches"]["dma_row_gather"],
         "redesigned": "one row per warp, each lane's loads of a row issued "
                       "before its stores; the design it replaced (a capped "
                       "grid, each load stored at once) and a cp.async.bulk "

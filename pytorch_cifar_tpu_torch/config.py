@@ -4,10 +4,9 @@
 reads, under the same names, defaults and flag spellings (booleans take
 ``--flag``/``--no-flag``), plus ``--device``.
 
-Flags of paths not ported yet are not here, with two exceptions parsed
-so that asking for them fails with "not ported yet" instead of an unknown
-flag: ``--no-device_data`` (the host loader) and ``--publish staging``
-(the canary pipeline).
+Flags of paths not ported yet are not here, with one exception parsed so
+that asking for it fails with "not ported yet" instead of an unknown flag:
+``--publish staging`` (the canary pipeline).
 """
 
 from __future__ import annotations
@@ -43,8 +42,19 @@ class TrainConfig:
     synthetic_test_size: int = 512
     random_crop: bool = True
     random_flip: bool = True
-    # the dataset lives on the device and each epoch is one gather + steps
-    # (the only data plane ported so far)
+    # crop + flip on the host through the native data plane
+    # (native/cifar_native.cpp) instead of on the device; takes the host
+    # loader, and the train step normalizes only
+    host_augment: bool = False
+    # the host loader (data/pipeline.Dataloader, --no-device_data or
+    # --host_augment): prefetch is the bounded queue's depth of batches
+    # ahead of the consumer; async_input "on" assembles and copies them on
+    # a producer thread, "off" inline. Both yield the same batches in the
+    # same order.
+    prefetch: int = 2
+    async_input: str = "on"
+    # the dataset lives on the device and each epoch is one gather + steps;
+    # --no-device_data takes the host loader and the per-step loop
     device_data: bool = True
     # the epoch gather through kernel K1 (ops/dma_gather.py) on a CUDA
     # device; --no-dma_gather takes the library gather (index_select)
@@ -57,6 +67,9 @@ class TrainConfig:
 
     # precision: bf16 compute, fp32 params/BN stats/loss
     amp: bool = True
+    # recompute the forward during the backward
+    # (torch.utils.checkpoint): activation memory for compute
+    remat: bool = False
 
     # parallelism: one process per device, data parallel over the
     # default process group (parallel/). num_devices: local devices the
@@ -95,7 +108,26 @@ class TrainConfig:
     resume: bool = False
     evaluate: bool = False  # load the best checkpoint, run eval only
 
+    # divergence sentinel: what a train step whose loss or gradient norm
+    # is not finite does. "off": its update is applied (NaN poisons the
+    # run); "skip": it is discarded on the device, the step counter still
+    # advancing; "rollback": skipped, and after sentinel_budget
+    # consecutive bad steps the newest checkpoint is restored
+    sentinel: str = "skip"
+    sentinel_budget: int = 3
+
+    # observability, off by default: trace_out writes the host spans as
+    # Chrome trace-event JSON; metrics_out appends a registry snapshot as
+    # JSONL every metrics_every_s seconds and once at exit
+    trace_out: str = ""
+    metrics_out: str = ""
+    metrics_every_s: float = 10.0
+
     seed: int = 0
+    # the per-step loop's progress: metrics fetched every log_every steps
+    log_every: int = 50
+    # torch.profiler over ~20 steady steps, written under output_dir
+    profile: bool = False
     device: str = "cuda"  # "cpu" runs the port on the CPU
 
     @property
@@ -108,11 +140,6 @@ def check_ported(config: TrainConfig) -> None:
     if config.publish == "staging":
         raise NotImplementedError(
             "--publish staging is not ported yet (the canary pipeline comes "
-            "with a later slice)"
-        )
-    if not config.device_data:
-        raise NotImplementedError(
-            "--no-device_data is not ported yet (the host loader comes "
             "with a later slice)"
         )
 

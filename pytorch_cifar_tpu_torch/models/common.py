@@ -155,6 +155,35 @@ def bn_moments_impl(fn: Optional[Callable]):
         _BN_MOMENTS_IMPL.reset(token)
 
 
+# Set while ``torch.utils.checkpoint`` recomputes a train forward in the
+# backward: the forward already updated the running stats once.
+_RUNNING_FROZEN: contextvars.ContextVar = contextvars.ContextVar(
+    "bn_running_frozen", default=False
+)
+
+
+def recompute_context() -> Callable[[], contextlib.AbstractContextManager]:
+    """A factory of the context in which ``torch.utils.checkpoint``
+    recomputes a train forward (its ``context_fn``'s second half). The
+    recompute runs in the backward, outside the step's context managers
+    (on CUDA on autograd's device thread, which sees none of this
+    thread's context variables): the factory captures the
+    :func:`bn_moments_impl` current now, and within the context
+    :class:`BatchNorm` leaves its running stats alone."""
+    impl = _BN_MOMENTS_IMPL.get()
+
+    @contextlib.contextmanager
+    def replay():
+        tokens = _BN_MOMENTS_IMPL.set(impl), _RUNNING_FROZEN.set(True)
+        try:
+            yield
+        finally:
+            _RUNNING_FROZEN.reset(tokens[1])
+            _BN_MOMENTS_IMPL.reset(tokens[0])
+
+    return replay
+
+
 def bn_batch_moments(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-channel batch ``(E[x], E[x^2])`` of an NCHW activation, in fp32
     (at least: f64 stays f64), honouring a :func:`bn_moments_impl`
@@ -206,8 +235,9 @@ class BatchNorm(nn.BatchNorm2d):
     Train mode normalizes with the one-pass biased variance
     ``max(E[x^2] - E[x]^2, 0)`` and updates the running var with the
     unbiased one (n / (n - 1)); the running stats are fp32 and updated in
-    place. Under :func:`sync_batchnorm` the moments are the ranks' mean
-    and n counts the global batch. The normalization is one per-channel
+    place, except while a recompute (:func:`recompute_context`) replays
+    the forward. Under :func:`sync_batchnorm` the moments are the ranks'
+    mean and n counts the global batch. The normalization is one per-channel
     FMA ``x * mul + add`` whose scalars are computed in fp32 and applied
     in ``x``'s dtype. Eval mode
     applies the same fold to the running stats. ``num_batches_tracked``
@@ -229,20 +259,20 @@ class BatchNorm(nn.BatchNorm2d):
             if _SYNC_BN_AXIS.get() is not None:
                 mean, sq, world = _sync_moments(mean, sq)
             var = torch.clamp(sq - mean * mean, min=0.0)
-            with torch.no_grad():
-                n = x.numel() // x.shape[1] * world  # the global count
-                unbiased = var * (n / max(n - 1, 1))
-                m = self.momentum
-                self.running_mean.copy_(
-                    (1.0 - m) * self.running_mean + m * mean
-                )
-                self.running_var.copy_(
-                    (1.0 - m) * self.running_var + m * unbiased
-                )
+            if not _RUNNING_FROZEN.get():
+                self._update_running(mean, var, x.numel() // x.shape[1]
+                                     * world)  # the global count
         mul = self.weight * torch.rsqrt(var + self.eps)
         add = self.bias - mean * mul
         shape = (1, -1, 1, 1)
         return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+
+    @torch.no_grad()
+    def _update_running(self, mean, var, n: int) -> None:
+        unbiased = var * (n / max(n - 1, 1))
+        m = self.momentum
+        self.running_mean.copy_((1.0 - m) * self.running_mean + m * mean)
+        self.running_var.copy_((1.0 - m) * self.running_var + m * unbiased)
 
 
 def conv(cin: int, cout: int, k: int, stride: int = 1, bias: bool = False,

@@ -39,7 +39,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from pytorch_cifar_tpu_torch import resolve_device
+from pytorch_cifar_tpu_torch import faults, resolve_device
 from pytorch_cifar_tpu_torch.compat import (
     normalize_state_dict,
     state_dict_from_jax,
@@ -291,6 +291,9 @@ class InferenceEngine:
 
     def predict(self, images: np.ndarray) -> np.ndarray:
         """uint8 NHWC batch of any size -> fp32 logits ``(n, classes)``."""
+        # fault hook (inert unless armed): an engine failure must fail only
+        # its own batch in the micro-batcher, never the serving process
+        faults.maybe_raise("serve_error")
         x = np.asarray(images)
         if x.ndim != 4 or x.shape[1:] != self.image_shape:
             raise ValueError(

@@ -15,6 +15,22 @@ checkpoint there, ``--evaluate`` runs one eval epoch of the best one and
 prints its accuracy. SIGTERM stops after the current epoch with the state
 saved as ``last.msgpack``.
 
+The host loader, the divergence sentinel, remat and the trainer's
+observability:
+
+    python -m pytorch_cifar_tpu_torch.train ... --no-device_data \
+        [--host_augment] [--async_input off] [--prefetch 2]
+    python -m pytorch_cifar_tpu_torch.train ... --sentinel rollback \
+        --sentinel_budget 3
+    python -m pytorch_cifar_tpu_torch.train ... --remat
+    python -m pytorch_cifar_tpu_torch.train ... --metrics_out m.jsonl \
+        --metrics_every_s 10 --trace_out trace.json --log_every 50 --profile
+
+``--sentinel`` (default ``skip``) discards a step whose loss or gradient
+norm is not finite; ``rollback`` also restores the newest checkpoint after
+``--sentinel_budget`` consecutive bad steps; ``off`` applies it.
+``PCT_FAULTS`` arms the fault hooks (``faults.py``).
+
 Data parallelism, one process per device:
 
     python -m pytorch_cifar_tpu_torch.train --num_devices 4 ...

@@ -29,6 +29,11 @@ state, the same sidecar.
   :class:`AsyncCheckpointWriter` thread, which touches host numpy only,
   never a CUDA tensor.
 
+Fault hooks (``faults.py``, inert unless armed): ``ckpt_write_stall``
+sleeps between a payload or shard and its sidecar or commit marker;
+``ckpt_regress`` perturbs the snapshot's params before they are published,
+with the JAX save's seed and draw order.
+
 Restore walks the candidates (each expanded with its history), falls back
 on any :class:`CheckpointCorrupt` with a warning and
 ``checkpoint.fallbacks``, and raises ``FileNotFoundError("no usable
@@ -49,6 +54,9 @@ import time
 import zlib
 from typing import Any, Callable, Optional, Sequence, Tuple
 
+import numpy as np
+
+from pytorch_cifar_tpu_torch import faults
 from pytorch_cifar_tpu_torch.compat import (
     StateSnapshot,
     TrainArrays,
@@ -325,6 +333,47 @@ class AsyncCheckpointWriter:
             self._raise_pending_error_locked()
 
 
+# -- fault hooks ---------------------------------------------------------
+
+def _chaos_stall() -> None:
+    """Fault hook (inert unless ``ckpt_write_stall`` is armed, in ms):
+    sleep between a payload or shard and its sidecar or commit marker, so
+    a kill drill lands inside the torn-pair window."""
+    ms = faults.get("ckpt_write_stall")
+    if ms:
+        time.sleep(float(ms) / 1e3)
+
+
+def _regress_params(tree: dict, scale: float, seed: int = 0xC0FFEE) -> dict:
+    """Fault hook ``ckpt_regress``: ``tree`` with every float leaf
+    perturbed by N(0, scale * its std) (std floor 1.0), the leaves drawn
+    from one ``RandomState(seed)`` in sorted-key order (the order
+    ``jax.tree_util`` visits a dict's leaves, so the draws are the JAX
+    save's). The key order of ``tree`` is kept: it decides the bytes."""
+    rs = np.random.RandomState(seed)
+    new = {}
+
+    def visit(node, path):
+        for k in sorted(node):
+            v = node[k]
+            if isinstance(v, dict):
+                visit(v, path + (k,))
+                continue
+            arr = np.asarray(v)
+            if np.issubdtype(arr.dtype, np.floating):
+                sd = float(arr.std()) or 1.0
+                arr = (arr + rs.normal(0.0, scale * sd, size=arr.shape)
+                       ).astype(arr.dtype)
+            new[path + (k,)] = arr
+
+    def rebuild(node, path):
+        return {k: rebuild(v, path + (k,)) if isinstance(v, dict)
+                else new[path + (k,)] for k, v in node.items()}
+
+    visit(tree, ())
+    return rebuild(tree, ())
+
+
 # -- save ----------------------------------------------------------------
 
 def _write_unsharded(
@@ -336,6 +385,7 @@ def _write_unsharded(
     path = os.path.join(output_dir, name)
     with trace.span("checkpoint/write", bytes=len(payload)):
         _atomic_write(path, payload)
+        _chaos_stall()
         meta = {
             "epoch": int(epoch),
             "best_acc": float(best_acc),
@@ -399,6 +449,7 @@ def _write_sharded(
             {"epoch": int(epoch), "manifest": payload_manifest(blob)}
         ).encode()
         _atomic_write(os.path.join(output_dir, names[k]), blob)
+        _chaos_stall()
         _atomic_write(meta_path(output_dir, names[k]), smeta)
         if hname is not None:
             hs = shard_name(hname, k, n)
@@ -423,6 +474,7 @@ def _write_sharded(
             for nm, mf in zip(names, manifests)
         ],
     }
+    _chaos_stall()
     _atomic_write(meta_path(output_dir, name), json.dumps(meta).encode())
     if hname is not None:
         hmeta = dict(meta)
@@ -520,6 +572,14 @@ def save_checkpoint(
             else snapshot_state(state)
         with trace.span("checkpoint/device_get"):
             tree = train_tree_from_snapshot(snap)
+        # fault hook (inert unless armed): the published checkpoint is
+        # plausible but wrong: finite weights, a valid manifest, wrong
+        # outputs, the failure only output-level vetting catches
+        regress = faults.ckpt_regress_scale()
+        if regress:
+            log.warning("ckpt_regress fault armed: perturbing %s params "
+                        "(scale %.2f) before publish", name, regress)
+            tree["params"] = _regress_params(tree["params"], regress)
 
         def commit():
             r = _commit_host_tree(output_dir, name, tree, epoch, best_acc,

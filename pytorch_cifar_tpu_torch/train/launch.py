@@ -16,7 +16,6 @@ import logging
 import os
 import signal
 import socket
-import sys
 import tempfile
 import threading
 from typing import Callable, Optional
@@ -32,13 +31,16 @@ from pytorch_cifar_tpu_torch.ops import (
     dma_gather,
     max_pool,
 )
+from pytorch_cifar_tpu_torch.utils.logging import set_logger
 
 # a rank hook: (Trainer) -> a value torch.save can write
 RankHook = Optional[Callable]
 
 
 def _launches() -> dict:
-    """Launch counts of every kernel of the training path."""
+    """Launch counts of every kernel of the training path. Under
+    ``--remat`` the recomputed forward launches K2 (when hooked) and K4's
+    forward again, and their counts include it."""
     return {
         "dma_row_gather": dma_gather.LAUNCHES,
         "fused_moments": bn_stats.LAUNCHES,
@@ -68,27 +70,29 @@ def local_ranks(config: TrainConfig) -> int:
     return n
 
 
-def _rank_logging(config: TrainConfig) -> Optional[logging.Handler]:
-    """Rank-aware logs under data parallelism: each rank's file handler
-    (``train.log`` for rank 0, ``train.rankK.log``), the console at
-    WARNING on ranks other than 0. Returns the file handler to close."""
-    if not config.distributed:
-        return None
-    r = (config.dist_rank if config.dist_coord
-         else int(os.environ.get("RANK", "0")))
+def _rank_logging(config: TrainConfig) -> Optional[str]:
+    """Rank-aware logs (:func:`~..utils.logging.set_logger`): the console
+    at INFO on rank 0 and at WARNING on the others, and each rank's file
+    in ``output_dir`` (``train.log`` for rank 0, ``train.rankK.log``).
+    Returns the file's path."""
+    r = 0
+    if config.distributed:
+        r = (config.dist_rank if config.dist_coord
+             else int(os.environ.get("RANK", "0")))
+    path = None
+    if config.output_dir:
+        path = os.path.abspath(os.path.join(
+            config.output_dir, "train.log" if r == 0 else f"train.rank{r}.log"))
+    set_logger(path, process_index=r)
+    return path
+
+
+def _close_log_file(path: Optional[str]) -> None:
     root = logging.getLogger()
-    if r > 0:
-        for h in root.handlers:
-            if type(h) is logging.StreamHandler:
-                h.setLevel(logging.WARNING)
-    if not config.output_dir:
-        return None
-    os.makedirs(config.output_dir, exist_ok=True)
-    fh = logging.FileHandler(os.path.join(
-        config.output_dir, "train.log" if r == 0 else f"train.rank{r}.log"))
-    fh.setFormatter(logging.Formatter("%(message)s"))
-    root.addHandler(fh)
-    return fh
+    for h in list(root.handlers):
+        if isinstance(h, logging.FileHandler) and h.baseFilename == path:
+            root.removeHandler(h)
+            h.close()
 
 
 def run(config: TrainConfig, rank_hook: RankHook = None) -> dict:
@@ -99,10 +103,7 @@ def run(config: TrainConfig, rank_hook: RankHook = None) -> dict:
     after ``fit``, inside the process group (``hook``)."""
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO, format="%(message)s",
-                            stream=sys.stderr)
-    fh = _rank_logging(config)
+    log_path = _rank_logging(config)
     try:
         trainer = Trainer(config)
         try:
@@ -122,9 +123,7 @@ def run(config: TrainConfig, rank_hook: RankHook = None) -> dict:
         finally:
             trainer.close()
     finally:
-        if fh is not None:
-            logging.getLogger().removeHandler(fh)
-            fh.close()
+        _close_log_file(log_path)
 
 
 def _rank_entry(r: int, configs, out_dir: str, rank_hook) -> None:

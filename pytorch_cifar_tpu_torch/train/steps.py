@@ -20,19 +20,27 @@ unless ``sync_bn``, the BN running buffers are averaged through one flat
 all-reduce before the update, and the non-finite verdict and the metrics
 are global. The epoch programs gather and evaluate only the rank's rows.
 
-Not ported yet: spatial partitioning (``batch_sharding``), ``remat``, the
-divergence sentinel's ``skip_nonfinite`` and the fault-injection hook. The
-constructors raise ``NotImplementedError`` when asked for any of them.
+The divergence sentinel's step half (``skip_nonfinite``): a step whose
+loss or gradient norm is not finite leaves the params, the momentum
+buffers and the BN running buffers as they were before it, bit for bit,
+selected on the device with no host sync; the step counter still
+advances. The fault hook ``nan_loss`` (``faults.py``) poisons one step's
+loss. ``remat`` recomputes the forward in the backward.
+
+Not ported yet: spatial partitioning (``batch_sharding``); the
+constructors raise ``NotImplementedError`` when asked for it.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
-from pytorch_cifar_tpu_torch import resolve_device
+from pytorch_cifar_tpu_torch import faults, resolve_device
 from pytorch_cifar_tpu_torch.data.augment import (
     CIFAR10_MEAN,
     CIFAR10_STD,
@@ -40,6 +48,7 @@ from pytorch_cifar_tpu_torch.data.augment import (
     normalize,
 )
 from pytorch_cifar_tpu_torch.models.common import (
+    recompute_context,
     stochastic_draws,
     sync_batchnorm,
 )
@@ -75,8 +84,7 @@ def _not_ported(**requested) -> None:
     asked = sorted(k for k, v in requested.items() if v)
     if asked:
         raise NotImplementedError(
-            f"{', '.join(asked)} not ported yet (no spatial partitioning, "
-            "no remat, no sentinel)"
+            f"{', '.join(asked)} not ported yet (no spatial partitioning)"
         )
 
 
@@ -103,13 +111,24 @@ def _metrics(logits: torch.Tensor, labels: torch.Tensor) -> Metrics:
     }
 
 
-def zero_metrics(device="cpu") -> Metrics:
-    """Initial running metric sums (fp32 scalars on ``device``)."""
-    return {k: torch.zeros((), device=device) for k in METRIC_KEYS}
+def zero_metrics(device="cpu", num_steps: int = 0) -> Metrics:
+    """Initial running metric sums (fp32 scalars on ``device``).
+    ``num_steps > 0`` adds ``nonfinite_steps``, one 0/1 slot per step of
+    an epoch program: which steps the sentinel skipped, not only how
+    many."""
+    m = {k: torch.zeros((), device=device) for k in METRIC_KEYS}
+    if num_steps > 0:
+        m["nonfinite_steps"] = torch.zeros((num_steps,), device=device)
+    return m
 
 
 def add_metrics(totals: Metrics, metrics: Metrics) -> Metrics:
-    return {k: totals[k] + metrics[k] for k in METRIC_KEYS}
+    """The running sums plus one step's metrics; a ``nonfinite_steps``
+    vector is carried over as it is."""
+    out = {k: totals[k] + metrics[k] for k in METRIC_KEYS}
+    if "nonfinite_steps" in totals:
+        out["nonfinite_steps"] = totals["nonfinite_steps"]
+    return out
 
 
 def _psum_metrics(metrics: Metrics) -> Metrics:
@@ -137,6 +156,106 @@ def _check_shards(axis_name: Optional[str], n_shards: int) -> None:
         )
 
 
+def _momentum_buffers(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """Every parameter's SGD momentum buffer, zeros where torch has not
+    made one yet: optax's ``trace`` starts from zeros (torch's first step
+    takes the gradient as the buffer, the same values), and a skipped
+    first step must leave a buffer to restore."""
+    bufs = []
+    for group in optimizer.param_groups:
+        if not group["momentum"]:
+            continue
+        for p in group["params"]:
+            st = optimizer.state[p]
+            if st.get("momentum_buffer") is None:
+                st["momentum_buffer"] = torch.zeros_like(p)
+            bufs.append(st["momentum_buffer"])
+    return bufs
+
+
+def _flat_view(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s elements as a 1-D view in memory order (contiguous or
+    channels_last)."""
+    if t.is_contiguous():
+        return t.view(-1)
+    if t.dim() == 4 and t.is_contiguous(memory_format=torch.channels_last):
+        return t.permute(0, 2, 3, 1).reshape(-1)
+    raise ValueError(f"a {tuple(t.shape)} tensor with strides {t.stride()} "
+                     "has no flat view")
+
+
+class _UpdateGuard:
+    """The sentinel's select. :meth:`save` copies the tensors a step
+    changes (params, momentum buffers, BN running buffers) into one flat
+    buffer per dtype before the forward mutates any of them;
+    :meth:`keep_unless` gathers their new values into a second flat
+    buffer after the update, selects ``where(bad, saved, new)`` there and
+    copies the result back. ``torch.where`` picks the saved value whatever
+    the new one holds (a blend would turn ``NaN * 0`` into NaN), and the
+    new one bit for bit, so a finite step is the unguarded step. The two
+    buffers persist (rebuilt when the tensors change, as after a restore),
+    and every gather and scatter is one ``_foreach_copy_`` over flat
+    views: three multi-tensor launches and one select a step per dtype."""
+
+    def __init__(self):
+        self._key = None
+        self._groups: list = []
+
+    def save(self, tensors: List[torch.Tensor]) -> None:
+        key = tuple(map(id, tensors))
+        if key != self._key:
+            # the views keep their tensors alive, so no id is reused
+            # while the key holds it
+            by_dtype: Dict[torch.dtype, list] = {}
+            for t in tensors:
+                by_dtype.setdefault(t.dtype, []).append(_flat_view(t))
+            self._groups = []
+            for views in by_dtype.values():
+                sizes = [v.numel() for v in views]
+                saved = views[0].new_empty(sum(sizes))
+                new = torch.empty_like(saved)
+                self._groups.append((views, saved, list(saved.split(sizes)),
+                                     new, list(new.split(sizes))))
+            self._key = key
+        with torch.no_grad():
+            for views, _, saved_parts, _, _ in self._groups:
+                torch._foreach_copy_(saved_parts, views)
+
+    def keep_unless(self, bad: torch.Tensor) -> None:
+        with torch.no_grad():
+            for views, saved, _, new, new_parts in self._groups:
+                torch._foreach_copy_(new_parts, views)
+                torch.where(bad, saved, new, out=new)
+                torch._foreach_copy_(views, new_parts)
+
+
+def _train_forward(state: TrainState, x: torch.Tensor, shard, sync_axis,
+                   remat: bool) -> torch.Tensor:
+    """The model's train forward on NCHW ``x``: its draws from this
+    step's model stream, its BNs pooled over ``sync_axis``. Under
+    ``remat`` it runs in ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward, where the function reseeds the draws
+    (EfficientNet's masks replay), pools the moments again in the same
+    order on every rank, and :func:`recompute_context` restores the BN
+    moments implementation and keeps the running stats from a second
+    update. The kernels' autograd Functions (K2, K4) launch again there:
+    their counters count the recompute."""
+    model = state.model
+
+    def run(x):
+        with sync_batchnorm(sync_axis), \
+                stochastic_draws(state.model_draws(shard)):
+            return model(x)
+
+    if not remat:
+        return run(x)
+    replay = recompute_context()
+    return checkpoint(
+        run, x, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (contextlib.nullcontext(), replay()),
+    )
+
+
 def make_train_step(
     augment: bool = True,
     crop: bool = True,
@@ -158,12 +277,23 @@ def make_train_step(
     With ``axis_name`` the batch is this rank's shard of the global batch
     and the update is the global one (see the module docstring); the
     augmentation draw folds in the rank. ``sync_bn`` (which needs
-    ``axis_name``) normalizes every BN with the global batch's moments."""
+    ``axis_name``) normalizes every BN with the global batch's moments.
+
+    ``skip_nonfinite`` is the sentinel's step half (see the module
+    docstring); the verdict stays on the device. Under ``axis_name`` it is
+    the ranks' one verdict: each rank's local loss (the injected NaN
+    included) rides the flat all-reduce of the gradients, and the summed
+    metrics and the averaged gradients' norm join it, so every rank takes
+    the same decision. ``remat`` recomputes the forward in the backward
+    (``torch.utils.checkpoint``). An armed ``nan_loss`` fault
+    (``faults.nan_loss_step``, read once here) multiplies the loss by NaN
+    at that global step, or at every step when negative."""
     if sync_bn and axis_name is None:
         raise ValueError("sync_bn requires a data-parallel axis_name")
-    _not_ported(remat=remat, skip_nonfinite=skip_nonfinite)
     _check_axis(axis_name)
     mean, std = _device_stats(mean, std, device)
+    nan_step = faults.nan_loss_step()
+    guard = _UpdateGuard() if skip_nonfinite else None
 
     def step(state: TrainState, batch) -> Metrics:
         images, labels = batch
@@ -176,9 +306,14 @@ def make_train_step(
             x = normalize(images, mean, std, dtype=compute_dtype)
         model = state.model
         model.train()
-        with sync_batchnorm(axis_name if sync_bn else None), \
-                stochastic_draws(state.model_draws(shard)):
-            logits = model(x.permute(0, 3, 1, 2))  # NCHW view, channels_last
+        params = list(model.parameters())
+        momentum = _momentum_buffers(state.optimizer)
+        bn_bufs = bn_running_buffers(model)
+        if guard is not None:
+            # before the forward, which updates the BN running buffers
+            guard.save(params + momentum + bn_bufs)
+        logits = _train_forward(state, x.permute(0, 3, 1, 2), shard,
+                                axis_name if sync_bn else None, remat)
         loss_sum, n_valid = cross_entropy_sums(logits, labels)
         if axis_name is None:
             loss = loss_sum / n_valid.clamp(min=1)
@@ -189,32 +324,38 @@ def make_train_step(
             # ranks' gradients is the global batch's
             metrics = _psum_metrics(_metrics(logits.detach(), labels))
             loss = loss_sum * world_size() / metrics["count"].clamp(min=1)
+        if nan_step is not None and (nan_step < 0 or state.step == nan_step):
+            # multiplied in, so the NaN reaches every gradient as a real
+            # blow-up would
+            loss = loss * float("nan")
         state.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        params = list(model.parameters())
         for p in params:
             if p.grad is None:
                 # a parameter the forward never reads (EfficientNet's dead
                 # expand conv) has a zero gradient in the JAX step, so
-                # decay and momentum move it there: give it one here too
+                # decay and momentum move it as there: give it one here too
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
+        local_bad = ~torch.isfinite(loss.detach())
         if axis_name is None:
             metrics = _metrics(logits.detach(), labels)
-            bad = ~torch.isfinite(loss.detach())
+            bad = local_bad
         else:
-            # one flat all-reduce: the gradients, and the running stats
-            # the forward updated from this shard (sync_bn's are equal)
-            all_reduce_mean_(
-                grads + ([] if sync_bn else bn_running_buffers(model)))
-            # a rank's non-finite loss shows in the summed metrics
-            bad = metrics["nonfinite"] > 0
+            # one flat all-reduce: the gradients, the running stats the
+            # forward updated from this shard (sync_bn's are equal), and
+            # the local verdict (its mean is > 0 when any rank's is set)
+            flag = local_bad.to(grads[0].dtype).reshape(1)
+            all_reduce_mean_(grads + ([] if sync_bn else bn_bufs) + [flag])
+            bad = (flag[0] > 0) | (metrics["nonfinite"] > 0)
         bad = bad | ~torch.isfinite(torch.nn.utils.get_total_norm(grads))
         metrics["nonfinite"] = torch.maximum(
             (metrics["nonfinite"] > 0).float(), bad.float()
         )
         set_lr(state.optimizer, state.schedule(state.step))
         state.optimizer.step()
+        if guard is not None:
+            guard.keep_unless(bad)
         state.step += 1
         return metrics
 
@@ -242,7 +383,9 @@ def make_train_epoch(
     wrap-padded tail) get label -1. Step i takes rows
     ``[i * global_batch, (i + 1) * global_batch)``; with ``axis_name``
     (over ``n_shards`` ranks, every rank holding the same ``perm``) this
-    rank gathers only its shard's ``global_batch / n_shards`` of them."""
+    rank gathers only its shard's ``global_batch / n_shards`` of them.
+    When ``totals`` holds ``nonfinite_steps`` (:func:`zero_metrics` with
+    ``num_steps``), slot i takes step i's 0/1 verdict on the device."""
     _not_ported(batch_sharding=batch_sharding is not None,
                 label_sharding=label_sharding is not None)
     _check_shards(axis_name, n_shards)
@@ -268,6 +411,8 @@ def make_train_epoch(
             rows = slice(i * shard_batch, (i + 1) * shard_batch)
             metrics = step(state, (x_all[rows], y_all[rows]))
             totals = add_metrics(totals, metrics)
+            if "nonfinite_steps" in totals:
+                totals["nonfinite_steps"][i] = metrics["nonfinite"]
         return state, totals
 
     return epoch_fn

@@ -22,7 +22,16 @@ Tasks (``kind``):
 - ``ckpt``: restore a checkpoint written by one process, then save it
   from every rank (format v3);
 - ``sigterm``: a LeNet ``Trainer`` run in which rank 1 alone gets a
-  SIGTERM during epoch 0.
+  SIGTERM during epoch 0;
+- ``sentinel``: guarded data-parallel steps (``skip_nonfinite``), the
+  raw bits of the state before and after each, under whatever
+  ``PCT_FAULTS`` the rank's environment arms (``run_job(rank_env=)``);
+- ``remat``: one ``sync_bn`` step with ``remat`` and one without from the
+  same state (the faults disarmed); the gradients and the state after
+  each;
+- ``rollback``: a LeNet ``Trainer`` run under ``sentinel="rollback"``
+  with whatever ``PCT_FAULTS`` the rank's environment arms; its
+  ``fault_stats`` and state.
 """
 
 import os
@@ -41,19 +50,22 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_job(tasks, job_dir, world=2, timeout=300):
-    """Run ``tasks`` on ``world`` gloo ranks; returns ``[rank results]``."""
+def run_job(tasks, job_dir, world=2, timeout=300, rank_env=None):
+    """Run ``tasks`` on ``world`` gloo ranks; returns ``[rank results]``.
+    ``rank_env`` maps a rank to extra environment variables of its
+    process."""
     import torch
 
     os.makedirs(job_dir, exist_ok=True)
     torch.save({"tasks": tasks}, os.path.join(job_dir, "job.pt"))
     port = free_port()
     env = dict(os.environ, PYTHONPATH=REPO)
+    env.pop("PCT_FAULTS", None)
     procs = [
         subprocess.Popen(
             [sys.executable, WORKER, str(r), str(world), str(port), job_dir],
-            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True,
+            env={**env, **(rank_env or {}).get(r, {})},
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         )
         for r in range(world)
     ]
@@ -217,8 +229,66 @@ def task_sigterm(t, job_dir):
             "history": trainer.history, **_tensors(trainer.state)}
 
 
+def _raw(state):
+    from pytorch_cifar_tpu_torch.compat import snapshot_state
+
+    return snapshot_state(state).flat.clone()
+
+
+def task_sentinel(t, job_dir):
+    from pytorch_cifar_tpu_torch.parallel.mesh import (
+        DATA_AXIS, rank, world_size)
+    from pytorch_cifar_tpu_torch.train import steps
+
+    state = _state(t)
+    step = steps.make_train_step(augment=False, axis_name=DATA_AXIS,
+                                 skip_nonfinite=True, device="cpu")
+    r, w = rank(), world_size()
+    out = {"before": [], "after": [], "nonfinite": []}
+    for x, y in t["batches"]:
+        out["before"].append(_raw(state))
+        m = step(state, (_shard(x, r, w), _shard(y, r, w)))
+        out["after"].append(_raw(state))
+        out["nonfinite"].append(float(m["nonfinite"]))
+    out["step"] = state.step
+    return out
+
+
+def task_remat(t, job_dir):
+    from pytorch_cifar_tpu_torch import faults
+    from pytorch_cifar_tpu_torch.parallel.mesh import (
+        DATA_AXIS, rank, world_size)
+    from pytorch_cifar_tpu_torch.train import steps
+
+    faults.clear()
+    r, w = rank(), world_size()
+    x, y = t["batch"]
+    out = {}
+    for remat in (False, True):
+        state = _state(t)
+        step = steps.make_train_step(augment=False, axis_name=DATA_AXIS,
+                                     sync_bn=True, remat=remat, device="cpu")
+        step(state, (_shard(x, r, w), _shard(y, r, w)))
+        out[remat] = {
+            "grads": {k: p.grad.clone()
+                      for k, p in state.model.named_parameters()},
+            **_tensors(state)}
+    return out
+
+
+def task_rollback(t, job_dir):
+    from pytorch_cifar_tpu_torch.config import TrainConfig
+    from pytorch_cifar_tpu_torch.train.trainer import Trainer
+
+    trainer = Trainer(TrainConfig(**t["config"]))
+    trainer.fit()
+    return {"fault_stats": trainer.fault_stats, **_tensors(trainer.state)}
+
+
 TASKS = {"step": task_step, "eval": task_eval, "augment": task_augment,
-         "perm": task_perm, "ckpt": task_ckpt, "sigterm": task_sigterm}
+         "perm": task_perm, "ckpt": task_ckpt, "sigterm": task_sigterm,
+         "sentinel": task_sentinel, "remat": task_remat,
+         "rollback": task_rollback}
 
 
 def _worker(rank, world, port, job_dir):

@@ -97,7 +97,11 @@ def test_scan_sees_the_whole_package():
                  os.path.join("pytorch_cifar_tpu_torch", "parallel",
                               "mesh.py"),
                  os.path.join("pytorch_cifar_tpu_torch", "parallel",
-                              "dp.py")):
+                              "dp.py"),
+                 *(os.path.join("pytorch_cifar_tpu_torch", *parts) for parts in
+                   (("faults.py",), ("native", "__init__.py"),
+                    ("data", "pipeline.py"), ("obs", "export.py"),
+                    ("utils", "logging.py"), ("utils", "progress.py")))):
         assert must in files
 
 

@@ -28,6 +28,7 @@ from pytorch_cifar_tpu_torch.data import augment, cifar10
 from pytorch_cifar_tpu_torch.data.pipeline import DeviceDataset
 from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.train import optim, steps
+from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
 from _torch_threads import torch_threads  # noqa: F401
 
 # -- augmentation --------------------------------------------------------
@@ -268,12 +269,31 @@ def test_config_flags_keep_the_jax_spellings():
 
 
 @pytest.mark.parametrize("argv", [["--publish", "staging"],
-                                  ["--resume", "--publish", "staging"],
-                                  ["--no-device_data", "--num_devices", "2"],
-                                  ["--no-device_data"]])
+                                  ["--resume", "--publish", "staging"]])
 def test_unported_paths_say_so(argv):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         check_ported(parse_config(argv))
+
+
+@pytest.mark.parametrize("argv", [["--no-device_data", "--num_devices", "2"],
+                                  ["--no-device_data"]])
+def test_host_loader_paths_are_ported(argv, tmp_path):
+    """The host loader trains through the CLI, on one process and as a
+    spawned gloo pair: every image once per epoch on every rank's global
+    totals, the ranks agreeing, a finite loss."""
+    check_ported(parse_config(argv))
+    out = train_main(argv + [
+        "--device", "cpu", "--model", "LeNet", "--synthetic_data",
+        "--epochs", "1", "--no-amp", "--synthetic_train_size", "200",
+        "--synthetic_test_size", "60", "--batch_size", "32",
+        "--eval_batch_size", "32", "--output_dir", str(tmp_path),
+    ])
+    assert len(out["ranks"]) == (2 if "--num_devices" in argv else 1)
+    for r in out["ranks"]:
+        (h,) = r["history"]
+        assert h["train"]["count"] == 200 and h["eval"]["count"] == 60
+        assert np.isfinite(h["train_loss"])
+        assert h["train"] == out["ranks"][0]["history"][0]["train"]
 
 
 @pytest.mark.parametrize("argv", [["--resume"], ["--evaluate"],
@@ -294,7 +314,9 @@ def test_unported_models_say_so():
 
 
 def test_unported_step_options_raise():
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        steps.make_train_step(remat=True)
+    """Spatial partitioning is the one step option not ported (remat is:
+    ``tests/test_torch_remat.py``)."""
     with pytest.raises(NotImplementedError, match="not ported yet"):
         steps.make_train_epoch(None, 8, 20, 3, batch_sharding=object())
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        steps.make_eval_epoch(None, 8, 20, 3, label_sharding=object())
