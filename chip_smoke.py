@@ -267,6 +267,38 @@ and read just after:
     ``train.input_wait_ms`` p50; the JSONL and trace files parse and hold
     the JAX trainer's names.
 
+Serving over the wire, run right after phase 4:
+
+32. wire: (1) ResNet-18 at full width (seeded weights, bf16, buckets
+    1/8/32/128) behind ``MicroBatcher(max_wait_ms=2, continuous=True)``,
+    its ``BatcherBackend`` behind a ``ServingFrontend`` and an
+    ``EdgeFrontend``, each on ``127.0.0.1:0``; requests of n = 1, 7, 32
+    and 100 images sent one at a time in the binary frame, JSON-base64 and
+    JSON lists through each edge, each answer equal to ``engine.predict``
+    of the same images bit for bit, one batch and one forward a request,
+    6 K3 launches a batch (the launch count reset just before and read
+    just after), ``compile_count`` unmoved; (2) ``run_load`` (8 clients x
+    64 requests of U[1, 8] images) through ``HttpTarget`` in the mixed,
+    binary and JSON wires through each edge, ``run_async_load`` (64
+    logical clients x 16 requests, mixed) through the event edge, and the
+    same ``run_load`` on the batcher before and after them: no failed
+    request, 6 K3 launches a batch, img/s, p50/p99, ``http_vs_inproc``,
+    binary-vs-JSON and the engine's mean ``serve.device_ms`` of each run;
+    (3) two replica processes (``python -m pytorch_cifar_tpu_torch.serve
+    --model ResNet18 --http_port 0 --seed 0``, started at the phase's
+    start) and a ``Router`` over them: single requests of (1) through each
+    replica, the router on both transports, equal to this process's
+    ``engine.predict`` bit for bit; one client's 1-image requests direct
+    and through the router's frontend (the router's cost at p50); (2)'s
+    mixed-wire ``run_load`` against replica 1 directly (the clients in
+    another process than the server) and through the router; then
+    mixed-priority load (8 clients x 48 requests, 30% bulk) through the
+    router's frontend with replica 0 SIGKILLed after 96 requests: every
+    request answered or failed with an error (none lost), replica 0
+    evicted, a further 8 x 32 with no failure (its p99 the post-eviction
+    p99); the survivor SIGTERMed: exit 0, one JSON line, no error
+    answered, K3 launched 6 times a forward (warmup and batches).
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call), and prints neither the kernels
 nor the ok line.
@@ -280,12 +312,16 @@ result.
 from __future__ import annotations
 
 import argparse
+import base64
 import dataclasses
 import json
 import os
 import shutil
+import signal
+import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -2626,6 +2662,385 @@ def phase_host_loader(mods: dict, smi: str, fails: Failures,
     return out
 
 
+# -- serving over the wire: frontends, the event edge, the router ---------
+
+WIRE_NS = (1, 7, 32, 100)  # sent one at a time: each request its own batch
+WIRE_ENCODINGS = ("binary", "b64", "list")
+WIRE_LOAD = dict(clients=8, requests_per_client=64, images_min=1,
+                 images_max=8, seed=0)
+ASYNC_CLIENTS, ASYNC_REQUESTS = 64, 16
+DRILL_CLIENTS, DRILL_REQUESTS, DRILL_KILL_AFTER = 8, 48, 96
+REPLICA_READY = "==> http: serving on "
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _wire_answer(url: str, x: np.ndarray, encoding: str) -> np.ndarray:
+    """Logits of one POST /predict of ``x``: the binary frame (a binary
+    answer), JSON with base64 images (a base64 answer) or JSON with nested
+    lists (an answer in float lists)."""
+    import urllib.request
+
+    from pytorch_cifar_tpu_torch.serve import wire
+    from pytorch_cifar_tpu_torch.serve.frontend import decode_logits
+
+    if encoding == "binary":
+        body, ctype = wire.encode_request(x), wire.CONTENT_TYPE
+    else:
+        req = ({"images": x.tolist()} if encoding == "list" else
+               {"images": base64.b64encode(x.tobytes()).decode("ascii"),
+                "shape": list(x.shape), "encoding": "b64"})
+        body, ctype = json.dumps(req).encode(), "application/json"
+    r = urllib.request.Request(url + "/predict", data=body,
+                               headers={"Content-Type": ctype})
+    with urllib.request.urlopen(r, timeout=60) as resp:
+        payload = resp.read()
+    if encoding == "binary":
+        return wire.decode_response(payload)[0]
+    return decode_logits(json.loads(payload))
+
+
+class _Replica:
+    """``python -m pytorch_cifar_tpu_torch.serve --model ResNet18
+    --http_port 0 --seed 0`` in a child process on the card: its stderr
+    read on a thread (the ready line carries the URL), its one stdout line
+    read after it exits."""
+
+    def __init__(self):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "pytorch_cifar_tpu_torch.serve",
+             "--model", "ResNet18", "--http_port", "0", "--seed", "0"],
+            cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+        self.err: list = []
+        self.url = None
+        self.ready = threading.Event()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            self.err.append(line)
+            if line.startswith(REPLICA_READY):
+                self.url = line[len(REPLICA_READY):].strip()
+                self.ready.set()
+
+    def finish(self, timeout: float) -> tuple:
+        """(exit code, stdout lines) once the process has exited; killed
+        if it outlives ``timeout``."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.stop()
+        self._reader.join(timeout=30)
+        out = self.proc.stdout.read()
+        return self.proc.returncode, out.strip().splitlines()
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+
+def _hist_delta(before: dict, after: dict) -> dict:
+    """The observations a histogram took between two snapshots (min and
+    max stay the later snapshot's: they only clamp the estimate)."""
+    return {**after, "sum": after["sum"] - before["sum"],
+            "count": after["count"] - before["count"],
+            "counts": [a - b for a, b in zip(after["counts"],
+                                             before["counts"])]}
+
+
+def _p50(snap: dict) -> float:
+    from pytorch_cifar_tpu_torch.obs.metrics import _percentile_from_buckets
+
+    return _percentile_from_buckets(snap, 50.0)
+
+
+def _load_row(rep: dict, **extra) -> dict:
+    return {**{k: rep[k] for k in (
+        "clients", "requests", "images", "failed", "rejected", "hedged",
+        "elapsed_s", "img_per_sec", "p50_ms", "p95_ms", "p99_ms")}, **extra}
+
+
+def phase_wire(K, smi: str, fails: Failures) -> dict:
+    """Serving over the wire (docstring, phase 32)."""
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve import (
+        BatcherBackend,
+        EdgeFrontend,
+        InferenceEngine,
+        MicroBatcher,
+        ServingFrontend,
+    )
+
+    # the replicas start (torch, CUDA, warmup) while this process works
+    replicas = [_Replica(), _Replica()]
+    try:
+        registry = MetricsRegistry()
+        engine = InferenceEngine.from_random(
+            "ResNet18", seed=0, buckets=BUCKETS,
+            compute_dtype=torch.bfloat16, registry=registry)
+        batcher = MicroBatcher(engine, max_wait_ms=2.0, continuous=True,
+                               registry=registry)
+        backend = BatcherBackend(engine, batcher)
+        edges = {"threaded": ServingFrontend(backend).start(),
+                 "event": EdgeFrontend(backend).start()}
+        try:
+            out, xs, want = _wire_edges(K, engine, batcher, registry, edges,
+                                        fails)
+        finally:
+            for fe in edges.values():
+                fe.stop()
+            batcher.close()
+        out["card"] = smi
+        out["fleet"] = _wire_fleet(replicas, xs, want, fails)
+    finally:
+        for r in replicas:
+            r.stop()
+    print("wire " + json.dumps(out), flush=True)
+    return out
+
+
+def _wire_edges(K, engine, batcher, registry, edges: dict,
+                fails: Failures) -> tuple:
+    """Phase 32 (1) and (2): one replica in this process, behind both
+    edges. Returns the record, the single requests and their answers."""
+    from pytorch_cifar_tpu_torch.serve import (
+        HttpTarget,
+        run_async_load,
+        run_load,
+    )
+
+    out: dict = {}
+    # (1) one request at a time, every encoding, through each edge
+    rs = np.random.RandomState(12)
+    xs = {n: rs.randint(0, 256, size=(n, 32, 32, 3)).astype(np.uint8)
+          for n in WIRE_NS}
+    want = {n: engine.predict(x) for n, x in xs.items()}
+    K.LAUNCHES = 0  # the main path starts here
+    f0, b0 = engine.forward_count, batcher.stats["batches"]
+    bad = [f"n={n} {edge} {enc}" for n, x in xs.items()
+           for edge, fe in edges.items() for enc in WIRE_ENCODINGS
+           if _wire_answer(fe.url, x, enc).tobytes() != want[n].tobytes()]
+    launches = K.LAUNCHES  # the main path ends here
+    forwards = engine.forward_count - f0
+    batches = batcher.stats["batches"] - b0
+    sent = len(WIRE_NS) * len(edges) * len(WIRE_ENCODINGS)
+    fails.check(not bad, f"wire: answers differ from engine.predict: {bad}")
+    fails.check(batches == forwards == sent,
+                f"wire: {sent} requests made {batches} batches and "
+                f"{forwards} forwards")
+    fails.check(launches == 6 * batches,
+                f"wire: {launches} K3 launches for {batches} batches")
+    out["single"] = {"requests": sent, "bit_identical": not bad,
+                     "batches": batches, "k3_launches": launches}
+
+    # (2) closed-loop load, in turns with the in-process run
+    loads: dict = {}
+
+    def hists():
+        h = registry.snapshot()["histograms"]
+        return {"device": h["serve.device_ms"],
+                "queue": h["serve.latency_ms"],
+                **{e: fe.registry.snapshot()["histograms"].get(
+                    "serve.http_ms") for e, fe in edges.items()}}
+
+    def counted(tag: str, fn) -> None:
+        K.LAUNCHES = 0
+        b0 = batcher.stats["batches"]
+        h0 = hists()
+        rep = fn()
+        h1 = hists()
+        nb = batcher.stats["batches"] - b0
+        dev = _hist_delta(h0["device"], h1["device"])
+        edge = tag.split("_")[0]
+        row = _load_row(
+            rep, batches=nb, k3_launches=K.LAUNCHES,
+            device_ms_mean=dev["sum"] / max(dev["count"], 1),
+            # admission -> result in the batcher, and the frontend's
+            # handling of a request (decode, batcher, encode): p50s
+            batcher_p50_ms=_p50(_hist_delta(h0["queue"], h1["queue"])),
+            handler_p50_ms=(_p50(_hist_delta(h0[edge], h1[edge]))
+                            if edge in edges else None))
+        fails.check(rep["failed"] == 0,
+                    f"wire load {tag}: {rep['failed']} failed")
+        want_n = (ASYNC_CLIENTS * ASYNC_REQUESTS if tag == "event_async"
+                  else WIRE_LOAD["clients"] * WIRE_LOAD["requests_per_client"])
+        fails.check(rep["requests"] == want_n,
+                    f"wire load {tag}: {rep['requests']} of {want_n} "
+                    "answered")
+        fails.check(K.LAUNCHES == 6 * nb,
+                    f"wire load {tag}: {K.LAUNCHES} K3 for {nb} batches")
+        loads[tag] = row
+        print(f"wire load {tag}: {rep['img_per_sec']:.0f} img/s, p50 "
+              f"{rep['p50_ms']:.2f} ms, p99 {rep['p99_ms']:.2f} ms",
+              flush=True)
+
+    def http_load(url: str, mode: str):
+        def run():
+            t = HttpTarget(url, wire=mode)
+            try:
+                return run_load(t, **WIRE_LOAD)
+            finally:
+                t.close()
+        return run
+
+    counted("inproc", lambda: run_load(batcher, **WIRE_LOAD))
+    for mode in ("mixed", "binary", "json"):
+        for edge, fe in edges.items():
+            counted(f"{edge}_{mode}", http_load(fe.url, mode))
+    counted("event_async", lambda: run_async_load(
+        edges["event"].url, clients=ASYNC_CLIENTS,
+        requests_per_client=ASYNC_REQUESTS, wire="mixed", seed=0))
+    counted("inproc_again", lambda: run_load(batcher, **WIRE_LOAD))
+    inproc = (loads["inproc"]["img_per_sec"]
+              + loads["inproc_again"]["img_per_sec"]) / 2
+    out["load"] = loads
+    out["http_vs_inproc"] = {
+        e: loads[f"{e}_mixed"]["img_per_sec"] / inproc for e in edges}
+    out["binary_vs_json"] = {
+        e: loads[f"{e}_binary"]["img_per_sec"]
+        / loads[f"{e}_json"]["img_per_sec"] for e in edges}
+    out["async_vs_inproc"] = loads["event_async"]["img_per_sec"] / inproc
+    out["load_k3_launches"] = sum(r["k3_launches"] for r in loads.values())
+    out["compiles"] = engine.compile_count
+    fails.check(engine.compile_count == len(BUCKETS),
+                f"wire: compile_count {engine.compile_count}")
+    return out, xs, want
+
+
+def _wire_fleet(replicas, xs: dict, want: dict, fails: Failures) -> dict:
+    """Phase 32 (3): two replica processes and the router on the card."""
+    from pytorch_cifar_tpu_torch.serve import (
+        HttpTarget,
+        Router,
+        ServingFrontend,
+        run_load,
+    )
+
+    out: dict = {}
+    late = [r for r in replicas if not r.ready.wait(300)]
+    if late:
+        fails.check(False, "wire: a replica never printed its ready line: "
+                    + "".join(late[0].err[-20:]))
+        return out
+    router = Router([r.url for r in replicas], fail_after=2,
+                    probe_s=0.25).start()
+    front = ServingFrontend(router).start()
+    try:
+        # single requests: the replicas, the router (both transports) and
+        # this process's engine agree bit for bit
+        with Router([r.url for r in replicas], transport="event") as ev:
+            bad = []
+            for n, x in xs.items():
+                got = {f"replica{i}": _wire_answer(r.url, x, "binary")
+                       for i, r in enumerate(replicas)}
+                got["router"] = router.predict(x)
+                got["router_event"] = ev.predict(x)
+                bad += [f"n={n} {k}" for k, v in got.items()
+                        if v.tobytes() != want[n].tobytes()]
+        fails.check(not bad, f"wire fleet: answers differ from this "
+                             f"process's engine: {bad}")
+        out["bit_identical"] = not bad
+
+        # the router's cost: one image a request, one client, direct to a
+        # replica and through the router's frontend
+        def one_client(url):
+            t = HttpTarget(url, wire="binary")
+            try:
+                return run_load(t, clients=1, requests_per_client=64,
+                                images_max=1, seed=3)
+            finally:
+                t.close()
+
+        direct, routed = one_client(replicas[1].url), one_client(front.url)
+        out["direct_1x1"], out["routed_1x1"] = (_load_row(direct),
+                                                _load_row(routed))
+        out["router_overhead_p50_ms"] = routed["p50_ms"] - direct["p50_ms"]
+
+        # phase (2)'s load with the server in another process than the
+        # clients: one replica directly, then both through the router
+        def fleet_load(url):
+            t = HttpTarget(url, wire="mixed")
+            try:
+                rep = run_load(t, **WIRE_LOAD)
+            finally:
+                t.close()
+            fails.check(rep["failed"] == 0,
+                        f"wire fleet load {url}: {rep['failed']} failed")
+            return _load_row(rep)
+
+        out["replica_mixed"] = fleet_load(replicas[1].url)
+        out["router_mixed"] = fleet_load(front.url)
+
+        # the drill: mixed-priority load through the router, replica 0
+        # SIGKILLed once DRILL_KILL_AFTER requests went through
+        target = HttpTarget(front.url, wire="mixed")
+        result: dict = {}
+        r0 = router.stats["requests"]
+        drill = threading.Thread(target=lambda: result.update(
+            rep=run_load(target, clients=DRILL_CLIENTS,
+                         requests_per_client=DRILL_REQUESTS,
+                         bulk_fraction=0.3, seed=1)))
+        drill.start()
+        deadline = time.monotonic() + 120
+        while (router.stats["requests"] - r0 < DRILL_KILL_AFTER
+               and drill.is_alive() and time.monotonic() < deadline):
+            time.sleep(0.005)
+        replicas[0].proc.kill()
+        replicas[0].proc.wait(timeout=60)
+        drill.join(timeout=300)
+        fails.check(not drill.is_alive(), "wire drill: the load hung")
+        rep = result.get("rep", {"requests": 0, "failed": 0})
+        issued = DRILL_CLIENTS * DRILL_REQUESTS
+        lost = issued - rep["requests"] - rep["failed"]
+        fails.check(lost == 0, f"wire drill: {lost} of {issued} requests "
+                               "lost (neither answered nor failed)")
+        deadline = time.monotonic() + 30
+        while (router.stats["evictions"] < 1
+               and time.monotonic() < deadline):
+            time.sleep(0.05)
+        health = router.health()
+        fails.check(router.stats["evictions"] == 1
+                    and [h["healthy"] for h in health["replicas"]]
+                    == [False, True],
+                    f"wire drill: evictions {router.stats['evictions']}, "
+                    f"health {[h['healthy'] for h in health['replicas']]}")
+        after = run_load(target, clients=DRILL_CLIENTS,
+                         requests_per_client=32, bulk_fraction=0.3, seed=2)
+        target.close()
+        fails.check(after["failed"] == 0,
+                    f"wire drill: {after['failed']} failed after eviction")
+        out["drill"] = _load_row(rep, issued=issued, lost=lost,
+                                 bulk_requests=rep.get("bulk_requests"))
+        out["after_eviction"] = _load_row(after)
+        out["router"] = router.stats
+    finally:
+        front.stop()
+        router.stop()
+    # the survivor drains on SIGTERM and prints its JSON line
+    replicas[1].proc.send_signal(signal.SIGTERM)
+    code, lines = replicas[1].finish(timeout=120)
+    rec = json.loads(lines[-1]) if code == 0 and lines else {}
+    fails.check(code == 0 and len(lines) == 1,
+                f"wire: the survivor exited {code} with {len(lines)} lines: "
+                + "".join(replicas[1].err[-20:]))
+    k3 = rec.get("launches_by_kernel", {}).get("conv3x3_bn_relu", 0)
+    # its warmup (one forward a bucket) and every batch it served, 6 each
+    fails.check(k3 > 0 and k3 == 6 * (rec.get("batches", -1)
+                                      + rec.get("compiles", 0)),
+                f"wire: the survivor launched K3 {k3} times for "
+                f"{rec.get('batches')} batches and {rec.get('compiles')} "
+                "warmup forwards")
+    fails.check(rec.get("failed", 1) == 0,
+                f"wire: the survivor answered {rec.get('failed')} errors")
+    out["survivor"] = {k: rec.get(k) for k in (
+        "requests", "images", "failed", "batches", "compiles",
+        "launches_by_kernel", "p50_ms", "p99_ms", "device")}
+    out["survivor"]["k3_launches"] = k3
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -2667,6 +3082,7 @@ def main(argv=None) -> int:
 
     rows = timed("site", phase_kernels, K, peaks, fails)
     sl = timed("slice", phase_slice, K, smi, fails)
+    wr = timed("wire", phase_wire, K, smi, fails)
     k1 = timed("gather", phase_gather, G, peaks, fails)
     k2 = timed("moments", phase_moments, M, peaks, fails)
     tr = timed("train", phase_train, G, M, K, P, smi, fails)
@@ -2767,6 +3183,15 @@ def main(argv=None) -> int:
         "host_loader_launches": {
             tag: hl[tag]["launches"]["conv3x3_bn_relu"]
             for tag in ("async_on", "async_off", "host_augment")},
+        # serving over the wire (phase 32), 6 a forward: the single
+        # requests through both edges, the load runs, and the surviving
+        # replica process (its warmup included)
+        "wire_forward": {
+            "per_forward": 6,
+            "single_requests": wr["single"]["k3_launches"],
+            "load_runs": wr["load_k3_launches"],
+            "replica": wr["fleet"].get("survivor", {}).get("k3_launches"),
+        },
     }, {
         "name": "dma_row_gather",
         "route": "cuda",

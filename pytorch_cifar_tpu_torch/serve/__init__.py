@@ -1,13 +1,36 @@
-"""Serving stack of the port: engine, micro-batcher, closed-loop load."""
+"""Serving stack of the port: engine, micro-batcher, load generators, and
+the wire: the PCTW frame (:mod:`~pytorch_cifar_tpu_torch.serve.wire`), the
+threaded HTTP frontend (:mod:`~pytorch_cifar_tpu_torch.serve.frontend`),
+the event-loop edge and its connection pool
+(:mod:`~pytorch_cifar_tpu_torch.serve.edge`) and the multi-replica router
+(:mod:`~pytorch_cifar_tpu_torch.serve.router`)."""
 
 from pytorch_cifar_tpu_torch.serve.batcher import (  # noqa: F401
+    PRIORITIES,
     BatcherClosed,
     DeadlineExceeded,
     MicroBatcher,
     QueueFull,
 )
-from pytorch_cifar_tpu_torch.serve.engine import InferenceEngine  # noqa: F401
-from pytorch_cifar_tpu_torch.serve.loadgen import (  # noqa: F401
-    percentile_ms,
-    run_load,
+from pytorch_cifar_tpu_torch.serve.engine import (  # noqa: F401
+    InferenceEngine,
+    load_checkpoint_trees,
 )
+from pytorch_cifar_tpu_torch.serve.edge import (  # noqa: F401
+    EdgeFrontend,
+    EdgePool,
+)
+from pytorch_cifar_tpu_torch.serve.frontend import (  # noqa: F401
+    BatcherBackend,
+    ServingFrontend,
+)
+from pytorch_cifar_tpu_torch.serve.loadgen import (  # noqa: F401
+    HttpTarget,
+    percentile_ms,
+    run_async_load,
+    run_load,
+    zipf_mix,
+)
+from pytorch_cifar_tpu_torch.serve.router import Router  # noqa: F401
+from pytorch_cifar_tpu_torch.serve.tenancy import UnknownModel  # noqa: F401
+from pytorch_cifar_tpu_torch.serve import wire  # noqa: F401

@@ -1,19 +1,38 @@
-"""Serving CLI of the port, load-generator mode:
+"""Serving CLI of the port, in load-generator mode or as one HTTP replica:
 
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --verify
     python -m pytorch_cifar_tpu_torch.serve --model GoogLeNet
     python -m pytorch_cifar_tpu_torch.serve --model MobileNet
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --ckpt checkpoint
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --http_port 0
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 \\
+        --http_port 8100 --edge event --deadline_ms 250 --prom_out s.prom
 
 Builds an :class:`InferenceEngine` from seeded random weights, or from
 ``--ckpt`` (a trainer's directory, a ``.msgpack`` of either package, or a
 reference ``ckpt.pth``), warms every bucket, optionally checks that the
-padded bucket path equals the direct unpadded forward (``--verify``),
-drives a :class:`MicroBatcher` with the closed-loop load generator, and
-prints ONE JSON line on stdout under ``serve.py``'s key names, plus
-``kernel_launches`` (launches of the port's serving kernels during the
-run: the fused conv, the 3x3 max pool and the depthwise stencil, whichever
-the model has), ``launches_by_kernel`` and, with ``--ckpt``, ``ckpt_epoch``.
+padded bucket path equals the direct unpadded forward (``--verify``) and
+puts a :class:`MicroBatcher` in front of it. Then one of two traffic
+sources:
+
+- default (``--http_port -1``): the closed-loop load generator drives the
+  batcher in-process;
+- ``--http_port N`` (0 = an ephemeral port): the process is one replica
+  of a fleet. ``--edge threaded`` (the default) serves through
+  :class:`ServingFrontend`, ``--edge event`` through
+  :class:`EdgeFrontend`: ``POST /predict`` in JSON or the binary PCTW
+  frame, ``GET /healthz``, live Prometheus ``GET /metrics``. It prints
+  ``==> http: serving on URL`` on stderr, serves until SIGTERM/SIGINT or
+  ``--duration_s``, then drains (in-flight requests are answered). A
+  :class:`~pytorch_cifar_tpu_torch.serve.router.Router` spreads clients
+  over such replicas.
+
+Either way it prints ONE JSON line on stdout under ``serve.py``'s key
+names (in HTTP mode the report of its ``_serve_http``: what the network
+brought, from the metrics registry), plus ``kernel_launches`` (launches
+of the port's serving kernels during the run: the fused conv, the 3x3 max
+pool and the depthwise stencil, whichever the model has),
+``launches_by_kernel``, ``device`` and, with ``--ckpt``, ``ckpt_epoch``.
 Progress goes to stderr. Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -21,21 +40,34 @@ from __future__ import annotations
 
 import argparse
 import json
+import signal
 import sys
+import threading
+import time
 
 import numpy as np
 import torch
 
 from pytorch_cifar_tpu_torch import resolve_device
-from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+from pytorch_cifar_tpu_torch.obs import (
+    MetricsExporter,
+    MetricsRegistry,
+    trace,
+    write_prometheus,
+)
+from pytorch_cifar_tpu_torch.obs.metrics import _percentile_from_buckets
 from pytorch_cifar_tpu_torch.ops import conv_bn_relu, depthwise_stencil, max_pool
 from pytorch_cifar_tpu_torch.serve import (
+    BatcherBackend,
+    EdgeFrontend,
     InferenceEngine,
     MicroBatcher,
+    ServingFrontend,
     run_load,
 )
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+EDGES = {"threaded": ServingFrontend, "event": EdgeFrontend}
 
 
 def _launches() -> dict:
@@ -50,7 +82,7 @@ def _launches() -> dict:
 def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         prog="python -m pytorch_cifar_tpu_torch.serve",
-        description="Serve a model under closed-loop load.",
+        description="Serve a model under closed-loop load or over HTTP.",
     )
     p.add_argument("--model", default="ResNet18")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
@@ -59,23 +91,105 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="0 = the largest bucket")
     p.add_argument("--max_wait_ms", type=float, default=2.0)
     p.add_argument("--max_queue", type=int, default=1024)
+    p.add_argument("--deadline_ms", type=float, default=0.0,
+                   help="queue-time bound of a request without its own "
+                        "(0 = none)")
+    p.add_argument("--bulk_share", type=float, default=0.5,
+                   help="share of max_queue bulk requests may hold")
+    p.add_argument("--continuous", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="fill a dispatched bucket's pad slack with queued "
+                        "requests")
     p.add_argument("--clients", type=int, default=8)
     p.add_argument("--requests", type=int, default=64, help="per client")
     p.add_argument("--request_images_max", type=int, default=8)
+    p.add_argument("--duration_s", type=float, default=0.0,
+                   help="wall-clock cap of the load, or how long an HTTP "
+                        "replica serves (0 = none: until SIGTERM/SIGINT)")
+    p.add_argument("--hedge", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="resubmit a request that missed its deadline once")
     p.add_argument("--ckpt", default=None,
                    help="serve this checkpoint (trainer dir, .msgpack or "
                         ".pth) instead of seeded random weights")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--verify", action="store_true",
                    help="check padded bucket forward == direct forward")
+    p.add_argument("--http_port", type=int, default=-1,
+                   help="serve HTTP on this port (0 = ephemeral; -1 = the "
+                        "in-process load generator)")
+    p.add_argument("--http_host", default="127.0.0.1")
+    p.add_argument("--edge", default="threaded", choices=sorted(EDGES),
+                   help="threaded: a thread per connection; event: one "
+                        "non-blocking loop and a worker pool")
+    p.add_argument("--trace_out", default="",
+                   help="write host spans here (Chrome trace JSON)")
+    p.add_argument("--metrics_out", default="",
+                   help="append metric snapshots here (JSONL)")
+    p.add_argument("--metrics_every_s", type=float, default=10.0)
+    p.add_argument("--prom_out", default="",
+                   help="write the metrics as Prometheus text at exit")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
+
+
+def _serve_http(args, backend, registry) -> dict:
+    """Serve ``backend`` over HTTP until SIGTERM/SIGINT or
+    ``--duration_s``, drain, and return a load-shaped report assembled
+    from the registry (the keys of ``serve.py``'s ``_serve_http``)."""
+    frontend = EDGES[args.edge](
+        backend, host=args.http_host, port=args.http_port,
+        registry=registry,
+    ).start()
+    stop = threading.Event()
+
+    def _on_signal(signum, frame):
+        stop.set()
+
+    signal.signal(signal.SIGTERM, _on_signal)
+    signal.signal(signal.SIGINT, _on_signal)
+    print(f"==> http: serving on {frontend.url}", file=sys.stderr,
+          flush=True)
+    t0 = time.perf_counter()
+    stop.wait(args.duration_s or None)
+    try:
+        print("==> http: draining", file=sys.stderr, flush=True)
+    except OSError:
+        pass  # the reader of stderr is gone: the drain must still run
+    frontend.stop()  # no new requests; in-flight responses finish
+    elapsed = time.perf_counter() - t0
+
+    snap = registry.snapshot()
+    s = registry.summary()
+    http_ms = snap["histograms"].get("serve.http_ms")
+    requests = int(s.get("serve.http_ms.count", 0.0))
+    images = int(s.get("serve.http_images", 0.0))
+    return {
+        "clients": 0,  # open-loop: whatever the network brought
+        "requests": requests,
+        "images": images,
+        "rejected": int(s.get("serve.rejected", 0.0)),
+        "hedged": int(s.get("serve.hedged", 0.0)),
+        "failed": int(s.get("serve.http_errors", 0.0)),
+        "bulk_requests": int(s.get("serve.bulk_requests", 0.0)),
+        "elapsed_s": round(elapsed, 4),
+        "img_per_sec": images / max(elapsed, 1e-9),
+        "request_per_sec": requests / max(elapsed, 1e-9),
+        "mean_ms": s.get("serve.http_ms.mean", 0.0),
+        "p50_ms": s.get("serve.http_ms.p50", 0.0),
+        "p95_ms": s.get("serve.http_ms.p95", 0.0),
+        "p99_ms": (
+            _percentile_from_buckets(http_ms, 99.0) if http_ms else 0.0
+        ),
+    }
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = resolve_device(args.device)
     registry = MetricsRegistry()
+    if args.trace_out:
+        trace.install(args.trace_out)
     launches0 = _launches()
     source = f"ckpt {args.ckpt}" if args.ckpt else f"seed {args.seed}"
     print(
@@ -120,18 +234,39 @@ def main(argv=None) -> int:
         max_batch=args.max_batch or None,
         max_wait_ms=args.max_wait_ms,
         max_queue=args.max_queue,
+        default_deadline_ms=args.deadline_ms,
+        bulk_share=args.bulk_share,
+        continuous=args.continuous,
         registry=registry,
     )
+    exporter = None
+    if args.metrics_out:
+        exporter = MetricsExporter(
+            registry, args.metrics_out, interval_s=args.metrics_every_s
+        ).start()
     try:
-        report = run_load(
-            batcher,
-            clients=args.clients,
-            requests_per_client=args.requests,
-            images_max=args.request_images_max,
-            seed=args.seed,
-        )
+        if args.http_port >= 0:
+            report = _serve_http(
+                args, BatcherBackend(engine, batcher), registry
+            )
+        else:
+            report = run_load(
+                batcher,
+                clients=args.clients,
+                requests_per_client=args.requests,
+                images_max=args.request_images_max,
+                seed=args.seed,
+                duration_s=args.duration_s or None,
+                hedge=args.hedge,
+            )
     finally:
         batcher.close()  # graceful drain
+        if exporter is not None:
+            exporter.stop()
+        if args.prom_out:
+            write_prometheus(args.prom_out, registry.snapshot())
+        if args.trace_out:
+            trace.uninstall()
 
     obs_summary = registry.summary()
     launches = {k: v - launches0[k] for k, v in _launches().items()}
@@ -153,6 +288,7 @@ def main(argv=None) -> int:
         "engine_version": engine.version,
         "batches": batcher.stats["batches"],
         "largest_batch": batcher.stats["largest_batch"],
+        "deadline_ms": args.deadline_ms,
         "expired": batcher.stats["expired"],
         **{
             k: (round(v, 3) if isinstance(v, float) else v)
@@ -171,6 +307,12 @@ def main(argv=None) -> int:
             ),
             "device_p95_ms": round(
                 obs_summary.get("serve.device_ms.p95", 0.0), 3
+            ),
+            "expired": obs_summary.get("serve.expired", 0.0),
+            "hedged": obs_summary.get("serve.hedged", 0.0),
+            "wire_requests": obs_summary.get("serve.wire_requests", 0.0),
+            "wire_decode_p95_ms": round(
+                obs_summary.get("serve.wire_decode_ms.p95", 0.0), 3
             ),
             "staging_reuse": obs_summary.get("serve.staging_reuse", 0.0),
             "continuous_admitted": obs_summary.get(

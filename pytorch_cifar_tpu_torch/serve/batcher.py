@@ -1,8 +1,7 @@
 """Dynamic micro-batching: coalesce concurrent requests into device batches.
 
 A copy of ``pytorch_cifar_tpu/serve/batcher.py`` for the port's
-single-device engine, without its mesh-engine paths and with its knobs
-that no caller of the port sets fixed at their defaults.
+single-device engine, without its mesh-engine paths.
 
 The engine's per-bucket programs amortize fixed dispatch cost over the
 batch dimension, so serving throughput under concurrency hinges on running
@@ -19,8 +18,8 @@ piece that turns N independent clients into that shape:
   bound — under sustained overload an unbounded queue converts overload
   into unbounded latency for EVERY request, which is strictly worse than
   telling some clients to back off (they retry; see loadgen).
-- **Deadlines**: a request may carry a deadline (per-submit
-  ``deadline_ms``). A request whose deadline passes while it is
+- **Deadlines**: a request may carry a deadline (per-submit ``deadline_ms``
+  or the constructor default). A request whose deadline passes while it is
   still queued fails fast with :class:`DeadlineExceeded` at batch-formation
   time instead of occupying a coalesced batch — when the engine stalls,
   callers get a bounded-latency error they can retry elsewhere, not a
@@ -35,12 +34,12 @@ piece that turns N independent clients into that shape:
   (1) *dispatch order*: batch formation drains the interactive lane
   first, so an interactive request waits at most one in-flight engine
   call plus the interactive queue ahead of it, never the bulk backlog;
-  (2) *admission*: bulk may occupy at most ``BULK_SHARE`` of ``max_queue``
+  (2) *admission*: bulk may occupy at most ``bulk_share`` of ``max_queue``
   (further bulk submits get :class:`QueueFull` — back off and retry),
   so interactive submits always find queue headroom. Interactive-lane
   FIFO order is unchanged from the single-lane batcher, and an all-
   interactive workload behaves bit-for-bit as before.
-- **Continuous batching**: batch formation
+- **Continuous batching** (``continuous``, default on): batch formation
   closes at ``max_batch``/``max_wait_ms`` as before, but the worker
   makes one more non-blocking admission pass at DISPATCH time, filling
   the pad slack of the bucket program the formed batch is about to run
@@ -99,8 +98,6 @@ class DeadlineExceeded(RuntimeError):
 
 # request-priority classes (SERVING.md): order = dispatch order
 PRIORITIES = ("interactive", "bulk")
-# bulk requests may hold at most this share of max_queue
-BULK_SHARE = 0.5
 
 
 class _Pending:
@@ -130,6 +127,10 @@ class MicroBatcher:
         max_batch: Optional[int] = None,
         max_wait_ms: float = 2.0,
         max_queue: int = 1024,
+        default_deadline_ms: float = 0.0,
+        bulk_share: float = 0.5,
+        continuous: bool = True,
+        autostart: bool = True,
         registry: Optional[MetricsRegistry] = None,
     ):
         self.engine = engine
@@ -141,10 +142,21 @@ class MicroBatcher:
         if self.max_queue < self.max_batch:
             # a queue smaller than one batch could never fill a batch
             raise ValueError("max_queue must be >= max_batch")
+        self.default_deadline_ms = float(default_deadline_ms)
         # priority lanes (module docstring): dispatch drains lanes in
-        # PRIORITIES order; bulk admission is capped at BULK_SHARE of the
+        # PRIORITIES order; bulk admission is capped at bulk_share of the
         # queue so a bulk flood can never crowd interactive submits out
-        self._bulk_max = max(self.max_batch, int(self.max_queue * BULK_SHARE))
+        if not 0.0 < bulk_share <= 1.0:
+            raise ValueError("bulk_share must be in (0, 1]")
+        self.bulk_share = float(bulk_share)
+        self._bulk_max = max(
+            self.max_batch, int(self.max_queue * self.bulk_share)
+        )
+        # continuous batching (module docstring): the dispatch-time
+        # slack-admission pass needs the engine's bucket table; engines
+        # without one (or continuous=False) keep the close-at-formation
+        # batcher exactly as before
+        self.continuous = bool(continuous) and hasattr(engine, "bucket_for")
         self._lanes = {p: deque() for p in PRIORITIES}
         self._queued_images = 0
         self._queued_bulk_images = 0
@@ -189,7 +201,8 @@ class MicroBatcher:
         # the next engine cycle
         self._c_cont_admitted = self.obs.counter("serve.continuous_admitted")
         self._c_cont_images = self.obs.counter("serve.continuous_images")
-        self.start()
+        if autostart:
+            self.start()
 
     @property
     def stats(self) -> dict:
@@ -226,15 +239,18 @@ class MicroBatcher:
         """Enqueue a request; the Future resolves to fp32 logits for
         exactly these rows. Raises QueueFull/BatcherClosed synchronously
         so the caller can apply backpressure without blocking.
-        ``deadline_ms`` bounds queue time (0/None = no deadline).
-        ``priority`` picks the lane (module docstring): ``"bulk"`` requests
-        are admitted only into their ``BULK_SHARE`` queue slice and dispatch after every
+        ``deadline_ms`` bounds queue time (falls back to the constructor's
+        ``default_deadline_ms``; 0/None = no deadline). ``priority`` picks
+        the lane (module docstring): ``"bulk"`` requests are admitted only
+        into their ``bulk_share`` queue slice and dispatch after every
         queued interactive request."""
         if priority not in PRIORITIES:
             raise ValueError(
                 f"unknown priority {priority!r} (expected one of "
                 f"{PRIORITIES})"
             )
+        if deadline_ms is None:
+            deadline_ms = self.default_deadline_ms
         expires_at = (
             time.monotonic() + deadline_ms / 1e3 if deadline_ms else None
         )
@@ -481,7 +497,8 @@ class MicroBatcher:
             # requests submitted in between are visible to the pass
             with self._cond:
                 total = sum(r.n for r in batch)
-                total = self._admit_slack_locked(batch, total)
+                if self.continuous:
+                    total = self._admit_slack_locked(batch, total)
                 self._account_dispatch_locked(total)
             if not self._drain and self._closed:
                 for req in batch:

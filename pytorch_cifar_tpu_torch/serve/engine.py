@@ -122,7 +122,14 @@ class InferenceEngine:
     ``predict`` accepts uint8 NHWC images ``(n, 32, 32, 3)`` for ANY n >= 1
     and returns fp32 logits ``(n, classes)`` as numpy. Thread-safe: the
     served weights are replaced by a single assignment.
+
+    ``n_devices`` is 1 (one card; serving over a device group is not
+    ported) and ``aot_cache_hits`` is 0: the port has no cold-start cache
+    yet, so ``/healthz`` reports every bucket as warmed here.
     """
+
+    n_devices = 1
+    aot_cache_hits = 0
 
     def __init__(
         self,

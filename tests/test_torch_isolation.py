@@ -101,7 +101,10 @@ def test_scan_sees_the_whole_package():
                  *(os.path.join("pytorch_cifar_tpu_torch", *parts) for parts in
                    (("faults.py",), ("native", "__init__.py"),
                     ("data", "pipeline.py"), ("obs", "export.py"),
-                    ("utils", "logging.py"), ("utils", "progress.py")))):
+                    ("utils", "logging.py"), ("utils", "progress.py"),
+                    ("serve", "wire.py"), ("serve", "frontend.py"),
+                    ("serve", "edge.py"), ("serve", "router.py"),
+                    ("serve", "loadgen.py"), ("serve", "tenancy.py")))):
         assert must in files
 
 
