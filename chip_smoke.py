@@ -299,8 +299,61 @@ Serving over the wire, run right after phase 4:
     p99); the survivor SIGTERMed: exit 0, one JSON line, no error
     answered, K3 launched 6 times a forward (warmup and batches).
 
+The checkpoint life cycle; phase 33 runs right after phase 3, phases 34
+and 35 after phase 18:
+
+33. k3_nan: K3 against its plain version (cuDNN off: its fp32
+    algorithm spreads a NaN pixel over the whole image; its NaN count is
+    recorded beside) with one NaN planted in an input
+    pixel, a weight, a scale or a bias entry, at ResNet-18's stem (the
+    mma.sync path in both dtypes), 32x32 x 64 and 4x4 x 512 sites (the
+    wgmma path in bf16, whole images a tile at 4x4; the mma.sync path in
+    fp32), n = 8: NaN at exactly the plain version's positions, the finite
+    outputs at phase 3's tolerances; and the bits of ``relu(-0)`` from the
+    kernel and the plain version, recorded;
+34. reload: two seeded ResNet-18 states A and B committed by the port's
+    ``save_checkpoint``; an engine (bf16, buckets 1/8/32/128) from a live
+    dir holding A behind ``MicroBatcher`` and ``BatcherBackend(watcher=)``;
+    the ``CheckpointWatcher``'s poll loop (every 0.05 s, each swap timed)
+    while rounds of ``run_load`` (8 clients x 64 requests of U[1, 8]
+    images) run; then in order: B published (one reload), A's payload
+    under B's sidecar (skipped), A published under a tombstone (refused),
+    a watcher on a staging dir (refused): no failed request, every device
+    batch equal to A's or B's engine on the same padded batch bit for bit
+    (never a mix), ``/healthz``'s epoch B's after the reload, the compile
+    count unmoved, 6 K3 launches a forward (reset just before the load and
+    read just after); the swap's ms and the requests' p99 across it;
+35. canary: A (2 epochs) and B (A resumed for 2 more on one cosine
+    schedule) trained by ``Trainer.fit`` on googlenet_train's cut split;
+    A published live; ``python -m pytorch_cifar_tpu_torch.tools.pipeline_run
+    --epochs 0 --golden eval --min_shadow 64 --max_flip_frac 1.0``
+    (ResNet-18, bf16, the live and the canary engine on the one card) under 3 clients' mixed-priority
+    HTTP load (30% bulk); staged in turn: B NaN'd (``faults.regress_checkpoint(nan=True)``),
+    bit-flipped (raw copy), regressed (``scale=2.0``), with one NaN in
+    layer1.0.bn1's running variance (a K3 site: ``faults.nan_leaf``), and B
+    itself: each of the first four quarantined (the tombstone lands, the
+    live dir's bytes, ``/predict``'s bits and the generation unchanged; the
+    K3-site NaN as "nonfinite"), B promoted after its golden eval and a
+    soak of at least 64 teed interactive requests with no shadow error (the
+    live sidecar carries B's epoch and generation 1, the watcher reloads
+    it, ``/predict`` gives the bits of an engine built from B in this
+    process); the soak's shadow counts (rows, argmax flips, bit-identical
+    requests) and live p50/p99 during it; how many rows of A's engine in
+    this process keep their bits when the same images run at another
+    bucket (what a shadow comparison across buckets can expect); SIGTERM:
+    exit 0,
+    ``rejected == 4``, ``promotions == 1``, no failed client request, K3
+    launched 6 times a forward of the launcher's two engines; interactive
+    p50/p99 idle and while a candidate is vetted, ``canary.golden_ms`` and
+    ``canary.promote_ms``. Then one pipeline run (``--epochs 3``, the
+    trainer child on the same card, 2 clients) beside the same trainer
+    run alone: exit 0, at least one promotion, no failed request; each
+    run's img/s from its ``train.log``, the card's peak memory in use
+    (``torch.cuda.mem_get_info``) and the serving process's
+    ``max_memory_allocated``.
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
-every visible card (the four-card call), and prints neither the kernels
+every visible card (the four-card call); it prints neither the kernels
 nor the ok line.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
@@ -2701,16 +2754,19 @@ def _wire_answer(url: str, x: np.ndarray, encoding: str) -> np.ndarray:
 
 class _Replica:
     """``python -m pytorch_cifar_tpu_torch.serve --model ResNet18
-    --http_port 0 --seed 0`` in a child process on the card: its stderr
-    read on a thread (the ready line carries the URL), its one stdout line
-    read after it exits."""
+    --http_port 0 --seed 0`` (or ``python -m`` of ``argv``) in a child
+    process on the card: its stderr read on a thread (the line starting
+    with ``ready`` carries the URL), its one stdout line read after it
+    exits."""
 
-    def __init__(self):
+    def __init__(self, argv=None, ready: str = REPLICA_READY):
+        argv = argv or ["pytorch_cifar_tpu_torch.serve", "--model",
+                        "ResNet18", "--http_port", "0", "--seed", "0"]
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "pytorch_cifar_tpu_torch.serve",
-             "--model", "ResNet18", "--http_port", "0", "--seed", "0"],
+            [sys.executable, "-m", *argv],
             cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
             text=True)
+        self._marker = ready
         self.err: list = []
         self.url = None
         self.ready = threading.Event()
@@ -2720,8 +2776,8 @@ class _Replica:
     def _read(self) -> None:
         for line in self.proc.stderr:
             self.err.append(line)
-            if line.startswith(REPLICA_READY):
-                self.url = line[len(REPLICA_READY):].strip()
+            if line.startswith(self._marker):
+                self.url = line[len(self._marker):].strip()
                 self.ready.set()
 
     def finish(self, timeout: float) -> tuple:
@@ -3041,6 +3097,722 @@ def _wire_fleet(replicas, xs: dict, want: dict, fails: Failures) -> dict:
     return out
 
 
+# -- the checkpoint life cycle (phases 33-35) -----------------------------
+
+# K3 NaN cases: ResNet-18's stem (the mma.sync path in both dtypes), a
+# 32x32 site and a 4x4 site (8 whole images a tile on the wgmma path)
+K3_NAN_SITES = [s for s in SITES if s[0] in (
+    "stem", "layer1.{0,1}.conv1", "layer4.1.conv1")]
+K3_NAN_CASES = ("pixel", "weight", "scale", "bias", "negative_zero")
+RELOAD_LOAD = dict(clients=8, requests_per_client=64, images_min=1,
+                   images_max=8, seed=0)
+PIPELINE_READY = "==> pipeline: serving on "
+LIFECYCLE_MODEL = "ResNet18"  # served, vetted and trained at full width
+CANARY_CLIENTS, CANARY_IDLE_S = 3, 3.0
+# teed interactive requests B soaks before its promotion, held to no
+# shadow error. B is two epochs past A (golden accuracy about 85% against
+# 21%) and changes the argmax of nearly every random image, so the soak's
+# argmax-flip term, shared with the unlabeled golden gate, is set to 1.0:
+# the labeled golden set's accuracy term judges B, as in JAX's drill
+CANARY_SOAK = 64
+# the payload path of layer1.0.bn1's running variance: the BN of a fused
+# conv3x3+BN+ReLU site
+K3_SITE_VAR = ("batch_stats", "BasicBlock_0", "BatchNorm_0", "var")
+
+
+def _k3_nan_inputs(site, dt, case: str, g):
+    """A site's inputs with one NaN planted (``case``): in one input pixel
+    of image 1 (a multi-image tile holds images 0 and 2 beside it), one
+    weight, one scale or one bias entry; or ``negative_zero``: image 0 all
+    zeros and channel 3's scale -1 and bias -0, so the pre-ReLU value
+    there is -0."""
+    _, h, w, cin, cout, _ = site
+    x = torch.randn(8, h, w, cin, generator=g)
+    wt = torch.randn(3, 3, cin, cout, generator=g) / (9 * cin) ** 0.5
+    scale = torch.rand(cout, generator=g) + 0.5
+    bias = 0.1 * torch.randn(cout, generator=g)
+    nan = float("nan")
+    if case == "pixel":
+        x[1, h // 2, w // 2, cin // 2] = nan
+    elif case == "weight":
+        wt[1, 2, cin // 2, cout // 3] = nan
+    elif case == "scale":
+        scale[cout // 2] = nan
+    elif case == "bias":
+        bias[cout - 1] = nan
+    else:
+        x[0] = 0.0
+        scale[3], bias[3] = -1.0, -0.0
+    return x.to("cuda", dt), wt.to("cuda", dt), scale.cuda(), bias.cuda()
+
+
+def phase_k3_nan(K, fails: Failures) -> list:
+    """K3 keeps a NaN as the plain version does (phase 33). The plain
+    version runs with cuDNN off (an im2col GEMM, TF32 off): cuDNN's fp32
+    algorithm at 32x32 x 64 spreads one NaN pixel over its whole image,
+    past the 3x3 window JAX's reference and the kernel keep it to; the
+    rows record cuDNN's count beside."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(33)
+    rows = []
+    for site in K3_NAN_SITES:
+        name, h, w, cin, cout, _ = site
+        for dname, dt in DTYPES.items():
+            for case in K3_NAN_CASES:
+                x, wt, scale, bias = _k3_nan_inputs(site, dt, case, g)
+                out = K.conv3x3_bn_relu(x, wt, scale, bias)
+                with torch.backends.cudnn.flags(enabled=False):
+                    ref = K.conv3x3_bn_relu_reference(
+                        x.float(), wt.float(), scale, bias)
+                cudnn = K.conv3x3_bn_relu_reference(x.float(), wt.float(),
+                                                    scale, bias)
+                torch.cuda.synchronize()
+                got = out.float()
+                nan_k, nan_p = torch.isnan(got), torch.isnan(ref)
+                both = ~nan_k & ~nan_p
+                diff = (got - ref).abs()[both]
+                rtol, atol = ((1e-4, 1e-4) if dname == "fp32"
+                              else (1.6e-2, 1e-2))
+                tag = f"K3 NaN {name} {dname} {case}"
+                fails.check(torch.equal(nan_k, nan_p),
+                            f"{tag}: NaN at {int(nan_k.sum())} positions, "
+                            f"the plain version at {int(nan_p.sum())}")
+                fails.check(case == "negative_zero" or bool(nan_p.any()),
+                            f"{tag}: the plain version has no NaN")
+                fails.check(bool((diff <= atol + rtol * ref.abs()[both])
+                                 .all()),
+                            f"{tag}: finite outputs off the plain version")
+                row = {"site": name, "dtype": dname, "case": case,
+                       "path": K.plan(h, w, cin, cout, dt).path,
+                       "nan_count": int(nan_k.sum()),
+                       "cudnn_nan_count": int(torch.isnan(cudnn).sum()),
+                       "same_nan_positions": bool(torch.equal(nan_k, nan_p)),
+                       "finite_max_abs_err": float(diff.max())
+                       if diff.numel() else 0.0}
+                if case == "negative_zero":
+                    # relu(-0): the kernel's and the plain version's bits
+                    # in the output dtype at those positions
+                    with torch.backends.cudnn.flags(enabled=False):
+                        plain = K.conv3x3_bn_relu_reference(x, wt, scale,
+                                                            bias)
+                    kb = raw_bits(out[0, :, :, 3].contiguous()).unique()
+                    pb = raw_bits(plain[0, :, :, 3].contiguous()).unique()
+                    row["relu_of_negative_zero"] = {
+                        "kernel_bits": [hex(int(v) & 0xFFFFFFFF)
+                                        for v in kb.tolist()],
+                        "plain_bits": [hex(int(v) & 0xFFFFFFFF)
+                                       for v in pb.tolist()],
+                        "same_bits": bool(torch.equal(kb, pb))}
+                rows.append(row)
+    want = len(K3_NAN_SITES) * len(DTYPES) * len(K3_NAN_CASES)
+    paths = {r["path"] for r in rows}
+    fails.check(len(rows) == want and {"sync", "wgmma"} <= paths,
+                f"K3 NaN: {len(rows)} of {want} cases ran, on the paths "
+                f"{sorted(paths)}; both the mma.sync and the wgmma path "
+                "must take them")
+    print("k3_nan " + json.dumps(rows), flush=True)
+    return rows
+
+
+def _seeded_ckpt(out_dir: str, seed: int, epoch: int, best_acc: float):
+    """A seeded ResNet-18 state committed by the port's
+    ``save_checkpoint``; returns its directory."""
+    from pytorch_cifar_tpu_torch.train.checkpoint import save_checkpoint
+
+    state, _ = _train_state(seed, torch.bfloat16, LIFECYCLE_MODEL)
+    save_checkpoint(out_dir, state, epoch, best_acc)
+    return out_dir
+
+
+def _percentiles(lat_ms: list) -> dict:
+    from pytorch_cifar_tpu_torch.serve.loadgen import percentile_ms
+
+    return {"n": len(lat_ms), "p50_ms": percentile_ms(lat_ms, 50),
+            "p99_ms": percentile_ms(lat_ms, 99)}
+
+
+def _wait_for(pred, timeout: float, poll: float = 0.02) -> bool:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(poll)
+    return bool(pred())
+
+
+def phase_reload(K, smi: str, fails: Failures) -> dict:
+    """The hot-reload watcher under load (phase 34)."""
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve import (
+        BatcherBackend,
+        CheckpointWatcher,
+        InferenceEngine,
+        MicroBatcher,
+        run_load,
+    )
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        CKPT_NAME, ensure_staging_dir, publish_checkpoint,
+        quarantine_checkpoint, read_meta)
+
+    root = run_dir("reload_")
+    try:
+        a_dir = _seeded_ckpt(os.path.join(root, "a"), 1, 3, 30.0)
+        b_dir = _seeded_ckpt(os.path.join(root, "b"), 2, 7, 70.0)
+        live = os.path.join(root, "live")
+        publish_checkpoint(a_dir, live)
+        kw = dict(buckets=BUCKETS, compute_dtype=torch.bfloat16)
+        refs = {tag: InferenceEngine.from_checkpoint(d, LIFECYCLE_MODEL, **kw)
+                for tag, d in (("a", a_dir), ("b", b_dir))}
+        registry = MetricsRegistry()
+        engine = InferenceEngine.from_checkpoint(live, LIFECYCLE_MODEL,
+                                                 registry=registry, **kw)
+        batcher = MicroBatcher(engine, max_wait_ms=2.0, registry=registry)
+        watcher = CheckpointWatcher(engine, live, registry=registry)
+        backend = BatcherBackend(engine, batcher, watcher=watcher)
+        batches = []  # every device batch of the live engine: (in, out)
+        forward = engine._forward
+
+        def recording(x):
+            out = forward(x)
+            batches.append((np.array(x, copy=True), out))
+            return out
+
+        spans, swaps = [], []
+
+        class Timed:
+            """The batcher's submit surface, each request's submit and
+            answer times recorded."""
+            obs = registry
+
+            def submit(self, x, **kw):
+                t0 = time.perf_counter()
+                fut = batcher.submit(x, **kw)
+                fut.add_done_callback(
+                    lambda f: spans.append((t0, time.perf_counter())))
+                return fut
+
+        stop, reports = threading.Event(), []
+
+        def load():  # rounds of run_load until the drill is done
+            while True:
+                reports.append(run_load(Timed(), **RELOAD_LOAD))
+                if stop.is_set():
+                    return
+
+        def poll_loop():  # the watcher's poll loop, each swap timed
+            while not stop.wait(0.05):
+                t0 = time.perf_counter()
+                if watcher.poll_once():
+                    swaps.append((t0, time.perf_counter()))
+
+        engine._forward = recording
+        K.LAUNCHES = 0  # the main path starts here
+        f0 = engine.forward_count
+        threads = [threading.Thread(target=load),
+                   threading.Thread(target=poll_loop)]
+        for t in threads:
+            t.start()
+        try:
+            _wait_for(lambda: len(spans) >= 64, 60)
+            publish_checkpoint(b_dir, live)  # (a) B: one reload
+            _wait_for(lambda: watcher.reloads >= 1, 60)
+            health_b = backend.health()
+            # (b) torn: A's payload under B's sidecar
+            tmp = os.path.join(live, CKPT_NAME + ".torn")
+            shutil.copyfile(os.path.join(a_dir, CKPT_NAME), tmp)
+            os.replace(tmp, os.path.join(live, CKPT_NAME))
+            _wait_for(lambda: watcher.skipped >= 1, 60)
+            # (c) quarantined: A's tombstone first, then A's publish
+            quarantine_checkpoint(live, CKPT_NAME, "chip_smoke drill",
+                                  meta=read_meta(a_dir, CKPT_NAME))
+            publish_checkpoint(a_dir, live)
+            _wait_for(lambda: watcher.quarantined >= 1, 60)
+            health_after = backend.health()
+            # (d) a watcher pointed at a staging dir
+            staging = ensure_staging_dir(live)
+            publish_checkpoint(b_dir, staging)
+            sw = CheckpointWatcher(engine, staging, registry=registry)
+            staging_swapped = sw.poll_once() or sw.poll_once()
+        finally:
+            stop.set()
+            for t in threads:
+                t.join()
+            batcher.close()
+            del engine._forward
+        forwards = engine.forward_count - f0
+        launches = K.LAUNCHES  # the main path ends here
+        # every device batch ran on A's weights or on B's, never a mix:
+        # the same padded batch through each reference engine
+        tags = []
+        for x, out in batches:
+            tags.append(next((t for t, e in refs.items()
+                              if np.array_equal(e._forward(x), out)), None))
+        failed = sum(r["failed"] for r in reports)
+        requests = sum(r["requests"] for r in reports)
+        refused = registry.summary().get("serve.reload.refused_staging")
+        swap = swaps[0] if swaps else (0.0, 0.0)
+        across = [(t1 - t0) * 1e3 for t0, t1 in spans
+                  if t0 <= swap[1] and t1 >= swap[0]]
+        out = {
+            "card": smi, "model": LIFECYCLE_MODEL, "dtype": "bf16",
+            "buckets": list(BUCKETS), "load_rounds": len(reports),
+            "requests": requests, "failed": failed,
+            "batches": len(batches), "forwards": forwards,
+            "k3_launches": launches,
+            "batches_on_a": tags.count("a"), "batches_on_b": tags.count("b"),
+            "batches_on_neither": tags.count(None),
+            "reloads": watcher.reloads, "skipped": watcher.skipped,
+            "quarantined": watcher.quarantined, "errors": watcher.errors,
+            "refused_staging": refused, "staging_swapped": staging_swapped,
+            "ckpt_epoch_after_reload": health_b["ckpt_epoch"],
+            "ckpt_epoch_at_end": health_after["ckpt_epoch"],
+            "compiles": engine.compile_count,
+            "swap_ms": [(t1 - t0) * 1e3 for t0, t1 in swaps],
+            "across_swap": _percentiles(across),
+            "all_requests": _percentiles(
+                [(t1 - t0) * 1e3 for t0, t1 in spans]),
+        }
+        fails.check(failed == 0, f"reload: {failed} failed requests")
+        fails.check(not tags.count(None),
+                    f"reload: {tags.count(None)} batches equal neither A's "
+                    "nor B's bits")
+        fails.check(tags.count("a") > 0 and tags.count("b") > 0,
+                    f"reload: batches on A {tags.count('a')}, on B "
+                    f"{tags.count('b')}")
+        fails.check((watcher.reloads, watcher.quarantined, watcher.errors)
+                    == (1, 1, 0) and watcher.skipped >= 1,
+                    f"reload: watcher reloads/skipped/quarantined/errors "
+                    f"{watcher.reloads}/{watcher.skipped}/"
+                    f"{watcher.quarantined}/{watcher.errors}")
+        fails.check(refused == 1 and not staging_swapped,
+                    "reload: the staging dir was not refused")
+        fails.check(health_b["ckpt_epoch"] == 7
+                    and health_after["ckpt_epoch"] == 7,
+                    f"reload: /healthz epochs {health_b['ckpt_epoch']}, "
+                    f"{health_after['ckpt_epoch']} (want B's 7)")
+        fails.check(engine.compile_count == len(BUCKETS),
+                    f"reload: compile_count {engine.compile_count}")
+        fails.check(launches == 6 * forwards,
+                    f"reload: {launches} K3 launches for {forwards} "
+                    "forwards")
+        print("reload " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _dir_digest(path: str) -> str:
+    """SHA-256 over the names and bytes of a directory's files (not its
+    subdirectories)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(path)):
+        p = os.path.join(path, name)
+        if os.path.isfile(p):
+            h.update(name.encode())
+            with open(p, "rb") as f:
+                h.update(f.read())
+    return h.hexdigest()
+
+
+class _DrillLoad:
+    """Mixed-priority HTTP clients (30% bulk, U[1, 4] images) until
+    stopped; :meth:`pause` returns once no request is in flight, so a
+    probe goes alone into its own batch. Rows are (t0, t1, priority)."""
+
+    def __init__(self, url: str, clients: int):
+        self.url = url
+        self.cond = threading.Condition()
+        self.running, self.stopping, self.inflight = True, False, 0
+        self.rows, self.failed, self.errors = [], 0, []
+        self.threads = [threading.Thread(target=self._client, args=(i,))
+                        for i in range(clients)]
+        for t in self.threads:
+            t.start()
+
+    def _client(self, cid: int) -> None:
+        from pytorch_cifar_tpu_torch.serve import HttpTarget
+
+        target = HttpTarget(self.url)
+        rs = np.random.RandomState(100 + cid)
+        try:
+            while True:
+                n = int(rs.randint(1, 5))
+                x = rs.randint(0, 256, size=(n, 32, 32, 3)).astype(np.uint8)
+                prio = "bulk" if rs.uniform() < 0.3 else "interactive"
+                with self.cond:
+                    while not self.running and not self.stopping:
+                        self.cond.wait()
+                    if self.stopping:
+                        return
+                    self.inflight += 1
+                t0 = time.perf_counter()
+                try:
+                    target.submit(x, priority=prio).result()
+                    row = (t0, time.perf_counter(), prio)
+                except Exception as e:  # counted: the drill wants none
+                    row = None
+                    with self.cond:
+                        self.failed += 1
+                        self.errors.append(repr(e)[:200])
+                with self.cond:
+                    if row is not None:
+                        self.rows.append(row)
+                    self.inflight -= 1
+                    self.cond.notify_all()
+        finally:
+            target.close()
+
+    def pause(self) -> None:
+        with self.cond:
+            self.running = False
+            while self.inflight:
+                self.cond.wait()
+
+    def resume(self) -> None:
+        with self.cond:
+            self.running = True
+            self.cond.notify_all()
+
+    def stop(self) -> None:
+        with self.cond:
+            self.stopping = True
+            self.cond.notify_all()
+        for t in self.threads:
+            t.join()
+
+    def latencies(self, windows, priority="interactive") -> list:
+        """Latencies (ms) of the requests of ``priority`` answered inside
+        any of ``windows`` [(t0, t1), ...]."""
+        return [(b - a) * 1e3 for a, b, p in self.rows if p == priority
+                and any(w0 <= b <= w1 for w0, w1 in windows)]
+
+
+class _MemSampler:
+    """The card's memory in use (``torch.cuda.mem_get_info``: every
+    process's, this one's included) when started and its largest value,
+    sampled every 0.1 s, while other processes run. (``nvidia-smi``'s
+    per-process list shows one merged entry in the chip's sandbox.)"""
+
+    def __init__(self):
+        free, total = torch.cuda.mem_get_info()
+        self.before = self.peak = total - free
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.1):
+            free, total = torch.cuda.mem_get_info()
+            self.peak = max(self.peak, total - free)
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join()
+        return {"device_used_before_mib": self.before / 2**20,
+                "device_used_peak_mib": self.peak / 2**20}
+
+
+def _train_log_img_per_sec(out_dir: str) -> list:
+    """img/s of each epoch from a train CLI's ``train.log``."""
+    import re
+
+    with open(os.path.join(out_dir, "train.log")) as f:
+        return [float(m.group(1)) for m in re.finditer(
+            r"train epoch \d+: .*\((\d+) img/s\)", f.read())]
+
+
+def _pipeline_argv(live: str, *extra) -> list:
+    return ["pytorch_cifar_tpu_torch.tools.pipeline_run", "--ckpt", live,
+            "--model", LIFECYCLE_MODEL, "--train-size", str(CUT_TRAIN),
+            "--test-size", str(CUT_TEST), "--buckets",
+            *map(str, BUCKETS), "--poll_s", "0.2", "--acc_margin", "2.0",
+            *extra]
+
+
+def _pipeline_checks(tag: str, rec: dict, fails: Failures) -> None:
+    launches = rec["launches_by_kernel"]["conv3x3_bn_relu"]
+    forwards = rec["forwards"]["live"] + rec["forwards"]["canary"]
+    fails.check(launches == 6 * forwards,
+                f"{tag}: {launches} K3 launches for {forwards} forwards of "
+                "the live and the canary engine")
+    fails.check(rec["device"] == torch.cuda.get_device_name(0),
+                f"{tag}: served on {rec['device']}")
+
+
+def phase_canary(smi: str, fails: Failures) -> dict:
+    """The canary drill and one pipeline run, through the port's launcher
+    (phase 35)."""
+    from pytorch_cifar_tpu_torch.serve import InferenceEngine
+    from pytorch_cifar_tpu_torch.tools.pipeline_run import train_cmd
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        CKPT_NAME, ensure_staging_dir, publish_checkpoint, read_meta)
+    from pytorch_cifar_tpu_torch.train.trainer import Trainer
+
+    root = run_dir("canary_")
+    out: dict = {"card": smi, "model": LIFECYCLE_MODEL, "dtype": "bf16"}
+    try:
+        # A: 2 epochs; B: A resumed for 2 more, on one cosine schedule
+        dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+        for d, kw in ((dir_a, {}), (dir_b, {"resume": True})):
+            if kw:
+                shutil.copytree(dir_a, dir_b)
+            tr = Trainer(_cut_config(d, epochs=2 if not kw else 4,
+                                     cosine_t_max=4, **kw))
+            try:
+                tr.fit()
+            finally:
+                tr.close()
+        epoch_a = read_meta(dir_a, CKPT_NAME)["epoch"]
+        epoch_b = read_meta(dir_b, CKPT_NAME)["epoch"]
+        out["epochs"] = {"a": epoch_a, "b": epoch_b}
+        fails.check(epoch_b > epoch_a, f"canary: B's best epoch {epoch_b} "
+                    f"is not past A's {epoch_a}")
+        live = os.path.join(root, "live")
+        publish_checkpoint(dir_a, live)
+        staging = ensure_staging_dir(live)
+        kw = dict(buckets=BUCKETS, compute_dtype=torch.bfloat16)
+        local = {t: InferenceEngine.from_checkpoint(d, LIFECYCLE_MODEL, **kw)
+                 for t, d in (("a", dir_a), ("b", dir_b))}
+        probe = np.random.RandomState(11).randint(
+            0, 256, size=(3, 32, 32, 3)).astype(np.uint8)
+        want = {t: e.predict(probe) for t, e in local.items()}
+        out["bucket_bits"] = _bucket_bits(local["a"])
+        del local
+        proc = _Replica(_pipeline_argv(
+            live, "--epochs", "0", "--golden", "eval",
+            "--shadow_fraction", "0.5", "--min_shadow", str(CANARY_SOAK),
+            "--max_flip_frac", "1.0"), PIPELINE_READY)
+        try:
+            out["drill"] = _canary_drill(
+                proc, live, staging, dir_b, epoch_a, epoch_b, probe, want,
+                fails)
+        finally:
+            proc.stop()
+        # one pipeline-mode run: the trainer child on the same card
+        train = ["--epochs", "3", "--batch", str(BATCH), "--lr", "0.05"]
+        solo_dir = os.path.join(root, "solo")
+        args = argparse.Namespace(
+            model=LIFECYCLE_MODEL, train_size=CUT_TRAIN, test_size=CUT_TEST,
+            batch=BATCH, epochs=3, lr=0.05, ckpt=solo_dir,
+            seed=0, device="cuda")
+        mem = _MemSampler()
+        solo = subprocess.run(train_cmd(args), cwd=REPO_ROOT,
+                              capture_output=True, text=True, timeout=600)
+        solo_mem = mem.stop()
+        fails.check(solo.returncode == 0,
+                    f"canary: the solo trainer exited {solo.returncode}: "
+                    f"{solo.stderr[-2000:]}")
+        pipe_dir = os.path.join(root, "pipe")
+        mem = _MemSampler()
+        run = _Replica(_pipeline_argv(pipe_dir, *train, "--clients", "2"),
+                       PIPELINE_READY)
+        code, lines = run.finish(timeout=600)
+        pipe_mem = mem.stop()
+        rec = json.loads(lines[-1]) if lines else {}
+        fails.check(code == 0 and len(lines) == 1,
+                    f"canary pipeline: exit {code}, {len(lines)} stdout "
+                    f"lines: {''.join(run.err[-20:])}")
+        fails.check(rec.get("trainer_rc") == 0
+                    and rec.get("promotions", 0) >= 1
+                    and rec.get("load", {}).get("failed", 1) == 0,
+                    f"canary pipeline: trainer_rc {rec.get('trainer_rc')}, "
+                    f"promotions {rec.get('promotions')}, load "
+                    f"{rec.get('load')}")
+        if rec:
+            _pipeline_checks("canary pipeline", rec, fails)
+        out["pipeline"] = {
+            **{k: rec.get(k) for k in (
+                "trainer_rc", "promotions", "rejected", "generation",
+                "served_epoch", "served_generation", "reloads", "canary_ms",
+                "max_memory_allocated_mb", "forwards", "launches_by_kernel",
+                "load")},
+            "memory": pipe_mem,
+            "trainer_img_per_sec": _train_log_img_per_sec(pipe_dir),
+            "solo_trainer_img_per_sec": _train_log_img_per_sec(solo_dir),
+            "solo_memory": solo_mem,
+        }
+        print("canary " + json.dumps(out), flush=True)
+        return out
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _bucket_bits(engine) -> dict:
+    """Rows that keep their bits when the same images run alone at a
+    smaller bucket rather than in one bucket-128 batch: what the shadow
+    tee can expect when it compares the canary's forward of one request
+    with the live engine's answer from a merged micro-batch."""
+    x = np.random.RandomState(12).randint(
+        0, 256, size=(128, 32, 32, 3)).astype(np.uint8)
+    full = engine.predict(x)
+    out = {}
+    for n in (1, 4, 8, 32):
+        part = engine.predict(x[:n])
+        out[f"{n}_vs_128"] = {
+            "rows": n,
+            "identical_rows": int(np.all(part == full[:n], axis=-1).sum()),
+            "argmax_flips": int((part.argmax(-1) != full[:n].argmax(-1))
+                                .sum()),
+            "max_abs_diff": float(np.abs(part - full[:n]).max())}
+    return out
+
+
+def _canary_drill(proc, live, staging, dir_b, epoch_a, epoch_b, probe,
+                  want, fails: Failures) -> dict:
+    """Phase 35's serve-only drill against the launcher ``proc``."""
+    import urllib.request
+
+    from pytorch_cifar_tpu_torch import faults
+    from pytorch_cifar_tpu_torch.serve import HttpTarget
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        CKPT_NAME, publish_checkpoint, quarantine_path, read_meta,
+        read_quarantine)
+
+    if not proc.ready.wait(300):
+        fails.check(False, "canary: the launcher never served: "
+                    + "".join(proc.err[-20:]))
+        return {}
+    url = proc.url
+
+    def healthz() -> dict:
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as r:
+            return json.load(r)
+
+    probe_target = HttpTarget(url)
+
+    def predict() -> np.ndarray:
+        return probe_target.submit(probe).result()
+
+    pre, h0 = predict(), healthz()
+    gen0, live0 = h0.get("promotion_generation"), _dir_digest(live)
+    fails.check(np.array_equal(pre, want["a"]),
+                "canary: the launcher's A bits differ from this process's")
+    load = _DrillLoad(url, CANARY_CLIENTS)
+    t_idle0 = time.perf_counter()
+    time.sleep(CANARY_IDLE_S)
+    idle = [(t_idle0, time.perf_counter())]
+    scratch = os.path.join(os.path.dirname(live), "scratch")
+
+    def stage(corrupt=None, raw=False) -> None:
+        """B into staging, corrupted first in a scratch copy; ``raw``
+        copies the pair (payload first) where the verified publish would
+        refuse it."""
+        shutil.rmtree(scratch, ignore_errors=True)
+        publish_checkpoint(dir_b, scratch)
+        if corrupt is not None:
+            corrupt(scratch)
+        if raw:
+            for name in (CKPT_NAME, "ckpt.json"):
+                tmp = os.path.join(staging, name + ".tmp")
+                shutil.copyfile(os.path.join(scratch, name), tmp)
+                os.replace(tmp, os.path.join(staging, name))
+        else:
+            publish_checkpoint(scratch, staging)
+
+    bad = [
+        ("nan", lambda d: faults.regress_checkpoint(d, nan=True), False),
+        ("bitflip", lambda d: faults.bitflip_file(
+            os.path.join(d, CKPT_NAME)), True),
+        ("regress", lambda d: faults.regress_checkpoint(d, scale=2.0),
+         False),
+        ("k3_site_nan", lambda d: faults.nan_leaf(d, K3_SITE_VAR), False),
+    ]
+    verdicts, vetting = {}, []
+    try:
+        for tag, corrupt, raw in bad:
+            try:
+                os.remove(quarantine_path(staging, CKPT_NAME))
+            except OSError:
+                pass
+            t0 = time.perf_counter()
+            stage(corrupt, raw)
+            landed = _wait_for(lambda: read_quarantine(
+                staging, CKPT_NAME) is not None, 120, 0.05)
+            vetting.append((t0, time.perf_counter()))
+            tomb = read_quarantine(staging, CKPT_NAME) or {}
+            load.pause()
+            bits_same = bool(np.array_equal(predict(), pre))
+            h = healthz()
+            load.resume()
+            verdicts[tag] = {
+                "quarantined": landed, "reason": tomb.get("reason"),
+                "vet_s": vetting[-1][1] - t0,
+                "fleet_bits_identical": bits_same,
+                "live_bytes_unchanged": _dir_digest(live) == live0,
+                "served_epoch": h.get("ckpt_epoch"),
+                "generation": h.get("promotion_generation")}
+            v = verdicts[tag]
+            fails.check(landed and bits_same and v["live_bytes_unchanged"]
+                        and v["served_epoch"] == epoch_a
+                        and v["generation"] == gen0,
+                        f"canary {tag}: {v}")
+        fails.check("nonfinite" in (verdicts["k3_site_nan"]["reason"] or ""),
+                    "canary: the NaN at one K3 site was not quarantined as "
+                    f"nonfinite: {verdicts['k3_site_nan']['reason']}")
+        t0 = time.perf_counter()
+        stage()
+        promoted = _wait_for(lambda: (
+            healthz().get("promotion_generation") not in (None, gen0)
+            and healthz().get("ckpt_epoch") == epoch_b), 120, 0.05)
+        vetting.append((t0, time.perf_counter()))
+        load.pause()
+        post, h_final = predict(), healthz()
+        load.resume()
+        meta = read_meta(live, CKPT_NAME)
+        fails.check(promoted and meta.get("epoch") == epoch_b
+                    and (meta.get("promotion") or {}).get("generation") == 1
+                    and h_final.get("reloads") == 1,
+                    f"canary: B not promoted (healthz {h_final}, live "
+                    f"sidecar {meta})")
+        fails.check(np.array_equal(post, want["b"]),
+                    "canary: /predict after the promotion is not B's bits")
+        time.sleep(1.0)
+    finally:
+        load.stop()
+        probe_target.close()
+    proc.proc.send_signal(signal.SIGTERM)
+    code, lines = proc.finish(timeout=120)
+    rec = json.loads(lines[-1]) if lines else {}
+    fails.check(code == 0 and rec.get("rejected") == 4
+                and rec.get("promotions") == 1,
+                f"canary: launcher exit {code}, rejected "
+                f"{rec.get('rejected')}, promotions {rec.get('promotions')}")
+    fails.check(load.failed == 0,
+                f"canary: {load.failed} failed client requests: "
+                f"{load.errors[:3]}")
+    # B's soak: the launcher's canary status keeps the last candidate's
+    # shadow counts after its promotion
+    shadow = (rec.get("canary") or {}).get("shadow") or {}
+    fails.check(shadow.get("requests", 0) >= CANARY_SOAK
+                and shadow.get("errors") == 0,
+                f"canary: B's shadow soak {shadow}, wanted at least "
+                f"{CANARY_SOAK} requests and no error")
+    if rec:
+        _pipeline_checks("canary drill", rec, fails)
+    return {
+        "verdicts": verdicts, "promoted": promoted,
+        "final_epoch": h_final.get("ckpt_epoch"),
+        "final_generation": h_final.get("promotion_generation"),
+        "rejected": rec.get("rejected"), "promotions": rec.get("promotions"),
+        "exit_code": code, "requests": len(load.rows),
+        "bulk_requests": sum(p == "bulk" for _, _, p in load.rows),
+        "failed": load.failed,
+        "live_idle": _percentiles(load.latencies(idle)),
+        "live_vetting": _percentiles(load.latencies(vetting)),
+        # B's golden eval and its shadow soak, staged to promoted
+        "live_shadow_soak": _percentiles(load.latencies(vetting[-1:])),
+        "shadow": shadow,
+        "shadow_ms_p50": (rec.get("canary_ms") or {}).get("shadow_ms.p50"),
+        "canary_ms": rec.get("canary_ms"), "forwards": rec.get("forwards"),
+        "launches_by_kernel": rec.get("launches_by_kernel"),
+        "compiles": rec.get("compiles"),
+        "max_memory_allocated_mb": rec.get("max_memory_allocated_mb"),
+    }
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -3081,6 +3853,7 @@ def main(argv=None) -> int:
         return out
 
     rows = timed("site", phase_kernels, K, peaks, fails)
+    k3_nan = timed("k3_nan", phase_k3_nan, K, fails)
     sl = timed("slice", phase_slice, K, smi, fails)
     wr = timed("wire", phase_wire, K, smi, fails)
     k1 = timed("gather", phase_gather, G, peaks, fails)
@@ -3120,6 +3893,9 @@ def main(argv=None) -> int:
                sen["epochs"][1]["img_per_sec"])
     timed("ckpt", phase_ckpt, G, K, smi, fails)
     dp = timed("dp", phase_dp, G, M, K, smi, fails)
+    # the checkpoint life cycle: hot reload, the canary and the pipeline
+    rl = timed("reload", phase_reload, K, smi, fails)
+    can = timed("canary", phase_canary, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -3192,6 +3968,29 @@ def main(argv=None) -> int:
             "load_runs": wr["load_k3_launches"],
             "replica": wr["fleet"].get("survivor", {}).get("k3_launches"),
         },
+        # NaN planted in a pixel, a weight, a scale or a bias entry (phase
+        # 33): NaN at exactly the plain version's positions on every path
+        "nan_cases": {
+            "cases": len(k3_nan),
+            "same_nan_positions": all(r["same_nan_positions"]
+                                      for r in k3_nan),
+            "paths": sorted({r["path"] for r in k3_nan}),
+            "relu_of_negative_zero": {
+                f"{r['site']} {r['dtype']}": r["relu_of_negative_zero"]
+                for r in k3_nan if r["case"] == "negative_zero"},
+        },
+        # the live engine under load across a hot reload (phase 34), and
+        # each engine of the launcher's process in the canary drill and
+        # the pipeline run (phase 35), 6 a forward
+        "reload_forward": {"per_forward": 6,
+                           "launches": rl["k3_launches"],
+                           "forwards": rl["forwards"]},
+        "canary_forward": {
+            "per_forward": 6,
+            **{tag: {"launches": (r.get("launches_by_kernel") or {}).get(
+                "conv3x3_bn_relu"), "forwards": r.get("forwards")}
+               for tag, r in (("drill", can.get("drill", {})),
+                              ("pipeline", can.get("pipeline", {})))}},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",

@@ -4,9 +4,7 @@
 reads, under the same names, defaults and flag spellings (booleans take
 ``--flag``/``--no-flag``), plus ``--device``.
 
-Flags of paths not ported yet are not here, with one exception parsed so
-that asking for it fails with "not ported yet" instead of an unknown flag:
-``--publish staging`` (the canary pipeline).
+Flags of paths not ported yet are not here.
 """
 
 from __future__ import annotations
@@ -91,8 +89,9 @@ class TrainConfig:
 
     # checkpoints (the JAX package's format v2, train/checkpoint.py)
     output_dir: str = "./checkpoint"
-    # "live" publishes into output_dir; "staging" (the canary pipeline's
-    # input) is not ported yet
+    # "live" publishes into output_dir; "staging" writes every checkpoint
+    # (best, preemption, history) into output_dir/staging, the canary
+    # pipeline's input, and resumes from there
     publish: str = "live"
     # "on": a save takes its snapshot on the training thread and commits
     # on a background writer; "off": it commits inline. Both write the
@@ -133,15 +132,6 @@ class TrainConfig:
     @property
     def t_max(self) -> int:
         return self.cosine_t_max if self.cosine_t_max is not None else self.epochs
-
-
-def check_ported(config: TrainConfig) -> None:
-    """Raise for what the configuration asks of paths not ported yet."""
-    if config.publish == "staging":
-        raise NotImplementedError(
-            "--publish staging is not ported yet (the canary pipeline comes "
-            "with a later slice)"
-        )
 
 
 def _add_args(parser: argparse.ArgumentParser, cls=TrainConfig) -> None:

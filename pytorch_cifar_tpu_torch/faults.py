@@ -24,6 +24,10 @@ registry that tests and a chaos harness arm on purpose. Injection points:
   canary pipeline's output-level vetting catches this one.
   :func:`regress_checkpoint` is the offline equivalent for an
   already-published file (``nan=True`` poisons instead of perturbing).
+- :func:`nan_leaf` (a test and drill fault, port-only: the JAX package
+  has none): one NaN in one element of one payload leaf, such as one
+  BN's variance, so the canary's nonfinite gate is held to a NaN that
+  only a ReLU that keeps NaN carries to the logits.
 - :func:`slow_loris` / :func:`conn_flood`: live network attackers for
   the edge chaos drill — a one-byte-per-interval request trickle and a
   hold-open connection flood, the two resource-exhaustion shapes an
@@ -232,6 +236,52 @@ def regress_checkpoint(
     meta["manifest"] = payload_manifest(payload)
     _atomic_write(mpath, json.dumps(meta).encode())
     return path
+
+
+def nan_leaf(
+    ckpt_dir: str, path: tuple, name: str = "ckpt.msgpack", index: int = 0,
+) -> str:
+    """Rewrite checkpoint ``name`` in place with a NaN at element
+    ``index`` of ONE payload leaf, ``path`` keys deep (e.g.
+    ``("batch_stats", "BasicBlock_0", "BatchNorm_0", "var")``: the BN
+    variance of one fused conv3x3+BN+ReLU site), the manifest recomputed
+    as :func:`regress_checkpoint` does. A NaN confined to one site's
+    channel reaches the logits only if that site's ReLU keeps it (the
+    plain ReLU does; ``fmaxf`` would turn it into 0). Single-payload (v2)
+    checkpoints only. A port-only helper: the JAX package has none."""
+    import json
+
+    import numpy as np
+
+    from pytorch_cifar_tpu_torch.serialization import (
+        msgpack_restore,
+        to_bytes,
+    )
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        _atomic_write,
+        meta_path,
+        payload_manifest,
+    )
+
+    ppath = os.path.join(ckpt_dir, name)
+    mpath = meta_path(ckpt_dir, name)
+    with open(mpath) as f:
+        meta = json.load(f)
+    if meta.get("shards"):
+        raise ValueError(f"{ppath}: nan_leaf supports v2 checkpoints only")
+    with open(ppath, "rb") as f:
+        tree = msgpack_restore(f.read())
+    node = tree
+    for key in path[:-1]:
+        node = node[key]
+    leaf = np.array(node[path[-1]], copy=True)
+    leaf.reshape(-1)[index] = np.nan
+    node[path[-1]] = leaf
+    payload = to_bytes(tree)
+    _atomic_write(ppath, payload)
+    meta["manifest"] = payload_manifest(payload)
+    _atomic_write(mpath, json.dumps(meta).encode())
+    return ppath
 
 
 def bitflip_file(path: str, offset: Optional[int] = None) -> int:

@@ -38,10 +38,13 @@ _launch_lock = threading.Lock()
 def conv3x3_bn_relu_reference(
     x: torch.Tensor, w: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor
 ) -> torch.Tensor:
-    """Plain PyTorch version: conv in fp32, affine, ReLU, cast to x's type."""
+    """Plain PyTorch version: conv in fp32, affine, ReLU, cast to x's type.
+    The zero padding is explicit, so a NaN weight reaches the border
+    outputs (0 * NaN = NaN), as in the JAX reference and the kernel: a
+    conv's own padding may skip those taps (oneDNN does)."""
     y = F.conv2d(
-        x.float().permute(0, 3, 1, 2), w.float().permute(3, 2, 0, 1),
-        padding=1,
+        F.pad(x.float().permute(0, 3, 1, 2), (1, 1, 1, 1)),
+        w.float().permute(3, 2, 0, 1),
     )
     y = y * scale.float().view(1, -1, 1, 1) + bias.float().view(1, -1, 1, 1)
     return torch.relu(y).permute(0, 2, 3, 1).to(x.dtype)

@@ -105,6 +105,15 @@ struct IO<__nv_bfloat16> {
   }
 };
 
+// ReLU that keeps a NaN, as jnp.maximum(y, 0) and torch.relu do: fmaxf
+// (max.f32) returns the other operand. max.NaN.f32 (sm_80+) returns NaN
+// when an operand is NaN and is max.f32 otherwise, in one instruction.
+__device__ __forceinline__ float relu_nan(float v) {
+  float r;
+  asm("max.NaN.f32 %0, %1, 0f00000000;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // acc[mf][nf][0..3] follows the m16n8 accumulator layout: rows g and g + 8
 // of m fragment mf, columns 2t and 2t + 1 of n fragment nf.
 // wtap is one tap's [ci][co] weight tile. ldmatrix.x4.trans gives every
@@ -290,10 +299,10 @@ __global__ void __launch_bounds__(kThreads) conv3x3_bn_relu_kernel(
         if (mf < mfrags && m < m_tile && oy < h) {
           T* dst = o + ((size_t)oy * wd + m % wd) * cout + co;
           if (ok0)
-            dst[0] = IO<T>::from(fmaxf(acc[mf][nf][2 * r] * s0 + b0, 0.f));
+            dst[0] = IO<T>::from(relu_nan(acc[mf][nf][2 * r] * s0 + b0));
           if (ok1)
             dst[1] =
-                IO<T>::from(fmaxf(acc[mf][nf][2 * r + 1] * s1 + b1, 0.f));
+                IO<T>::from(relu_nan(acc[mf][nf][2 * r + 1] * s1 + b1));
         }
       }
     }
@@ -585,8 +594,8 @@ __global__ void __launch_bounds__(kThreads, MINB)
     for (int rr = 0; rr < 2; ++rr) {
       const int row = warp * 16 + g + 8 * rr;
       *reinterpret_cast<__nv_bfloat162*>(e + row * ES + col) =
-          __floats2bfloat162_rn(fmaxf(acc[4 * j + 2 * rr] * s0 + b0, 0.f),
-                                fmaxf(acc[4 * j + 2 * rr + 1] * s1 + b1, 0.f));
+          __floats2bfloat162_rn(relu_nan(acc[4 * j + 2 * rr] * s0 + b0),
+                                relu_nan(acc[4 * j + 2 * rr + 1] * s1 + b1));
     }
   }
   __syncthreads();

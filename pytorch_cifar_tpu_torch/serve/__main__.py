@@ -4,6 +4,8 @@
     python -m pytorch_cifar_tpu_torch.serve --model GoogLeNet
     python -m pytorch_cifar_tpu_torch.serve --model MobileNet
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --ckpt checkpoint
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --ckpt checkpoint \\
+        --watch --http_port 0
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --http_port 0
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 \\
         --http_port 8100 --edge event --deadline_ms 250 --prom_out s.prom
@@ -12,7 +14,10 @@ Builds an :class:`InferenceEngine` from seeded random weights, or from
 ``--ckpt`` (a trainer's directory, a ``.msgpack`` of either package, or a
 reference ``ckpt.pth``), warms every bucket, optionally checks that the
 padded bucket path equals the direct unpadded forward (``--verify``) and
-puts a :class:`MicroBatcher` in front of it. Then one of two traffic
+puts a :class:`MicroBatcher` in front of it. ``--watch`` (with ``--ckpt``
+a directory) starts a :class:`CheckpointWatcher` that hot-reloads every
+newer publish of that dir every ``--poll_s`` seconds, refusing staging
+dirs, torn pairs and quarantined publishes. Then one of two traffic
 sources:
 
 - default (``--http_port -1``): the closed-loop load generator drives the
@@ -32,7 +37,9 @@ names (in HTTP mode the report of its ``_serve_http``: what the network
 brought, from the metrics registry), plus ``kernel_launches`` (launches
 of the port's serving kernels during the run: the fused conv, the 3x3 max
 pool and the depthwise stencil, whichever the model has),
-``launches_by_kernel``, ``device`` and, with ``--ckpt``, ``ckpt_epoch``.
+``launches_by_kernel``, ``device`` and, with ``--ckpt``, ``ckpt_epoch``
+(``reloads`` and ``reload_skipped`` count the watcher's swaps and deferred
+polls).
 Progress goes to stderr. Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -56,27 +63,19 @@ from pytorch_cifar_tpu_torch.obs import (
     write_prometheus,
 )
 from pytorch_cifar_tpu_torch.obs.metrics import _percentile_from_buckets
-from pytorch_cifar_tpu_torch.ops import conv_bn_relu, depthwise_stencil, max_pool
 from pytorch_cifar_tpu_torch.serve import (
     BatcherBackend,
+    CheckpointWatcher,
     EdgeFrontend,
     InferenceEngine,
     MicroBatcher,
     ServingFrontend,
     run_load,
 )
+from pytorch_cifar_tpu_torch.serve.engine import kernel_launches
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 EDGES = {"threaded": ServingFrontend, "event": EdgeFrontend}
-
-
-def _launches() -> dict:
-    """Launch counts of the kernels a served forward can reach."""
-    return {
-        "conv3x3_bn_relu": conv_bn_relu.LAUNCHES,
-        "max_pool3x3_s1": max_pool.FWD_LAUNCHES,
-        "depthwise_stencil": depthwise_stencil.LAUNCHES,
-    }
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -112,6 +111,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--ckpt", default=None,
                    help="serve this checkpoint (trainer dir, .msgpack or "
                         ".pth) instead of seeded random weights")
+    p.add_argument("--watch", action="store_true",
+                   help="hot-reload newer checkpoints published into the "
+                        "--ckpt directory")
+    p.add_argument("--poll_s", type=float, default=1.0,
+                   help="--watch: seconds between polls")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--verify", action="store_true",
                    help="check padded bucket forward == direct forward")
@@ -186,11 +190,15 @@ def _serve_http(args, backend, registry) -> dict:
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.watch and not args.ckpt:
+        print("error: --watch needs --ckpt (the directory to watch)",
+              file=sys.stderr)
+        return 2
     device = resolve_device(args.device)
     registry = MetricsRegistry()
     if args.trace_out:
         trace.install(args.trace_out)
-    launches0 = _launches()
+    launches0 = kernel_launches()
     source = f"ckpt {args.ckpt}" if args.ckpt else f"seed {args.seed}"
     print(
         f"==> building {args.model} ({source}, buckets "
@@ -244,10 +252,21 @@ def main(argv=None) -> int:
         exporter = MetricsExporter(
             registry, args.metrics_out, interval_s=args.metrics_every_s
         ).start()
+    watcher = None
+    if args.watch:
+        watcher = CheckpointWatcher(
+            engine, args.ckpt, poll_s=args.poll_s, registry=registry
+        ).start()
+        print(
+            f"==> watching {args.ckpt} for new best checkpoints "
+            f"(poll {args.poll_s}s)",
+            file=sys.stderr,
+        )
     try:
         if args.http_port >= 0:
             report = _serve_http(
-                args, BatcherBackend(engine, batcher), registry
+                args, BatcherBackend(engine, batcher, watcher=watcher),
+                registry,
             )
         else:
             report = run_load(
@@ -260,6 +279,8 @@ def main(argv=None) -> int:
                 hedge=args.hedge,
             )
     finally:
+        if watcher is not None:
+            watcher.stop()
         batcher.close()  # graceful drain
         if exporter is not None:
             exporter.stop()
@@ -269,7 +290,7 @@ def main(argv=None) -> int:
             trace.uninstall()
 
     obs_summary = registry.summary()
-    launches = {k: v - launches0[k] for k, v in _launches().items()}
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
     out = {
         "model": args.model,
         "platform": device.type,
@@ -286,6 +307,8 @@ def main(argv=None) -> int:
         "compiles": engine.compile_count,
         "cold_start_s": round(engine.cold_start_s, 3),
         "engine_version": engine.version,
+        "reloads": watcher.reloads if watcher is not None else 0,
+        "reload_skipped": watcher.skipped if watcher is not None else 0,
         "batches": batcher.stats["batches"],
         "largest_batch": batcher.stats["largest_batch"],
         "deadline_ms": args.deadline_ms,
@@ -310,6 +333,7 @@ def main(argv=None) -> int:
             ),
             "expired": obs_summary.get("serve.expired", 0.0),
             "hedged": obs_summary.get("serve.hedged", 0.0),
+            "reloads": obs_summary.get("serve.reload.reloads", 0.0),
             "wire_requests": obs_summary.get("serve.wire_requests", 0.0),
             "wire_decode_p95_ms": round(
                 obs_summary.get("serve.wire_decode_ms.p95", 0.0), 3

@@ -109,6 +109,22 @@ def load_checkpoint_trees(
     ), meta
 
 
+def kernel_launches() -> dict:
+    """Launch counts of the kernels a served forward can reach (every
+    engine of the process adds to them)."""
+    from pytorch_cifar_tpu_torch.ops import (
+        conv_bn_relu,
+        depthwise_stencil,
+        max_pool,
+    )
+
+    return {
+        "conv3x3_bn_relu": conv_bn_relu.LAUNCHES,
+        "max_pool3x3_s1": max_pool.FWD_LAUNCHES,
+        "depthwise_stencil": depthwise_stencil.LAUNCHES,
+    }
+
+
 def _dtype_name(v) -> str:
     if isinstance(v, torch.Tensor):
         return str(v.dtype).replace("torch.", "")

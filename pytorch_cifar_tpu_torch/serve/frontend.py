@@ -220,11 +220,12 @@ def decode_logits(resp: dict) -> np.ndarray:
 class BatcherBackend:
     """One replica's backend: requests go through the micro-batcher
     (priority lanes, deadlines, admission control) and health reads the
-    engine. (The JAX backend's hot-reload watcher is not ported yet.)"""
+    engine + optional hot-reload watcher."""
 
-    def __init__(self, engine, batcher):
+    def __init__(self, engine, batcher, watcher=None):
         self.engine = engine
         self.batcher = batcher
+        self.watcher = watcher
 
     def predict(
         self,
@@ -241,8 +242,13 @@ class BatcherBackend:
     def health(self) -> dict:
         eng = self.engine
         meta = getattr(eng, "checkpoint_meta", {}) or {}
-        # promotion generation: stamped into the live sidecar by every
-        # canary promotion; None on a pre-pipeline dir
+        if self.watcher is not None and self.watcher.last_meta:
+            # a hot reload swapped in a newer publish: its sidecar meta
+            # (epoch, best_acc, and the promotion stamp when the canary
+            # published it) is what this replica serves now
+            meta = self.watcher.last_meta
+        # promotion generation (serve/canary.py): stamped into the live
+        # sidecar by every canary promotion; None on a pre-pipeline dir
         promo = meta.get("promotion") or {}
         out = {
             "status": "ok",
@@ -259,6 +265,10 @@ class BatcherBackend:
             "n_devices": int(getattr(eng, "n_devices", 1)),
             "queued": self.batcher.stats["queued"],
         }
+        if self.watcher is not None:
+            out["reloads"] = self.watcher.reloads
+            out["reload_skipped"] = self.watcher.skipped
+            out["reload_quarantined"] = self.watcher.quarantined
         return out
 
 

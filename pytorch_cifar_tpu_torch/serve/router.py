@@ -1,8 +1,8 @@
 """Multi-replica router: spread traffic over N replica engines.
 
 A copy of ``pytorch_cifar_tpu/serve/router.py`` for the port, without the
-canary's shadow tee and the fleet controller's membership calls (both not
-ported yet). One replica process = one card = one
+fleet controller's membership calls (``add_replica``/``remove_replica``/
+``fleet_view``: not ported yet). One replica process = one card = one
 :class:`~pytorch_cifar_tpu_torch.serve.frontend.ServingFrontend`. The
 router is the fleet edge above them — a plain process (it never touches
 a device; replicas own theirs) that implements the same
@@ -284,7 +284,27 @@ class Router:
         self._rr = 0
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # canary shadow tee (serve/canary.py): when attached, every
+        # answered request is OFFERED to the promotion controller, a
+        # lock+append into its bounded queue, never a canary compute and
+        # never an error on the client path
+        self._shadow = None
+        self._shadow_model = None  # tee only this model's traffic
         self._g_healthy.set(len(self.replicas))
+
+    def attach_shadow(self, controller) -> None:
+        """Tee answered requests to a canary
+        :class:`~pytorch_cifar_tpu_torch.serve.canary.PromotionController`:
+        ``offer(images, incumbent_logits, priority=...)`` is called with
+        the request and the incumbent's answer (no second incumbent
+        pass), off the client response path. ``None`` detaches. On a
+        multi-model fleet only requests for the controller's own model
+        are offered."""
+        with self._lock:
+            self._shadow = controller
+            self._shadow_model = getattr(
+                getattr(controller, "engine", None), "model_name", None
+            )
 
     # -- replica selection + state transitions -------------------------
 
@@ -456,6 +476,16 @@ class Router:
                 out = self._dispatch(replica, body, timeout_s)
                 self._c_images.inc(int(x.shape[0]))
                 self._h_latency.observe((time.perf_counter() - t0) * 1e3)
+                with self._lock:
+                    shadow = self._shadow
+                    shadow_model = self._shadow_model
+                if shadow is not None and model not in (None, shadow_model):
+                    shadow = None  # another tenant's traffic: never teed
+                if shadow is not None:
+                    # fire-and-forget: offer() enqueues (or drops) and
+                    # never raises; the client's bits and deadline are
+                    # already settled in `out`
+                    shadow.offer(x, out, priority=priority)
                 return out
             except QueueFull as e:
                 last_exc = e
@@ -537,6 +567,7 @@ class Router:
                 }
                 for r in self.replicas
             ]
+            shadow = self._shadow
         healthy = sum(r["healthy"] for r in replicas)
         out = {
             "status": "ok" if healthy else "unavailable",
@@ -547,6 +578,8 @@ class Router:
             "reinstated": int(self._c_reinstated.value),
             "hedged": int(self._c_hedged.value),
         }
+        if shadow is not None:
+            out["canary"] = shadow.status()
         return out
 
     @property

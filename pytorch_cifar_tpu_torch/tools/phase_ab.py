@@ -8,7 +8,8 @@ Each directory is a checkout of the repository (a ``git archive`` of
 another commit, unpacked). Every turn runs, for each directory in the
 order given, one fresh process there that builds that checkout's kernels
 and runs the named phases of that checkout's own ``chip_smoke.py``
-(``pool``: K4; ``moments``: K2; ``gather``: K1; ``stencil``: K5), so two
+(``pool``: K4; ``moments``: K2; ``gather``: K1; ``stencil``: K5;
+``site``: K3 at ResNet-18's sites), so two
 designs are timed on one card in turns (A B, then B A on the next turn).
 Each output line is prefixed with its directory and turn. Exits non-zero
 when no card is there or a phase's checks failed in any run.
@@ -25,7 +26,8 @@ import sys
 PHASES = {"pool": ("max_pool", "phase_pool"),
           "moments": ("bn_stats", "phase_moments"),
           "gather": ("dma_gather", "phase_gather"),
-          "stencil": ("depthwise_stencil", "phase_stencil")}
+          "stencil": ("depthwise_stencil", "phase_stencil"),
+          "site": ("conv_bn_relu", "phase_kernels")}
 
 _CHILD = """
 import importlib, sys, torch

@@ -13,7 +13,10 @@ Checkpoints go to ``--output_dir`` in the JAX package's format, so either
 trainer resumes the other's run; ``--resume`` continues from the newest
 checkpoint there, ``--evaluate`` runs one eval epoch of the best one and
 prints its accuracy. SIGTERM stops after the current epoch with the state
-saved as ``last.msgpack``.
+saved as ``last.msgpack``. ``--publish staging`` writes every checkpoint
+into ``<output_dir>/staging`` instead, the canary pipeline's input
+(``serve/canary.py``; ``python -m
+pytorch_cifar_tpu_torch.tools.pipeline_run`` runs the whole loop).
 
 The host loader, the divergence sentinel, remat and the trainer's
 observability:

@@ -24,6 +24,13 @@ state, the same sidecar.
   asked for ``num_shards > 1`` writes every shard itself (tests, tools).
 - **Rolling history** (``keep_last_n``): copies, never hard links, as extra
   restore candidates behind each file.
+- **Staging and promotion** (the canary pipeline): a trainer under
+  ``--publish staging`` writes into ``<output_dir>/staging`` (marked by a
+  ``.staging`` file); :func:`publish_checkpoint` promotes a verified
+  candidate into the live dir as a v2 pair, keeping the incumbent as the
+  ``.prev`` pair; :func:`quarantine_checkpoint` writes the tombstone
+  ``<stem>.quarantined.json`` that pins one rejected publish by its
+  fingerprint. The live pair is byte for byte the JAX package's.
 - **Async saves**: only the snapshot and its one device-to-host copy run on
   the calling thread; the codec, the CRC and the commit run on an
   :class:`AsyncCheckpointWriter` thread, which touches host numpy only,
@@ -99,6 +106,186 @@ class CheckpointCorrupt(RuntimeError):
 def meta_path(output_dir: str, name: str) -> str:
     """Path of the JSON scalar sidecar paired with checkpoint ``name``."""
     return os.path.join(output_dir, os.path.splitext(name)[0] + ".json")
+
+
+# -- staging / quarantine / promotion (serve/canary.py) ------------------
+
+STAGING_SUBDIR = "staging"
+STAGING_MARKER = ".staging"
+
+
+def staging_dir(output_dir: str) -> str:
+    """The staging subdirectory of ``output_dir``: where a trainer under
+    ``--publish staging`` commits its checkpoints for the canary to vet.
+    The hot-reload watcher refuses it; only the promotion controller reads
+    it."""
+    return os.path.join(output_dir, STAGING_SUBDIR)
+
+
+def ensure_staging_dir(output_dir: str) -> str:
+    """Create the staging dir with its marker file, which lets a watcher
+    pointed at it by mistake know it whatever the directory's name."""
+    path = staging_dir(output_dir)
+    os.makedirs(path, exist_ok=True)
+    marker = os.path.join(path, STAGING_MARKER)
+    if not os.path.exists(marker):
+        try:
+            _atomic_write(
+                marker, b"staging checkpoint dir: never serve directly\n"
+            )
+        except FileNotFoundError:
+            # another rank of the job renamed the same tmp file first
+            if not os.path.exists(marker):
+                raise
+    return path
+
+
+def is_staging_dir(path: str) -> bool:
+    """A dir holding the marker file, or named ``staging``: its
+    checkpoints are unvetted and never hot-loaded into a serving engine."""
+    return os.path.exists(os.path.join(path, STAGING_MARKER)) or (
+        os.path.basename(os.path.abspath(path)) == STAGING_SUBDIR
+    )
+
+
+def quarantine_path(output_dir: str, name: str) -> str:
+    """Path of the quarantine tombstone sidecar for checkpoint ``name``."""
+    return os.path.join(
+        output_dir, os.path.splitext(name)[0] + ".quarantined.json"
+    )
+
+
+def publish_fingerprint(meta: dict) -> Optional[dict]:
+    """Identity of one committed publish whatever its format: the
+    whole-payload manifest (v2 ``manifest``, v3 ``total``) as crc32 and
+    size. A tombstone records it, so it poisons exactly one publish."""
+    man = (meta or {}).get("manifest") or (meta or {}).get("total")
+    if not man:
+        return None
+    return {
+        "crc32": int(man.get("crc32", -1)),
+        "size": int(man.get("size", -1)),
+    }
+
+
+def quarantine_checkpoint(
+    output_dir: str, name: str, reason: str, meta: Optional[dict] = None,
+    extra: Optional[dict] = None,
+) -> str:
+    """Write the tombstone sidecar that marks the current publish of
+    ``name`` rejected (the canary's verdict), in one atomic write. The
+    checkpoint files stay as evidence; every reader keys on the
+    tombstone."""
+    if meta is None:
+        meta = read_meta(output_dir, name)
+    rec = {
+        "reason": str(reason),
+        "epoch": meta.get("epoch"),
+        "best_acc": meta.get("best_acc"),
+        "fingerprint": publish_fingerprint(meta),
+        "at": time.time(),
+    }
+    rec.update(extra or {})
+    path = quarantine_path(output_dir, name)
+    _atomic_write(path, json.dumps(rec).encode())
+    return path
+
+
+def read_quarantine(output_dir: str, name: str) -> Optional[dict]:
+    """The tombstone record of ``name``; None when absent or unreadable."""
+    try:
+        with open(quarantine_path(output_dir, name)) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def is_quarantined(
+    output_dir: str, name: str, meta: Optional[dict] = None
+) -> bool:
+    """True when the current publish of ``name`` carries a matching
+    tombstone. A tombstone with another fingerprint belongs to an older
+    publish and is inert; one that cannot be compared (no fingerprint, or
+    a sidecar without a manifest) stays in force."""
+    tomb = read_quarantine(output_dir, name)
+    if tomb is None:
+        return False
+    fp = tomb.get("fingerprint")
+    if not fp:
+        return True
+    cur = publish_fingerprint(
+        meta if meta is not None else read_meta(output_dir, name)
+    )
+    return cur is None or cur == fp
+
+
+def publish_checkpoint(
+    src_dir: str, dst_dir: str, name: str = CKPT_NAME,
+    extra_meta: Optional[dict] = None,
+) -> str:
+    """Promote checkpoint ``name`` from ``src_dir`` into ``dst_dir`` (the
+    live dir the watchers key on). The payload is read verified (v3
+    reassembled from its committed shards), so a torn or corrupt candidate
+    is never promoted; the destination is a v2 publish, payload first and
+    sidecar (with ``extra_meta`` merged in, e.g. the promotion stamp)
+    last. The incumbent is kept as the ``.prev`` pair first.
+
+    Raises FileNotFoundError (no candidate) or :class:`CheckpointCorrupt`,
+    on which the promotion controller quarantines."""
+    meta = read_meta(src_dir, name)
+    payload = read_verified_payload(src_dir, name, meta)
+    os.makedirs(dst_dir, exist_ok=True)
+    _preserve_previous_publish(dst_dir, name)
+    out_meta = {
+        "epoch": meta.get("epoch"),
+        "best_acc": meta.get("best_acc"),
+        "manifest": payload_manifest(payload),
+    }
+    out_meta.update(extra_meta or {})
+    _atomic_write(os.path.join(dst_dir, name), payload)
+    _atomic_write(meta_path(dst_dir, name), json.dumps(out_meta).encode())
+    return os.path.join(dst_dir, name)
+
+
+def prev_publish_name(name: str = CKPT_NAME) -> str:
+    """On-disk name of the rollback pair kept beside the live publish."""
+    stem, ext = os.path.splitext(name)
+    return f"{stem}.prev{ext}"
+
+
+def _preserve_previous_publish(dst_dir: str, name: str) -> None:
+    """Keep a verified copy of the incumbent publish as the ``.prev`` pair
+    (the rollback source), payload first and its old sidecar last. A torn
+    or corrupt incumbent is skipped."""
+    if not os.path.exists(os.path.join(dst_dir, name)):
+        return
+    try:
+        prev_meta = read_meta(dst_dir, name)
+        prev_payload = read_verified_payload(dst_dir, name, prev_meta)
+    except (OSError, ValueError, CheckpointCorrupt):
+        return
+    prev_name = prev_publish_name(name)
+    _atomic_write(os.path.join(dst_dir, prev_name), prev_payload)
+    _atomic_write(
+        meta_path(dst_dir, prev_name), json.dumps(prev_meta).encode()
+    )
+
+
+def restore_previous_publish(dst_dir: str, name: str = CKPT_NAME) -> bool:
+    """Republish the ``.prev`` pair over the live publish (a rollout's
+    rollback): a verified read, then payload first and sidecar last, the
+    sidecar carrying the old promotion stamp. False when there is no
+    rollback pair; :class:`CheckpointCorrupt` when it does not verify."""
+    prev_name = prev_publish_name(name)
+    if not os.path.exists(os.path.join(dst_dir, prev_name)):
+        return False
+    prev_meta = read_meta(dst_dir, prev_name)
+    prev_payload = read_verified_payload(dst_dir, prev_name, prev_meta)
+    _atomic_write(os.path.join(dst_dir, name), prev_payload)
+    _atomic_write(
+        meta_path(dst_dir, name), json.dumps(prev_meta).encode()
+    )
+    return True
 
 
 def shard_name(name: str, index: int, num_shards: int) -> str:

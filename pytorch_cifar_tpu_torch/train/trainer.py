@@ -39,7 +39,8 @@ Chrome trace JSON, ``--profile`` runs ``torch.profiler`` over ~20 steady
 steps and writes its trace under ``output_dir/profile``.
 
 Checkpoints are the JAX package's format v2 (``train/checkpoint.py``), in
-``config.output_dir``:
+``config.output_dir`` (under ``publish="staging"`` in its ``staging/``
+subdirectory, the canary pipeline's input, which resume reads too):
 
 - the gate snapshots the best state on the device at every improvement (a
   clone, no sync) and writes ``ckpt.msgpack`` at most once per
@@ -86,7 +87,7 @@ import torch.distributed as dist
 
 from pytorch_cifar_tpu_torch import resolve_device
 from pytorch_cifar_tpu_torch.compat import snapshot_state
-from pytorch_cifar_tpu_torch.config import TrainConfig, check_ported
+from pytorch_cifar_tpu_torch.config import TrainConfig
 from pytorch_cifar_tpu_torch.data.cifar10 import load_cifar10, synthetic_cifar10
 from pytorch_cifar_tpu_torch.data.pipeline import (
     Dataloader,
@@ -111,6 +112,7 @@ from pytorch_cifar_tpu_torch.train.checkpoint import (
     LAST_NAME,
     AsyncCheckpointWriter,
     best_checkpoint_order,
+    ensure_staging_dir,
     newest_checkpoint_order,
     remove_stale_last,
     restore_checkpoint,
@@ -161,12 +163,11 @@ def _to_host(*totals: Metrics) -> List[Dict]:
 
 class Trainer:
     def __init__(self, config: TrainConfig):
-        check_ported(config)
         if config.async_save not in ("on", "off"):
             raise ValueError(
                 f"async_save must be on/off, got {config.async_save!r}"
             )
-        if config.publish != "live":
+        if config.publish not in ("live", "staging"):
             raise ValueError(
                 f"publish must be live/staging, got {config.publish!r}"
             )
@@ -306,7 +307,14 @@ class Trainer:
         self.history: List[dict] = []
 
         # -- checkpoints ----------------------------------------------
-        self.ckpt_dir = config.output_dir
+        # under --publish staging every checkpoint (best, preemption,
+        # history, shards) lands in output_dir/staging, and resume reads
+        # it there: the trainer never depends on what the canary promoted
+        self.ckpt_dir = (
+            ensure_staging_dir(config.output_dir)
+            if config.publish == "staging"
+            else config.output_dir
+        )
         if config.resume or config.evaluate:
             # resume wants the newest state (a stale last.msgpack must not
             # roll training back); eval wants the best params

@@ -104,7 +104,9 @@ def test_scan_sees_the_whole_package():
                     ("utils", "logging.py"), ("utils", "progress.py"),
                     ("serve", "wire.py"), ("serve", "frontend.py"),
                     ("serve", "edge.py"), ("serve", "router.py"),
-                    ("serve", "loadgen.py"), ("serve", "tenancy.py")))):
+                    ("serve", "loadgen.py"), ("serve", "tenancy.py"),
+                    ("serve", "journal.py"), ("serve", "reload.py"),
+                    ("serve", "canary.py"), ("tools", "pipeline_run.py")))):
         assert must in files
 
 

@@ -10,7 +10,10 @@ connections and the event ``EdgePool``):
 - a hedge and a stale-connection retry resend the complete frame;
 - the model-aware filter sends a model only to replicas that advertise
   it, and an unhosted model is a 404 (``UnknownModel``), never a hedge;
-- the fleet's errors are the batcher's exception types, as in JAX.
+- the fleet's errors are the batcher's exception types, as in JAX;
+- ``attach_shadow`` offers every answered request of the canary's own
+  model (with the incumbent's answer) to the controller, never a failed
+  one or another model's, and ``/healthz`` carries its status.
 """
 
 import numpy as np
@@ -203,3 +206,47 @@ def test_logits_pass_through_unchanged():
         out = r.predict(images(2))
         want = Exact().predict(images(2))
         assert out.tobytes() == want.tobytes()
+
+
+class RecordingCanary:
+    """A promotion controller's tee surface: records ``offer`` calls."""
+
+    class engine:  # noqa: N801 - the controller's engine attribute
+        model_name = "ResNet18"
+
+    def __init__(self):
+        self.offers = []
+
+    def offer(self, images, incumbent_logits, priority="interactive"):
+        self.offers.append((images.shape[0], float(incumbent_logits[0, 0]),
+                            priority))
+        return True
+
+    def status(self):
+        return {"state": "shadowing", "offers": len(self.offers)}
+
+
+@pytest.mark.parametrize("transport", TRANSPORTS)
+def test_attach_shadow_tees_answered_requests_of_its_model(transport):
+    ok = ZooStub(3.0, ["ResNet18", "LeNet"])
+    full = StubBackend(raises=QueueFull("full"))
+    canary = RecordingCanary()
+    with ServingFrontend(ok) as fo, ServingFrontend(full) as ff:
+        with Router([fo.url], transport=transport) as r:
+            assert "canary" not in r.health()
+            r.attach_shadow(canary)
+            r.predict(images(2))
+            r.predict(images(3), priority="bulk", model="ResNet18")
+            r.predict(images(1), model="LeNet")  # another tenant's
+            assert canary.offers == [(2, 3.0, "interactive"),
+                                     (3, 3.0, "bulk")]
+            assert r.health()["canary"] == {"state": "shadowing",
+                                            "offers": 2}
+            r.attach_shadow(None)
+            r.predict(images(1))
+            assert len(canary.offers) == 2 and "canary" not in r.health()
+        with Router([ff.url], transport=transport) as r:
+            r.attach_shadow(canary)
+            with pytest.raises(QueueFull):
+                r.predict(images(1), priority="bulk")
+            assert len(canary.offers) == 2  # a refused request is not teed

@@ -23,7 +23,7 @@ from pytorch_cifar_tpu.data import cifar10 as jax_cifar10
 from pytorch_cifar_tpu.data.pipeline import DeviceDataset as JaxDeviceDataset
 from pytorch_cifar_tpu.train import optim as jax_optim
 from pytorch_cifar_tpu.train import steps as jax_steps
-from pytorch_cifar_tpu_torch.config import check_ported, parse_config
+from pytorch_cifar_tpu_torch.config import parse_config
 from pytorch_cifar_tpu_torch.data import augment, cifar10
 from pytorch_cifar_tpu_torch.data.pipeline import DeviceDataset
 from pytorch_cifar_tpu_torch.models import create_model
@@ -268,11 +268,15 @@ def test_config_flags_keep_the_jax_spellings():
     assert defaults.device == "cuda" and defaults.t_max == defaults.epochs
 
 
-@pytest.mark.parametrize("argv", [["--publish", "staging"],
-                                  ["--resume", "--publish", "staging"]])
+@pytest.mark.parametrize("argv", [["--publish", "stage"],
+                                  ["--resume", "--publish", "canary"]])
 def test_unported_paths_say_so(argv):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        check_ported(parse_config(argv))
+    """A publish target other than live/staging is refused by name, as
+    the JAX trainer refuses it."""
+    from pytorch_cifar_tpu_torch.train.trainer import Trainer
+
+    with pytest.raises(ValueError, match="publish must be live/staging"):
+        Trainer(parse_config(argv + ["--device", "cpu"]))
 
 
 @pytest.mark.parametrize("argv", [["--no-device_data", "--num_devices", "2"],
@@ -281,7 +285,6 @@ def test_host_loader_paths_are_ported(argv, tmp_path):
     """The host loader trains through the CLI, on one process and as a
     spawned gloo pair: every image once per epoch on every rank's global
     totals, the ranks agreeing, a finite loss."""
-    check_ported(parse_config(argv))
     out = train_main(argv + [
         "--device", "cpu", "--model", "LeNet", "--synthetic_data",
         "--epochs", "1", "--no-amp", "--synthetic_train_size", "200",
@@ -297,9 +300,14 @@ def test_host_loader_paths_are_ported(argv, tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--resume"], ["--evaluate"],
-                                  ["--publish", "live"]])
+                                  ["--publish", "live"],
+                                  ["--publish", "staging"]])
 def test_checkpoint_paths_are_ported(argv):
-    check_ported(parse_config(argv))
+    """Every checkpoint flag parses to the JAX trainer's field."""
+    cfg = parse_config(argv)
+    assert (cfg.resume, cfg.evaluate, cfg.publish) == (
+        "--resume" in argv, "--evaluate" in argv,
+        argv[1] if argv[0] == "--publish" else "live")
 
 
 def test_unported_models_say_so():
