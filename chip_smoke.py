@@ -352,6 +352,47 @@ and 35 after phase 18:
     (``torch.cuda.mem_get_info``) and the serving process's
     ``max_memory_allocated``.
 
+The int8 lane and the multi-tenant zoo server, after phase 35:
+
+36. int8: ResNet-18 at full width served by ``InferenceEngine(int8=True)``
+    (weight-only int8, one scale per output channel, dequantized at the
+    compute dtype into the same folded forward) in bf16 and in fp32,
+    buckets 1/8/32/128, behind ``MicroBatcher`` under ``run_load`` (8
+    clients x 32 requests of U[1, 8] images), K3's count reset just before
+    and read just after: 6 a forward; no failed request and
+    ``serve.int8_images`` equal to the images served; the served logits
+    against the port's int8 engine on the CPU on the same weights (fp32:
+    rtol 1e-3, atol 1e-4; bf16: 2% of the largest logit); padded equal to
+    direct at n = 7 in bf16, and in fp32 wherever the float fp32 engine
+    keeps its own bits (recorded beside); ``weights_host`` (the float
+    originals) swapped back in gives the same bits. Printed, not gated: ``memory_allocated`` of
+    the int8 engine against a float engine of the same dtype and the bytes
+    of each folded tree, the bucket-128 device ms of each forward (CUDA
+    events), and the dequantization's device and host ms a forward;
+37. zoo: a ``ModelZooServer`` of ResNet18 (from a seeded checkpoint
+    under ``runs/``), GoogLeNet, MobileNet and SimpleDLA at full width,
+    bf16, buckets 1/8/32/128, ``max_resident`` 2, priors from the card's
+    sweep (``load_cost_priors``): under ``run_load`` (8 clients x 16
+    requests of U[1, 8] images, each request's model drawn from
+    ``zipf_mix`` over the priors), with K3, K4 and K5 reset just before
+    the zoo is built and read just after the load: each count equal to the
+    tenants' forwards times their launches a forward (ResNet18 6/0/0,
+    GoogLeNet 28/9/0, MobileNet 1/0/9, SimpleDLA 12/0/0), every tenant
+    run, no failed request, at least one eviction; then every tenant's
+    answer bit for bit a dedicated engine's built in this process; an
+    admit -> evict cycle (MobileNet admitted over ResNet18, ResNet18
+    re-admitted over MobileNet; no garbage collection in between): the
+    bytes the live tensors requested (``memory_stats``) within 1 MiB of
+    their value before MobileNet's admission (``memory_allocated``, whose
+    blocks carry up to 1 MiB of slack each, printed beside), the evicted
+    engine object gone, ResNet18's bits unmoved; the zoo
+    behind ``ServingFrontend`` over wire v2 (each tenant's bits, a 404 for
+    an unknown model); a NaN candidate staged to ResNet18 through
+    ``enable_canary`` quarantined with every tenant's bits unchanged. The
+    zoo's img/s and p50/p99 beside a dedicated ResNet-18's under the same
+    load, admission ms (first and re-admission), and evictions are
+    printed.
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
 nor the ok line.
@@ -367,6 +408,7 @@ from __future__ import annotations
 import argparse
 import base64
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -376,6 +418,7 @@ import sys
 import tempfile
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -414,6 +457,7 @@ class Failures(list):
         if not ok:
             self.append(msg)
             print(f"FAIL: {msg}", flush=True)
+            print(f"FAIL: {msg}", file=sys.stderr, flush=True)
         return ok
 
 
@@ -3813,6 +3857,422 @@ def _canary_drill(proc, live, staging, dir_b, epoch_a, epoch_b, probe,
     }
 
 
+# the int8 lane and the zoo server (phases 36 and 37)
+INT8_LOAD = dict(clients=8, requests_per_client=32, images_min=1,
+                 images_max=8)
+ZOO_TENANTS = {  # name: (K3, K4, K5) launches a served forward
+    "ResNet18": (6, 0, 0), "GoogLeNet": (28, 9, 0), "MobileNet": (1, 0, 9),
+    "SimpleDLA": (12, 0, 0)}
+ZOO_LOAD = dict(clients=8, requests_per_client=16, images_min=1,
+                images_max=8)
+MIB = 1 << 20
+
+
+def _device_ms(fn, runs: int = 10, reps: int = 5) -> float:
+    """``time_ms`` with a sleep long enough (about 25 ms) to cover the host's
+    issue of ``reps`` calls of a whole forward: the events then bracket
+    device work only, where a forward's host issue outlasts its device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        samples.append(start.elapsed_time(end) / reps)
+    return float(np.median(samples))
+
+
+def _allocated() -> int:
+    torch.cuda.synchronize()
+    return torch.cuda.memory_allocated()
+
+
+def _requested() -> int:
+    """The bytes the live tensors asked for: ``memory_allocated`` counts
+    the allocator's blocks, which may exceed a request by up to 1 MiB
+    each, depending on which free block it was carved from."""
+    torch.cuda.synchronize()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
+def _tree_bytes(folded) -> int:
+    """Bytes of every tensor a folded tree holds (the int8 lane's q and s
+    included)."""
+    from pytorch_cifar_tpu_torch.serve.engine import _tree_map
+
+    total = [0]
+
+    def add(leaf):
+        for t in (leaf.values() if isinstance(leaf, dict) else (leaf,)):
+            if isinstance(t, torch.Tensor):
+                total[0] += t.numel() * t.element_size()
+        return leaf
+
+    _tree_map(add, folded)
+    return total[0]
+
+
+def phase_int8(K, smi: str, fails: Failures) -> dict:
+    """The int8 lane on ResNet-18 at full width (phase 36)."""
+    from pytorch_cifar_tpu_torch.data.augment import normalize
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve import (
+        InferenceEngine,
+        MicroBatcher,
+        run_load,
+    )
+    from pytorch_cifar_tpu_torch.serve.engine import dequantize_int8
+
+    torch.backends.cudnn.allow_tf32 = False  # as phase 3 sets it
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rs = np.random.RandomState(36)
+    xs = rs.randint(0, 256, size=(5, 32, 32, 3)).astype(np.uint8)
+    x7 = rs.randint(0, 256, size=(7, 32, 32, 3)).astype(np.uint8)
+    want = InferenceEngine.from_random(
+        "ResNet18", seed=0, buckets=(8,), compute_dtype=torch.float32,
+        device="cpu", int8=True).predict(xs)
+    top = float(np.max(np.abs(want)))
+    out = {"card": smi, "model": "ResNet18", "buckets": list(BUCKETS)}
+    for dt in DTYPES.values():
+        # the library's first-use allocations (its workspaces) land here,
+        # not in the engines measured below
+        InferenceEngine.from_random("ResNet18", buckets=(8, 128),
+                                    compute_dtype=dt).predict(x7)
+    for dname, dt in DTYPES.items():
+        registry = MetricsRegistry()
+        K.LAUNCHES = 0  # the main path starts here
+        m0 = _allocated()
+        eng = InferenceEngine.from_random(
+            "ResNet18", seed=0, buckets=BUCKETS, compute_dtype=dt,
+            registry=registry, int8=True)
+        int8_bytes = _allocated() - m0
+        batcher = MicroBatcher(eng, max_wait_ms=2.0, registry=registry)
+        try:
+            rep = run_load(batcher, seed=36, **INT8_LOAD)
+        finally:
+            batcher.close()
+        forwards, launches = eng.forward_count, K.LAUNCHES  # ends here
+        fails.check(launches == 6 * forwards,
+                    f"int8 {dname}: K3 launched {launches} times in "
+                    f"{forwards} forwards (want 6 a forward)")
+        fails.check(rep["failed"] == 0 and rep["requests"] == 8 * 32,
+                    f"int8 {dname}: {rep['failed']} failed of "
+                    f"{rep['requests']}")
+        # the lane's counters count what reaches the engine: every call
+        # and its rows, the batcher's coalesced buckets with their padding
+        s = registry.summary()
+        int8_calls = s.get("serve.int8_requests", 0)
+        int8_rows = s.get("serve.int8_images", 0)
+        fails.check(0 < int8_calls <= forwards and int8_rows >= rep["images"],
+                    f"int8 {dname}: serve.int8_requests {int8_calls}, "
+                    f"serve.int8_images {int8_rows} for {forwards} forwards "
+                    f"and {rep['images']} images served")
+        got = eng.predict(xs)
+        err = float(np.max(np.abs(got - want)))
+        fails.check(got.shape == (5, 10) and bool(np.isfinite(got).all()),
+                    f"int8 {dname}: logits not finite (5, 10)")
+        if dname == "fp32":
+            fails.check(bool(np.allclose(got, want, rtol=1e-3, atol=1e-4)),
+                        f"int8 fp32: logits off the CPU's by {err:.3g}")
+        else:
+            fails.check(err <= 0.02 * top,
+                        f"int8 bf16: logits off the CPU's by {err:.3g} "
+                        f"(max |logit| {top:.3g})")
+        padded = eng.predict(x7)
+        pad_same = bool(np.array_equal(padded, eng.direct_forward(x7)))
+        host = eng.weights_host()
+        fails.check(all(v.dtype != np.int8 for v in host.values()),
+                    f"int8 {dname}: weights_host is not the float state")
+        eng.swap_weights(host)
+        swap_same = bool(np.array_equal(eng.predict(x7), padded))
+        fails.check(swap_same, f"int8 {dname}: weights_host -> "
+                               "swap_weights changed the served bits")
+        row = {"forwards": forwards, "k3_launches": launches,
+               "int8_requests": int8_calls, "int8_images": int8_rows,
+               "max_abs_vs_cpu_int8": err, "max_abs_logit": top,
+               "padded_vs_direct_bit_identical": pad_same,
+               "swap_round_trip_bit_identical": swap_same,
+               "int8_engine_bytes": int8_bytes,
+               "int8_folded_bytes": _tree_bytes(eng._weights[1]),
+               **{k: rep[k] for k in ("requests", "images", "failed",
+                                      "img_per_sec", "p50_ms", "p99_ms")}}
+        # beside it: the float engine of the same dtype (printed, not
+        # gated): its resident bytes and its bucket-128 device time
+        m1 = _allocated()
+        flt = InferenceEngine.from_random(
+            "ResNet18", seed=0, buckets=BUCKETS, compute_dtype=dt)
+        row["float_engine_bytes"] = _allocated() - m1
+        row["float_folded_bytes"] = _tree_bytes(flt._weights[1])
+        # padding keeps the bits within the lane wherever it keeps them in
+        # the float engine of the same dtype (the library's per-shape
+        # choices at the sites the kernels do not take are the lane's too)
+        row["float_padded_vs_direct_bit_identical"] = flt_same = bool(
+            np.array_equal(flt.predict(x7), flt.direct_forward(x7)))
+        fails.check(pad_same or not flt_same,
+                    f"int8 {dname}: padded != direct at n = 7, where the "
+                    "float engine keeps its bits")
+        fails.check(pad_same or dname == "fp32",
+                    f"int8 {dname}: padded != direct at n = 7")
+        xb = torch.from_numpy(
+            rs.randint(0, 256, size=(128, 32, 32, 3)).astype(np.uint8)
+        ).cuda()
+        xn = normalize(xb, eng._mean, eng._std, dt).permute(0, 3, 1, 2)
+        (qm, qf), (fm, ff) = eng._weights, flt._weights
+        with torch.inference_mode():
+            row["bucket128_int8_ms"] = _device_ms(
+                lambda: qm.folded_forward(dequantize_int8(qf, dt), xn))
+            row["bucket128_float_ms"] = _device_ms(
+                lambda: fm.folded_forward(ff, xn))
+            row["dequantize_device_ms"] = _device_ms(
+                lambda: dequantize_int8(qf, dt))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(50):
+                dequantize_int8(qf, dt)
+            row["dequantize_host_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+            torch.cuda.synchronize()
+        out[dname] = row
+        del eng, batcher, flt, qm, qf, fm, ff
+    print("int8 " + json.dumps(out), flush=True)
+    return out
+
+
+def _counting_engine(forwards: dict):
+    """An ``InferenceEngine`` that also counts its device forwards per
+    model in ``forwards`` (a zoo drops its engines on eviction, so their
+    own counters go with them)."""
+    from pytorch_cifar_tpu_torch.serve import InferenceEngine
+
+    class CountingEngine(InferenceEngine):
+        def _forward(self, x):
+            y = super()._forward(x)
+            with self._count_lock:
+                forwards[self.model_name] = forwards.get(
+                    self.model_name, 0) + 1
+            return y
+
+    return CountingEngine
+
+
+def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
+    """A ModelZooServer of four tenants on the card (phase 37)."""
+    from pytorch_cifar_tpu_torch import faults
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve import (
+        CanaryBudget,
+        GoldenSet,
+        HttpTarget,
+        InferenceEngine,
+        MicroBatcher,
+        ModelZooServer,
+        ServingFrontend,
+        TenantSpec,
+        UnknownModel,
+        load_cost_priors,
+        run_load,
+        tenancy,
+        zipf_mix,
+    )
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        ensure_staging_dir,
+        is_quarantined,
+    )
+
+    tmp = run_dir("zoo-")
+    try:
+        live = _seeded_ckpt(os.path.join(tmp, "ResNet18"), 0, 1, 10.0)
+        priors = load_cost_priors()
+        fails.check(set(ZOO_TENANTS) <= set(priors),
+                    f"zoo: the cost priors lack {set(ZOO_TENANTS) - set(priors)}")
+        rs = np.random.RandomState(37)
+        x = rs.randint(0, 256, size=(5, 32, 32, 3)).astype(np.uint8)
+
+        def dedicated(name, **kw):
+            kw = dict(buckets=BUCKETS, compute_dtype=torch.bfloat16, **kw)
+            if name == "ResNet18":
+                return InferenceEngine.from_checkpoint(live, name, **kw)
+            return InferenceEngine.from_random(name, seed=0, **kw)
+
+        want = {}
+        for name in ZOO_TENANTS:
+            want[name] = dedicated(name).predict(x)
+        # the dedicated ResNet-18 under the same load, for its img/s
+        reg = MetricsRegistry()
+        eng = dedicated("ResNet18", registry=reg)
+        batcher = MicroBatcher(eng, max_wait_ms=2.0, registry=reg)
+        try:
+            solo = run_load(batcher, seed=37, **ZOO_LOAD)
+        finally:
+            batcher.close()
+        del eng, batcher
+
+        specs = [TenantSpec(name, live if name == "ResNet18" else None,
+                            buckets=BUCKETS) for name in ZOO_TENANTS]
+        registry = MetricsRegistry()
+        forwards: dict = {}
+        m_before_zoo, r_before_zoo = _allocated(), _requested()
+        plain_engine = tenancy.InferenceEngine
+        tenancy.InferenceEngine = _counting_engine(forwards)
+        K.LAUNCHES = P.FWD_LAUNCHES = D.LAUNCHES = 0  # the main path starts
+        try:
+            t0 = time.perf_counter()
+            zoo = ModelZooServer(specs, max_resident=2,
+                                 compute_dtype=torch.bfloat16,
+                                 registry=registry)
+            build_s = time.perf_counter() - t0
+            eager = sorted(zoo.health()["resident"])
+            first = {m: registry.summary()[
+                f"serve.tenant.{m}.admission_ms.max"] for m in eager}
+            mix = zipf_mix(zoo.models(), priors=priors)
+            rep = run_load(zoo, seed=37, model_mix=mix, **ZOO_LOAD)
+        finally:
+            tenancy.InferenceEngine = plain_engine
+        launches = (K.LAUNCHES, P.FWD_LAUNCHES, D.LAUNCHES)  # ends here
+        per = {m: dict(zip(("k3", "k4", "k5"), v))
+               for m, v in ZOO_TENANTS.items()}
+        expect = tuple(sum(forwards.get(m, 0) * ZOO_TENANTS[m][i]
+                           for m in ZOO_TENANTS) for i in range(3))
+        fails.check(launches == expect,
+                    f"zoo: (K3, K4, K5) launched {launches}, the tenants' "
+                    f"forwards {forwards} give {expect}")
+        fails.check(all(forwards.get(m, 0) > 0 for m in ZOO_TENANTS),
+                    f"zoo: a tenant ran no forward ({forwards})")
+        fails.check(rep["failed"] == 0 and rep["requests"] == 8 * 16,
+                    f"zoo: {rep['failed']} failed of {rep['requests']} "
+                    "under churn")
+        evictions_load = zoo.stats["evictions"]
+        fails.check(evictions_load > 0, "zoo: the load evicted nothing")
+
+        # every tenant bit for bit a dedicated engine's (re-admitting)
+        same = {}
+        for name in ZOO_TENANTS:
+            same[name] = bool(np.array_equal(zoo.predict(x, model=name),
+                                             want[name]))
+            fails.check(same[name], f"zoo: {name} differs from a dedicated "
+                                    "engine")
+        # memory: {ResNet18, GoogLeNet} resident; MobileNet admitted (the
+        # LRU ResNet18 evicted), GoogLeNet touched, ResNet18 re-admitted
+        # (MobileNet evicted): the card holds what it held before
+        # MobileNet's admission, and ResNet18's bits did not move
+        for name in ("ResNet18", "GoogLeNet"):
+            zoo.predict(x, model=name)
+        # refcounts alone free an evicted engine: no collection runs
+        # between the two readings, and one before settles older garbage
+        gc.collect()
+        gc.disable()
+        try:
+            m0, r0 = _allocated(), _requested()
+            zoo.predict(x, model="MobileNet")
+            m_with = _allocated()
+            evicted = weakref.ref(zoo._tenants["MobileNet"].engine)
+            zoo.predict(x, model="GoogLeNet")
+            t0 = time.perf_counter()
+            readmit = zoo.predict(x, model="ResNet18")
+            readmit_ms = (time.perf_counter() - t0) * 1e3
+            m1, r1 = _allocated(), _requested()
+            freed = evicted() is None
+        finally:
+            gc.enable()
+        res = sorted(zoo.health()["resident"])
+        fails.check(res == ["GoogLeNet", "ResNet18"],
+                    f"zoo: resident {res} after the cycle")
+        fails.check(freed, "zoo: the evicted MobileNet engine is still alive")
+        fails.check(abs(r1 - r0) <= MIB,
+                    f"zoo: {r1} bytes requested after MobileNet's eviction, "
+                    f"{r0} before its admission")
+        readmit_same = bool(np.array_equal(readmit, want["ResNet18"]))
+        fails.check(readmit_same, "zoo: ResNet18's bits moved across "
+                                  "evict -> re-admit")
+
+        # the same zoo behind the threaded frontend over wire v2
+        front = ServingFrontend(zoo, port=0, registry=registry).start()
+        target = HttpTarget(front.url, wire="binary")
+        wire_same = {}
+        try:
+            for name in ZOO_TENANTS:
+                wire_same[name] = bool(np.array_equal(
+                    target.submit(x, model=name).result(), want[name]))
+                fails.check(wire_same[name],
+                            f"zoo: wire v2 {name} differs from a dedicated "
+                            "engine")
+            try:
+                target.submit(x, model="NoSuchNet")
+                unknown_404 = False
+            except UnknownModel:
+                unknown_404 = True
+            fails.check(unknown_404, "zoo: an unknown model got no 404")
+        finally:
+            target.close()
+            front.stop()
+
+        # a NaN candidate staged to ResNet18 through its own controller
+        staging = ensure_staging_dir(live)
+        ctl = zoo.enable_canary("ResNet18", staging,
+                                golden=GoldenSet.random(64, seed=3),
+                                budget=CanaryBudget(max_flip_frac=1.0))
+        try:
+            _seeded_ckpt(staging, 1, 2, 50.0)
+            faults.regress_checkpoint(staging, nan=True)
+            verdict = ctl.poll_once()
+        finally:
+            ctl.stop()
+        fails.check(verdict == "quarantined" and is_quarantined(
+            staging, "ckpt.msgpack"),
+            f"zoo: the NaN candidate was {verdict}")
+        after = {name: bool(np.array_equal(zoo.predict(x, model=name),
+                                           want[name]))
+                 for name in ZOO_TENANTS}
+        fails.check(all(after.values()),
+                    f"zoo: bits moved after the quarantine: {after}")
+        s = registry.summary()
+        out = {
+            "card": smi, "tenants": list(ZOO_TENANTS), "max_resident": 2,
+            "dtype": "bf16", "buckets": list(BUCKETS),
+            "cost_priors": {m: priors.get(m) for m in ZOO_TENANTS},
+            "mix": mix, "eager_resident": eager, "build_s": build_s,
+            "forwards": forwards, "launches_k3_k4_k5": list(launches),
+            "per_forward": per,
+            **{k: rep[k] for k in ("requests", "images", "failed",
+                                   "img_per_sec", "p50_ms", "p99_ms",
+                                   "per_model")},
+            "evictions_under_load": evictions_load,
+            "dedicated_resnet18": {k: solo[k] for k in (
+                "requests", "images", "failed", "img_per_sec", "p50_ms",
+                "p99_ms")},
+            "bit_identical_to_dedicated": same,
+            "readmit_bit_identical": readmit_same,
+            "readmit_ms": readmit_ms,
+            "first_admission_ms": first,
+            "admission_ms": {k: s.get(f"serve.zoo.admission_ms.{k}")
+                             for k in ("count", "p50", "max")},
+            "memory_before_admission": m0, "memory_with_tenant": m_with,
+            "memory_after_eviction": m1,
+            "requested_before_admission": r0,
+            "requested_after_eviction": r1, "evicted_engine_freed": freed,
+            "wire_v2_bit_identical": wire_same, "unknown_404": unknown_404,
+            "canary_verdict": verdict, "bits_after_quarantine": after,
+            "stats": zoo.stats,
+        }
+        zoo.close()
+        del zoo, ctl
+        gc.collect()
+        out["memory_after_close_minus_before_zoo"] = (_allocated()
+                                                      - m_before_zoo)
+        out["requested_after_close_minus_before_zoo"] = (_requested()
+                                                         - r_before_zoo)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("zoo " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -3896,6 +4356,9 @@ def main(argv=None) -> int:
     # the checkpoint life cycle: hot reload, the canary and the pipeline
     rl = timed("reload", phase_reload, K, smi, fails)
     can = timed("canary", phase_canary, smi, fails)
+    # the int8 lane and the zoo server
+    i8 = timed("int8", phase_int8, K, smi, fails)
+    zo = timed("zoo", phase_zoo, K, P, D, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -3991,6 +4454,16 @@ def main(argv=None) -> int:
                 "conv3x3_bn_relu"), "forwards": r.get("forwards")}
                for tag, r in (("drill", can.get("drill", {})),
                               ("pipeline", can.get("pipeline", {})))}},
+        # the int8 lane (phase 36): ResNet-18 under load in each dtype, 6
+        # a forward, its weights dequantized into the kernel
+        "int8_forward": {"per_forward": 6, **{
+            d: {"launches": i8[d]["k3_launches"],
+                "forwards": i8[d]["forwards"]} for d in DTYPES}},
+        # the zoo (phase 37): every tenant's forwards under churn
+        "zoo_forward": {"launches": zo["launches_k3_k4_k5"][0],
+                        "forwards": zo["forwards"],
+                        "per_forward": {m: v["k3"] for m, v in
+                                        zo["per_forward"].items()}},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -4094,6 +4567,11 @@ def main(argv=None) -> int:
         if kernel == "max_pool3x3_s1":
             kernels[-1]["no_map_ms"] = pool_total("fwd_ms")
             kernels[-1]["no_map_bound_ms"] = pool_total("bound_fwd_ms")
+            # the zoo (phase 37): GoogLeNet's tenant forwards, 9 each
+            kernels[-1]["zoo_forward"] = {
+                "launches": zo["launches_k3_k4_k5"][1],
+                "googlenet_forwards": zo["forwards"].get("GoogLeNet"),
+                "per_forward": 9}
     # K5 over one bucket-128 bf16 MobileNet forward: its 9 launches
     s16 = [r for r in sten if r["dtype"] == "bf16"]
     per5 = [r["sites_per_forward"] for r in s16]
@@ -4122,11 +4600,18 @@ def main(argv=None) -> int:
         "zoo_forwards": {**zoo_forwards(dw), **zoo_forwards(
             {"stencil": zr["stencil"], "served": zr["served"]},
             {m: ZOO_REST_SERVED[m] for m in ("ShuffleNetG2",)})},
+        # the zoo server (phase 37): MobileNet's tenant forwards, 9 each
+        "zoo_server_forward": {
+            "launches": zo["launches_k3_k4_k5"][2],
+            "mobilenet_forwards": zo["forwards"].get("MobileNet"),
+            "per_forward": 9},
     })
     print(f"card: {smi}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)
     if fails:
         print(f"chip_smoke: {len(fails)} check(s) failed", file=sys.stderr)
+        for msg in fails:
+            print(f"  {msg}", file=sys.stderr)
         return 1
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({

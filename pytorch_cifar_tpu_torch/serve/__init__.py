@@ -7,7 +7,9 @@ the event-loop edge and its connection pool
 cycle: the hot-reload watcher
 (:mod:`~pytorch_cifar_tpu_torch.serve.reload`), the canary promotion
 controller and shadow tee (:mod:`~pytorch_cifar_tpu_torch.serve.canary`)
-and its journal (:mod:`~pytorch_cifar_tpu_torch.serve.journal`)."""
+and its journal (:mod:`~pytorch_cifar_tpu_torch.serve.journal`); and the
+multi-tenant zoo server (:mod:`~pytorch_cifar_tpu_torch.serve.tenancy`)
+with the engine's int8 lane."""
 
 from pytorch_cifar_tpu_torch.serve.batcher import (  # noqa: F401
     PRIORITIES,
@@ -49,5 +51,10 @@ from pytorch_cifar_tpu_torch.serve.journal import (  # noqa: F401
 )
 from pytorch_cifar_tpu_torch.serve.reload import CheckpointWatcher  # noqa: F401
 from pytorch_cifar_tpu_torch.serve.router import Router  # noqa: F401
-from pytorch_cifar_tpu_torch.serve.tenancy import UnknownModel  # noqa: F401
+from pytorch_cifar_tpu_torch.serve.tenancy import (  # noqa: F401
+    ModelZooServer,
+    TenantSpec,
+    UnknownModel,
+    load_cost_priors,
+)
 from pytorch_cifar_tpu_torch.serve import wire  # noqa: F401

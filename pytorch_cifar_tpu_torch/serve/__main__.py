@@ -9,6 +9,9 @@
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --http_port 0
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 \\
         --http_port 8100 --edge event --deadline_ms 250 --prom_out s.prom
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --int8
+    python -m pytorch_cifar_tpu_torch.serve \\
+        --models ResNet18,GoogLeNet,MobileNet --max_resident 2 [--int8]
 
 Builds an :class:`InferenceEngine` from seeded random weights, or from
 ``--ckpt`` (a trainer's directory, a ``.msgpack`` of either package, or a
@@ -40,6 +43,19 @@ pool and the depthwise stencil, whichever the model has),
 ``launches_by_kernel``, ``device`` and, with ``--ckpt``, ``ckpt_epoch``
 (``reloads`` and ``reload_skipped`` count the watcher's swaps and deferred
 polls).
+``--int8`` serves the engine's int8 weight-only lane.
+
+``--models A,B=dir,...`` turns the process into a
+:class:`ModelZooServer` hosting every named model (``serve.py``'s zoo
+mode): a tenant without ``=dir`` serves ``<--ckpt>/<Name>`` when that
+directory exists, else seeded random weights; ``--max_resident`` and
+``--zoo_memory_mb`` bound the resident set. The load generator draws each
+request's model from a zipf mix ordered by the card's cost priors
+(``load_cost_priors``), or ``--http_port`` puts the zoo behind the
+frontend (model-routed; an unknown model is a 404). Its JSON line carries
+``serve.py``'s zoo keys (``model: "zoo"``, ``models``, ``resident``,
+``zoo``, ``admission_ms_p50``, ``tenants``) beside the load report's.
+
 Progress goes to stderr. Runs on CUDA unless ``--device cpu`` is given.
 """
 
@@ -47,6 +63,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import signal
 import sys
 import threading
@@ -69,8 +86,12 @@ from pytorch_cifar_tpu_torch.serve import (
     EdgeFrontend,
     InferenceEngine,
     MicroBatcher,
+    ModelZooServer,
     ServingFrontend,
+    TenantSpec,
+    load_cost_priors,
     run_load,
+    zipf_mix,
 )
 from pytorch_cifar_tpu_torch.serve.engine import kernel_launches
 
@@ -117,6 +138,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--poll_s", type=float, default=1.0,
                    help="--watch: seconds between polls")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--int8", action="store_true",
+                   help="serve int8 weights (weight-only, one scale per "
+                        "output channel; not bit-identical to float)")
+    p.add_argument("--models", default="",
+                   help="zoo mode: comma-separated Name[=ckpt_dir] tenants "
+                        "(no model in a request = the first); a tenant "
+                        "without a dir serves <--ckpt>/<Name> if it exists")
+    p.add_argument("--max_resident", type=int, default=0,
+                   help="zoo: resident tenants at most (0 = all)")
+    p.add_argument("--zoo_memory_mb", type=float, default=0.0,
+                   help="zoo: estimated weight-bytes budget (0 = none)")
     p.add_argument("--verify", action="store_true",
                    help="check padded bucket forward == direct forward")
     p.add_argument("--http_port", type=int, default=-1,
@@ -188,9 +220,137 @@ def _serve_http(args, backend, registry) -> dict:
     }
 
 
+def _main_zoo(args, registry, device) -> int:
+    """Zoo mode (``--models``): one :class:`ModelZooServer` under the
+    in-process load generator (a zipf per-model mix from the cost priors)
+    or behind the frontend, and one JSON line with per-tenant blocks
+    beside the load report's keys."""
+    launches0 = kernel_launches()
+    root = args.ckpt or "./checkpoint"
+    specs = []
+    for entry in args.models.split(","):
+        spec = TenantSpec.parse(
+            entry,
+            buckets=tuple(args.buckets),
+            deadline_ms=args.deadline_ms,
+            max_batch=args.max_batch,
+            max_wait_ms=args.max_wait_ms,
+            max_queue=args.max_queue,
+            bulk_share=args.bulk_share,
+            watch=args.watch,
+            poll_s=args.poll_s,
+            seed=args.seed,
+        )
+        if spec.ckpt is None:
+            # per-model ckpt-dir convention: <--ckpt>/<Name> when it
+            # exists; otherwise seeded random weights
+            candidate = os.path.join(root, spec.name)
+            if os.path.isdir(candidate):
+                spec.ckpt = candidate
+            else:
+                print(
+                    f"==> zoo: no checkpoint for {spec.name} (looked in "
+                    f"{candidate}); serving random weights at seed "
+                    f"{args.seed}",
+                    file=sys.stderr,
+                )
+        specs.append(spec)
+    t0 = time.perf_counter()
+    zoo = ModelZooServer(
+        specs,
+        max_resident=args.max_resident,
+        memory_budget_mb=args.zoo_memory_mb,
+        compute_dtype=DTYPES[args.dtype],
+        registry=registry,
+        continuous=args.continuous,
+        int8=args.int8,
+        device=device,
+    )
+    health = zoo.health()
+    print(
+        f"==> zoo: {len(specs)} tenants ({', '.join(zoo.models())}), "
+        f"{len(health['resident'])} resident (max_resident "
+        f"{zoo.max_resident}, budget {args.zoo_memory_mb or 'unbounded'} "
+        f"MiB), warm in {time.perf_counter() - t0:.2f}s on {device}",
+        file=sys.stderr,
+    )
+    exporter = None
+    if args.metrics_out:
+        exporter = MetricsExporter(
+            registry, args.metrics_out, interval_s=args.metrics_every_s
+        ).start()
+    try:
+        if args.http_port >= 0:
+            report = _serve_http(args, zoo, registry)
+        else:
+            report = run_load(
+                zoo,
+                clients=args.clients,
+                requests_per_client=args.requests,
+                images_max=args.request_images_max,
+                seed=args.seed,
+                duration_s=args.duration_s or None,
+                hedge=args.hedge,
+                model_mix=zipf_mix(zoo.models(), priors=load_cost_priors()),
+            )
+        # residency and generations BEFORE the drain tears them down
+        health = zoo.health()
+    finally:
+        zoo.close()
+        if exporter is not None:
+            exporter.stop()
+        if args.prom_out:
+            write_prometheus(args.prom_out, registry.snapshot())
+        if args.trace_out:
+            trace.uninstall()
+
+    s = registry.summary()
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    out = {
+        "model": "zoo",
+        "models": zoo.models(),
+        "default_model": zoo.default_model,
+        "resident": health["resident"],
+        "max_resident": zoo.max_resident,
+        "memory_budget_mb": args.zoo_memory_mb,
+        "platform": device.type,
+        "device": (
+            torch.cuda.get_device_name(device)
+            if device.type == "cuda"
+            else "cpu"
+        ),
+        "dtype": args.dtype,
+        "int8": args.int8,
+        "zoo": zoo.stats,
+        "admission_ms_p50": round(
+            s.get("serve.zoo.admission_ms.p50", 0.0), 3
+        ),
+        "tenants": {
+            name: {
+                k: t.get(k)
+                for k in (
+                    "resident", "admissions", "evictions",
+                    "engine_version", "ckpt_epoch",
+                    "promotion_generation", "compiles",
+                    "aot_cache_hits",
+                )
+            }
+            for name, t in health["tenants"].items()
+        },
+        **{
+            k: (round(v, 3) if isinstance(v, float) else v)
+            for k, v in report.items()
+        },
+        "kernel_launches": sum(launches.values()),
+        "launches_by_kernel": launches,
+    }
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     args = parse_args(argv)
-    if args.watch and not args.ckpt:
+    if args.watch and not args.ckpt and not args.models:
         print("error: --watch needs --ckpt (the directory to watch)",
               file=sys.stderr)
         return 2
@@ -198,6 +358,8 @@ def main(argv=None) -> int:
     registry = MetricsRegistry()
     if args.trace_out:
         trace.install(args.trace_out)
+    if args.models:
+        return _main_zoo(args, registry, device)
     launches0 = kernel_launches()
     source = f"ckpt {args.ckpt}" if args.ckpt else f"seed {args.seed}"
     print(
@@ -206,7 +368,7 @@ def main(argv=None) -> int:
         file=sys.stderr,
     )
     kw = dict(buckets=args.buckets, compute_dtype=DTYPES[args.dtype],
-              registry=registry, device=device)
+              registry=registry, device=device, int8=args.int8)
     if args.ckpt:
         engine = InferenceEngine.from_checkpoint(args.ckpt, args.model, **kw)
     else:
@@ -300,6 +462,7 @@ def main(argv=None) -> int:
             else "cpu"
         ),
         "dtype": args.dtype,
+        "int8": args.int8,
         "n_devices": 1,
         "buckets": list(engine.buckets),
         "max_batch": batcher.max_batch,
