@@ -393,6 +393,54 @@ The int8 lane and the multi-tenant zoo server, after phase 35:
     load, admission ms (first and re-admission), and evictions are
     printed.
 
+The fleet control plane, after phase 37: replica processes of the serving
+CLI on the one card, spawned by the port's launchers (``python -m
+pytorch_cifar_tpu_torch.tools.fleet_run`` / ``...router_run``), ResNet-18
+at full width, bf16, buckets 1/8/32, from a seeded checkpoint under
+``runs/``. Each replica counts its own launches from 0 and reports them in
+the JSON record it prints when drained, which the launcher forwards on
+stderr as ``[replica i] {...}``; every replica of a phase, found in
+``/proc`` by its command line, must be gone at the phase's end (else a
+failed ``orphan_pids`` check, and it is killed):
+
+38. fleet: ``fleet_run`` with min 1, max 3 (band 3-10 in flight a
+    replica, up after 0.5 s), under ``run_async_load`` rounds of 3 s: 4
+    clients (the fleet must hold at 1), 32 (it scales up; once 2 serve,
+    replica 0 is SIGKILLed at once; the stage ends when the corpse is
+    reaped and a replacement serves), 4 again (until a scale-down). No failed
+    request in any stage; every replica that ever served answers a
+    32-image probe (alone in its batch) bit for bit as an in-process bf16
+    engine does, and so does the router; at least 2 scale-ups, 1
+    scale-down, 1 replica failure; SIGTERM: exit 0, every replica exits 0,
+    each drained replica's K3 launches 6 x (batches + 3 warm-ups). The
+    replica count over time, ``spawn_ms``/``drain_ms`` p50, each
+    replica's warm-up and each stage's img/s and p50/p99 are printed;
+39. rollout: the split deployment: this process hosts
+    ``Router(allow_empty=True)``, a ``ServingFrontend`` and a
+    ``JournalFollower``; the controller is ``fleet_run --role controller
+    --journal --rollouts`` (min 2, max 3, the scaling band parked wide
+    open). Generation 1 (seeded) published; the controller seeds 2
+    replicas; under 4 clients' load generation 2 (every weight moved by
+    0.5% of its spread) is published; the controller is SIGKILLed at its
+    ``rollout-surge`` line; the edge serves on headless; ``--resume``
+    adopts exactly the journal-live pids (``/proc`` agrees, no double
+    spawn) and converts the fleet to generation 2, bit for bit a
+    generation-2 engine's; generation 3 (generation 2 with one NaN in a
+    K3 site's BN variance, CRC-valid) is refused at surge ("non-finite"),
+    ``.prev`` restored (live generation 2), the fleet still on the
+    generation-2 bits; no failed request; exit 0 with 1 rollout, 1
+    rollback, no scale event; the journal replays to 1 rollout, 1
+    rollback, no live replica, no pending intent;
+40. zoo_fleet: ``router_run --models ResNet18,MobileNet,GoogLeNet
+    --max_resident 2`` with 2 replicas (ResNet18 from a checkpoint, the
+    others at seed 0): each model's answer bit for bit the same on both
+    replicas and the router, over JSON and binary, twice (evict and
+    re-admit between); 4 clients of a zipf mix, replica 0 SIGKILLed
+    mid-load: no failed request, the corpse evicted, the answers unmoved;
+    SIGTERM: exit 0; the survivor's K3, K4, K5 launches all above 0, K4 and
+    K5 in nines, its ResNet-18 share of K3 in sixes. Each tenant's
+    ``compiles`` is printed (no cold-start cache: item 9d).
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
 nor the ok line.
@@ -411,6 +459,7 @@ import dataclasses
 import gc
 import json
 import os
+import re
 import shutil
 import signal
 import subprocess
@@ -2373,7 +2422,10 @@ CUT_TRAIN, CUT_TEST = 10_240, 2_048  # googlenet_train's cut: 20 steps
 CUT_STEPS, CUT_EVAL_FORWARDS = 20, 3  # a step per 512, 1000-image evals
 SENTINEL_STEP = 25  # the poisoned global step: epoch 1's sixth
 ROLLBACK_STEP = 23  # the rollback run's: epoch 1's fourth
-GUARD_MODELS = ("ResNet18", "SimpleDLA")
+# the guard's cost is measured on ResNet-18 alone: SimpleDLA's (in
+# PERF_HISTORY.md) is not measured again, to keep the whole script near
+# 700 s
+GUARD_MODELS = ("ResNet18",)
 REMAT_RUNS = (("ResNet18", 512), ("EfficientNetB0", 128))
 # the JAX trainer's names on the host-loader path (its OBSERVABILITY.md)
 HOST_METRICS = {
@@ -4273,6 +4325,818 @@ def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
     return out
 
 
+# -- the fleet control plane (phases 38-40) --------------------------------
+
+REPLICA_MODULE = "pytorch_cifar_tpu_torch.serve"  # the replicas' CLI
+FLEET_BUCKETS = ("1", "8", "32")
+FLEET_PROBE = 32  # a probe of max_batch images runs alone in its batch
+FLEET_POLICY = ["--deadline_ms", "4000", "--max_wait_ms", "1",
+                "--control_interval_s", "0.25"]
+# (stage, clients, cap s): each stage runs rounds of FLEET_ROUND_S until
+# its fleet event (ramp: the SIGKILLed replica replaced; settle: a
+# scale-down) or its cap; a spawn takes the controller ~16 s on the card
+FLEET_STAGES = (("baseline", 4, 3.0), ("ramp", 32, 90.0),
+                ("settle", 4, 60.0))
+FLEET_ROUND_S = 3.0
+
+
+class _Launcher:
+    """``python -m argv`` in a child process (a fleet launcher), its
+    stderr lines kept and matched on a thread, its stdout read once it
+    exits."""
+
+    def __init__(self, argv):
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", *argv], cwd=REPO_ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        self.err: list = []
+        self.cond = threading.Condition()
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stderr:
+            with self.cond:
+                self.err.append(line.rstrip("\n"))
+                self.cond.notify_all()
+
+    def wait_line(self, pattern: str, timeout: float):
+        """The first stderr line matching ``pattern`` (a regex), waiting
+        up to ``timeout`` s for it; None if none came (or the child
+        exited without it)."""
+        rx = re.compile(pattern)
+        deadline = time.monotonic() + timeout
+        with self.cond:
+            while True:
+                for line in self.err:
+                    m = rx.search(line)
+                    if m:
+                        return m
+                left = deadline - time.monotonic()
+                if left <= 0 or (self.proc.poll() is not None
+                                 and not self._reader.is_alive()):
+                    return None
+                self.cond.wait(min(left, 0.5))
+
+    def matches(self, pattern: str) -> list:
+        rx = re.compile(pattern)
+        with self.cond:
+            return [m for m in map(rx.search, self.err) if m]
+
+    def replica_records(self) -> dict:
+        """Each drained replica's own JSON record, forwarded by the
+        launcher under its ``[replica i]`` prefix."""
+        return {int(m.group(1)): json.loads(m.group(2)) for m in
+                self.matches(r"^\[replica (\d+)\] (\{.*\})$")}
+
+    def finish(self, timeout: float) -> tuple:
+        """(exit code, stdout lines); the child killed past ``timeout``."""
+        try:
+            self.proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            self.kill()
+        self._reader.join(timeout=30)
+        out = self.proc.stdout.read()
+        return self.proc.returncode, out.strip().splitlines()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+
+    def tail(self, n: int = 30) -> str:
+        with self.cond:
+            return "\n".join(self.err[-n:])
+
+
+def _replica_pids(marker: str) -> set:
+    """Live port replica processes (``python -m
+    pytorch_cifar_tpu_torch.serve``) whose command line names ``marker``,
+    a directory of this phase: what the phase caused, from ``/proc``."""
+    pids = set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+            with open(f"/proc/{d}/stat", "rb") as f:
+                stat = f.read()
+        except OSError:
+            continue  # raced an exit
+        zombie = stat[stat.rindex(b")") + 2:stat.rindex(b")") + 3] == b"Z"
+        if (not zombie and REPLICA_MODULE.encode() in argv
+                and any(marker.encode() in a for a in argv)):
+            pids.add(int(d))
+    return pids
+
+
+def _reap_orphans(tag: str, marker: str, fails: Failures,
+                  settle_s: float = 20.0) -> list:
+    """Every replica this phase caused must be gone once its launchers
+    exited (drains settle for up to ``settle_s``). One still alive is a
+    failed ``orphan_pids`` check, and is killed, so it holds no card
+    memory into later phases. Returns the orphans' pids."""
+    deadline = time.monotonic() + settle_s
+    while _replica_pids(marker) and time.monotonic() < deadline:
+        time.sleep(0.25)
+    orphans = sorted(_replica_pids(marker))
+    fails.check(not orphans, f"{tag}: orphan_pids {orphans}")
+    for pid in orphans:
+        try:
+            os.kill(pid, signal.SIGKILL)
+        except OSError:
+            pass
+    return orphans
+
+
+def _healthz(url: str) -> dict:
+    """A ``/healthz`` payload, also on a 503 (the body is the payload)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return json.load(r)
+    except urllib.error.HTTPError as e:
+        with e:
+            return json.loads(e.read().decode("utf-8"))
+
+
+def _bits(url: str, x: np.ndarray, model=None, wire="binary") -> np.ndarray:
+    from pytorch_cifar_tpu_torch.serve import HttpTarget
+
+    t = HttpTarget(url, wire=wire)
+    try:
+        return t.submit(x, model=model).result()
+    finally:
+        t.close()
+
+
+def _stage_row(rep: dict, **extra) -> dict:
+    return {**{k: rep[k] for k in ("clients", "requests", "images",
+                                   "failed", "hedged", "elapsed_s",
+                                   "img_per_sec", "p50_ms", "p99_ms")},
+            **extra}
+
+
+def _rounds_row(reps: list, **extra) -> dict:
+    """One stage's load rounds together: sums, img/s over the rounds'
+    time, and each round's p50/p99 (percentiles do not add up)."""
+    images = sum(r["images"] for r in reps)
+    elapsed = sum(r["elapsed_s"] for r in reps)
+    return {"clients": reps[0]["clients"] if reps else 0,
+            "rounds": len(reps), **{k: sum(r[k] for r in reps) for k in (
+                "requests", "images", "failed", "hedged")},
+            "elapsed_s": elapsed, "img_per_sec": images / max(elapsed, 1e-9),
+            "p50_ms": [r["p50_ms"] for r in reps],
+            "p99_ms": [r["p99_ms"] for r in reps], **extra}
+
+
+def _k3_drained(tag: str, records: dict, fails: Failures,
+                per_forward: int = 6) -> dict:
+    """K3's launches in each drained replica: 6 a ResNet-18 forward, its
+    warmup (``compiles``) and every batch it served."""
+    out = {}
+    for idx, rec in sorted(records.items()):
+        k3 = rec.get("launches_by_kernel", {}).get("conv3x3_bn_relu", 0)
+        fwd = rec.get("batches", -1) + rec.get("compiles", 0)
+        fails.check(k3 > 0 and k3 % per_forward == 0
+                    and k3 == per_forward * fwd,
+                    f"{tag}: replica {idx} launched K3 {k3} times for "
+                    f"{rec.get('batches')} batches and {rec.get('compiles')} "
+                    "warmup forwards")
+        fails.check(rec.get("device") == torch.cuda.get_device_name(0),
+                    f"{tag}: replica {idx} served on {rec.get('device')}")
+        out[idx] = {"k3_launches": k3, "batches": rec.get("batches"),
+                    "compiles": rec.get("compiles"),
+                    "requests": rec.get("requests"),
+                    "failed": rec.get("failed")}
+    return out
+
+
+def _fleet_reference(ckpt: str, x: np.ndarray) -> np.ndarray:
+    """The logits of an in-process bf16 engine (the replicas' buckets)
+    from ``ckpt`` for ``x``: what every replica must answer."""
+    from pytorch_cifar_tpu_torch.serve import InferenceEngine
+
+    eng = InferenceEngine.from_checkpoint(
+        ckpt, LIFECYCLE_MODEL, buckets=tuple(map(int, FLEET_BUCKETS)),
+        compute_dtype=torch.bfloat16)
+    try:
+        return eng.predict(x)
+    finally:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+class _CountSampler:
+    """The fleet's healthy replicas over time, from its ``/healthz``."""
+
+    def __init__(self, url: str, every_s: float = 0.25):
+        self.url, self.every_s = url, every_s
+        self.t0 = time.monotonic()
+        self.rows: list = []  # (s, healthy) at each change
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.every_s):
+            try:
+                n = int(_healthz(self.url).get("healthy_replicas", -1))
+            except OSError:
+                continue
+            if not self.rows or self.rows[-1][1] != n:
+                self.rows.append((round(time.monotonic() - self.t0, 2), n))
+
+    def stop(self) -> list:
+        self._stop.set()
+        self._thread.join(timeout=10)
+        return self.rows
+
+
+def phase_fleet(smi: str, fails: Failures) -> dict:
+    """An elastic ResNet-18 fleet under a 4 -> 32 -> 4 client ramp, one
+    replica SIGKILLed mid-ramp (phase 38)."""
+    from pytorch_cifar_tpu_torch.serve import run_async_load
+
+    tmp = run_dir("fleet-")
+    out: dict = {"card": smi, "model": LIFECYCLE_MODEL, "dtype": "bf16",
+                 "buckets": list(map(int, FLEET_BUCKETS))}
+    fl = sampler = None
+    try:
+        ckpt = _seeded_ckpt(os.path.join(tmp, "ckpt"), 0, 1, 10.0)
+        probe = np.random.RandomState(7).randint(
+            0, 256, size=(FLEET_PROBE, 32, 32, 3)).astype(np.uint8)
+        want = _fleet_reference(ckpt, probe)
+        fl = _Launcher([
+            "pytorch_cifar_tpu_torch.tools.fleet_run", "--ckpt", ckpt,
+            "--model", LIFECYCLE_MODEL, "--buckets", *FLEET_BUCKETS,
+            "--min_replicas", "1", "--max_replicas", "3",
+            "--probe_s", "0.2", *FLEET_POLICY,
+            # the up-cooldown outlasts the ramp's last round after the
+            # replacement joined: no third spawn (~13 s) into the settle
+            "--queue_high", "10", "--queue_low", "3", "--up_after_s", "0.5",
+            "--down_after_s", "2", "--up_cooldown_s", "5",
+            "--down_cooldown_s", "2"])
+        m = fl.wait_line(r"==> fleet: serving on (\S+)", 300)
+        if not fails.check(m is not None, "fleet: the fleet never served: "
+                           + fl.tail()):
+            return out
+        url = m.group(1)
+        sampler = _CountSampler(url)
+        member_rx = (r"==> fleet: (?:replica (\d+) pid=(\d+) url=(\S+)|"
+                     r"scale-up replica (\d+) url=(\S+) pid=(\d+))")
+        probed: dict = {}
+
+        def probe_members():
+            """Every replica that ever served, probed the moment it is
+            seen: bit for bit the in-process engine's answer."""
+            for mm in fl.matches(member_rx):
+                idx = int(mm.group(1) or mm.group(4))
+                if idx in probed:
+                    continue
+                rurl = mm.group(3) or mm.group(5)
+                try:
+                    probed[idx] = bool(np.array_equal(_bits(rurl, probe),
+                                                      want))
+                except Exception as e:  # the one SIGKILLed mid-probe
+                    probed[idx] = repr(e)[:120]
+
+        def members() -> dict:
+            return {int(mm.group(1) or mm.group(4)): int(mm.group(2)
+                                                         or mm.group(6))
+                    for mm in fl.matches(member_rx)}
+
+        stages, kill = {}, {}
+        probe_members()
+        prober_stop = threading.Event()
+
+        def prober():
+            while not prober_stop.wait(0.5):
+                probe_members()
+
+        def replaced() -> bool:
+            """The SIGKILLed replica reaped and a replica spawned after
+            it, both in rotation."""
+            lines = fl.matches(r"==> fleet: (replica 0 died|scale-up)")
+            died = [i for i, mm in enumerate(lines)
+                    if "died" in mm.group(1)]
+            return bool(died) and len(lines) > died[0] + 1 and int(
+                _healthz(url).get("healthy_replicas", 0)) >= 2
+
+        until = {"baseline": lambda: True, "ramp": replaced,
+                 "settle": lambda: bool(fl.matches(
+                     r"==> fleet: scale-down "))}
+        prober_t = threading.Thread(target=prober, daemon=True)
+        prober_t.start()
+        try:
+            for stage, clients, cap in FLEET_STAGES:
+                reps: list = []
+                done = threading.Event()
+
+                def rounds(clients=clients, cap=cap, seed=len(stages)):
+                    t_end = time.monotonic() + cap
+                    while True:  # at least one round
+                        reps.append(run_async_load(
+                            url, clients=clients,
+                            requests_per_client=10 ** 6, images_max=4,
+                            seed=100 * seed + len(reps),
+                            duration_s=FLEET_ROUND_S, wire="binary"))
+                        if done.is_set() or time.monotonic() >= t_end:
+                            return
+
+                load = threading.Thread(target=rounds)
+                load.start()
+                deadline = time.monotonic() + cap
+                while time.monotonic() < deadline:
+                    if (stage == "ramp" and not kill and int(
+                            _healthz(url).get("healthy_replicas", 0)) >= 2):
+                        # the controller scaled up: SIGKILL the seed at
+                        # once; requests it holds that began while it
+                        # served alone must hedge to the new replica
+                        kill = {"idx": 0, "pid": members()[0],
+                                "at_s": round(time.monotonic()
+                                              - sampler.t0, 2)}
+                        os.kill(kill["pid"], signal.SIGKILL)
+                    if until[stage]() and (stage != "ramp" or kill):
+                        break
+                    time.sleep(0.25)
+                done.set()
+                load.join(timeout=cap + 120)
+                row = _rounds_row(reps, healthy_after=int(
+                    _healthz(url).get("healthy_replicas", -1)))
+                stages[stage] = row
+                fails.check(row["failed"] == 0 and row["requests"] > 0,
+                            f"fleet: {stage}: {row['failed']} failed of "
+                            f"{row['requests']}: " + fl.tail())
+        finally:
+            prober_stop.set()
+            prober_t.join(timeout=60)
+        probe_members()
+        edge_bits = bool(np.array_equal(_bits(url, probe), want))
+        fl.proc.send_signal(signal.SIGTERM)
+        code, lines = fl.finish(timeout=180)
+        counts = sampler.stop()
+        sampler = None
+        rec = json.loads(lines[-1]) if code == 0 and lines else {}
+        fails.check(code == 0 and len(lines) == 1,
+                    f"fleet: fleet_run exited {code} with {len(lines)} "
+                    "lines: " + fl.tail())
+        peak = max(n for _, n in counts)
+        held = counts[0][1] == 1 and stages["baseline"]["healthy_after"] == 1
+        fails.check(held, "fleet: did not hold at 1 replica under the "
+                          f"baseline: {counts}")
+        fails.check(bool(kill), "fleet: never scaled to 2 under the ramp")
+        fails.check(rec.get("scale_ups", 0) >= 2
+                    and rec.get("scale_downs", 0) >= 1
+                    and rec.get("replica_failures", 0) >= 1,
+                    f"fleet: scale_ups {rec.get('scale_ups')}, scale_downs "
+                    f"{rec.get('scale_downs')}, replica_failures "
+                    f"{rec.get('replica_failures')}")
+        fails.check(peak >= 2 and counts[-1][1] < peak,
+                    f"fleet: the replica count over time {counts}")
+        fails.check(len(probed) >= 3 and all(v is True for v in
+                                             probed.values()) and edge_bits,
+                    f"fleet: bits vs the in-process engine: replicas "
+                    f"{probed}, through the router {edge_bits}")
+        fails.check(all(rc == 0 for rc in rec.get("replica_rcs",
+                                                  {"": 1}).values()),
+                    f"fleet: replica exit codes {rec.get('replica_rcs')}")
+        drained = _k3_drained("fleet", fl.replica_records(), fails)
+        fails.check(len(drained) >= 2 and kill.get("idx") not in drained,
+                    f"fleet: drained replica records {sorted(drained)}")
+        out.update({
+            "stages": stages, "kill": kill, "replica_count": counts,
+            "held_at_min_baseline": held, "replica_bits": probed,
+            "router_bits": edge_bits,
+            "compiles": {int(mm.group(1)): int(mm.group(2)) for mm in
+                         fl.matches(r"replica (\d+) .*compiles=(\d+)")},
+            "drain_s": [float(mm.group(1)) for mm in fl.matches(
+                r"==> fleet: scale-down .*drain_s=(\S+)")],
+            # each replica's own warm-up of its three buckets, of the
+            # controller's spawn (process, torch, CUDA, checkpoint, warm-up)
+            "warm_s": {int(mm.group(1)): float(mm.group(2)) for mm in
+                       fl.matches(r"^\[replica (\d+)\] ==> warm: \d+ "
+                                  r"buckets in ([\d.]+)s")},
+            "drained": drained, "fleet_rc": code,
+            **{k: rec.get(k) for k in (
+                "scale_ups", "scale_downs", "replica_failures",
+                "spawn_ms_p50", "drain_ms_p50", "replicas_final",
+                "router")},
+        })
+    finally:
+        if sampler is not None:
+            sampler.stop()
+        if fl is not None:
+            fl.kill()
+        out["orphan_pids"] = _reap_orphans("fleet", tmp, fails)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("fleet " + json.dumps(out), flush=True)
+    return out
+
+
+def _journal_state(path: str):
+    from pytorch_cifar_tpu_torch.serve.journal import (
+        FleetJournalState,
+        replay_journal,
+    )
+
+    return FleetJournalState.from_records(replay_journal(path)[0])
+
+
+class _Background:
+    """Rounds of ``run_async_load`` (4 clients, U[1, 4] images, 30% bulk)
+    against ``url`` on a thread until stopped; the rounds' reports."""
+
+    def __init__(self, url: str, round_s: float = 4.0):
+        from pytorch_cifar_tpu_torch.serve import run_async_load
+
+        self.reports: list = []
+        self._stop = threading.Event()
+
+        def loop():
+            n = 0
+            while not self._stop.is_set():
+                n += 1
+                self.reports.append(run_async_load(
+                    url, clients=4, requests_per_client=10 ** 6,
+                    images_max=4, seed=100 + n, duration_s=round_s,
+                    bulk_fraction=0.3, wire="binary"))
+
+        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(timeout=120)
+        r = self.reports
+        return {"rounds": len(r),
+                "requests": sum(x["requests"] for x in r),
+                "failed": sum(x["failed"] for x in r),
+                "hedged": sum(x["hedged"] for x in r),
+                "p50_ms_max": max((x["p50_ms"] for x in r), default=0.0),
+                "p99_ms_max": max((x["p99_ms"] for x in r), default=0.0),
+                "img_per_sec_min": min((x["img_per_sec"] for x in r),
+                                       default=0.0)}
+
+
+def phase_rollout(smi: str, fails: Failures) -> dict:
+    """The split deployment: this process hosts the edge (router,
+    frontend, journal follower); the journaled controller runs as
+    ``fleet_run --role controller``, is SIGKILLed mid-rollout, resumed,
+    and rolls back a NaN generation (phase 39)."""
+    from pytorch_cifar_tpu_torch import faults
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve import (
+        JournalFollower,
+        Router,
+        ServingFrontend,
+    )
+    from pytorch_cifar_tpu_torch.serve.fleet import live_generation_probe
+    from pytorch_cifar_tpu_torch.train.checkpoint import publish_checkpoint
+
+    tmp = run_dir("rollout-")
+    out: dict = {"card": smi, "model": LIFECYCLE_MODEL, "dtype": "bf16"}
+    live, jpath = os.path.join(tmp, "live"), os.path.join(tmp, "fleet.journal")
+    ctls, load = [], None
+    router = front = follower = None
+    try:
+        # generation 1: a seeded ResNet-18; 2: the same, every weight
+        # moved by 0.5% of its spread (the golden gate's argmaxes stay); 3: generation 2 with one NaN in a
+        # K3 site's BN variance, CRC-valid (the gate must refuse it)
+        gens = {1: _seeded_ckpt(os.path.join(tmp, "g1"), 0, 1, 10.0)}
+        gens[2] = shutil.copytree(gens[1], os.path.join(tmp, "g2"))
+        faults.regress_checkpoint(gens[2], scale=0.005, seed=2)
+        gens[3] = shutil.copytree(gens[2], os.path.join(tmp, "g3"))
+        faults.nan_leaf(gens[3], K3_SITE_VAR)
+        probe = np.random.RandomState(7).randint(
+            0, 256, size=(FLEET_PROBE, 32, 32, 3)).astype(np.uint8)
+        want = {g: _fleet_reference(gens[g], probe) for g in (1, 2)}
+        fails.check(not np.array_equal(want[1], want[2]),
+                    "rollout: generations 1 and 2 answer the same bits")
+        publish_checkpoint(gens[1], live,
+                           extra_meta={"promotion": {"generation": 1}})
+
+        registry = MetricsRegistry()
+        router = Router([], allow_empty=True, registry=registry,
+                        probe_s=0.2).start()
+        front = ServingFrontend(router, registry=registry).start()
+        follower = JournalFollower(jpath, router, poll_s=0.2).start()
+        url = front.url
+
+        def controller(resume: bool) -> _Launcher:
+            ctls.append(_Launcher([
+                "pytorch_cifar_tpu_torch.tools.fleet_run", "--ckpt", live,
+                "--model", LIFECYCLE_MODEL, "--role", "controller",
+                "--fleet_url", url, "--journal", jpath, "--rollouts",
+                "--min_replicas", "2", "--max_replicas", "3",
+                "--buckets", *FLEET_BUCKETS, *FLEET_POLICY,
+                # the scaling band parked wide open: the only actuations
+                # are the rolling deploy's
+                "--queue_high", "1000", "--queue_low", "0",
+                "--up_after_s", "600", "--down_after_s", "600",
+                "--up_cooldown_s", "600", "--down_cooldown_s", "600",
+                *(["--resume"] if resume else [])]))
+            return ctls[-1]
+
+        def on_gen(gen: int) -> bool:
+            reps = _healthz(url).get("replicas", [])
+            return len(reps) == 2 and all(
+                r.get("healthy") and r.get("generation") == gen
+                for r in reps)
+
+        def fleet_on(gen: int) -> tuple:
+            """(the edge's two replicas healthy on ``gen``, as its probes
+            see them within 30 s; bits of each replica and of the edge
+            equal to a generation-``gen`` engine's)."""
+            on = _wait_for(lambda: on_gen(gen), 30.0, 0.1)
+            reps = _healthz(url).get("replicas", [])
+            bits = [np.array_equal(_bits(r["url"], probe), want[gen])
+                    for r in reps] + [np.array_equal(_bits(url, probe),
+                                                     want[gen])]
+            return on, all(bits)
+
+        def live_pids() -> set:
+            return {int(i["pid"]) for i in
+                    _journal_state(jpath).live_replicas().values()}
+
+        t0 = time.perf_counter()
+        c1 = controller(False)
+        deadline = time.monotonic() + 300
+        while time.monotonic() < deadline and c1.proc.poll() is None:
+            if on_gen(1) and _journal_state(jpath).generation == 1:
+                break
+            time.sleep(0.25)
+        seeded = fleet_on(1)
+        out["seed_s"] = time.perf_counter() - t0
+        if not fails.check(seeded == (True, True),
+                           f"rollout: the seeded fleet (on gen 1, bits) "
+                           f"{seeded}: " + c1.tail()):
+            return out
+        load = _Background(url)
+
+        # generation 2 under load; SIGKILL the controller at its surge
+        t0 = time.perf_counter()
+        publish_checkpoint(gens[2], live,
+                           extra_meta={"promotion": {"generation": 2}})
+        surged = c1.wait_line(r"==> fleet: rollout-surge replica", 300)
+        killed_mid = surged is not None and not c1.matches(
+            r"rollout done gen=2")
+        c1.kill()
+        fails.check(killed_mid, "rollout: the controller was not killed "
+                                "mid-rollout: " + c1.tail())
+        time.sleep(1.5)  # headless: the edge keeps serving
+        headless = int(_healthz(url).get("healthy_replicas", -1))
+        st = _journal_state(jpath)
+        in_flight = st.rollout is not None
+        pids_at_kill = live_pids()
+        fails.check(headless >= 2 and in_flight and len(pids_at_kill) >= 3,
+                    f"rollout: headless healthy {headless}, rollout in the "
+                    f"journal {in_flight}, journal-live pids {pids_at_kill}")
+
+        c2 = controller(True)
+        resumed = c2.wait_line(r"controller resumed from journal", 120)
+        done = c2.wait_line(r"==> fleet: rollout done gen=2", 300)
+        out["rollout_s"] = time.perf_counter() - t0
+        fails.check(resumed is not None and done is not None,
+                    "rollout: the resumed controller never finished: "
+                    + c2.tail())
+        # no double spawn: /proc (this phase's replicas) is the journal
+        want_pids = live_pids()
+        deadline = time.monotonic() + 20
+        while (time.monotonic() < deadline
+               and _replica_pids(live) != want_pids):
+            time.sleep(0.25)
+        proc_pids = _replica_pids(live)
+        adopted = [int(m.group(1)) for m in
+                   c2.matches(r"==> fleet: adopt replica \d+ pid=(\d+)")]
+        fails.check(proc_pids == want_pids
+                    and sorted(adopted) == sorted(pids_at_kill),
+                    f"rollout: /proc {sorted(proc_pids)}, journal "
+                    f"{sorted(want_pids)}, adopted {adopted} of "
+                    f"{sorted(pids_at_kill)} live at the kill")
+        converted = fleet_on(2)
+        fails.check(converted == (True, True),
+                    f"rollout: converted to gen 2 (on, bits) {converted}")
+
+        # generation 3 (NaN): refused at surge, .prev restored, rolled back
+        t0 = time.perf_counter()
+        publish_checkpoint(gens[3], live,
+                           extra_meta={"promotion": {"generation": 3}})
+        halted = c2.wait_line(r"==> fleet: rollout halt gen=3", 300)
+        back = c2.wait_line(r"==> fleet: rollout rolled back to gen=2", 300)
+        out["rollback_s"] = time.perf_counter() - t0
+        canary = [m.string for m in c2.matches(r"rollout canary failed")]
+        live_gen = live_generation_probe(live)()
+        after = fleet_on(2)
+        fails.check(halted is not None and back is not None
+                    and len(canary) == 1 and "non-finite" in canary[0]
+                    and live_gen == 2 and after == (True, True),
+                    f"rollout: NaN gen 3 halted {halted is not None}, "
+                    f"rolled back {back is not None}, canary {canary}, "
+                    f"live gen {live_gen}, fleet (on 2, bits) {after}")
+        traffic = load.stop()
+        load = None
+        fails.check(traffic["failed"] == 0 and traffic["requests"] > 0,
+                    f"rollout: {traffic['failed']} failed of "
+                    f"{traffic['requests']} requests")
+
+        c2.proc.send_signal(signal.SIGTERM)
+        code, lines = c2.finish(timeout=180)
+        rec = json.loads(lines[-1]) if code == 0 and lines else {}
+        fails.check(code == 0 and rec.get("resumed") is True
+                    and rec.get("journal_replays") == 1
+                    and rec.get("adoptions") == len(pids_at_kill)
+                    and rec.get("rollouts") == 1
+                    and rec.get("rollbacks") == 1
+                    and rec.get("generation") == 2
+                    and rec.get("scale_ups") == 0
+                    and rec.get("scale_downs") == 0,
+                    f"rollout: controller exit {code}, record {rec}: "
+                    + c2.tail())
+        st = _journal_state(jpath)
+        replay = {"rollouts": st.rollouts, "rollbacks": st.rollbacks,
+                  "live_replicas": sorted(st.live_replicas()),
+                  "spawn_intents": st.spawn_intents,
+                  "generation": st.generation}
+        fails.check(replay == {"rollouts": 1, "rollbacks": 1,
+                               "live_replicas": [], "spawn_intents": {},
+                               "generation": 2},
+                    f"rollout: the journal replays to {replay}")
+        drained = _k3_drained("rollout", c2.replica_records(), fails)
+        out.update({
+            "killed_mid_rollout": killed_mid,
+            "rollout_in_flight_at_kill": in_flight,
+            "healthy_while_headless": headless,
+            "adopted_pids": adopted, "pids_at_kill": sorted(pids_at_kill),
+            "proc_pids_after_resume": sorted(proc_pids),
+            "converted_to_gen2": converted, "canary_failed": canary,
+            "live_gen_after_rollback": live_gen,
+            "fleet_after_rollback": after, "journal_replay": replay,
+            "compiles": {int(m.group(1)): int(m.group(2)) for m in
+                         ctls[0].matches(r"replica (\d+) .*compiles=(\d+)")
+                         + c2.matches(r"replica (\d+) .*compiles=(\d+)")},
+            "traffic": traffic, "controller_rc": code,
+            "drained": drained,
+            **{k: rec.get(k) for k in ("adoptions", "rollouts",
+                                       "rollbacks", "journal_replays",
+                                       "journal_seq")},
+        })
+    finally:
+        if load is not None:
+            load.stop()
+        for c in ctls:
+            c.kill()
+        # every controller is gone: a replica still alive is an orphan,
+        # reported before it is killed
+        out["orphan_pids"] = _reap_orphans("rollout", live, fails)
+        if follower is not None:
+            follower.stop()
+        if front is not None:
+            front.stop()
+        if router is not None:
+            router.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("rollout " + json.dumps(out), flush=True)
+    return out
+
+
+ZOO_FLEET = ("ResNet18", "MobileNet", "GoogLeNet")
+
+
+def phase_zoo_fleet(smi: str, fails: Failures) -> dict:
+    """Two zoo replicas behind ``tools.router_run --models``, one
+    SIGKILLed under a zipf mix (phase 40)."""
+    from pytorch_cifar_tpu_torch.serve import (
+        HttpTarget,
+        load_cost_priors,
+        run_load,
+        zipf_mix,
+    )
+
+    tmp = run_dir("zoofleet-")
+    out: dict = {"card": smi, "models": list(ZOO_FLEET), "dtype": "bf16",
+                 "max_resident": 2}
+    rr = None
+    try:
+        root = os.path.join(tmp, "ckpt")
+        _seeded_ckpt(os.path.join(root, "ResNet18"), 0, 1, 10.0)
+        rr = _Launcher([
+            "pytorch_cifar_tpu_torch.tools.router_run", "--ckpt", root,
+            "--models", ",".join(ZOO_FLEET), "--max_resident", "2",
+            "--replicas", "2", "--buckets", *FLEET_BUCKETS,
+            "--deadline_ms", "4000", "--probe_s", "0.2",
+            "--max_wait_ms", "1"])
+        m = rr.wait_line(r"==> router: serving on (\S+)", 300)
+        if not fails.check(m is not None, "zoo_fleet: the router never "
+                           "served: " + rr.tail()):
+            return out
+        url = m.group(1)
+        reps = {int(mm.group(1)): (int(mm.group(2)), mm.group(3)) for mm in
+                rr.matches(r"==> replica (\d+) pid=(\d+) url=(\S+)")}
+        x = np.random.RandomState(7).randint(
+            0, 256, size=(3, 32, 32, 3)).astype(np.uint8)
+
+        def answers(urls) -> dict:
+            """Each model's answer from each url over both encodings
+            (three models through two resident slots: evict and
+            re-admit on every pass)."""
+            return {(mdl, u, w): _bits(u, x, model=mdl, wire=w)
+                    for mdl in ZOO_FLEET for u in urls
+                    for w in ("json", "binary")}
+
+        urls = [reps[0][1], reps[1][1], url]
+        passes = [answers(urls), answers(urls)]
+        first = {mdl: passes[0][(mdl, url, "binary")] for mdl in ZOO_FLEET}
+        same = {mdl: all(np.array_equal(p[(mdl, u, w)], first[mdl])
+                         for p in passes for u in urls
+                         for w in ("json", "binary"))
+                for mdl in ZOO_FLEET}
+        fails.check(all(same.values()), f"zoo_fleet: per-model bits "
+                                        f"across the fleet {same}")
+
+        mix = zipf_mix(list(ZOO_FLEET), priors=load_cost_priors())
+
+        def load_phase(secs, seed):
+            t = HttpTarget(url, wire="mixed")
+            try:
+                return run_load(t, clients=4, requests_per_client=10 ** 6,
+                                images_max=4, seed=seed, duration_s=secs,
+                                bulk_fraction=0.3, model_mix=mix)
+            finally:
+                t.close()
+
+        steady = load_phase(4.0, 1)
+        killer = threading.Timer(2.0, os.kill, (reps[0][0], signal.SIGKILL))
+        killer.start()
+        killed = load_phase(5.0, 2)
+        killer.join()
+        post = load_phase(3.0, 3)
+        stages = {"steady": steady, "kill": killed, "post_evict": post}
+        for tag, rep in stages.items():
+            fails.check(rep["failed"] == 0 and rep["requests"] > 0,
+                        f"zoo_fleet: {tag}: {rep['failed']} failed of "
+                        f"{rep['requests']}")
+        survivor = _healthz(reps[1][1]).get("tenants", {})
+        churned = sorted(n for n, t in survivor.items()
+                         if int(t.get("evictions") or 0) >= 1)
+        unmoved = {mdl: bool(np.array_equal(_bits(url, x, model=mdl),
+                                            first[mdl]))
+                   for mdl in ZOO_FLEET}
+        healthy = int(_healthz(url).get("healthy_replicas", -1))
+        fails.check(all(unmoved.values()) and healthy == 1 and churned,
+                    f"zoo_fleet: after the kill: bits {unmoved}, healthy "
+                    f"{healthy}, churned tenants {churned}")
+
+        rr.proc.send_signal(signal.SIGTERM)
+        code, lines = rr.finish(timeout=180)
+        rec = json.loads(lines[-1]) if code == 0 and lines else {}
+        fails.check(code == 0 and len(lines) == 1
+                    and rec.get("router", {}).get("evictions", 0) >= 1
+                    and rec.get("replica_rcs", [None, None])[1] == 0,
+                    f"zoo_fleet: router_run exited {code}, record {rec}: "
+                    + rr.tail())
+        drained = rr.replica_records()
+        last = drained.get(1, {})
+        lk = last.get("launches_by_kernel", {})
+        k3, k4, k5 = (lk.get(k, 0) for k in (
+            "conv3x3_bn_relu", "max_pool3x3_s1", "depthwise_stencil"))
+        # GoogLeNet 28 K3 + 9 K4 a forward, MobileNet 1 K3 + 9 K5,
+        # ResNet18 6 K3: the ResNet-18 share of K3 a whole multiple of 6
+        rest = k3 - 28 * (k4 // 9) - k5 // 9
+        fails.check(0 not in (k3, k4, k5) and k4 % 9 == 0 and k5 % 9 == 0
+                    and rest > 0 and rest % 6 == 0
+                    and sorted(drained) == [1],
+                    f"zoo_fleet: the survivor's launches (K3, K4, K5) "
+                    f"({k3}, {k4}, {k5}); drained records {sorted(drained)}")
+        out.update({
+            "per_model_bit_identical": same, "post_kill_unmoved": unmoved,
+            "mix": mix, "churned_tenants": churned,
+            "healthy_after": healthy, "router_rc": code,
+            "stages": {k: _stage_row(v, per_model=v.get("per_model"))
+                       for k, v in stages.items()},
+            "survivor_launches": {"k3": k3, "k4": k4, "k5": k5},
+            # no cold-start cache yet: each admission warms its buckets
+            "survivor_compiles": {n: t.get("compiles")
+                                  for n, t in survivor.items()},
+            "survivor_tenants": {n: {k: t.get(k) for k in (
+                "resident", "admissions", "evictions", "compiles")}
+                for n, t in survivor.items()},
+            "replica_compiles": rec.get("replica_compiles"),
+            "router": rec.get("router"),
+        })
+    finally:
+        if rr is not None:
+            rr.kill()
+        out["orphan_pids"] = _reap_orphans("zoo_fleet", tmp, fails)
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("zoo_fleet " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -4359,6 +5223,11 @@ def main(argv=None) -> int:
     # the int8 lane and the zoo server
     i8 = timed("int8", phase_int8, K, smi, fails)
     zo = timed("zoo", phase_zoo, K, P, D, smi, fails)
+    # the fleet control plane, through the port's launchers: an elastic
+    # fleet, the split deployment's rolling deploy, and a zoo fleet
+    fle = timed("fleet", phase_fleet, smi, fails)
+    ro = timed("rollout", phase_rollout, smi, fails)
+    zf = timed("zoo_fleet", phase_zoo_fleet, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -4464,6 +5333,16 @@ def main(argv=None) -> int:
                         "forwards": zo["forwards"],
                         "per_forward": {m: v["k3"] for m, v in
                                         zo["per_forward"].items()}},
+        # the fleet phases (38-40): each drained replica process's own
+        # count, 6 a ResNet-18 forward (warmup and batches), and the zoo
+        # fleet's survivor (ResNet18, GoogLeNet and MobileNet tenants)
+        "fleet_forward": {
+            "per_forward": 6,
+            "fleet_replicas": {i: r["k3_launches"] for i, r in
+                               fle.get("drained", {}).items()},
+            "rollout_replicas": {i: r["k3_launches"] for i, r in
+                                 ro.get("drained", {}).items()},
+            "zoo_fleet_survivor": zf.get("survivor_launches", {}).get("k3")},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -4572,6 +5451,9 @@ def main(argv=None) -> int:
                 "launches": zo["launches_k3_k4_k5"][1],
                 "googlenet_forwards": zo["forwards"].get("GoogLeNet"),
                 "per_forward": 9}
+            # the zoo fleet's surviving replica process (phase 40)
+            kernels[-1]["zoo_fleet_survivor_launches"] = zf.get(
+                "survivor_launches", {}).get("k4")
     # K5 over one bucket-128 bf16 MobileNet forward: its 9 launches
     s16 = [r for r in sten if r["dtype"] == "bf16"]
     per5 = [r["sites_per_forward"] for r in s16]
@@ -4605,6 +5487,9 @@ def main(argv=None) -> int:
             "launches": zo["launches_k3_k4_k5"][2],
             "mobilenet_forwards": zo["forwards"].get("MobileNet"),
             "per_forward": 9},
+        # the zoo fleet's surviving replica process (phase 40)
+        "zoo_fleet_survivor_launches": zf.get("survivor_launches",
+                                              {}).get("k5"),
     })
     print(f"card: {smi}", flush=True)
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f}s", flush=True)

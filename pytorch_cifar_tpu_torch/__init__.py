@@ -14,13 +14,15 @@ with ``device="cpu"``; nothing falls back on its own.
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` unless the caller names
     another. Raises when CUDA is asked for (explicitly or by default) and
-    absent — a silent CPU fallback would report CPU numbers as the card's."""
+    absent — a silent CPU fallback would report CPU numbers as the card's.
+    (``torch`` is imported here, not with the package: the fleet
+    launchers import the package and never touch a device.)"""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -22,8 +22,6 @@ import threading
 import time
 from typing import Optional
 
-import torch
-
 
 class _NullSpan:
     """Shared no-op context manager: the whole disabled-mode cost."""
@@ -51,6 +49,8 @@ class _Span:
 
     def __enter__(self):
         if self._tracer.profiler_annotations:
+            import torch  # loaded already wherever a forward runs
+
             self._rf = torch.profiler.record_function(self._name)
             self._rf.__enter__()
         self._t0 = time.perf_counter_ns()

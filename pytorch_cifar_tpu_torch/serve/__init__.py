@@ -9,52 +9,62 @@ cycle: the hot-reload watcher
 controller and shadow tee (:mod:`~pytorch_cifar_tpu_torch.serve.canary`)
 and its journal (:mod:`~pytorch_cifar_tpu_torch.serve.journal`); and the
 multi-tenant zoo server (:mod:`~pytorch_cifar_tpu_torch.serve.tenancy`)
-with the engine's int8 lane."""
+with the engine's int8 lane; and the fleet control plane
+(:mod:`~pytorch_cifar_tpu_torch.serve.fleet`): the autoscaling, journaled,
+restart-safe :class:`FleetController` with its rolling deploys, and the
+:class:`JournalFollower` that keeps a remote edge's router on the
+journal's membership.
 
-from pytorch_cifar_tpu_torch.serve.batcher import (  # noqa: F401
-    PRIORITIES,
-    BatcherClosed,
-    DeadlineExceeded,
-    MicroBatcher,
-    QueueFull,
-)
-from pytorch_cifar_tpu_torch.serve.canary import (  # noqa: F401
-    CanaryBudget,
-    GoldenSet,
-    PromotionController,
-    ShadowBackend,
-)
-from pytorch_cifar_tpu_torch.serve.engine import (  # noqa: F401
-    InferenceEngine,
-    load_checkpoint_trees,
-)
-from pytorch_cifar_tpu_torch.serve.edge import (  # noqa: F401
-    EdgeFrontend,
-    EdgePool,
-)
-from pytorch_cifar_tpu_torch.serve.frontend import (  # noqa: F401
-    BatcherBackend,
-    ServingFrontend,
-)
-from pytorch_cifar_tpu_torch.serve.loadgen import (  # noqa: F401
-    HttpTarget,
-    percentile_ms,
-    run_async_load,
-    run_load,
-    zipf_mix,
-)
-from pytorch_cifar_tpu_torch.serve.journal import (  # noqa: F401
-    ControllerJournal,
-    FleetJournalState,
-    JournalCorrupt,
-    replay_journal,
-)
-from pytorch_cifar_tpu_torch.serve.reload import CheckpointWatcher  # noqa: F401
-from pytorch_cifar_tpu_torch.serve.router import Router  # noqa: F401
-from pytorch_cifar_tpu_torch.serve.tenancy import (  # noqa: F401
-    ModelZooServer,
-    TenantSpec,
-    UnknownModel,
-    load_cost_priors,
-)
-from pytorch_cifar_tpu_torch.serve import wire  # noqa: F401
+The names below are imported on first use (PEP 562), not with the
+package: the fleet launchers (``tools/router_run.py``,
+``tools/fleet_run.py``) import the router, frontends, journal and
+controller, never a device, and so start without loading torch (most of
+a replica's start on the card)."""
+
+import importlib
+
+# exported name -> the submodule that defines it
+_EXPORTS = {
+    "batcher": (
+        "PRIORITIES", "BatcherClosed", "DeadlineExceeded", "MicroBatcher",
+        "QueueFull", "UnknownModel",
+    ),
+    "canary": (
+        "CanaryBudget", "GoldenSet", "PromotionController", "ShadowBackend",
+    ),
+    "engine": ("InferenceEngine", "load_checkpoint_trees"),
+    "edge": ("EdgeFrontend", "EdgePool"),
+    "fleet": (
+        "FleetController", "FleetPolicy", "FleetSignals", "HttpGoldenGate",
+        "ScalingEvaluator", "recover_controller",
+    ),
+    "frontend": ("BatcherBackend", "ServingFrontend"),
+    "loadgen": (
+        "HttpTarget", "percentile_ms", "run_async_load", "run_load",
+        "zipf_mix",
+    ),
+    "journal": (
+        "ControllerJournal", "FleetJournalState", "JournalCorrupt",
+        "JournalFollower", "replay_journal",
+    ),
+    "reload": ("CheckpointWatcher",),
+    "router": ("Router",),
+    "tenancy": ("ModelZooServer", "TenantSpec", "load_cost_priors"),
+}
+_HOME = {name: mod for mod, names in _EXPORTS.items() for name in names}
+__all__ = sorted(_HOME) + ["wire"]
+
+
+def __getattr__(name: str):
+    if name in _HOME:
+        module = importlib.import_module(f"{__name__}.{_HOME[name]}")
+        value = getattr(module, name)
+        globals()[name] = value
+        return value
+    if name in _EXPORTS or name == "wire":  # a submodule, as before
+        return importlib.import_module(f"{__name__}.{name}")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(__all__))

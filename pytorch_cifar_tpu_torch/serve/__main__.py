@@ -94,6 +94,7 @@ from pytorch_cifar_tpu_torch.serve import (
     zipf_mix,
 )
 from pytorch_cifar_tpu_torch.serve.engine import kernel_launches
+from pytorch_cifar_tpu_torch.utils.signals import wait_for_stop
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 EDGES = {"threaded": ServingFrontend, "event": EdgeFrontend}
@@ -187,7 +188,7 @@ def _serve_http(args, backend, registry) -> dict:
     print(f"==> http: serving on {frontend.url}", file=sys.stderr,
           flush=True)
     t0 = time.perf_counter()
-    stop.wait(args.duration_s or None)
+    wait_for_stop(stop, args.duration_s)
     try:
         print("==> http: draining", file=sys.stderr, flush=True)
     except OSError:

@@ -96,6 +96,17 @@ class DeadlineExceeded(RuntimeError):
     """The request's deadline passed while it was still queued."""
 
 
+class UnknownModel(LookupError):
+    """A request named a model this server does not host — the HTTP
+    frontend maps this to 404 (the request was well-formed; the tenant
+    is absent). Deliberately NOT a ValueError: the frontend's 400
+    mapping must never swallow it. Raised by the zoo server
+    (``serve/tenancy.py``, which JAX's package defines it in) and the
+    router; it lives here with the other backend errors, so that the
+    router, frontends and load generators import no engine (and no
+    torch)."""
+
+
 # request-priority classes (SERVING.md): order = dispatch order
 PRIORITIES = ("interactive", "bulk")
 

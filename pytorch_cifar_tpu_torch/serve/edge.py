@@ -99,13 +99,13 @@ from pytorch_cifar_tpu_torch.serve.batcher import (
     BatcherClosed,
     DeadlineExceeded,
     QueueFull,
+    UnknownModel,
 )
 from pytorch_cifar_tpu_torch.serve.frontend import (
     MAX_IMAGES_PER_REQUEST,
     decode_predict_request,
     encode_predict_response,
 )
-from pytorch_cifar_tpu_torch.serve.tenancy import UnknownModel
 
 log = logging.getLogger(__name__)
 

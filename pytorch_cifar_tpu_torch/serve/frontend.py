@@ -34,7 +34,7 @@ from the status code alone):
 
 - 400 malformed request (bad JSON, bad shape/dtype, unknown priority),
 - 404 / 405 unknown route / method,
-- 404 :class:`~pytorch_cifar_tpu_torch.serve.tenancy.UnknownModel` — a
+- 404 :class:`~pytorch_cifar_tpu_torch.serve.batcher.UnknownModel` — a
   well-formed request naming a model this backend does not serve,
 - 429 :class:`~pytorch_cifar_tpu_torch.serve.batcher.QueueFull` —
   admission control said back off and retry,
@@ -84,8 +84,8 @@ from pytorch_cifar_tpu_torch.serve.batcher import (
     BatcherClosed,
     DeadlineExceeded,
     QueueFull,
+    UnknownModel,
 )
-from pytorch_cifar_tpu_torch.serve.tenancy import UnknownModel
 
 log = logging.getLogger(__name__)
 

@@ -1,4 +1,4 @@
-"""Durable control-plane journal: the canary's vetting ledger.
+"""Durable control-plane journal: the fleet controller's and the canary's.
 
 A copy of ``pytorch_cifar_tpu/serve/journal.py`` for the port (stdlib
 only, so the record bytes are the JAX package's and a journal written by
@@ -6,7 +6,8 @@ either package replays in the other):
 
 - :class:`ControllerJournal`: an append-only journal. Every record is
   CRC-framed, written, flushed and fsync'd before ``append`` returns, so
-  the actuation it records (a vetting verdict, a publish) never outruns
+  the actuation it records (a spawn, a drain, a vetting verdict, a
+  publish) never outruns
   its durable evidence. ``compact`` writes a snapshot payload first and
   its commit marker last (tmp + fsync + rename each), then truncates the
   live file.
@@ -17,11 +18,14 @@ either package replays in the other):
   control-plane state: replicas, scaling stamps, rollout phase and the
   canary's vetting ledger (``vet-begin``/``vet-verdict``), from which a
   relaunched :class:`~pytorch_cifar_tpu_torch.serve.canary.PromotionController`
-  resumes its promotion generation.
-
-The JAX module's ``JournalFollower`` (a membership syncer that diffs the
-journal's replicas against a live router) is not here: it needs the
-router's membership calls, which come with the fleet controller.
+  resumes its promotion generation, and from which
+  :func:`~pytorch_cifar_tpu_torch.serve.fleet.recover_controller` rebuilds
+  a fleet controller.
+- :class:`JournalFollower`: a membership syncer for a data plane whose
+  controller is another process. It polls the journal, reduces it and
+  diffs the replicas against a live
+  :class:`~pytorch_cifar_tpu_torch.serve.router.Router` (add the missing,
+  remove the gone), so the edge and the controller can die independently.
 
 Telemetry: ``serve.fleet.journal_appends`` counts durable appends.
 """
@@ -428,3 +432,71 @@ class FleetJournalState:
         if self.vetting is not None:
             out.append({"op": "vet-begin", **self.vetting})
         return out
+
+
+class JournalFollower:
+    """Membership syncer for a data plane whose controller is a SEPARATE
+    process (the durable-control-plane drill): polls the journal,
+    reduces it, and declaratively diffs the live replica set against the
+    router — add what the journal has and the router lacks, remove what
+    the router has and the journal dropped. Idempotent by construction
+    (``Router.add_replica`` ignores a known URL), so a poll racing a
+    compaction or a torn tail converges on the next sweep; a CORRUPT
+    journal holds the last applied membership and logs (the edge must
+    keep serving whatever fleet it has)."""
+
+    def __init__(self, path: str, router, *, poll_s: float = 0.2):
+        self.path = path
+        self.router = router
+        self.poll_s = float(poll_s)
+        self._stop = threading.Event()
+        self._lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.syncs = 0
+        self.corrupt_polls = 0
+
+    def sync_once(self) -> Dict[str, dict]:
+        """One poll: returns the journal's live replica view after
+        applying the membership diff to the router."""
+        try:
+            records, _ = replay_journal(self.path)
+        except JournalCorrupt as e:
+            with self._lock:
+                self.corrupt_polls += 1
+            log.warning("journal follower holding membership: %s", e)
+            return {}
+        want = FleetJournalState.from_records(records).live_replicas()
+        have = set(self.router.fleet_view().keys())
+        for url in want:
+            if url not in have:
+                self.router.add_replica(url)
+        for url in have - set(want):
+            self.router.remove_replica(url)
+        with self._lock:
+            self.syncs += 1
+        return want
+
+    def _run(self) -> None:
+        while not self._stop.wait(self.poll_s):
+            try:
+                self.sync_once()
+            except Exception:
+                log.exception("journal follower sweep failed")
+
+    def start(self) -> "JournalFollower":
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._stop.clear()
+                self._thread = threading.Thread(
+                    target=self._run, name="journal-follower", daemon=True
+                )
+                self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        with self._lock:
+            t = self._thread
+            self._thread = None
+        if t is not None:
+            t.join()

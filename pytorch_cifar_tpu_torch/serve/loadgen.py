@@ -65,9 +65,9 @@ from pytorch_cifar_tpu_torch.serve.batcher import (
     BatcherClosed,
     DeadlineExceeded,
     QueueFull,
+    UnknownModel,
 )
 from pytorch_cifar_tpu_torch.serve.frontend import decode_logits
-from pytorch_cifar_tpu_torch.serve.tenancy import UnknownModel
 
 
 class _Resolved:
@@ -160,7 +160,7 @@ class HttpTarget:
         wire, per ``wire``: bit-identical to the server's array either
         way). ``model`` names a zoo tenant (JSON ``model`` field /
         wire-v2 frame field); an unhosted model's 404 raises
-        :class:`~pytorch_cifar_tpu_torch.serve.tenancy.UnknownModel`."""
+        :class:`~pytorch_cifar_tpu_torch.serve.batcher.UnknownModel`."""
         x = np.ascontiguousarray(np.asarray(images, dtype=np.uint8))
         if deadline_ms is None:
             deadline_ms = self.deadline_ms

@@ -1,8 +1,9 @@
 """Multi-replica router: spread traffic over N replica engines.
 
-A copy of ``pytorch_cifar_tpu/serve/router.py`` for the port, without the
+A copy of ``pytorch_cifar_tpu/serve/router.py`` for the port, with the
 fleet controller's membership calls (``add_replica``/``remove_replica``/
-``fleet_view``: not ported yet). One replica process = one card = one
+``fleet_view``, :mod:`~pytorch_cifar_tpu_torch.serve.fleet`). One replica
+process = one card = one
 :class:`~pytorch_cifar_tpu_torch.serve.frontend.ServingFrontend`. The
 router is the fleet edge above them — a plain process (it never touches
 a device; replicas own theirs) that implements the same
@@ -26,7 +27,12 @@ from a fleet. Responsibilities:
   DIFFERENT replica — the cross-replica half of the retry/hedging item
   (the loadgen's same-queue retry was the first half). In-flight loss on
   a SIGKILLed replica is therefore bounded: hedged or failed-with-error,
-  never hung.
+  never hung. Unlike JAX's router, which decides at a request's start
+  whether a hedge is left, the port reads the membership when the
+  attempt fails: a request that began while the fleet held one replica
+  hedges to a replica the fleet controller added since, and one whose
+  replica the controller removed before the attempt failed hedges to
+  any replica it has not tried.
 - **Priority-aware admission**: an interactive request rejected by one
   replica's admission control (429) tries a second replica — transient
   per-replica queue pressure should not bounce a user. A bulk 429 is
@@ -64,8 +70,8 @@ from pytorch_cifar_tpu_torch.serve.batcher import (
     BatcherClosed,
     DeadlineExceeded,
     QueueFull,
+    UnknownModel,
 )
-from pytorch_cifar_tpu_torch.serve.tenancy import UnknownModel
 
 log = logging.getLogger(__name__)
 
@@ -221,7 +227,7 @@ class Router:
     ``models`` list when one is present (a zoo replica advertises its
     tenants), so a model is dispatched only to replicas that host it; a
     replica answering 404 anyway (stale health, mid-reconfig) raises
-    :class:`~pytorch_cifar_tpu_torch.serve.tenancy.UnknownModel` — the
+    :class:`~pytorch_cifar_tpu_torch.serve.batcher.UnknownModel` — the
     frontend's 404, deterministic, never hedged (every replica of a
     homogeneous fleet would answer the same)."""
 
@@ -239,8 +245,9 @@ class Router:
         request_timeout_s: float = 60.0,
         probe_timeout_s: float = 2.0,
         transport: str = "threaded",
+        allow_empty: bool = False,
     ):
-        if not replica_urls:
+        if not replica_urls and not allow_empty:
             raise ValueError("router needs at least one replica url")
         if transport not in ("threaded", "event"):
             raise ValueError(
@@ -291,6 +298,67 @@ class Router:
         self._shadow = None
         self._shadow_model = None  # tee only this model's traffic
         self._g_healthy.set(len(self.replicas))
+
+    # -- fleet membership (serve/fleet.py) --
+
+    def add_replica(self, url: str) -> "Replica":
+        """Register a replica with the live router, the fleet
+        controller's scale-up hook. The new replica enters rotation
+        healthy (the caller has already waited for its /healthz to go
+        green; the probe thread would evict it within ``fail_after``
+        sweeps if that trust was misplaced). Re-adding a URL already in
+        rotation returns the existing entry (idempotent: a controller
+        retry must not double-register)."""
+        replica = Replica(
+            url, timeout_s=self.request_timeout_s, pool=self._pool
+        )
+        with self._lock:
+            for r in self.replicas:
+                if r.url == replica.url:
+                    return r
+            self.replicas.append(replica)
+            healthy = sum(r.healthy for r in self.replicas)
+        self._g_healthy.set(healthy)
+        log.info("added replica %s (fleet size %d)", replica.url, healthy)
+        return replica
+
+    def remove_replica(self, url: str) -> Optional["Replica"]:
+        """Deregister a replica — the fleet controller's scale-down
+        hook, called BEFORE the process is drained so no new request is
+        ever dispatched to a replica that is about to stop. Requests
+        already in flight on other threads hold their own reference and
+        complete normally (the SIGTERM drain on the replica side answers
+        them). Returns the removed Replica (its ``in_flight`` lets the
+        caller wait out the router-side tail), or None when the URL is
+        not in rotation."""
+        canonical = Replica(url).url
+        with self._lock:
+            found = None
+            for r in self.replicas:
+                if r.url == canonical:
+                    found = r
+                    break
+            if found is not None:
+                self.replicas.remove(found)
+            healthy = sum(r.healthy for r in self.replicas)
+        if found is not None:
+            self._g_healthy.set(healthy)
+            log.info(
+                "removed replica %s from rotation (fleet size %d)",
+                found.url, healthy,
+            )
+        return found
+
+    def fleet_view(self) -> dict:
+        """One consistent snapshot of dispatch state per replica —
+        ``{url: (in_flight, last_probed_health)}`` — for the fleet
+        controller's drain-victim choice (a replica with in-flight work
+        or a non-empty probed queue never drains)."""
+        with self._lock:
+            return {
+                r.url: (r.in_flight, dict(r.last_health))
+                for r in self.replicas
+            }
 
     def attach_shadow(self, controller) -> None:
         """Tee answered requests to a canary
@@ -464,7 +532,7 @@ class Router:
         self._c_requests.inc()
         t0 = time.perf_counter()
         attempted: list = []
-        attempts = 2 if self.hedge and len(self.replicas) > 1 else 1
+        attempts = 2 if self.hedge else 1
         last_exc: Optional[Exception] = None
         for attempt in range(attempts):
             with self._lock:
@@ -497,9 +565,19 @@ class Router:
                 continue  # interactive: try a less-pressured replica
             except (DeadlineExceeded, ReplicaError) as e:
                 last_exc = e
-                if attempt + 1 < attempts:
+                # whether a hedge is left is read from the membership at
+                # the failure, not at the request's start (JAX's rule): a
+                # replica added meanwhile takes the hedge of a request
+                # that began on a lone replica, and one the controller
+                # removed meanwhile (the dead one, reaped) is not counted
+                with self._lock:
+                    others = any(
+                        r not in attempted for r in self.replicas
+                    )
+                if attempt + 1 < attempts and others:
                     self._c_hedged.inc()
-                continue
+                    continue
+                break
         self._c_failed.inc()
         if isinstance(last_exc, QueueFull):
             self._c_rejected.inc()
@@ -527,7 +605,9 @@ class Router:
     def probe_once(self) -> int:
         """One probe sweep (the probe thread's body; tests drive it
         directly for timing-free determinism). Returns the healthy
-        count. Probes a snapshot of the membership."""
+        count. Probes a snapshot of the membership: the fleet controller
+        may add/remove replicas concurrently (a removed replica simply
+        stops being probed from the next sweep)."""
         with self._lock:
             replicas = list(self.replicas)
         for replica in replicas:

@@ -60,7 +60,11 @@ from typing import Dict, Optional, Sequence
 import numpy as np
 
 from pytorch_cifar_tpu_torch.obs import MetricsRegistry, trace
-from pytorch_cifar_tpu_torch.serve.batcher import BatcherClosed, MicroBatcher
+from pytorch_cifar_tpu_torch.serve.batcher import (
+    BatcherClosed,
+    MicroBatcher,
+    UnknownModel,
+)
 from pytorch_cifar_tpu_torch.serve.engine import InferenceEngine
 from pytorch_cifar_tpu_torch.serve.reload import CheckpointWatcher
 
@@ -80,13 +84,6 @@ COST_PRIORS_PATH = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
     "tools", "zoo_sweep_h100.json",
 )
-
-
-class UnknownModel(LookupError):
-    """A request named a model this server does not host — the HTTP
-    frontend maps this to 404 (the request was well-formed; the tenant
-    is absent). Deliberately NOT a ValueError: the frontend's 400
-    mapping must never swallow it."""
 
 
 def load_cost_priors(path: str = COST_PRIORS_PATH) -> Dict[str, float]:

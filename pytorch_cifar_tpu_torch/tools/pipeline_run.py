@@ -277,6 +277,7 @@ def main(argv=None) -> int:
         ShadowBackend,
     )
     from pytorch_cifar_tpu_torch.serve.engine import kernel_launches
+    from pytorch_cifar_tpu_torch.utils.signals import wait_for_stop
     from pytorch_cifar_tpu_torch.train.checkpoint import (
         CKPT_NAME,
         ensure_staging_dir,
@@ -412,7 +413,7 @@ def main(argv=None) -> int:
             stop = threading.Event()
             signal.signal(signal.SIGTERM, lambda *a: stop.set())
             signal.signal(signal.SIGINT, lambda *a: stop.set())
-            stop.wait(args.duration_s or None)
+            wait_for_stop(stop, args.duration_s)
     finally:
         print("==> pipeline: draining", file=sys.stderr, flush=True)
         stop_load.set()
