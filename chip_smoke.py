@@ -389,19 +389,28 @@ The int8 lane and the multi-tenant zoo server, after phase 35:
     behind ``ServingFrontend`` over wire v2 (each tenant's bits, a 404 for
     an unknown model); a NaN candidate staged to ResNet18 through
     ``enable_canary`` quarantined with every tenant's bits unchanged. The
-    zoo's img/s and p50/p99 beside a dedicated ResNet-18's under the same
-    load, admission ms (first and re-admission), and evictions are
-    printed.
+    zoo under the load runs on a fresh cold-start cache
+    (``aot_cache_dir``): every admission after a tenant's first imports
+    it (``compile_count == 0``, a hit per bucket), and every tenant runs
+    forwards on imported weights (their K3, K4 and K5 launches printed).
+    Before it, the same zoo without the cache, its admissions first from
+    this thread alone, then under the same load: after each ``close()``
+    the bytes its live tensors still request, and again once the cuBLAS
+    workspaces are freed. The zoo's img/s and p50/p99 with and without
+    the cache beside a dedicated ResNet-18's under the same load,
+    admission ms (first and re-admission), and evictions are printed.
 
 The fleet control plane, after phase 37: replica processes of the serving
 CLI on the one card, spawned by the port's launchers (``python -m
 pytorch_cifar_tpu_torch.tools.fleet_run`` / ``...router_run``), ResNet-18
 at full width, bf16, buckets 1/8/32, from a seeded checkpoint under
-``runs/``. Each replica counts its own launches from 0 and reports them in
-the JSON record it prints when drained, which the launcher forwards on
-stderr as ``[replica i] {...}``; every replica of a phase, found in
-``/proc`` by its command line, must be gone at the phase's end (else a
-failed ``orphan_pids`` check, and it is killed):
+``runs/``, on a shared cold-start cache (``--aot_cache``): every replica
+spawned after the first of its weight set (its generation) joins with
+``compiles == 0``. Each replica counts its own launches from 0 and
+reports them in the JSON record it prints when drained, which the
+launcher forwards on stderr as ``[replica i] {...}``; every replica of a
+phase, found in ``/proc`` by its command line, must be gone at the
+phase's end (else a failed ``orphan_pids`` check, and it is killed):
 
 38. fleet: ``fleet_run`` with min 1, max 3 (band 3-10 in flight a
     replica, up after 0.5 s), under ``run_async_load`` rounds of 3 s: 4
@@ -438,8 +447,28 @@ failed ``orphan_pids`` check, and it is killed):
     re-admit between); 4 clients of a zipf mix, replica 0 SIGKILLed
     mid-load: no failed request, the corpse evicted, the answers unmoved;
     SIGTERM: exit 0; the survivor's K3, K4, K5 launches all above 0, K4 and
-    K5 in nines, its ResNet-18 share of K3 in sixes. Each tenant's
-    ``compiles`` is printed (no cold-start cache: item 9d).
+    K5 in nines, its ResNet-18 share of K3 in sixes. Replica 1, spawned
+    after replica 0 filled the cache, starts with every resident tenant
+    at ``compiles == 0``; at the end every tenant of the survivor admitted
+    twice or more serves an engine with ``compiles == 0``.
+
+The cold-start cache, after phase 40:
+
+41. cold_start: ResNet-18 from a seeded checkpoint, buckets 1/8/32/128,
+    in two fresh processes of ``python -m
+    pytorch_cifar_tpu_torch.tools.cold_start --lanes fp int8`` on one
+    cache dir, each building the bf16 engine and then the int8 one: the
+    first prepares and exports (4 compiles, 4 misses a lane), the second
+    imports (0 compiles, 4 hits), each bucket's logits on fixed inputs bit
+    for bit the first's, K3 launched 6 times a forward in the second; each
+    process's and engine's split (``import torch``, the CUDA context, the kernel
+    libraries, the checkpoint's read and decode, the model, the fold, the
+    int8 plan, or the cache's read and transfer; each bucket's first and
+    second forward) is printed. Then bucket 8's entry tampered (its probe
+    negated, its manifest valid): an engine in this process poisons it,
+    prepares from the checkpoint (4 compiles) and keeps the first
+    process's bits; the next one takes the other 3 buckets from the cache
+    and leaves the tombstone.
 
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
@@ -457,6 +486,7 @@ import argparse
 import base64
 import dataclasses
 import gc
+import io
 import json
 import os
 import re
@@ -4096,21 +4126,87 @@ def phase_int8(K, smi: str, fails: Failures) -> dict:
     return out
 
 
-def _counting_engine(forwards: dict):
+def _counting_engine(forwards: dict, admissions=None, hit_forwards=None):
     """An ``InferenceEngine`` that also counts its device forwards per
     model in ``forwards`` (a zoo drops its engines on eviction, so their
-    own counters go with them)."""
+    own counters go with them), those of engines whose weights came from
+    the cold-start cache also in ``hit_forwards``, and appends each
+    engine's ``(model, compile_count, aot_cache_hits, cold_start_s)`` to
+    ``admissions`` once it is built."""
     from pytorch_cifar_tpu_torch.serve import InferenceEngine
 
     class CountingEngine(InferenceEngine):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            if admissions is not None:
+                admissions.append((self.model_name, self.compile_count,
+                                   self.aot_cache_hits, self.cold_start_s))
+
         def _forward(self, x):
             y = super()._forward(x)
             with self._count_lock:
                 forwards[self.model_name] = forwards.get(
                     self.model_name, 0) + 1
+                if hit_forwards is not None and getattr(
+                        self, "_from_cache", False):
+                    hit_forwards[self.model_name] = hit_forwards.get(
+                        self.model_name, 0) + 1
             return y
 
     return CountingEngine
+
+
+def _clear_cublas_workspaces() -> None:
+    """Free the cuBLAS workspaces PyTorch keeps per (handle, stream): one
+    per thread that ran a GEMM."""
+    torch.cuda.synchronize()
+    getattr(torch._C, "_cuda_clearCublasWorkspaces")()
+
+
+def _zoo_without_cache(specs, mix, x, fails: Failures) -> dict:
+    """The zoo without the cold-start cache, twice: admissions
+    from this thread alone (every tenant requested twice in turn), then
+    under the 8 clients' load; after each ``close()``, the bytes the live
+    tensors still request against those before the zoo, and again once
+    the cuBLAS workspaces are freed."""
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve import ModelZooServer, run_load
+
+    out = {}
+    for threads in (1, 8):
+        gc.collect()
+        r_before = _requested()
+        registry = MetricsRegistry()
+        zoo = ModelZooServer(specs, max_resident=2,
+                             compute_dtype=torch.bfloat16,
+                             registry=registry)
+        try:
+            if threads == 1:
+                for _ in range(2):
+                    for name in ZOO_TENANTS:
+                        zoo.predict(x, model=name)
+                rep = {}
+            else:
+                rep = run_load(zoo, seed=37, model_mix=mix, **ZOO_LOAD)
+                fails.check(rep["failed"] == 0,
+                            f"zoo: without the cache, {rep['failed']} failed")
+        finally:
+            zoo.close()
+        del zoo
+        gc.collect()
+        held = _requested() - r_before
+        _clear_cublas_workspaces()
+        s = registry.summary()
+        out[f"threads_{threads}"] = {
+            **{k: rep[k] for k in ("requests", "failed", "img_per_sec",
+                                   "p50_ms", "p99_ms") if k in rep},
+            "admission_ms": {k: s.get(f"serve.zoo.admission_ms.{k}")
+                             for k in ("count", "p50", "max")},
+            "requested_after_close_minus_before": held,
+            "requested_after_cublas_clear_minus_before":
+                _requested() - r_before,
+        }
+    return out
 
 
 def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
@@ -4167,26 +4263,43 @@ def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
 
         specs = [TenantSpec(name, live if name == "ResNet18" else None,
                             buckets=BUCKETS) for name in ZOO_TENANTS]
+        mix = zipf_mix(sorted(ZOO_TENANTS), priors=priors)  # zoo.models()
+        no_cache = _zoo_without_cache(specs, mix, x, fails)
         registry = MetricsRegistry()
         forwards: dict = {}
+        hit_forwards: dict = {}
+        admissions: list = []
         m_before_zoo, r_before_zoo = _allocated(), _requested()
         plain_engine = tenancy.InferenceEngine
-        tenancy.InferenceEngine = _counting_engine(forwards)
+        counting = _counting_engine(forwards, admissions, hit_forwards)
+        tenancy.InferenceEngine = counting
         K.LAUNCHES = P.FWD_LAUNCHES = D.LAUNCHES = 0  # the main path starts
         try:
             t0 = time.perf_counter()
             zoo = ModelZooServer(specs, max_resident=2,
                                  compute_dtype=torch.bfloat16,
-                                 registry=registry)
+                                 registry=registry,
+                                 aot_cache_dir=os.path.join(tmp, "aot"))
             build_s = time.perf_counter() - t0
             eager = sorted(zoo.health()["resident"])
             first = {m: registry.summary()[
                 f"serve.tenant.{m}.admission_ms.max"] for m in eager}
-            mix = zipf_mix(zoo.models(), priors=priors)
             rep = run_load(zoo, seed=37, model_mix=mix, **ZOO_LOAD)
         finally:
             tenancy.InferenceEngine = plain_engine
         launches = (K.LAUNCHES, P.FWD_LAUNCHES, D.LAUNCHES)  # ends here
+        # every admission after a tenant's first imports the cache
+        seen, readmits = set(), []
+        for model, compiles, hits, cold_s in admissions:
+            if model in seen:
+                readmits.append((model, compiles, hits))
+            seen.add(model)
+        fails.check(bool(readmits) and all(
+            c == 0 and h == len(BUCKETS) for _, c, h in readmits),
+            f"zoo: re-admissions (model, compiles, hits) {readmits}")
+        fails.check(all(hit_forwards.get(m, 0) > 0 for m in ZOO_TENANTS),
+                    f"zoo: a tenant ran no forward on imported weights "
+                    f"({hit_forwards})")
         per = {m: dict(zip(("k3", "k4", "k5"), v))
                for m, v in ZOO_TENANTS.items()}
         expect = tuple(sum(forwards.get(m, 0) * ZOO_TENANTS[m][i]
@@ -4242,6 +4355,37 @@ def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
         readmit_same = bool(np.array_equal(readmit, want["ResNet18"]))
         fails.check(readmit_same, "zoo: ResNet18's bits moved across "
                                   "evict -> re-admit")
+
+        # the hit path, one thread: each tenant re-admitted from the cache
+        # in turn (MobileNet evicts the LRU GoogLeNet, GoogLeNet ResNet18,
+        # ResNet18 MobileNet), the kernels' counts read around it
+        hit_path = {}
+        for name in ("MobileNet", "GoogLeNet", "ResNet18"):
+            c0 = (K.LAUNCHES, P.FWD_LAUNCHES, D.LAUNCHES)
+            a0 = zoo.stats["admissions"]
+            got = zoo.predict(x, model=name)
+            eng = zoo._tenants[name].engine
+            n_k = [a - b for a, b in zip(
+                (K.LAUNCHES, P.FWD_LAUNCHES, D.LAUNCHES), c0)]
+            hit_path[name] = {
+                "admitted": zoo.stats["admissions"] - a0,
+                "compiles": eng.compile_count, "hits": eng.aot_cache_hits,
+                "forwards": eng.forward_count, "launches_k3_k4_k5": n_k,
+                "bits_right": bool(np.array_equal(got, want[name]))}
+            del eng
+            fails.check(
+                hit_path[name]["admitted"] == 1
+                and hit_path[name]["compiles"] == 0
+                and hit_path[name]["hits"] == len(BUCKETS)
+                and n_k == [hit_path[name]["forwards"] * k
+                            for k in ZOO_TENANTS[name]]
+                and hit_path[name]["bits_right"],
+                f"zoo: {name}'s re-admission on the cache {hit_path[name]}")
+        hit_launches = [sum(h["launches_k3_k4_k5"][i]
+                            for h in hit_path.values()) for i in range(3)]
+        fails.check(all(n > 0 for n in hit_launches),
+                    f"zoo: (K3, K4, K5) launched {hit_launches} on "
+                    "imported weights")
 
         # the same zoo behind the threaded frontend over wire v2
         front = ServingFrontend(zoo, port=0, registry=registry).start()
@@ -4304,6 +4448,12 @@ def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
             "first_admission_ms": first,
             "admission_ms": {k: s.get(f"serve.zoo.admission_ms.{k}")
                              for k in ("count", "p50", "max")},
+            # (model, compiles, aot_cache_hits, cold_start_s) of every
+            # engine the zoo built under load, and the forwards they ran
+            # on imported weights; the one-thread pass's launches on them
+            "admissions": admissions, "hit_path_forwards": hit_forwards,
+            "hit_path": hit_path, "hit_path_launches_k3_k4_k5": hit_launches,
+            "without_cache": no_cache,
             "memory_before_admission": m0, "memory_with_tenant": m_with,
             "memory_after_eviction": m1,
             "requested_before_admission": r0,
@@ -4319,6 +4469,9 @@ def phase_zoo(K, P, D, smi: str, fails: Failures) -> dict:
                                                       - m_before_zoo)
         out["requested_after_close_minus_before_zoo"] = (_requested()
                                                          - r_before_zoo)
+        _clear_cublas_workspaces()
+        out["requested_after_cublas_clear_minus_before_zoo"] = (
+            _requested() - r_before_zoo)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print("zoo " + json.dumps(out), flush=True)
@@ -4496,20 +4649,23 @@ def _rounds_row(reps: list, **extra) -> dict:
 def _k3_drained(tag: str, records: dict, fails: Failures,
                 per_forward: int = 6) -> dict:
     """K3's launches in each drained replica: 6 a ResNet-18 forward, its
-    warmup (``compiles``) and every batch it served."""
+    warmup (a forward a bucket: ``compiles`` on weights it prepared,
+    ``aot_cache_hits`` on imported ones) and every batch it served."""
     out = {}
     for idx, rec in sorted(records.items()):
         k3 = rec.get("launches_by_kernel", {}).get("conv3x3_bn_relu", 0)
-        fwd = rec.get("batches", -1) + rec.get("compiles", 0)
+        warm = rec.get("compiles", 0) + rec.get("aot_cache_hits", 0)
+        fwd = rec.get("batches", -1) + warm
         fails.check(k3 > 0 and k3 % per_forward == 0
                     and k3 == per_forward * fwd,
                     f"{tag}: replica {idx} launched K3 {k3} times for "
-                    f"{rec.get('batches')} batches and {rec.get('compiles')} "
-                    "warmup forwards")
+                    f"{rec.get('batches')} batches and {warm} warmup "
+                    "forwards")
         fails.check(rec.get("device") == torch.cuda.get_device_name(0),
                     f"{tag}: replica {idx} served on {rec.get('device')}")
         out[idx] = {"k3_launches": k3, "batches": rec.get("batches"),
                     "compiles": rec.get("compiles"),
+                    "aot_cache_hits": rec.get("aot_cache_hits"),
                     "requests": rec.get("requests"),
                     "failed": rec.get("failed")}
     return out
@@ -4557,6 +4713,32 @@ class _CountSampler:
         return self.rows
 
 
+# a replica's warm line: buckets warmed on prepared weights, imported
+WARM_RX = (r"^\[replica (\d+)\] ==> warm: \d+ buckets warmed on prepared "
+           r"weights, \d+ imported from the cold-start cache \(([\d.]+)s")
+
+
+def _joined(launcher) -> list:
+    """``(idx, compiles, generation)`` of every replica a fleet launcher
+    reported joining, in the order they joined."""
+    return [(int(m.group(1)), int(m.group(2)), m.group(3)) for m in
+            launcher.matches(r"^==> fleet: (?:(?!adopt )\S+ )?replica (\d+) "
+                             r".*compiles=(\d+) .*gen=(\S+)")]
+
+
+def _after_first_zero(joined) -> bool:
+    """Every replica after the first of its weight set (its generation)
+    joined with ``compiles == 0`` (the cold-start cache's entries are per
+    weight set), and there is one at all."""
+    seen = set()
+    ok = bool(joined)
+    for _, compiles, gen in joined:
+        if gen in seen:
+            ok = ok and compiles == 0
+        seen.add(gen)
+    return ok
+
+
 def phase_fleet(smi: str, fails: Failures) -> dict:
     """An elastic ResNet-18 fleet under a 4 -> 32 -> 4 client ramp, one
     replica SIGKILLed mid-ramp (phase 38)."""
@@ -4575,6 +4757,7 @@ def phase_fleet(smi: str, fails: Failures) -> dict:
             "pytorch_cifar_tpu_torch.tools.fleet_run", "--ckpt", ckpt,
             "--model", LIFECYCLE_MODEL, "--buckets", *FLEET_BUCKETS,
             "--min_replicas", "1", "--max_replicas", "3",
+            "--aot_cache", os.path.join(tmp, "aot"),
             "--probe_s", "0.2", *FLEET_POLICY,
             # the up-cooldown outlasts the ramp's last round after the
             # replacement joined: no third spawn (~13 s) into the settle
@@ -4708,19 +4891,22 @@ def phase_fleet(smi: str, fails: Failures) -> dict:
         drained = _k3_drained("fleet", fl.replica_records(), fails)
         fails.check(len(drained) >= 2 and kill.get("idx") not in drained,
                     f"fleet: drained replica records {sorted(drained)}")
+        joined = _joined(fl)
+        fails.check(_after_first_zero(joined),
+                    f"fleet: replicas joined (idx, compiles, gen) {joined}: "
+                    "one after the first of its weight set compiled")
         out.update({
             "stages": stages, "kill": kill, "replica_count": counts,
             "held_at_min_baseline": held, "replica_bits": probed,
             "router_bits": edge_bits,
-            "compiles": {int(mm.group(1)): int(mm.group(2)) for mm in
-                         fl.matches(r"replica (\d+) .*compiles=(\d+)")},
+            "compiles": {i: c for i, c, _ in joined},
             "drain_s": [float(mm.group(1)) for mm in fl.matches(
                 r"==> fleet: scale-down .*drain_s=(\S+)")],
-            # each replica's own warm-up of its three buckets, of the
-            # controller's spawn (process, torch, CUDA, checkpoint, warm-up)
+            # each replica's own warm-up of its three buckets (with the
+            # cache's import), of the controller's spawn (process, torch,
+            # CUDA, checkpoint, warm-up)
             "warm_s": {int(mm.group(1)): float(mm.group(2)) for mm in
-                       fl.matches(r"^\[replica (\d+)\] ==> warm: \d+ "
-                                  r"buckets in ([\d.]+)s")},
+                       fl.matches(WARM_RX)},
             "drained": drained, "fleet_rc": code,
             **{k: rec.get(k) for k in (
                 "scale_ups", "scale_downs", "replica_failures",
@@ -4833,6 +5019,7 @@ def phase_rollout(smi: str, fails: Failures) -> dict:
                 "--model", LIFECYCLE_MODEL, "--role", "controller",
                 "--fleet_url", url, "--journal", jpath, "--rollouts",
                 "--min_replicas", "2", "--max_replicas", "3",
+                "--aot_cache", os.path.join(tmp, "aot"),
                 "--buckets", *FLEET_BUCKETS, *FLEET_POLICY,
                 # the scaling band parked wide open: the only actuations
                 # are the rolling deploy's
@@ -4967,7 +5154,13 @@ def phase_rollout(smi: str, fails: Failures) -> dict:
                                "generation": 2},
                     f"rollout: the journal replays to {replay}")
         drained = _k3_drained("rollout", c2.replica_records(), fails)
+        joined = _joined(ctls[0]) + _joined(c2)
+        fails.check(_after_first_zero(joined),
+                    f"rollout: replicas joined (idx, compiles, gen) "
+                    f"{joined}: one after the first of its weight set "
+                    "compiled")
         out.update({
+            "joined": joined,
             "killed_mid_rollout": killed_mid,
             "rollout_in_flight_at_kill": in_flight,
             "healthy_while_headless": headless,
@@ -5028,6 +5221,7 @@ def phase_zoo_fleet(smi: str, fails: Failures) -> dict:
             "pytorch_cifar_tpu_torch.tools.router_run", "--ckpt", root,
             "--models", ",".join(ZOO_FLEET), "--max_resident", "2",
             "--replicas", "2", "--buckets", *FLEET_BUCKETS,
+            "--aot_cache", os.path.join(tmp, "aot"),
             "--deadline_ms", "4000", "--probe_s", "0.2",
             "--max_wait_ms", "1"])
         m = rr.wait_line(r"==> router: serving on (\S+)", 300)
@@ -5037,6 +5231,16 @@ def phase_zoo_fleet(smi: str, fails: Failures) -> dict:
         url = m.group(1)
         reps = {int(mm.group(1)): (int(mm.group(2)), mm.group(3)) for mm in
                 rr.matches(r"==> replica (\d+) pid=(\d+) url=(\S+)")}
+        # replica 1 joined after replica 0 filled the cache: every tenant
+        # it admitted at start imported its weights
+        joined = {n: (t.get("compiles"), t.get("aot_cache_hits"))
+                  for n, t in _healthz(reps[1][1]).get("tenants",
+                                                       {}).items()
+                  if t.get("resident")}
+        fails.check(bool(joined) and all(
+            v == (0, len(FLEET_BUCKETS)) for v in joined.values()),
+            f"zoo_fleet: replica 1's tenants at its start (compiles, "
+            f"aot_cache_hits) {joined}")
         x = np.random.RandomState(7).randint(
             0, 256, size=(3, 32, 32, 3)).astype(np.uint8)
 
@@ -5083,6 +5287,12 @@ def phase_zoo_fleet(smi: str, fails: Failures) -> dict:
         survivor = _healthz(reps[1][1]).get("tenants", {})
         churned = sorted(n for n, t in survivor.items()
                          if int(t.get("evictions") or 0) >= 1)
+        readmitted = {n: t.get("compiles") for n, t in survivor.items()
+                      if int(t.get("admissions") or 0) >= 2
+                      and t.get("resident")}
+        fails.check(all(c == 0 for c in readmitted.values()),
+                    f"zoo_fleet: the survivor's re-admitted tenants' "
+                    f"compiles {readmitted}")
         unmoved = {mdl: bool(np.array_equal(_bits(url, x, model=mdl),
                                             first[mdl]))
                    for mdl in ZOO_FLEET}
@@ -5119,11 +5329,12 @@ def phase_zoo_fleet(smi: str, fails: Failures) -> dict:
             "stages": {k: _stage_row(v, per_model=v.get("per_model"))
                        for k, v in stages.items()},
             "survivor_launches": {"k3": k3, "k4": k4, "k5": k5},
-            # no cold-start cache yet: each admission warms its buckets
+            "replica1_tenants_at_start": joined,
             "survivor_compiles": {n: t.get("compiles")
                                   for n, t in survivor.items()},
             "survivor_tenants": {n: {k: t.get(k) for k in (
-                "resident", "admissions", "evictions", "compiles")}
+                "resident", "admissions", "evictions", "compiles",
+                "aot_cache_hits")}
                 for n, t in survivor.items()},
             "replica_compiles": rec.get("replica_compiles"),
             "router": rec.get("router"),
@@ -5134,6 +5345,169 @@ def phase_zoo_fleet(smi: str, fails: Failures) -> dict:
         out["orphan_pids"] = _reap_orphans("zoo_fleet", tmp, fails)
         shutil.rmtree(tmp, ignore_errors=True)
     print("zoo_fleet " + json.dumps(out), flush=True)
+    return out
+
+
+# -- the cold-start cache (phase 41) ------------------------------------
+
+COLD_START_TOOL = "pytorch_cifar_tpu_torch.tools.cold_start"
+COLD_LANES = {"bf16": "fp", "int8": "int8"}  # the tool's --lanes
+
+
+def _cold_start_process(argv) -> dict:
+    """One fresh replica process of the cold-start tool: its JSON record,
+    or ``{"error": ...}``."""
+    p = subprocess.run([sys.executable, "-m", COLD_START_TOOL, *argv],
+                       cwd=REPO_ROOT, capture_output=True, text=True,
+                       timeout=600)
+    if p.returncode != 0 or not p.stdout.strip():
+        return {"error": f"rc {p.returncode}: {p.stderr[-3000:]}"}
+    return json.loads(p.stdout.strip().splitlines()[-1])
+
+
+def _bucket_digests(engine) -> dict:
+    """SHA-256 of each bucket's logits on the tool's fixed inputs
+    (``RandomState(16 + bucket)``)."""
+    import hashlib
+
+    out = {}
+    for b in engine.buckets:
+        x = np.random.RandomState(16 + b).randint(
+            0, 256, size=(b, 32, 32, 3)).astype(np.uint8)
+        out[str(b)] = hashlib.sha256(np.ascontiguousarray(
+            engine.predict(x), dtype=np.float32).tobytes()).hexdigest()
+    return out
+
+
+def _tamper_probe(cache: str, bucket: int) -> str:
+    """Negate the stored probe logits of the float lane's ``bucket`` entry
+    and rewrite its manifest to match: only the probe can refute it.
+    Returns its name."""
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        _atomic_write,
+        payload_manifest,
+    )
+
+    def float_lane(n):
+        with open(os.path.join(cache, n + ".json")) as f:
+            return json.load(f)["key"]["int8"] is False
+
+    (name,) = [n for n in os.listdir(cache)
+               if n.startswith(f"{LIFECYCLE_MODEL}_b{bucket}_")
+               and n.endswith(".aotx") and float_lane(n)]
+    path = os.path.join(cache, name)
+    with open(path, "rb") as f:
+        entry = torch.load(io.BytesIO(f.read()), weights_only=False)
+    entry["probe_logits"] = -np.asarray(entry["probe_logits"])
+    buf = io.BytesIO()
+    torch.save(entry, buf)
+    payload = buf.getvalue()
+    _atomic_write(path, payload)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    meta["manifest"] = payload_manifest(payload)
+    _atomic_write(path + ".json", json.dumps(meta).encode())
+    return name
+
+
+def phase_cold_start(K, smi: str, fails: Failures) -> dict:
+    """A replica's cold start split, without and with the cache, in fresh
+    processes; a tampered entry refuted (phase 41)."""
+    from pytorch_cifar_tpu_torch.serve import InferenceEngine
+
+    tmp = run_dir("cold-")
+    out: dict = {"card": smi, "model": LIFECYCLE_MODEL,
+                 "buckets": list(BUCKETS)}
+    try:
+        ckpt = _seeded_ckpt(os.path.join(tmp, "ckpt"), 0, 1, 10.0)
+        cache = os.path.join(tmp, "aot")
+        argv = ["--model", LIFECYCLE_MODEL, "--ckpt", ckpt,
+                "--buckets", *map(str, BUCKETS), "--aot_cache", cache,
+                "--lanes", *COLD_LANES.values()]
+        runs = {"miss": _cold_start_process(argv),  # prepares, exports
+                "hit": _cold_start_process(argv)}  # imports
+        out["processes"] = {t: {k: r.get(k) for k in (
+            "process_stages", "device", "kernels_built_now", "error")}
+            for t, r in runs.items()}
+        n = len(BUCKETS)
+        for lane, key in COLD_LANES.items():
+            if not fails.check(all("error" not in r for r in runs.values()),
+                               f"cold_start: {runs['miss'].get('error')} "
+                               f"{runs['hit'].get('error')}"):
+                break
+            miss, hit = (runs[t]["engines"][key] for t in ("miss", "hit"))
+            out[lane] = {"miss": miss, "hit": hit}
+            counts = {t: (r["compiles"], r["aot_cache_hits"],
+                          r["aot_cache_misses"])
+                      for t, r in (("miss", miss), ("hit", hit))}
+            fails.check(counts == {"miss": (n, 0, n), "hit": (0, n, 0)},
+                        f"cold_start {lane}: (compiles, hits, misses) "
+                        f"{counts}")
+            same = {b: hit["bits"].get(b) == miss["bits"][b]
+                    for b in miss["bits"]}
+            fails.check(len(same) == n and all(same.values()),
+                        f"cold_start {lane}: the hit's bits per bucket "
+                        f"{same}")
+            # the hit's warm-ups (each bucket's probe) and second forwards,
+            # 6 K3 launches each
+            k3 = hit["launches_by_kernel"]["conv3x3_bn_relu"]
+            fails.check(k3 == 6 * 2 * n,
+                        f"cold_start {lane}: K3 launched {k3} times in the "
+                        f"hit process, {6 * 2 * n} expected")
+            out[lane]["bits_equal"] = same
+            out[lane]["hit_k3_launches"] = k3
+
+        # a tampered entry: bucket 8's probe negated, its manifest valid
+        name = _tamper_probe(cache, 8)
+        kw = dict(buckets=BUCKETS, compute_dtype=torch.bfloat16,
+                  aot_cache_dir=cache)
+        want = out["bf16"]["miss"].get("bits", {})
+        K.LAUNCHES = 0  # the in-process engines' launches start here
+        refuted = InferenceEngine.from_checkpoint(ckpt, LIFECYCLE_MODEL,
+                                                  **kw)
+        with open(os.path.join(cache, name + ".json")) as f:
+            poisoned = bool(json.load(f).get("poisoned"))
+        bits_refuted = _bucket_digests(refuted)
+        c_refuted = (refuted.compile_count, refuted.aot_cache_hits,
+                     refuted.aot_cache_misses)
+        n = len(BUCKETS)
+        fails.check(poisoned and c_refuted == (n, 0, n)
+                    and bits_refuted == want,
+                    f"cold_start: the tampered entry poisoned {poisoned}, "
+                    f"(compiles, hits, misses) {c_refuted}, bits right "
+                    f"{bits_refuted == want}")
+        # the tombstone stays: bucket 8 a miss, the rest imported
+        after = InferenceEngine.from_checkpoint(ckpt, LIFECYCLE_MODEL, **kw)
+        with open(os.path.join(cache, name + ".json")) as f:
+            still = bool(json.load(f).get("poisoned"))
+        bits_after = _bucket_digests(after)
+        c_after = (after.compile_count, after.aot_cache_hits,
+                   after.aot_cache_misses)
+        fails.check(still and c_after == (1, n - 1, 1)
+                    and bits_after == want,
+                    f"cold_start: after the poisoning, poisoned {still}, "
+                    f"(compiles, hits, misses) {c_after}, bits right "
+                    f"{bits_after == want}")
+        forwards = refuted.forward_count + after.forward_count
+        fails.check(K.LAUNCHES == 6 * forwards,
+                    f"cold_start: K3 launched {K.LAUNCHES} times in "
+                    f"{forwards} in-process forwards")
+        out["tampered"] = {
+            "entry": name, "poisoned": poisoned,
+            "refuted": {"compiles": refuted.compile_count,
+                        "hits": refuted.aot_cache_hits,
+                        "misses": refuted.aot_cache_misses,
+                        "stages": refuted.cold_start_stages},
+            "after": {"compiles": after.compile_count,
+                      "hits": after.aot_cache_hits,
+                      "misses": after.aot_cache_misses,
+                      "stages": after.cold_start_stages},
+            "bits_right": bits_refuted == want and bits_after == want,
+            "k3_launches": K.LAUNCHES, "forwards": forwards}
+        del refuted, after
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("cold_start " + json.dumps(out), flush=True)
     return out
 
 
@@ -5228,6 +5602,8 @@ def main(argv=None) -> int:
     fle = timed("fleet", phase_fleet, smi, fails)
     ro = timed("rollout", phase_rollout, smi, fails)
     zf = timed("zoo_fleet", phase_zoo_fleet, smi, fails)
+    # the cold-start cache: fresh replica processes without and with it
+    cs = timed("cold_start", phase_cold_start, K, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -5343,6 +5719,18 @@ def main(argv=None) -> int:
             "rollout_replicas": {i: r["k3_launches"] for i, r in
                                  ro.get("drained", {}).items()},
             "zoo_fleet_survivor": zf.get("survivor_launches", {}).get("k3")},
+        # the cold-start cache (phase 41): each lane's hit process (4
+        # probe warm-ups on imported weights, 4 second forwards), and the
+        # in-process engines around a tampered entry; the zoo's one-thread
+        # pass of re-admissions on the cache (phase 37), and its tenants'
+        # forwards on imported weights under load
+        "cold_start_forward": {
+            "per_forward": 6,
+            "hit_process": {lane: cs.get(lane, {}).get("hit_k3_launches")
+                            for lane in COLD_LANES},
+            "tampered": cs.get("tampered", {}).get("k3_launches"),
+            "zoo_hit_path_launches": zo["hit_path_launches_k3_k4_k5"][0],
+            "zoo_hit_path_forwards": zo["hit_path_forwards"]},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -5450,7 +5838,9 @@ def main(argv=None) -> int:
             kernels[-1]["zoo_forward"] = {
                 "launches": zo["launches_k3_k4_k5"][1],
                 "googlenet_forwards": zo["forwards"].get("GoogLeNet"),
-                "per_forward": 9}
+                "per_forward": 9,
+                # the one-thread pass of re-admissions on the cache
+                "hit_path_launches": zo["hit_path_launches_k3_k4_k5"][1]}
             # the zoo fleet's surviving replica process (phase 40)
             kernels[-1]["zoo_fleet_survivor_launches"] = zf.get(
                 "survivor_launches", {}).get("k4")
@@ -5486,7 +5876,9 @@ def main(argv=None) -> int:
         "zoo_server_forward": {
             "launches": zo["launches_k3_k4_k5"][2],
             "mobilenet_forwards": zo["forwards"].get("MobileNet"),
-            "per_forward": 9},
+            "per_forward": 9,
+            # the one-thread pass of re-admissions on the cache
+            "hit_path_launches": zo["hit_path_launches_k3_k4_k5"][2]},
         # the zoo fleet's surviving replica process (phase 40)
         "zoo_fleet_survivor_launches": zf.get("survivor_launches",
                                               {}).get("k5"),

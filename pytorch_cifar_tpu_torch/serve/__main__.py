@@ -10,6 +10,8 @@
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 \\
         --http_port 8100 --edge event --deadline_ms 250 --prom_out s.prom
     python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --int8
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --ckpt checkpoint \\
+        --aot_cache aot --http_port 0
     python -m pytorch_cifar_tpu_torch.serve \\
         --models ResNet18,GoogLeNet,MobileNet --max_resident 2 [--int8]
 
@@ -43,7 +45,12 @@ pool and the depthwise stencil, whichever the model has),
 ``launches_by_kernel``, ``device`` and, with ``--ckpt``, ``ckpt_epoch``
 (``reloads`` and ``reload_skipped`` count the watcher's swaps and deferred
 polls).
-``--int8`` serves the engine's int8 weight-only lane.
+``--int8`` serves the engine's int8 weight-only lane. ``--aot_cache DIR``
+puts the engine (every tenant, in zoo mode) on the cold-start cache: the
+prepared weight set and each bucket's probe logits are imported when a
+verified entry is there, and exported when they had to be prepared; the
+JSON line carries ``aot_cache_hits`` and ``aot_cache_misses``.
+``--num_classes``, ``--mean`` and ``--std`` are ``serve.py``'s.
 
 ``--models A,B=dir,...`` turns the process into a
 :class:`ModelZooServer` hosting every named model (``serve.py``'s zoo
@@ -73,6 +80,7 @@ import numpy as np
 import torch
 
 from pytorch_cifar_tpu_torch import resolve_device
+from pytorch_cifar_tpu_torch.data.augment import CIFAR10_MEAN, CIFAR10_STD
 from pytorch_cifar_tpu_torch.obs import (
     MetricsExporter,
     MetricsRegistry,
@@ -106,6 +114,12 @@ def parse_args(argv=None) -> argparse.Namespace:
         description="Serve a model under closed-loop load or over HTTP.",
     )
     p.add_argument("--model", default="ResNet18")
+    p.add_argument("--num_classes", type=int, default=10)
+    p.add_argument("--mean", type=float, nargs=3,
+                   default=list(CIFAR10_MEAN),
+                   help="per-channel normalization mean (RGB)")
+    p.add_argument("--std", type=float, nargs=3, default=list(CIFAR10_STD),
+                   help="per-channel normalization std (RGB)")
     p.add_argument("--dtype", default="bfloat16", choices=sorted(DTYPES))
     p.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32, 128])
     p.add_argument("--max_batch", type=int, default=0,
@@ -139,6 +153,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--poll_s", type=float, default=1.0,
                    help="--watch: seconds between polls")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--aot_cache", default="",
+                   help="cold-start cache dir: import the prepared weight "
+                        "set and warm buckets from it, export what had to "
+                        "be prepared ('' = none)")
     p.add_argument("--int8", action="store_true",
                    help="serve int8 weights (weight-only, one scale per "
                         "output channel; not bit-identical to float)")
@@ -168,6 +186,19 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="write the metrics as Prometheus text at exit")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     return p.parse_args(argv)
+
+
+def build_engine(args, registry, device) -> InferenceEngine:
+    """The single-model engine the flags describe: ``--ckpt`` or seeded
+    random weights, ``--num_classes``, ``--mean``/``--std``, ``--dtype``,
+    ``--buckets``, ``--int8`` and the cold-start cache ``--aot_cache``."""
+    kw = dict(buckets=args.buckets, compute_dtype=DTYPES[args.dtype],
+              num_classes=args.num_classes, mean=args.mean, std=args.std,
+              registry=registry, device=device, int8=args.int8,
+              aot_cache_dir=args.aot_cache or None)
+    if args.ckpt:
+        return InferenceEngine.from_checkpoint(args.ckpt, args.model, **kw)
+    return InferenceEngine.from_random(args.model, seed=args.seed, **kw)
 
 
 def _serve_http(args, backend, registry) -> dict:
@@ -233,6 +264,7 @@ def _main_zoo(args, registry, device) -> int:
         spec = TenantSpec.parse(
             entry,
             buckets=tuple(args.buckets),
+            num_classes=args.num_classes,
             deadline_ms=args.deadline_ms,
             max_batch=args.max_batch,
             max_wait_ms=args.max_wait_ms,
@@ -266,6 +298,7 @@ def _main_zoo(args, registry, device) -> int:
         continuous=args.continuous,
         int8=args.int8,
         device=device,
+        aot_cache_dir=args.aot_cache or None,
     )
     health = zoo.health()
     print(
@@ -368,15 +401,11 @@ def main(argv=None) -> int:
         f"{tuple(args.buckets)}, {args.dtype}, {device})",
         file=sys.stderr,
     )
-    kw = dict(buckets=args.buckets, compute_dtype=DTYPES[args.dtype],
-              registry=registry, device=device, int8=args.int8)
-    if args.ckpt:
-        engine = InferenceEngine.from_checkpoint(args.ckpt, args.model, **kw)
-    else:
-        engine = InferenceEngine.from_random(args.model, seed=args.seed, **kw)
+    engine = build_engine(args, registry, device)
     print(
-        f"==> warm: {engine.compile_count} buckets in "
-        f"{engine.cold_start_s:.2f}s",
+        f"==> warm: {engine.compile_count} buckets warmed on prepared "
+        f"weights, {engine.aot_cache_hits} imported from the cold-start "
+        f"cache ({engine.cold_start_s:.2f}s cold start)",
         file=sys.stderr,
     )
     if args.verify:
@@ -470,6 +499,8 @@ def main(argv=None) -> int:
         "max_wait_ms": args.max_wait_ms,
         "compiles": engine.compile_count,
         "cold_start_s": round(engine.cold_start_s, 3),
+        "aot_cache_hits": engine.aot_cache_hits,
+        "aot_cache_misses": engine.aot_cache_misses,
         "engine_version": engine.version,
         "reloads": watcher.reloads if watcher is not None else 0,
         "reload_skipped": watcher.skipped if watcher is not None else 0,

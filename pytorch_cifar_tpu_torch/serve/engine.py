@@ -16,7 +16,14 @@ Counterpart of ``pytorch_cifar_tpu/serve/engine.py`` (single device):
 - **Weights are folded once per weight set.** Each weight set (at
   construction and at every swap) is loaded into a fresh model on the
   device and folded for the compute dtype (BN into its conv, the fused
-  sites' weights to HWIO); requests only read it.
+  sites' weights to HWIO); requests only read the folded tree, so it is
+  all the card keeps (the model moves to the meta device, the float
+  originals stay on the host for :meth:`InferenceEngine.weights_host`).
+- **The cold-start cache** (``aot_cache_dir``, :mod:`.aot_cache`): the
+  prepared weight set and each bucket's probe logits, exported by the
+  engine that prepared them and imported by the next, which skips the
+  preparation and holds each bucket's first forward against the
+  exporter's bits (:class:`InferenceEngine` says what counts as a hit).
 - **Checkpoints.** :meth:`InferenceEngine.from_checkpoint` serves a
   trainer's directory (the best checkpoint first), a ``.msgpack`` payload
   (either package's; verified against its sidecar's manifest) or a
@@ -40,8 +47,12 @@ The default compute dtype is bf16 with fp32 logits on the wire.
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import functools
+import hashlib
+import logging
 import os
 import threading
 import time
@@ -66,10 +77,13 @@ from pytorch_cifar_tpu_torch.models import create_model
 from pytorch_cifar_tpu_torch.obs import trace
 from pytorch_cifar_tpu_torch.train.checkpoint import (
     best_checkpoint_order,
+    publish_fingerprint,
     read_meta,
     read_payload_tree,
     read_verified_payload,
 )
+
+log = logging.getLogger(__name__)
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 IMAGE_SHAPE = (32, 32, 3)
@@ -223,16 +237,70 @@ def _int8_plan(model_name: str, num_classes: int) -> tuple:
     return keys, tuple(plan)
 
 
+def resolve_checkpoint(ckpt: str) -> str:
+    """The file :func:`load_checkpoint_trees` reads for ``ckpt``: a
+    trainer's directory resolves to the first candidate of the best order
+    that exists (a v3 commit marker counts), as the JAX engine picks it;
+    a file is itself. Raises FileNotFoundError when a directory holds
+    none."""
+    if not os.path.isdir(ckpt):
+        return ckpt
+    for name in best_checkpoint_order(ckpt):
+        p = os.path.join(ckpt, name)
+        if os.path.isfile(p) or "shards" in read_meta(ckpt, name):
+            return p
+    raise FileNotFoundError(
+        f"no checkpoint in {ckpt!r} (looked for "
+        f"{best_checkpoint_order(ckpt)})"
+    )
+
+
+@contextlib.contextmanager
+def _timed(stages: Optional[dict], name: str, device=None):
+    """Add the wall ms of the block to ``stages[name]`` (a no-op when
+    ``stages`` is None); on a CUDA ``device`` the block's queued work is
+    waited for, so its device time lands in its own stage."""
+    if stages is None:
+        yield
+        return
+    t0 = time.perf_counter()
+    yield
+    if device is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+
+
+def _read_msgpack_payload(path: str, meta: dict,
+                          stages: Optional[dict] = None) -> bytes:
+    """A ``.msgpack`` candidate's payload, verified against the sidecar
+    ``meta`` it was resolved with (v3 reassembled from its committed
+    shards): a payload replaced since fails the check."""
+    dirpath, name = os.path.dirname(path) or ".", os.path.basename(path)
+    with _timed(stages, "checkpoint_read_ms"):
+        return read_verified_payload(dirpath, name, meta)
+
+
+def _decode_msgpack_state(path: str, payload: bytes, model_name: str,
+                          num_classes: int, stages: Optional[dict] = None):
+    """The port's ``state_dict`` of a verified ``.msgpack`` payload."""
+    with _timed(stages, "decode_ms"):
+        tree = read_payload_tree(path, payload)
+        return state_dict_from_jax(
+            model_name, tree["params"], tree.get("batch_stats", {}),
+            num_classes=num_classes,
+        )
+
+
 def load_checkpoint_trees(
-    ckpt: str, model_name: str, num_classes: int = 10
+    ckpt: str, model_name: str, num_classes: int = 10,
+    stages: Optional[dict] = None,
 ) -> Tuple[dict, dict]:
     """Serving weights from any checkpoint the port understands, as the
     port's ``state_dict`` (numpy) and the checkpoint's ``meta`` (the
     sidecar's ``epoch``/``best_acc``, or the reference envelope's
     ``epoch``/``acc``). ``ckpt`` may be:
 
-    - a trainer's directory: the first candidate of the best order that
-      exists (a v3 commit marker counts), as the JAX engine picks it;
+    - a trainer's directory (:func:`resolve_checkpoint`);
     - a ``.msgpack`` payload, verified against its sidecar's manifest
       (v3 reassembled from its committed shards) and mapped through
       ``compat.state_dict_from_jax``;
@@ -240,33 +308,23 @@ def load_checkpoint_trees(
       ``state_dict``), read with ``weights_only=True``; ``module.``
       prefixes are stripped and the keys are the port's own.
 
+    ``stages``, when given, gets the read's and the decode's wall ms.
     Raises FileNotFoundError when there is nothing to load and
     ``CheckpointCorrupt`` when a payload fails verification or decoding.
     """
-    path = ckpt
-    if os.path.isdir(path):
-        for name in best_checkpoint_order(path):
-            p = os.path.join(path, name)
-            if os.path.isfile(p) or "shards" in read_meta(path, name):
-                path = p
-                break
-        else:
-            raise FileNotFoundError(
-                f"no checkpoint in {path!r} (looked for "
-                f"{best_checkpoint_order(path)})"
-            )
+    path = resolve_checkpoint(ckpt)
     if path.endswith(".pth"):
-        obj = torch.load(path, map_location="cpu", weights_only=True)
-        sd, meta = normalize_state_dict(obj)
-        return {k: v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                else np.asarray(v) for k, v in sd.items()}, meta
-    dirpath, name = os.path.dirname(path) or ".", os.path.basename(path)
-    meta = read_meta(dirpath, name)
-    tree = read_payload_tree(path, read_verified_payload(dirpath, name, meta))
-    return state_dict_from_jax(
-        model_name, tree["params"], tree.get("batch_stats", {}),
-        num_classes=num_classes,
-    ), meta
+        with _timed(stages, "checkpoint_read_ms"):
+            obj = torch.load(path, map_location="cpu", weights_only=True)
+        with _timed(stages, "decode_ms"):
+            sd, meta = normalize_state_dict(obj)
+            return {k: v.detach().cpu().numpy()
+                    if isinstance(v, torch.Tensor) else np.asarray(v)
+                    for k, v in sd.items()}, meta
+    meta = read_meta(os.path.dirname(path) or ".", os.path.basename(path))
+    payload = _read_msgpack_payload(path, meta, stages)
+    return _decode_msgpack_state(path, payload, model_name, num_classes,
+                                 stages), meta
 
 
 def kernel_launches() -> dict:
@@ -291,6 +349,37 @@ def _dtype_name(v) -> str:
     return np.asarray(v).dtype.name
 
 
+def _libcuda_version() -> Optional[int]:
+    """The version of the card's ``libcuda.so.1`` (its
+    ``cuDriverGetVersion``), or None where there is none."""
+    try:
+        lib = ctypes.CDLL("libcuda.so.1")
+    except OSError:
+        return None
+    v = ctypes.c_int(0)
+    return int(v.value) if lib.cuDriverGetVersion(ctypes.byref(v)) == 0 \
+        else None
+
+
+def state_digest(state_dict: Mapping) -> str:
+    """SHA-256 over a ``state_dict``'s keys, shapes, dtypes and bytes: a
+    weight set's identity when nothing cheaper names it."""
+    h = hashlib.sha256()
+    for k, v in state_dict.items():
+        a = np.ascontiguousarray(_host(v))
+        h.update(f"{k}:{a.shape}:{a.dtype.str};".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def probe_batch(bucket: int, image_shape=IMAGE_SHAPE) -> np.ndarray:
+    """The JAX engine's probe batch of ``bucket`` images
+    (``RandomState(1234 + bucket)``): every warm-up's input, and what a
+    cache entry's logits were computed on."""
+    rs = np.random.RandomState(1234 + int(bucket))
+    return rs.randint(0, 256, size=(bucket, *image_shape)).astype(np.uint8)
+
+
 class InferenceEngine:
     """Batched eval forward over fixed batch-size buckets, warmed up at
     construction.
@@ -299,6 +388,13 @@ class InferenceEngine:
     and returns fp32 logits ``(n, classes)`` as numpy. Thread-safe: the
     served weights are replaced by a single assignment.
 
+    ``state_dict`` is the weight set, or a callable ``source(stages)`` that
+    returns it (recording its stages' ms in the dict it is given): a source
+    runs only when the engine prepares the weights itself or when
+    :meth:`weights_host` asks for the float originals, so a cache hit never
+    decodes the checkpoint. ``mean``/``std`` are the normalization
+    constants (CIFAR-10's by default), as the JAX engine takes them.
+
     ``int8=True`` serves the int8 lane (module docstring): the same
     buckets, forward and kernels over int8-resident weights, counted in
     ``serve.int8_requests``/``serve.int8_images``; :meth:`weights_host`
@@ -306,25 +402,75 @@ class InferenceEngine:
     re-quantizes) a float ``state_dict``.
 
     ``n_devices`` is 1 (one card; serving over a device group is not
-    ported) and ``aot_cache_hits`` is 0: the port has no cold-start cache
-    yet, so ``/healthz`` reports every bucket as warmed here.
+    ported).
+
+    **The cold-start cache** (``aot_cache_dir``, :mod:`.aot_cache`). What a
+    later process can reload bit for bit is the prepared weight set, so
+    that is what the cache holds, keyed by the JAX engine's fields with
+    torch's counterparts (:meth:`_cache_key_fields`) and the weight set's
+    identity (``weights_id``: the checkpoint's publish fingerprint with the
+    SHA-256 of its payload, ``from_random``'s seed, else
+    :func:`state_digest`).
+
+    - A **hit** is a bucket warmed on a verified entry: its weight set came
+      from the cache and its first forward, the probe batch, reproduced the
+      exporter's logits bit for bit. A hit skips measured work: the
+      checkpoint's decode, the model's build and load, the fold, and for
+      int8 the quantization and ``_int8_plan``; ``cold_start_stages``
+      shows which ran. The checkpoint's read and CRC still run (its
+      payload's digest names the weight set, and the payload stays in
+      host memory for :meth:`weights_host`). A warm-up that does what a
+      miss does under another name is not a hit.
+    - ``compile_count`` counts the buckets warmed on weights the engine
+      prepared itself (``serve.compiles``); ``aot_cache_hits`` the buckets
+      warmed on a verified entry (``serve.aot_cache_hits``, where
+      ``serve.compiles`` does not move); ``aot_cache_misses`` the buckets
+      whose entry was absent, torn, poisoned, of another key, or dropped
+      with a refuted load (``serve.aot_cache_misses``), as the JAX
+      engine counts them.
+    - The JAX engine's import has five phases; here: (1) the local scan
+      reads and verifies every bucket's entry and the weight set's
+      (:meth:`_import_cached`); (2) the cross-process agreement has nothing
+      to guard: a replica is one process (a replica over several processes
+      is item 9e); (3) each candidate bucket's probe runs on the imported
+      weights and must equal its entry's logits bit for bit, or the entry
+      is poisoned; (4) one refuted probe drops the whole load, since every
+      bucket reads the same weight set, and the engine prepares from the
+      checkpoint as on a miss; (5) the fresh-reference check has nothing to
+      guard: it stands against a deserializer that mis-executes programs,
+      and the port deserializes only bytes, whose CRC the read checks and
+      whose forward phase 3 has already held against the exporter's.
+    - Whatever the engine warmed itself, it exports: the weight set once,
+      then each bucket's probe logits. A failed export logs and never
+      fails the warm-up.
+
+    ``cold_start_s`` is the JAX engine's: the wall time of the last
+    :meth:`warmup`, with the cache's import that precedes the first one
+    (the JAX engine imports inside its warm-up). ``ready_s`` is the whole
+    start: preparing or importing the weights and warming every bucket
+    (:meth:`from_checkpoint` adds the checkpoint's read); and
+    ``cold_start_stages`` splits it (ms).
     """
 
     n_devices = 1
-    aot_cache_hits = 0
 
     def __init__(
         self,
         model_name: str,
-        state_dict: Mapping,
+        state_dict,
         *,
         buckets: Sequence[int] = DEFAULT_BUCKETS,
         compute_dtype: Optional[torch.dtype] = None,
         num_classes: int = 10,
+        mean: Optional[Sequence[float]] = None,
+        std: Optional[Sequence[float]] = None,
         registry=None,
         device=None,
         int8: bool = False,
+        aot_cache_dir: Optional[str] = None,
+        weights_id=None,
     ):
+        t0 = time.perf_counter()
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
@@ -337,16 +483,26 @@ class InferenceEngine:
         self.compute_dtype = (
             torch.bfloat16 if compute_dtype is None else compute_dtype
         )
-        self._mean = torch.tensor(CIFAR10_MEAN, device=self.device)
-        self._std = torch.tensor(CIFAR10_STD, device=self.device)
+        self._norm_mean = tuple(
+            float(v) for v in (CIFAR10_MEAN if mean is None else mean))
+        self._norm_std = tuple(
+            float(v) for v in (CIFAR10_STD if std is None else std))
+        self._mean = torch.tensor(self._norm_mean, device=self.device)
+        self._std = torch.tensor(self._norm_std, device=self.device)
         self._warm: set = set()
         self._swap_lock = threading.Lock()
         self._count_lock = threading.Lock()
-        self.compile_count = 0  # bucket warmups only (see warmup)
+        self.compile_count = 0  # buckets warmed on self-prepared weights
+        self.aot_cache_hits = 0  # buckets warmed on a verified entry
+        self.aot_cache_misses = 0
+        self.aot_cache_dir = aot_cache_dir or None
         self.forward_count = 0  # every device forward: warmup, bucket, direct
         self.version = 0  # bumped by every swap_weights
         self.checkpoint_meta: dict = {}  # set by from_checkpoint
-        self.cold_start_s = 0.0  # wall time of the last warmup()
+        self.cold_start_s = 0.0  # the last warmup() (+ the first import)
+        self.ready_s = 0.0  # the whole start
+        self.cold_start_stages: dict = {}  # ms of each step of the start
+        self._import_s = 0.0
         self._obs = registry
         self._h_device = (
             registry.histogram("serve.device_ms")
@@ -359,35 +515,76 @@ class InferenceEngine:
             self._c_int8_requests = registry.counter("serve.int8_requests")
             self._c_int8_images = registry.counter("serve.int8_images")
         self.staging = StagingPool(registry=registry)
-        # the swap contract is stated in RAW (float) avals, whatever the
-        # int8 lane does to the weights inside; _raw_host holds the lane's
-        # float originals (None off the lane)
-        self._raw_avals = self._avals(state_dict)
-        self._weights, self._raw_host = self._prepare_weights(state_dict)
+        source = state_dict if callable(state_dict) else None
+        sd = None if source is not None else state_dict
+        if self.aot_cache_dir and weights_id is None:
+            # nothing cheaper names this weight set: its bytes do
+            sd = sd if sd is not None else self._load(source)
+            weights_id = {"sha256": state_digest(sd)}
+        self._weights_id = weights_id
+        self._from_cache = False
+        imported = None
+        if self.aot_cache_dir:
+            t1 = time.perf_counter()
+            with trace.span("serve/cache_import", model=model_name):
+                imported = self._import_cached(self.aot_cache_dir)
+            self._import_s = time.perf_counter() - t1
+        if imported is not None:
+            # the swap contract is stated in RAW (float) avals, whatever
+            # is served; the float originals are decoded from their source
+            # when asked for (weights_host), never at start
+            self._raw_avals, self._weights = imported
+            self._raw_host = source if sd is None else self._host_copy(sd)
+            self._from_cache = True
+        else:
+            sd = sd if sd is not None else self._load(source)
+            self._raw_avals = self._avals(sd)
+            self._weights, self._raw_host = self._prepare_weights(
+                sd, self.cold_start_stages)
         self.warmup()
+        self.ready_s = time.perf_counter() - t0
 
     # -- weights -------------------------------------------------------
 
-    def _prepare_weights(self, state_dict: Mapping):
-        """Load ``state_dict`` into a fresh model on the device and fold it
-        for the compute dtype: the ``(model, folded)`` pair a swap assigns,
-        and the int8 lane's float originals (None off the lane). All of it
-        runs off any lock, once per weight set."""
-        if self.int8:
-            return self._prepare_int8(state_dict)
-        model = create_model(self.model_name, num_classes=self.num_classes)
-        model.load_state_dict(
-            {
-                k: v if isinstance(v, torch.Tensor)
-                else torch.from_numpy(np.array(v))
-                for k, v in state_dict.items()
-            },
-            strict=True,
-        )
-        model.to(self.device).eval()
-        return (model, model.fold(self.compute_dtype)), None
+    def _load(self, source) -> Mapping:
+        return source(self.cold_start_stages)
 
-    def _prepare_int8(self, state_dict: Mapping):
+    @staticmethod
+    def _host_copy(state_dict: Mapping) -> dict:
+        return {k: _host(v).copy() for k, v in state_dict.items()}
+
+    def _skeleton(self):
+        """The model on the meta device: its ``folded_forward`` reads only
+        the folded tree, so no parameter of it is ever on the card."""
+        with torch.device("meta"):
+            return create_model(
+                self.model_name, num_classes=self.num_classes).eval()
+
+    def _prepare_weights(self, state_dict: Mapping, stages=None):
+        """Load ``state_dict`` into a fresh model, fold it on the device
+        for the compute dtype, and keep only the folded tree there (the
+        model moves to the meta device): the ``(model, folded)`` pair a
+        swap assigns, and the float originals on the host. All of it runs
+        off any lock, once per weight set; ``stages`` gets each step's
+        ms."""
+        if self.int8:
+            return self._prepare_int8(state_dict, stages)
+        dev = self.device
+        with _timed(stages, "model_ms", dev):
+            raw = self._host_copy(state_dict)
+            model = create_model(self.model_name,
+                                 num_classes=self.num_classes)
+            model.load_state_dict(
+                {k: torch.from_numpy(np.array(v)) for k, v in raw.items()},
+                strict=True,
+            )
+        with _timed(stages, "fold_ms", dev):
+            model.to(dev).eval()
+            folded = model.fold(self.compute_dtype)
+            model.to("meta")
+        return (model, folded), raw
+
+    def _prepare_int8(self, state_dict: Mapping, stages=None):
         """The int8 lane's weight set: the model is folded on the device
         from the quantized values ``q`` (exact in every compute dtype), and
         each folded weight becomes ``{"q": int8, "s": scale}`` in its
@@ -395,48 +592,56 @@ class InferenceEngine:
         (its parameters move to the meta device; the forward reads only
         the folded tree), so the device holds int8 weights, their scales
         and the folded vectors."""
-        raw = {k: _host(v).copy() for k, v in state_dict.items()}
-        quant = quantize_int8(raw)
-        keys, plan = _int8_plan(self.model_name, self.num_classes)
-        scales = torch.from_numpy(np.concatenate(
-            [quant[k]["s"].reshape(-1) for k in keys]))
-        model = create_model(self.model_name, num_classes=self.num_classes)
-        model.load_state_dict(
-            {k: torch.from_numpy(
-                v["q"].astype(np.float32) if _is_qleaf(v) else np.array(v))
-             for k, v in quant.items()},
-            strict=True,
-        )
-        model.to(self.device).eval()
-        folded = model.fold(self.compute_dtype)
-        leaves = iter(plan)
+        dev = self.device
+        with _timed(stages, "quantize_ms"):
+            raw = self._host_copy(state_dict)
+            quant = quantize_int8(raw)
+        with _timed(stages, "int8_plan_ms"):
+            keys, plan = _int8_plan(self.model_name, self.num_classes)
+        with _timed(stages, "model_ms", dev):
+            scales = torch.from_numpy(np.concatenate(
+                [quant[k]["s"].reshape(-1) for k in keys]))
+            model = create_model(self.model_name,
+                                 num_classes=self.num_classes)
+            model.load_state_dict(
+                {k: torch.from_numpy(
+                    v["q"].astype(np.float32) if _is_qleaf(v)
+                    else np.array(v))
+                 for k, v in quant.items()},
+                strict=True,
+            )
+        with _timed(stages, "fold_ms", dev):
+            model.to(dev).eval()
+            folded = model.fold(self.compute_dtype)
+            leaves = iter(plan)
 
-        def encode(leaf):
-            if not isinstance(leaf, torch.Tensor):
-                return leaf
-            ids = next(leaves)
-            if ids is None:  # a folded vector: its own storage, not the model's
-                return leaf.clone()
-            return {"q": leaf.to(torch.int8),
-                    "s": scales[ids].to(self.device, self.compute_dtype)}
+            def encode(leaf):
+                if not isinstance(leaf, torch.Tensor):
+                    return leaf
+                ids = next(leaves)
+                if ids is None:  # a folded vector: its own storage
+                    return leaf.clone()
+                return {"q": leaf.to(torch.int8),
+                        "s": scales[ids].to(dev, self.compute_dtype)}
 
-        folded = _tree_map(encode, folded)
-        if next(leaves, False) is not False:
-            raise ValueError(f"{self.model_name}: the int8 plan does not "
-                             "match the folded tree")
-        return (model.to("meta"), folded), raw
+            folded = _tree_map(encode, folded)
+            if next(leaves, False) is not False:
+                raise ValueError(f"{self.model_name}: the int8 plan does "
+                                 "not match the folded tree")
+            model.to("meta")
+        return (model, folded), raw
 
     def weights_host(self) -> dict:
         """Host-numpy copy of the served ``state_dict`` — what
         :meth:`swap_weights` takes back (the rollback snapshot). An int8
-        engine returns the float ORIGINALS, not the encoding it serves."""
-        if self.int8:
-            return {k: v.copy() for k, v in self._raw_host.items()}
-        model, _ = self._weights
-        return {
-            k: v.detach().cpu().numpy().copy()
-            for k, v in model.state_dict().items()
-        }
+        engine returns the float ORIGINALS, not the encoding it serves. A
+        weight set imported from the cache is decoded from its source here:
+        the payload read at start, or the seed, never the file again (a
+        checkpoint republished since does not change it)."""
+        raw = self._raw_host
+        if callable(raw):
+            return self._host_copy(raw(None))
+        return {k: v.copy() for k, v in raw.items()}
 
     @staticmethod
     def _avals(state_dict: Mapping):
@@ -464,6 +669,139 @@ class InferenceEngine:
             self.version += 1
         return self.version
 
+    # -- the cold-start cache ------------------------------------------
+
+    def _cache_key_fields(self, b: Optional[int]) -> dict:
+        """Everything that identifies a bucket's entry (``b``) or the
+        weight set's (``b`` None): the JAX engine's fields, with the card's
+        name and compute capability in place of its devices and platform,
+        the torch, CUDA, cuDNN and libcuda versions in place of jax and
+        jaxlib, the kernel libraries' digests, and the weight set's
+        identity. A different value in ANY field is a miss."""
+        from pytorch_cifar_tpu_torch.ops import _build
+
+        dev = self.device
+        cuda = dev.type == "cuda"
+        key = {
+            "model": self.model_name,
+            "num_classes": int(self.num_classes),
+            "image_shape": list(self.image_shape),
+            "compute_dtype": _dtype_name(torch.empty(
+                0, dtype=self.compute_dtype)),
+            "mean": list(self._norm_mean),
+            "std": list(self._norm_std),
+            "int8": bool(self.int8),
+            "n_devices": int(self.n_devices),
+            "platform": dev.type,
+            "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
+            "capability": list(torch.cuda.get_device_capability(dev))
+            if cuda else None,
+            "torch": torch.__version__,
+            "cuda": torch.version.cuda,
+            "cudnn": torch.backends.cudnn.version() if cuda else None,
+            "libcuda": _libcuda_version() if cuda else None,
+            "kernels": {n: _build.library_path(n).name
+                        for n in sorted(_build.ENTRY_POINTS)},
+            "weights": self._weights_id,
+        }
+        if b is not None:
+            key["bucket"] = int(b)
+        return key
+
+    def _entry_names(self):
+        """``(bucket -> (name, key), (weights name, key))``."""
+        from pytorch_cifar_tpu_torch.serve import aot_cache
+
+        wkey = self._cache_key_fields(None)
+        buckets = {}
+        for b in self.buckets:
+            key = {**wkey, "bucket": int(b)}
+            buckets[b] = (aot_cache.entry_name(
+                self.model_name, b, aot_cache.fingerprint(key)), key)
+        return buckets, (aot_cache.weights_name(
+            self.model_name, aot_cache.fingerprint(wkey)), wkey)
+
+    def _miss(self, n: int = 1) -> None:
+        self.aot_cache_misses += n
+        if self._obs is not None:
+            self._obs.counter("serve.aot_cache_misses").inc(n)
+
+    def _import_cached(self, cache_dir: str):
+        """The raw avals and the served ``(model, folded)`` pair from the
+        cache, or None (phases in the class docstring). The buckets it
+        returns warm are in ``self._warm``, counted in ``aot_cache_hits``
+        and timed as each bucket's first forward."""
+        from pytorch_cifar_tpu_torch.serve import aot_cache
+
+        stages = self.cold_start_stages
+        names, (wname, wkey) = self._entry_names()
+        # phase 1: the local scan (no forward yet)
+        candidates = {}
+        with _timed(stages, "cache_read_ms"):
+            for b, (name, key) in names.items():
+                entry = aot_cache.load_entry(cache_dir, name, key)
+                if entry is None:
+                    self._miss()
+                    continue
+                candidates[b] = np.asarray(entry["probe_logits"])
+            went = aot_cache.load_entry(cache_dir, wname, wkey) \
+                if candidates else None
+        if went is None:
+            self._miss(len(candidates))
+            return None
+        try:
+            with _timed(stages, "cache_put_ms", self.device):
+                folded = aot_cache.deserialize_entry(went, self.device)
+            with _timed(stages, "model_ms"):
+                self._weights = (self._skeleton(), folded)
+        except Exception as e:
+            log.warning("cold-start cache weights %s failed to load (%s) — "
+                        "preparing instead", wname, e)
+            self._miss(len(candidates))
+            return None
+        raw_avals = went["raw_avals"]
+        del went  # the host copy of the weight set
+        # phase 3: each candidate's probe, its first forward
+        refuted = []
+        for b in sorted(candidates):
+            with _timed(stages, f"b{b}_first_ms"):
+                got = self._forward(probe_batch(b, self.image_shape))
+            if not np.array_equal(got, candidates[b]):
+                aot_cache.poison_entry(
+                    cache_dir, names[b][0],
+                    "probe logits differ from the exporter's")
+                refuted.append(b)
+        # phase 4: one refutation drops the whole load
+        if refuted:
+            self._weights = None
+            self._miss(len(candidates))
+            for b in candidates:
+                stages.pop(f"b{b}_first_ms", None)
+            return None
+        self._warm.update(candidates)
+        self.aot_cache_hits += len(candidates)
+        if self._obs is not None:
+            self._obs.counter("serve.aot_cache_hits").inc(len(candidates))
+        return raw_avals, self._weights
+
+    def _export(self, probes: dict) -> None:
+        """Publish what this engine warmed itself: the weight set (unless
+        it came from the cache) and each bucket's probe logits."""
+        from pytorch_cifar_tpu_torch.serve import aot_cache
+
+        names, (wname, wkey) = self._entry_names()
+        with _timed(self.cold_start_stages, "export_ms"):
+            if not self._from_cache:
+                body = aot_cache.encode_weights(self._weights[1])
+                body["raw_avals"] = self._raw_avals
+                if aot_cache.export_entry(self.aot_cache_dir, wname, wkey,
+                                          body) is None:
+                    return
+            for b, logits in probes.items():
+                name, key = names[b]
+                aot_cache.export_entry(self.aot_cache_dir, name, key,
+                                       {"probe_logits": logits})
+
     # -- forward -------------------------------------------------------
 
     def _forward(self, x: np.ndarray) -> np.ndarray:
@@ -481,20 +819,27 @@ class InferenceEngine:
         return out
 
     def warmup(self) -> None:
-        """Run every bucket once (idempotent): builds the kernels, lets the
-        backend settle its per-shape choices, and counts each bucket in
-        ``compile_count``. ``predict`` never adds to it."""
+        """Run every bucket not yet warm once on its probe batch
+        (idempotent): builds the kernels, lets the backend settle its
+        per-shape choices, and counts each bucket in ``compile_count``
+        (``predict`` never adds to it). With a cache, what it warmed is
+        exported. Sets ``cold_start_s``."""
         t0 = time.perf_counter()
+        probes = {}
         for b in self.buckets:
             if b in self._warm:
                 continue
-            with trace.span("serve/compile_bucket", bucket=b):
-                self._forward(np.zeros((b, *self.image_shape), np.uint8))
+            with trace.span("serve/compile_bucket", bucket=b), \
+                    _timed(self.cold_start_stages, f"b{b}_first_ms"):
+                probes[b] = self._forward(probe_batch(b, self.image_shape))
             self._warm.add(b)
             self.compile_count += 1
             if self._obs is not None:
                 self._obs.counter("serve.compiles").inc()
-        self.cold_start_s = time.perf_counter() - t0
+        if probes and self.aot_cache_dir:
+            self._export(probes)
+        self.cold_start_s = time.perf_counter() - t0 + self._import_s
+        self._import_s = 0.0
         if self._obs is not None:
             self._obs.gauge("serve.cold_start_s").set(self.cold_start_s)
 
@@ -569,10 +914,40 @@ class InferenceEngine:
     ) -> "InferenceEngine":
         """Serve a trainer's directory, a ``.msgpack`` or a reference
         ``.pth`` (:func:`load_checkpoint_trees`); the checkpoint's meta is
-        in :attr:`checkpoint_meta`."""
-        sd, meta = load_checkpoint_trees(ckpt, model_name,
-                                         num_classes=num_classes)
-        eng = cls(model_name, sd, num_classes=num_classes, **kw)
+        in :attr:`checkpoint_meta`. A ``.msgpack`` payload is read and
+        checked here, and with a cache named by its sidecar's publish
+        fingerprint and its SHA-256; it is decoded only when the engine
+        prepares its weights itself (not on a cache hit) or when
+        :meth:`weights_host` asks for them."""
+        t0 = time.perf_counter()
+        path = resolve_checkpoint(ckpt)
+        stages: dict = {}
+        if path.endswith(".pth"):
+            sd, meta = load_checkpoint_trees(path, model_name,
+                                             num_classes=num_classes,
+                                             stages=stages)
+            eng = cls(model_name, sd, num_classes=num_classes, **kw)
+        else:
+            meta = read_meta(os.path.dirname(path) or ".",
+                             os.path.basename(path))
+            payload = _read_msgpack_payload(path, meta, stages)
+            weights_id = None
+            if kw.get("aot_cache_dir"):
+                # the manifest's CRC alone would leave a weight set's
+                # identity to 32 bits: its bytes name it
+                with _timed(stages, "checkpoint_digest_ms"):
+                    weights_id = {"publish": publish_fingerprint(meta),
+                                  "sha256": hashlib.sha256(
+                                      payload).hexdigest()}
+
+            def source(stages):
+                return _decode_msgpack_state(path, payload, model_name,
+                                             num_classes, stages)
+
+            eng = cls(model_name, source, num_classes=num_classes,
+                      weights_id=weights_id, **kw)
+        eng.cold_start_stages.update(stages)
+        eng.ready_s = time.perf_counter() - t0
         eng.checkpoint_meta = meta
         return eng
 
@@ -581,11 +956,18 @@ class InferenceEngine:
         cls, model_name: str, *, seed: int = 0, num_classes: int = 10, **kw
     ) -> "InferenceEngine":
         """PyTorch-default init drawn from ``torch.Generator(seed)``
-        (serving speed does not depend on the weights' values)."""
-        g = torch.Generator().manual_seed(int(seed))
-        model = create_model(model_name, num_classes=num_classes, generator=g)
-        return cls(model_name, model.state_dict(), num_classes=num_classes,
-                   **kw)
+        (serving speed does not depend on the weights' values); the seed
+        names the weight set, which is drawn only when the engine prepares
+        it itself."""
+
+        def source(stages):
+            with _timed(stages, "init_ms"):
+                g = torch.Generator().manual_seed(int(seed))
+                return create_model(model_name, num_classes=num_classes,
+                                    generator=g).state_dict()
+
+        return cls(model_name, source, num_classes=num_classes,
+                   weights_id={"random_seed": int(seed)}, **kw)
 
     @classmethod
     def from_jax(

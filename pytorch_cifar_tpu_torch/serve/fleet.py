@@ -24,8 +24,9 @@ replica deaths into automatic, bounded-latency events:
   ``/healthz`` to go green, and registers it with the live
   :class:`~pytorch_cifar_tpu_torch.serve.router.Router`
   (:meth:`~pytorch_cifar_tpu_torch.serve.router.Router.add_replica`). The
-  port has no cold-start cache yet, so every replica warms its own buckets
-  and joins with ``compiles`` above 0. Scale-down happens only when a
+  replicas share a cold-start cache (``--aot_cache``): the first replica
+  of a weight set prepares and exports it, every later one imports it and
+  joins with ``compiles`` at 0. Scale-down happens only when a
   drain costs nothing (the victim has no router-side in-flight work and
   an empty queue): the replica is removed from rotation FIRST (no new
   dispatches), then SIGTERM'd (the serving CLI's graceful drain answers
@@ -438,8 +439,9 @@ class ReplicaProcess:
 
     def wait_healthy(self, timeout_s: float) -> dict:
         """Block until ``/healthz`` answers 200; returns (and stores)
-        the health payload (its ``compiles`` is the replica's own warmup:
-        the port has no cold-start cache). Raises RuntimeError when the
+        the health payload (its ``compiles`` counts the buckets the replica
+        warmed on weights it prepared itself; ``aot_cache_hits`` those it
+        warmed on the cold-start cache). Raises RuntimeError when the
         replica dies or never turns healthy (the caller reaps it)."""
         from pytorch_cifar_tpu_torch.serve.router import Replica, ReplicaError
 
@@ -512,11 +514,13 @@ def replica_command(
     max_wait_ms: float = 2.0,
     host: str = "127.0.0.1",
     device: str = "cuda",
+    aot_cache: str = "",
     extra_args=(),
 ) -> List[str]:
     """The command line of one replica: the port's serving CLI as an
     HTTP replica on an ephemeral port, on ``device`` (bf16 on the card,
-    fp32 on the CPU)."""
+    fp32 on the CPU), on the cold-start cache ``aot_cache`` when one is
+    named."""
     return [
         sys.executable, "-m", REPLICA_MODULE,
         "--ckpt", ckpt,
@@ -528,6 +532,7 @@ def replica_command(
         "--deadline_ms", str(deadline_ms),
         "--device", device,
         "--dtype", REPLICA_DTYPE[device],
+        *(["--aot_cache", aot_cache] if aot_cache else []),
         *extra_args,
     ]
 
@@ -536,20 +541,24 @@ def make_replica_launcher(
     ckpt: str,
     model: str,
     *,
+    aot_cache: str,
     env: Optional[dict] = None,
     timeout_s: float = 300.0,
     **command_kw,
 ) -> Callable[[int], ReplicaProcess]:
     """Build the controller's spawn callable: launch one replica
-    (:func:`replica_command`; ``command_kw`` are its keywords) and block
-    until healthy. There is no cold-start cache yet: each replica warms
-    every bucket itself, so its ``/healthz`` reports ``compiles`` equal to
-    its bucket count. The kernels it runs are built once into
-    ``ops/build/`` and shared."""
+    (:func:`replica_command`; ``command_kw`` are its keywords) on the
+    shared cold-start cache ``aot_cache`` and block until healthy. The
+    first replica of a weight set prepares its weights and exports them;
+    every replica spawned on that weight set afterwards imports them and
+    joins with ``compile_count == 0`` (a new generation's first replica
+    prepares again: the entries are per weight set). The kernels it runs
+    are built once into ``ops/build/`` and shared."""
     base_env = dict(os.environ if env is None else env)
 
     def launch(idx: int) -> ReplicaProcess:
-        cmd = replica_command(ckpt, model, **command_kw)
+        cmd = replica_command(ckpt, model, aot_cache=aot_cache,
+                              **command_kw)
         replica = ReplicaProcess(idx, cmd, env=base_env)
         try:
             replica.wait_healthy(timeout_s)

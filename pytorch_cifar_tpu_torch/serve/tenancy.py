@@ -22,10 +22,13 @@ unchanged; what this module adds is the multiplexing above it:
   batcher drains (every admitted request is answered from the old
   engine), and only then is its engine dropped, which frees its weights
   on the device: nothing else holds a reference to it.
-- **Re-admission rebuilds.** The port has no cold-start cache yet: a
-  re-admitted tenant loads, folds and warms its buckets again
-  (``compile_count`` counts those warm-ups again, ``aot_cache_hits`` stays
-  0). Its logits are bit for bit those of its first admission.
+- **Re-admission is a cache hit.** Every tenant engine shares one
+  ``aot_cache_dir`` (:mod:`.aot_cache`); a tenant's first admission
+  exports its prepared weight set and each bucket's probe logits under the
+  per-model key, so a re-admission imports them (probe-verified,
+  ``compile_count == 0``) instead of reading, decoding and folding its
+  checkpoint again. Its logits are bit for bit those of its first
+  admission. Without a cache dir a re-admission prepares and warms again.
 - **Per-model admission queues and SLOs.** Each tenant owns its own
   bounded-queue micro-batcher, with the tenant's ``deadline_ms`` as its
   default queue-time bound.
@@ -182,7 +185,7 @@ class ModelZooServer:
     ``engine_version`` — so one :class:`~.frontend.ServingFrontend`
     serves a zoo exactly as it serves a single replica or a router.
     Tenant engines run on ``device`` (CUDA unless the caller names
-    another).
+    another) and share one cold-start cache, ``aot_cache_dir``.
     """
 
     # the frontend passes the request's model id through only to
@@ -203,6 +206,7 @@ class ModelZooServer:
         int8: bool = False,
         eager: bool = True,
         device=None,
+        aot_cache_dir: Optional[str] = None,
     ):
         if not specs:
             raise ValueError("need at least one tenant spec")
@@ -212,6 +216,7 @@ class ModelZooServer:
         self.obs = registry if registry is not None else MetricsRegistry()
         self.compute_dtype = compute_dtype
         self.device = device
+        self.aot_cache_dir = aot_cache_dir
         self.continuous = bool(continuous)
         self.int8 = bool(int8)
         self.max_resident = int(max_resident) or len(specs)
@@ -405,12 +410,14 @@ class ModelZooServer:
             compute_dtype=self.compute_dtype,
             registry=self.obs,
             device=self.device,
+            aot_cache_dir=self.aot_cache_dir,
         )
 
     def _build(self, tenant: _Tenant):
         """Construct one tenant's engine (+ optional watcher) and
         batcher — the expensive part of admission, always outside the
-        condition."""
+        condition. The shared cold-start cache makes a RE-admission a
+        verified import (``compile_count == 0``)."""
         spec = tenant.spec
         kw = dict(self._engine_kw(spec), int8=self.int8)
         if spec.ckpt:

@@ -4,8 +4,9 @@ Counterpart of the JAX package's ``tools/fleet_run.py``, in one command:
 
 - spawns ``--replicas`` seed replicas (``python -m
   pytorch_cifar_tpu_torch.serve --http_port 0`` processes, on the card
-  unless ``--device cpu``; the port has no cold-start cache yet, so each
-  replica, seed or scale-up, warms its own buckets),
+  unless ``--device cpu``), one at a time; the first one populates the
+  shared ``--aot_cache`` so every later replica of its weight set, seed or
+  scale-up, joins with ``compile_count == 0``,
 - starts a :class:`~pytorch_cifar_tpu_torch.serve.router.Router` + the
   SAME HTTP frontend in front of it (clients cannot tell an elastic fleet
   from a fixed one), and
@@ -48,12 +49,12 @@ drained replica's own JSON record, under its ``[replica i]`` prefix:
 
 Usage:
   python -m pytorch_cifar_tpu_torch.tools.fleet_run --ckpt ./checkpoint \\
-      --model ResNet18 --min_replicas 1 --max_replicas 3
+      --model ResNet18 --min_replicas 1 --max_replicas 3 --aot_cache ./aot
   python -m pytorch_cifar_tpu_torch.tools.fleet_run --ckpt ./checkpoint \\
-      --model LeNet --device cpu --clients 8 --requests 64
+      --model LeNet --device cpu --aot_cache ./aot --clients 8 --requests 64
   python -m pytorch_cifar_tpu_torch.tools.fleet_run --ckpt ./live \\
       --model ResNet18 --role controller --fleet_url http://127.0.0.1:41000 \\
-      --journal fleet.journal --rollouts
+      --journal fleet.journal --rollouts --aot_cache ./aot
 
 This process never touches a device and never loads torch, but for a
 rollback (the checkpoint module restores ``.prev``): replicas own the
@@ -95,6 +96,12 @@ def parse_args(argv=None):
     p.add_argument("--buckets", type=int, nargs="+", default=[1, 8, 32])
     p.add_argument("--max_wait_ms", type=float, default=2.0)
     p.add_argument("--deadline_ms", type=float, default=0.0)
+    p.add_argument(
+        "--aot_cache", required=True,
+        help="shared cold-start cache dir: the first replica of a weight "
+        "set populates it; every later one (incl. every controller "
+        "scale-up) joins with compile_count == 0",
+    )
     # policy knobs (serve/fleet.FleetPolicy)
     p.add_argument("--queue_high", type=float, default=8.0)
     p.add_argument("--queue_low", type=float, default=1.0)
@@ -206,6 +213,7 @@ def main(argv=None) -> int:
         max_wait_ms=args.max_wait_ms,
         host=args.host,
         device=args.device,
+        aot_cache=args.aot_cache,
         timeout_s=args.timeout,
         extra_args=tuple(extra_args),
     )

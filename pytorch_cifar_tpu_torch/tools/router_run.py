@@ -5,9 +5,10 @@ topology in one command:
 
 - spawns ``--replicas`` N ``python -m pytorch_cifar_tpu_torch.serve
   --http_port 0`` processes (each its own engine on the card, or on the
-  CPU with ``--device cpu``), all at once: the port has no cold-start
-  cache yet for replica 0 to fill first, so every replica warms its own
-  buckets (its ``compiles`` is its bucket count),
+  CPU with ``--device cpu``): with ``--aot_cache``, replica 0 FIRST, so
+  it fills the shared cold-start cache and every later replica joins with
+  ``compile_count == 0``; without it, all at once (each warms its own
+  buckets),
 - waits for each replica's ``/healthz`` to go green,
 - starts a :class:`~pytorch_cifar_tpu_torch.serve.router.Router` (health
   probes, least-loaded dispatch, hedge-to-second-replica, priority-aware
@@ -34,7 +35,8 @@ its ``[replica i]`` prefix:
 
 Usage:
   python -m pytorch_cifar_tpu_torch.tools.router_run --ckpt ./checkpoint \\
-      --model ResNet18 --replicas 2 --clients 8 --requests 64
+      --model ResNet18 --replicas 2 --aot_cache ./aot --clients 8 \\
+      --requests 64
   python -m pytorch_cifar_tpu_torch.tools.router_run --ckpt ./checkpoint \\
       --models ResNet18,MobileNet,GoogLeNet --max_resident 2 --replicas 2
   python -m pytorch_cifar_tpu_torch.tools.router_run --ckpt ./checkpoint \\
@@ -88,6 +90,11 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="per-replica resident-tenant bound (0 = all resident); "
         "forces placement churn below the tenant count",
     )
+    p.add_argument(
+        "--aot_cache", default="",
+        help="shared cold-start cache dir: replica 0 populates it, "
+        "later replicas cold-start with compile_count == 0",
+    )
     p.add_argument("--watch", action="store_true")
     p.add_argument("--poll_s", type=float, default=1.0)
     p.add_argument("--probe_s", type=float, default=0.5)
@@ -134,7 +141,8 @@ def spawn_replica(args, idx: int):
     return ReplicaProcess(idx, replica_command(
         args.ckpt, args.model, buckets=args.buckets,
         deadline_ms=args.deadline_ms, max_wait_ms=args.max_wait_ms,
-        host=args.host, device=args.device, extra_args=extra))
+        host=args.host, device=args.device, aot_cache=args.aot_cache,
+        extra_args=extra))
 
 
 def shutdown_replicas(replicas, timeout: float) -> list:
@@ -162,14 +170,20 @@ def main(argv=None) -> int:
 
     frontend_cls = EdgeFrontend if args.edge == "event" else ServingFrontend
 
-    # the whole fleet at once: with no cold-start cache to fill first,
-    # nothing is gained by staging replica 0 alone (JAX's launcher does)
-    replicas = [spawn_replica(args, i) for i in range(args.replicas)]
+    # stage the fleet on a cache: replica 0 alone (it fills the cache),
+    # then the rest together (they import it); without one, all at once
+    replicas = [spawn_replica(args, i)
+                for i in range(1 if args.aot_cache else args.replicas)]
     router = frontend = None
     report = {}
     try:
         try:
             healths = [r.wait_healthy(args.timeout) for r in replicas]
+            staged = len(replicas)
+            replicas += [spawn_replica(args, i)
+                         for i in range(staged, args.replicas)]
+            healths += [r.wait_healthy(args.timeout)
+                        for r in replicas[staged:]]
         except RuntimeError as e:  # a replica died or never turned healthy
             raise SystemExit(str(e)) from None
         print(

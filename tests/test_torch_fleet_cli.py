@@ -135,6 +135,7 @@ def test_fleet_run_scales_up_and_leaves_no_orphan(tmp_path):
     child = Child(["pytorch_cifar_tpu_torch.tools.fleet_run",
                    "--ckpt", str(ckpt_dir), *LENET,
                    "--min_replicas", "1", "--max_replicas", "2",
+                   "--aot_cache", str(tmp_path / "aot"),
                    "--clients", "2", "--images_max", "2",
                    "--requests", "100000", "--duration_s", "4",
                    "--queue_high", "0.5",
@@ -156,5 +157,8 @@ def test_fleet_run_scales_up_and_leaves_no_orphan(tmp_path):
     assert set(rec["replica_rcs"].values()) == {0}
     assert rec["requests"] > 0 and rec["spawn_ms_p50"] > 0
     ups = [ln for ln in child.err if "==> fleet: scale-up replica 1 " in ln]
-    assert len(ups) == 1 and "compiles=2" in ups[0]
+    # the seed filled the cold-start cache: the scale-up imports it
+    assert len(ups) == 1 and "compiles=0" in ups[0]
+    seed_line = [ln for ln in child.err if "==> fleet: replica 0 " in ln]
+    assert len(seed_line) == 1 and "compiles=2 aot_hits=0" in seed_line[0]
     assert sorted(_replica_records(child.err)) == [0, 1]

@@ -11,9 +11,10 @@ zoo is an oracle only where it is first shown to answer with its
 dedicated engine's bits (``aot_cache_dir=None``; the JAX tenancy tests'
 shared AOT cache fails on XLA:CPU).
 
-The port has no cold-start cache: a re-admission rebuilds and warms its
-buckets (``compiles`` counts them again, ``aot_cache_hits`` is 0), and the
-bar is the logits, bit for bit across evict -> re-admit. An evicted
+These zoos run without a cold-start cache (``tests/test_torch_aot_cache.py``
+holds the zoo on one): a re-admission rebuilds and warms its buckets
+(``compiles`` counts them again, ``aot_cache_hits`` is 0), and the bar is
+the logits, bit for bit across evict -> re-admit. An evicted
 tenant's engine is garbage the moment it is evicted (a weak reference to
 it dies without a collection): nothing keeps its weights on the device.
 """
