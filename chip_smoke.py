@@ -346,11 +346,12 @@ and 35 after phase 18:
     launched 6 times a forward of the launcher's two engines; interactive
     p50/p99 idle and while a candidate is vetted, ``canary.golden_ms`` and
     ``canary.promote_ms``. Then one pipeline run (``--epochs 3``, the
-    trainer child on the same card, 2 clients) beside the same trainer
-    run alone: exit 0, at least one promotion, no failed request; each
-    run's img/s from its ``train.log``, the card's peak memory in use
+    trainer child on the same card, 2 clients): exit 0, at least one
+    promotion, no failed request; the trainer's img/s from its
+    ``train.log``, the card's peak memory in use
     (``torch.cuda.mem_get_info``) and the serving process's
-    ``max_memory_allocated``.
+    ``max_memory_allocated``. (The same trainer run alone beside it was
+    cut to make room for phase 42.)
 
 The int8 lane and the multi-tenant zoo server, after phase 35:
 
@@ -469,6 +470,17 @@ The cold-start cache, after phase 40:
     prepares from the checkpoint (4 compiles) and keeps the first
     process's bits; the next one takes the other 3 buckets from the cache
     and leaves the tombstone.
+
+The port's drill, after phase 41:
+
+42. chaos: ``python -m pytorch_cifar_tpu_torch.tools.chaos_run`` as two
+    child processes side by side at ResNet-18 (fp32 trainer children,
+    5,120 / 1,024 images, batch 128): ``--mode sigkill --epochs 3`` must
+    print ``"match": true`` at 1e-6, with the kill inside the run (rc -9,
+    the resume starting above epoch 0 and below the last); ``--mode serve
+    --epochs 2`` must print ``"match": true``, and its relaunched serving
+    process (bf16, buckets 1/4/8) must have launched K3 6 times a forward,
+    warm-ups included.
 
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
@@ -3672,7 +3684,6 @@ def phase_canary(smi: str, fails: Failures) -> dict:
     """The canary drill and one pipeline run, through the port's launcher
     (phase 35)."""
     from pytorch_cifar_tpu_torch.serve import InferenceEngine
-    from pytorch_cifar_tpu_torch.tools.pipeline_run import train_cmd
     from pytorch_cifar_tpu_torch.train.checkpoint import (
         CKPT_NAME, ensure_staging_dir, publish_checkpoint, read_meta)
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
@@ -3719,18 +3730,6 @@ def phase_canary(smi: str, fails: Failures) -> dict:
             proc.stop()
         # one pipeline-mode run: the trainer child on the same card
         train = ["--epochs", "3", "--batch", str(BATCH), "--lr", "0.05"]
-        solo_dir = os.path.join(root, "solo")
-        args = argparse.Namespace(
-            model=LIFECYCLE_MODEL, train_size=CUT_TRAIN, test_size=CUT_TEST,
-            batch=BATCH, epochs=3, lr=0.05, ckpt=solo_dir,
-            seed=0, device="cuda")
-        mem = _MemSampler()
-        solo = subprocess.run(train_cmd(args), cwd=REPO_ROOT,
-                              capture_output=True, text=True, timeout=600)
-        solo_mem = mem.stop()
-        fails.check(solo.returncode == 0,
-                    f"canary: the solo trainer exited {solo.returncode}: "
-                    f"{solo.stderr[-2000:]}")
         pipe_dir = os.path.join(root, "pipe")
         mem = _MemSampler()
         run = _Replica(_pipeline_argv(pipe_dir, *train, "--clients", "2"),
@@ -3757,8 +3756,6 @@ def phase_canary(smi: str, fails: Failures) -> dict:
                 "load")},
             "memory": pipe_mem,
             "trainer_img_per_sec": _train_log_img_per_sec(pipe_dir),
-            "solo_trainer_img_per_sec": _train_log_img_per_sec(solo_dir),
-            "solo_memory": solo_mem,
         }
         print("canary " + json.dumps(out), flush=True)
         return out
@@ -5511,6 +5508,93 @@ def phase_cold_start(K, smi: str, fails: Failures) -> dict:
     return out
 
 
+# the drill's ResNet-18 runs on the card: fp32 trainer children (the
+# drill's --no-amp) on a cut split whose epochs (about 2 s) are long enough
+# that a signal sent half a second after the first checkpoint lands inside
+# a later epoch; the two drills run side by side on the one card
+CHAOS_ARGS = ("--model", "ResNet18", "--train-size", "5120",
+              "--test-size", "1024", "--batch", "128")
+CHAOS_EPOCHS = {"sigkill": 3, "serve": 2}
+
+
+def phase_chaos(smi: str, fails: Failures) -> dict:
+    """The port's drill on the card at ResNet-18 (phase 42): ``python -m
+    pytorch_cifar_tpu_torch.tools.chaos_run`` in ``sigkill`` mode (match
+    at 1e-6, the kill inside a later epoch) and, at the same time, in
+    ``serve`` mode (match, and K3 6 times a forward in the relaunched
+    serving process)."""
+    tmp = run_dir("chaos-")
+    out: dict = {"card": smi}
+    procs = {}
+    try:
+        for mode, epochs in CHAOS_EPOCHS.items():
+            procs[mode] = subprocess.Popen(
+                [sys.executable, "-m",
+                 "pytorch_cifar_tpu_torch.tools.chaos_run", "--mode", mode,
+                 *CHAOS_ARGS, "--epochs", str(epochs),
+                 "--out", os.path.join(tmp, mode)],
+                cwd=REPO_ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        recs, errs = {}, {}
+        for mode, proc in procs.items():
+            try:
+                so, se = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                so, se = proc.communicate()
+            lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+            recs[mode] = json.loads(lines[-1]) if lines else {}
+            errs[mode] = se.splitlines()
+            fails.check(proc.returncode == 0
+                        and recs[mode].get("match") is True,
+                        f"chaos {mode}: rc {proc.returncode}, record "
+                        f"{recs[mode]}, stderr tail " + se[-2000:])
+
+        rec = recs["sigkill"]
+        log = os.path.join(tmp, "sigkill", "chaos", "train.log")
+        text = open(log).read() if os.path.exists(log) else ""
+        resumed = [int(e) for e in re.findall(
+            r"resumed from .*: epoch (\d+)", text)]
+        last = CHAOS_EPOCHS["sigkill"] - 1
+        fails.check(rec.get("tol") == 1e-6
+                    and rec.get("rc") == -int(signal.SIGKILL)
+                    and len(resumed) == 1 and 0 < resumed[0] < last,
+                    f"chaos sigkill: the kill did not land mid-run (rc "
+                    f"{rec.get('rc')}, resumed at {resumed}, last epoch "
+                    f"{last})")
+        out["sigkill"] = {**rec, "resumed_at_epoch": resumed}
+        print("chaos_sigkill " + json.dumps(out["sigkill"]), flush=True)
+
+        relaunch = {}
+        for line in errs["serve"]:
+            if line.startswith("[serve phase 3] "):
+                relaunch = json.loads(line[len("[serve phase 3] "):])
+        k3 = relaunch.get("launches_by_kernel", {}).get("conv3x3_bn_relu", 0)
+        warm = relaunch.get("compiles", 0) + relaunch.get("aot_cache_hits",
+                                                          0)
+        forwards = relaunch.get("batches", -1) + warm
+        fails.check(k3 > 0 and k3 == 6 * forwards,
+                    f"chaos serve: the relaunched replica launched K3 {k3} "
+                    f"times for {relaunch.get('batches')} batches and "
+                    f"{warm} warm-up forwards")
+        fails.check(relaunch.get("device") == torch.cuda.get_device_name(0),
+                    f"chaos serve: relaunched on {relaunch.get('device')}")
+        out["serve"] = {**recs["serve"], "relaunch": {
+            "k3_launches": k3, "forwards": forwards,
+            "batches": relaunch.get("batches"),
+            "requests": relaunch.get("requests"),
+            "dtype": relaunch.get("dtype"),
+            "img_per_sec": relaunch.get("img_per_sec")}}
+        print("chaos_serve " + json.dumps(out["serve"]), flush=True)
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
@@ -5604,6 +5688,9 @@ def main(argv=None) -> int:
     zf = timed("zoo_fleet", phase_zoo_fleet, smi, fails)
     # the cold-start cache: fresh replica processes without and with it
     cs = timed("cold_start", phase_cold_start, K, smi, fails)
+    # the port's drill: the trainer SIGKILLed and resumed, a serving
+    # process hot-reloading, SIGKILLed and relaunched
+    ch = timed("chaos", phase_chaos, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -5731,6 +5818,12 @@ def main(argv=None) -> int:
             "tampered": cs.get("tampered", {}).get("k3_launches"),
             "zoo_hit_path_launches": zo["hit_path_launches_k3_k4_k5"][0],
             "zoo_hit_path_forwards": zo["hit_path_forwards"]},
+        # the drill (phase 42): the relaunched serving process of the
+        # serve mode, its warm-ups and batches, 6 a forward
+        "chaos_serve_relaunch_launches": {
+            "per_forward": 6,
+            **{k: ch.get("serve", {}).get("relaunch", {}).get(k)
+               for k in ("k3_launches", "forwards")}},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",

@@ -13,9 +13,11 @@ Checkpoints go to ``--output_dir`` in the JAX package's format, so either
 trainer resumes the other's run; ``--resume`` continues from the newest
 checkpoint there, ``--evaluate`` runs one eval epoch of the best one and
 prints its accuracy. SIGTERM stops after the current epoch with the state
-saved as ``last.msgpack``. ``--publish staging`` writes every checkpoint
-into ``<output_dir>/staging`` instead, the canary pipeline's input
-(``serve/canary.py``; ``python -m
+saved as ``last.msgpack``; one that lands before the epochs start stops
+after the first, and one that lands after the last (the run complete, its
+checkpoints on disk) is a no-op: the CLI exits 0. ``--publish staging``
+writes every checkpoint into ``<output_dir>/staging`` instead, the canary
+pipeline's input (``serve/canary.py``; ``python -m
 pytorch_cifar_tpu_torch.tools.pipeline_run`` runs the whole loop).
 
 The host loader, the divergence sentinel, remat and the trainer's
@@ -55,22 +57,27 @@ K > 0 to ``train.rankK.log`` and warnings only to the console.
 
 from __future__ import annotations
 
+import signal
+import threading
+
 from pytorch_cifar_tpu_torch.config import parse_config
 from pytorch_cifar_tpu_torch.train.launch import launch, local_ranks, run
 
 
-def main(argv=None, rank_hook=None) -> dict:
+def main(argv=None, rank_hook=None, stop=None) -> dict:
     """Train; returns the best test accuracy (``fit``'s value, what
     ``train.py`` returns), rank 0's per-epoch history, whose ``train`` and
     ``eval`` entries carry the JAX step's metric totals (``loss_sum``,
     ``correct``, ``count``, ``nonfinite``; global under data
     parallelism), and every rank's result (``train.launch.run``) under
     ``ranks``. ``rank_hook(trainer)`` (a picklable callable, for checks
-    and tools) runs on every rank after ``fit``."""
+    and tools) runs on every rank after ``fit``. ``stop`` (an event the
+    CLI's SIGTERM handler sets) asks a run whose epochs have not begun to
+    stop after the first."""
     config = parse_config(argv)
     n = local_ranks(config)
-    ranks = (launch(config, n, rank_hook) if n > 1
-             else [run(config, rank_hook)])
+    ranks = (launch(config, n, rank_hook, stop) if n > 1
+             else [run(config, rank_hook, stop)])
     best = ranks[0]["best_acc"]
     if ranks[0]["rank"] == 0:
         what = "test accuracy" if config.evaluate else "best test accuracy"
@@ -79,4 +86,13 @@ def main(argv=None, rank_hook=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    # SIGTERM is a stop request for the CLI's whole life: Trainer.fit
+    # installs its own handler for the epochs and puts this one back, so a
+    # signal after the run finds it, not the default, and is a no-op
+    stop = threading.Event()
+    signal.signal(signal.SIGTERM, lambda signum, frame: stop.set())
+    main(stop=stop)
+    # the run is complete and on disk. The interpreter's teardown (most of
+    # a second after torch) puts a Python handler back to the default
+    # early on, but leaves an ignored signal ignored
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)

@@ -47,6 +47,11 @@ on any :class:`CheckpointCorrupt` with a warning and
 checkpoint ...")`` only when no candidate is usable. It loads onto the
 state's own device. Under several processes rank 0 walks and decides, and
 every rank decodes the payload bytes rank 0 broadcasts.
+
+The tree mapping (``compat``) and the process group (``parallel.mesh``)
+are imported by the functions that use them, so the staging, quarantine
+and publish helpers load no torch: a process that only moves checkpoint
+files (``tools/chaos_run.py``) never touches a device.
 """
 
 from __future__ import annotations
@@ -59,30 +64,20 @@ import re
 import threading
 import time
 import zlib
-from typing import Any, Callable, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 
 from pytorch_cifar_tpu_torch import faults
-from pytorch_cifar_tpu_torch.compat import (
-    StateSnapshot,
-    TrainArrays,
-    apply_train_arrays,
-    snapshot_state,
-    train_arrays,
-    train_tree_from_snapshot,
-)
 from pytorch_cifar_tpu_torch.obs import trace
-from pytorch_cifar_tpu_torch.parallel.mesh import (
-    broadcast_bytes,
-    rank,
-    world_size,
-)
 from pytorch_cifar_tpu_torch.serialization import (
     MsgpackError,
     msgpack_restore,
     to_bytes,
 )
+
+if TYPE_CHECKING:
+    from pytorch_cifar_tpu_torch.compat import TrainArrays
 
 log = logging.getLogger(__name__)
 
@@ -735,6 +730,13 @@ def save_checkpoint(
     ``saved_bytes`` and ``save_ms``. ``on_commit`` runs once after a
     successful commit (never for a failed or superseded one).
     """
+    from pytorch_cifar_tpu_torch.compat import (
+        StateSnapshot,
+        snapshot_state,
+        train_tree_from_snapshot,
+    )
+    from pytorch_cifar_tpu_torch.parallel.mesh import rank, world_size
+
     pidx, pcount = rank(), world_size()
     n = int(num_shards) if num_shards else (pcount if pcount > 1 else 1)
     if pcount > 1 and n > 1 and n != pcount:
@@ -871,6 +873,40 @@ def read_verified_payload(
     return payload
 
 
+def heal_checkpoint(output_dir: str, name: str = CKPT_NAME) -> Optional[str]:
+    """Rewrite a damaged single-payload checkpoint ``name`` from the newest
+    of its rolling-history copies that verifies (the copy its last good
+    commit wrote): payload, then sidecar, each atomically, the bytes the
+    commit wrote. Returns that copy's name; None when ``name`` is absent,
+    sharded or intact, or no copy verifies. A restore already falls back
+    to the copy; this keeps the run's best checkpoint whole for every
+    later reader (the serving engine, ``ckpt_inspect``, a drill's
+    comparison) instead of leaving the damaged file in front of it."""
+    meta = read_meta(output_dir, name)
+    if not os.path.exists(os.path.join(output_dir, name)) or meta.get(
+            "shards"):
+        return None
+    try:
+        read_verified_payload(output_dir, name, meta)
+        return None
+    except CheckpointCorrupt:
+        pass
+    for cand in history_names(output_dir, name):
+        cmeta = read_meta(output_dir, cand)
+        if cmeta.get("shards"):
+            continue
+        try:
+            payload = read_verified_payload(output_dir, cand, cmeta)
+            with open(meta_path(output_dir, cand), "rb") as f:
+                sidecar = f.read()
+        except (OSError, CheckpointCorrupt):
+            continue
+        _atomic_write(os.path.join(output_dir, name), payload)
+        _atomic_write(meta_path(output_dir, name), sidecar)
+        return cand
+    return None
+
+
 def read_payload_tree(path: str, payload: bytes) -> dict:
     """The payload's tree; :class:`CheckpointCorrupt` when it does not
     decode."""
@@ -883,6 +919,8 @@ def read_payload_tree(path: str, payload: bytes) -> dict:
 
 def _decode(path: str, payload: bytes, model) -> TrainArrays:
     """Decode a verified payload and check it against ``model``."""
+    from pytorch_cifar_tpu_torch.compat import train_arrays
+
     tree = read_payload_tree(path, payload)
     try:
         return train_arrays(model, tree)
@@ -926,6 +964,13 @@ def restore_checkpoint(
     save's world restores into any other (the payload is the whole
     state).
     """
+    from pytorch_cifar_tpu_torch.compat import apply_train_arrays
+    from pytorch_cifar_tpu_torch.parallel.mesh import (
+        broadcast_bytes,
+        rank,
+        world_size,
+    )
+
     t0 = time.perf_counter()
     candidates = list(names) if names is not None else [name]
     found = None  # (payload, arrays, epoch, best_acc)

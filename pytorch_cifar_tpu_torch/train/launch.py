@@ -95,18 +95,23 @@ def _close_log_file(path: Optional[str]) -> None:
             h.close()
 
 
-def run(config: TrainConfig, rank_hook: RankHook = None) -> dict:
+def run(config: TrainConfig, rank_hook: RankHook = None,
+        stop: Optional[threading.Event] = None) -> dict:
     """Train in this process (alone, or as one rank); returns this rank's
     result: ``rank``, ``world``, ``backend``, ``device``, ``best_acc``,
     ``history``, the kernels' launches over ``fit``
     (``launches_by_kernel``), and what ``rank_hook(trainer)`` returns
-    after ``fit``, inside the process group (``hook``)."""
+    after ``fit``, inside the process group (``hook``). A ``stop`` already
+    set when the trainer is built (the CLI's SIGTERM before the epochs)
+    stops the run after its first epoch, with ``last.msgpack`` saved."""
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
     log_path = _rank_logging(config)
     try:
         trainer = Trainer(config)
         try:
+            if stop is not None and stop.is_set():
+                trainer.request_stop()
             before = _launches()
             best = trainer.fit()
             launches = {k: v - before[k] for k, v in _launches().items()}
@@ -138,12 +143,13 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def launch(config: TrainConfig, n: int,
-           rank_hook: RankHook = None) -> list:
+def launch(config: TrainConfig, n: int, rank_hook: RankHook = None,
+           stop: Optional[threading.Event] = None) -> list:
     """Start ``n`` local ranks of ``config``'s run (spawned, rendezvous on
     a free localhost port) and return their results in rank order. A rank
     that fails ends the launch: the others are stopped and the failure is
-    raised. A SIGTERM here is passed to every rank."""
+    raised. A SIGTERM here, or a ``stop`` set before the ranks started, is
+    passed to every rank."""
     port = free_port()
     configs = [dataclasses.replace(
         config, num_devices=n, distributed=True,
@@ -163,6 +169,8 @@ def launch(config: TrainConfig, n: int,
         old = None
         if threading.current_thread() is threading.main_thread():
             old = signal.signal(signal.SIGTERM, forward_sigterm)
+        if stop is not None and stop.is_set():
+            forward_sigterm(signal.SIGTERM, None)
         try:
             while not ctx.join(grace_period=5.0):
                 pass

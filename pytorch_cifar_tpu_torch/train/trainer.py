@@ -55,6 +55,10 @@ subdirectory, the canary pipeline's input, which resume reads too):
   next epoch and ``best_acc``. The epoch permutation depends on (seed,
   epoch) and the augmentation draws on (seed, step), so a resumed run
   takes the steps an uninterrupted one would.
+  A ``ckpt.msgpack`` that fails its manifest is rewritten from its
+  newest history copy that verifies (``heal_checkpoint``), so the run's
+  best checkpoint is whole again even when no later epoch improves on it
+  (the JAX trainer leaves the damaged file in place).
 
 Data parallelism (``config.distributed``, or a process group the caller
 made): the trainer joins the default process group
@@ -109,10 +113,12 @@ from pytorch_cifar_tpu_torch.parallel.mesh import (
     world_size,
 )
 from pytorch_cifar_tpu_torch.train.checkpoint import (
+    CKPT_NAME,
     LAST_NAME,
     AsyncCheckpointWriter,
     best_checkpoint_order,
     ensure_staging_dir,
+    heal_checkpoint,
     newest_checkpoint_order,
     remove_stale_last,
     restore_checkpoint,
@@ -325,6 +331,14 @@ class Trainer:
             )
             log.info("resumed from %s: epoch %d, best_acc %.2f",
                      self.ckpt_dir, self.start_epoch, self.best_acc)
+            # a damaged best checkpoint is rewritten from its history copy
+            # (the restore fell back past it): the run's best stays whole
+            # for its readers even when no later epoch improves on it
+            healed = (heal_checkpoint(self.ckpt_dir, CKPT_NAME)
+                      if config.resume and is_primary() else None)
+            if healed:
+                log.warning("best checkpoint %s was damaged: rewritten from "
+                            "its history copy %s", CKPT_NAME, healed)
         self._stop_requested = False
         self._snapshot = None  # (device StateSnapshot, epoch, best_acc)
         # several processes commit every save inline: each rank's writer
