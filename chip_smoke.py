@@ -482,9 +482,36 @@ The port's drill, after phase 41:
     process (bf16, buckets 1/4/8) must have launched K3 6 times a forward,
     warm-ups included.
 
+Serving over a device group, after phase 42:
+
+43. mesh: on the one card, a seeded ResNet-18 checkpoint (buckets 1/8/32)
+    served by two ranks of one logical replica (``python -m
+    pytorch_cifar_tpu_torch.serve --mesh_procs 2``, fp32, over gloo on
+    cuda:0): its answers at n = 1, 2, 3, 5, 8, 11, 16, 19, 33 bit for bit
+    a one-process fp32 replica's on the same card (the same CLI, so the
+    same library settings, TF32 among them); its ``/healthz`` mesh block
+    at 2 processes, barrier generation 1; drained by a SIGTERM to the leader,
+    both ranks exit 0 with K3 launched 6 times a forward (warm-ups and
+    barrier probes included). Then ``router_run --replicas 2 --mesh_procs
+    2`` (bf16) on a cold-start cache beside a one-process bf16 replica:
+    replica 1 joins with ``compiles == 0`` on both ranks; the two leaders
+    and the router answer bit for bit alike over both encodings, within 2%
+    of the largest logit of the one-process replica (whether the bits held
+    is printed); 8 clients against the one-process replica, then the
+    router (img/s, p50, p99); under load one follower SIGKILLed: its
+    leader exits rc 70 within ``--mesh_timeout_s`` + 10 s, no request
+    fails, the router evicts it; the drain exits 0. The serving forwards'
+    dense layer (``models.common.folded_dense``) is timed at bucket 128
+    beside ``F.linear`` on the same inputs (ResNet-18's and DenseNet121's
+    heads).
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
-nor the ok line.
+nor the ok line. ``--only mesh`` runs phases 1, 2 and 43's device-group
+checks over every visible card: an in-process engine over all of them
+(fp32 bit for bit a one-card engine's, bf16 within 2%, K3 6 times a
+forward on each card), then the replica as one rank a card against a
+one-process fp32 replica; no router, no kernels or ok line.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -4102,7 +4129,7 @@ def phase_int8(K, smi: str, fails: Failures) -> dict:
         xb = torch.from_numpy(
             rs.randint(0, 256, size=(128, 32, 32, 3)).astype(np.uint8)
         ).cuda()
-        xn = normalize(xb, eng._mean, eng._std, dt).permute(0, 3, 1, 2)
+        xn = normalize(xb, *eng._norm[eng.device], dt).permute(0, 3, 1, 2)
         (qm, qf), (fm, ff) = eng._weights, flt._weights
         with torch.inference_mode():
             row["bucket128_int8_ms"] = _device_ms(
@@ -5595,13 +5622,339 @@ def phase_chaos(smi: str, fails: Failures) -> dict:
     return out
 
 
+MESH_TIMEOUT_S = 10.0
+MESH_NS = (1, 2, 3, 5, 8, 11, 16, 19, 33)  # JAX's sharded-engine sizes
+MESH_LOAD = dict(clients=8, images_max=8)
+MESH_READY = r"==> http: serving on (\S+)"
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_images(n: int, seed: int) -> np.ndarray:
+    rs = np.random.RandomState(seed)
+    return rs.randint(0, 256, size=(n, 32, 32, 3)).astype(np.uint8)
+
+
+def _within_serving_bound(got: np.ndarray, want: np.ndarray) -> bool:
+    """bf16 serving's bound: within 2% of the largest logit."""
+    return float(np.max(np.abs(got - want))) <= 0.02 * float(
+        np.max(np.abs(want)))
+
+
+def _mesh_rank_checks(tag: str, recs: list, fails: Failures) -> list:
+    """Each rank's exit record: barrier generation 1 and K3 launched 6
+    times a forward on each of its devices (warm-ups, barrier probes,
+    buckets and ``--verify`` all count)."""
+    rows = []
+    for rank, rec in enumerate(recs):
+        k3 = (rec.get("launches_by_kernel") or {}).get("conv3x3_bn_relu", 0)
+        fwd = rec.get("forwards", -1)
+        fails.check(k3 > 0 and k3 == 6 * fwd,
+                    f"{tag}: rank {rank} launched K3 {k3} times for {fwd} "
+                    "forwards (want 6 a forward)")
+        gen = (rec.get("mesh") or rec).get("barrier_generation")
+        fails.check(gen == 1, f"{tag}: rank {rank} barrier generation {gen}")
+        rows.append({"rank": rank, "k3_launches": k3, "forwards": fwd,
+                     "compiles": rec.get("compiles"),
+                     "aot_cache_hits": rec.get("aot_cache_hits")})
+    return rows
+
+
+def _mesh_ranks(ckpt: str, procs: int, dtype: str) -> list:
+    """The ranks of one logical replica of the serving CLI, leader first,
+    each with ``--num_devices 0`` (the visible cards shared out)."""
+    coord = f"127.0.0.1:{_free_port()}"
+    return [_Launcher([
+        REPLICA_MODULE, "--ckpt", ckpt, "--model", LIFECYCLE_MODEL,
+        "--buckets", *FLEET_BUCKETS, "--http_port", "0", "--dtype", dtype,
+        "--num_devices", "0", "--mesh_procs", str(procs),
+        "--mesh_rank", str(r), "--mesh_coord", coord,
+        "--mesh_timeout_s", str(MESH_TIMEOUT_S)]) for r in range(procs)]
+
+
+def _one_process(ckpt: str, dtype: str):
+    """A one-process replica of the serving CLI on the first card: the
+    reference a replica over ranks answers against, with the same
+    process-wide library settings (TF32 among them) as its ranks."""
+    return _Launcher([
+        REPLICA_MODULE, "--ckpt", ckpt, "--model", LIFECYCLE_MODEL,
+        "--buckets", *FLEET_BUCKETS, "--http_port", "0", "--dtype", dtype])
+
+
+def _mesh_pair(ranks: list, single32, fails: Failures) -> dict:
+    """The fp32 replica of ``ranks``: its answers bit for bit those of
+    ``single32`` (a one-process fp32 replica on the first card), its
+    health, then its drain (SIGTERM to the leader) and each rank's
+    record."""
+    tag = f"mesh pair x{len(ranks)}"
+    m = ranks[0].wait_line(MESH_READY, 300)
+    r = single32.wait_line(MESH_READY, 300)
+    if not fails.check(m is not None and r is not None,
+                       f"{tag}: not up: " + ranks[0].tail()
+                       + single32.tail()):
+        return {}
+    url, ref_url = m.group(1), r.group(1)
+    same, worst = True, 0.0
+    for n in MESH_NS:
+        x = _mesh_images(n, seed=100 + n)
+        got, want = _bits(url, x), _bits(ref_url, x)
+        same = same and got.shape == want.shape and np.array_equal(got, want)
+        worst = max(worst, float(np.max(np.abs(got - want))))
+    fails.check(same, f"{tag}: fp32 answers differ from the one-process "
+                f"replica's (max abs diff {worst})")
+    mesh = _healthz(url).get("mesh") or {}
+    fails.check(mesh.get("process_count") == len(ranks)
+                and mesh.get("barrier_generation") == 1,
+                f"{tag}: health mesh block {mesh}")
+    ranks[0].proc.send_signal(signal.SIGTERM)
+    recs = []
+    for r, launcher in enumerate(ranks):
+        code, lines = launcher.finish(timeout=120)
+        fails.check(code == 0 and bool(lines),
+                    f"{tag}: rank {r} exited rc {code}: " + launcher.tail())
+        recs.append(json.loads(lines[-1]) if lines else {})
+    return {"fp32_bits_identical": same, "max_abs_diff": worst,
+            "mesh": mesh, "ranks": _mesh_rank_checks(tag, recs, fails)}
+
+
+def _mesh_group_engine(ckpt: str, fails: Failures) -> dict:
+    """One process over every visible card (``num_devices``): fp32 bit for
+    bit a one-card engine's in the same process, bf16 within the serving
+    bound of one, K3 6 times a forward on each card."""
+    from pytorch_cifar_tpu_torch.ops import conv_bn_relu as K3
+    from pytorch_cifar_tpu_torch.serve import InferenceEngine
+
+    cards = torch.cuda.device_count()
+    buckets = tuple(map(int, FLEET_BUCKETS))
+    out = {"cards": cards}
+    for dname, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        group = InferenceEngine.from_checkpoint(
+            ckpt, LIFECYCLE_MODEL, buckets=buckets, compute_dtype=dt,
+            num_devices=cards)
+        one = InferenceEngine.from_checkpoint(
+            ckpt, LIFECYCLE_MODEL, buckets=buckets, compute_dtype=dt)
+        k3, f0 = 0, group.forward_count
+        bits, bound = True, True
+        for n in MESH_NS:
+            x = _mesh_images(n, seed=200 + n)
+            k0 = K3.LAUNCHES  # the group's launches, not the reference's
+            got = group.predict(x)
+            k3 += K3.LAUNCHES - k0
+            want = one.predict(x)
+            bits = bits and np.array_equal(got, want)
+            bound = bound and _within_serving_bound(got, want)
+        fwd = group.forward_count - f0
+        fails.check(k3 == 6 * cards * fwd,
+                    f"mesh group {dname}: K3 {k3} for {fwd} forwards on "
+                    f"{cards} cards")
+        fails.check(bits if dt == torch.float32 else bound,
+                    f"mesh group {dname}: answers off the one-card engine")
+        out[dname] = {"buckets": list(group.buckets),
+                      "bits_identical": bits, "within_bound": bound,
+                      "k3_launches": k3, "forwards": fwd}
+        del group, one
+    return out
+
+
+def _mesh_fleet(ckpt: str, tmp: str, fleet, single, fails: Failures) -> dict:
+    """The bf16 fleet of two 2-rank replicas behind ``router_run``
+    (``fleet``) beside a one-process replica (``single``): bits, load,
+    the follower's SIGKILL, the drain, and each surviving rank's record."""
+    from pytorch_cifar_tpu_torch.serve import HttpTarget
+    from pytorch_cifar_tpu_torch.serve.loadgen import run_load
+
+    out: dict = {}
+    m = single.wait_line(MESH_READY, 300)
+    r = fleet.wait_line(r"==> router: serving on (\S+)", 300)
+    if not fails.check(m is not None and r is not None,
+                       "mesh fleet: not up: " + fleet.tail()
+                       + single.tail()):
+        return out
+    single_url, router_url = m.group(1), r.group(1)
+    leaders = {int(g.group(1)): g.group(3) for g in fleet.matches(
+        r"^==> replica (\d+) pid=(\d+) url=(\S+)")}
+    followers = {int(g.group(1)): int(g.group(2)) for g in fleet.matches(
+        r"^==> replica (\d+) follower rank=1 pid=(\d+)")}
+    h1 = _healthz(leaders[1])
+    fails.check(h1.get("compiles") == 0
+                and (h1.get("mesh") or {}).get("barrier_generation") == 1,
+                f"mesh fleet: replica 1's leader joined with {h1}")
+    x = _mesh_images(19, seed=7)
+    answers = [_bits(u, x, wire=w) for u in (leaders[0], leaders[1],
+                                             router_url)
+               for w in ("binary", "json")]
+    alike = all(np.array_equal(answers[0], a) for a in answers[1:])
+    fails.check(alike, "mesh fleet: the replicas and the router differ")
+    ref = _bits(single_url, x)
+    out["bits"] = {
+        "replicas_and_router_alike": alike,
+        "within_bound_of_one_process": _within_serving_bound(answers[0],
+                                                             ref),
+        "bits_held_against_one_process": bool(np.array_equal(answers[0],
+                                                             ref)),
+        "max_abs_diff": float(np.max(np.abs(answers[0] - ref)))}
+    fails.check(out["bits"]["within_bound_of_one_process"],
+                f"mesh fleet: off the one-process replica {out['bits']}")
+    print("mesh_bits " + json.dumps(out["bits"]), flush=True)
+
+    def load(url, seed, **kw):
+        target = HttpTarget(url)
+        try:
+            return run_load(target, seed=seed, **MESH_LOAD, **kw)
+        finally:
+            target.close()
+
+    out["one_process"] = _stage_row(load(single_url, 1,
+                                         requests_per_client=64))
+    out["router_steady"] = _stage_row(load(router_url, 2,
+                                           requests_per_client=10**6,
+                                           duration_s=5.0))
+    detection = {"s": None}
+
+    def kill_and_time():
+        t0 = time.monotonic()
+        os.kill(followers[0], signal.SIGKILL)
+        while time.monotonic() < t0 + MESH_TIMEOUT_S + 10.0:
+            try:
+                _healthz(leaders[0])
+                time.sleep(0.1)
+            except (OSError, ValueError):
+                detection["s"] = time.monotonic() - t0
+                return
+
+    killer = threading.Timer(2.0, kill_and_time)
+    killer.start()
+    # the kill lands 2 s in; the load runs past the watchdog's bound and
+    # the router's eviction
+    out["router_kill"] = _stage_row(load(
+        router_url, 3, requests_per_client=10**6,
+        duration_s=4.0 + MESH_TIMEOUT_S))
+    killer.join()
+    out["detection_s"] = detection["s"]
+    fails.check(detection["s"] is not None,
+                f"mesh fleet: replica 0's leader still up "
+                f"{MESH_TIMEOUT_S + 10.0} s after its follower's SIGKILL")
+    for stage in ("one_process", "router_steady", "router_kill"):
+        fails.check(out[stage]["failed"] == 0 and out[stage]["requests"] > 0,
+                    f"mesh fleet {stage}: {out[stage]}")
+    fleet.proc.send_signal(signal.SIGTERM)
+    code, lines = fleet.finish(timeout=120)
+    rec = json.loads(lines[-1]) if lines else {}
+    rcs = [rec.get("replica_rcs"), rec.get("follower_rcs")]
+    fails.check(code == 0 and rcs == [[70, 0], [[-int(signal.SIGKILL)], [0]]]
+                and rec.get("router", {}).get("evictions", 0) >= 1,
+                f"mesh fleet: drained rc {code}, exit codes {rcs}, router "
+                f"{rec.get('router')}")
+    survivors = [json.loads(g.group(1)) for g in (
+        fleet.matches(r"^\[replica 1\] (\{.*\})$")
+        + fleet.matches(r"^\[replica 1:r1\] (\{.*\})$"))]
+    fails.check(len(survivors) == 2 and all(
+        s.get("compiles") == 0 for s in survivors),
+        f"mesh fleet: replica 1's ranks {survivors}")
+    out["replica1_ranks"] = _mesh_rank_checks("mesh fleet replica 1",
+                                              survivors, fails)
+    out["router"] = rec.get("router")
+    out["replica_rcs"], out["follower_rcs"] = (rec.get("replica_rcs"),
+                                               rec.get("follower_rcs"))
+    return out
+
+
+def _dense_timing(fails: Failures) -> dict:
+    """``folded_dense`` beside ``F.linear`` (the serving forwards' dense
+    layer before it) on the same bf16 inputs at bucket 128: ResNet-18's
+    512 -> 10 head and DenseNet121's 1024 -> 10, device ms each."""
+    from pytorch_cifar_tpu_torch.models.common import folded_dense
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for model, width in (("ResNet18", 512), ("DenseNet121", 1024)):
+        x = torch.randn(128, width, device="cuda", generator=g,
+                        dtype=torch.bfloat16)
+        w = torch.randn(10, width, device="cuda", generator=g,
+                        dtype=torch.bfloat16) / width ** 0.5
+        b = torch.randn(10, device="cuda", generator=g, dtype=torch.bfloat16)
+        diff = float((folded_dense(x, w, b).float()
+                      - F.linear(x, w, b).float()).abs().max())
+        rows = torch.equal(folded_dense(x[:8], w, b), folded_dense(x, w, b)[:8])
+        fails.check(rows, f"dense {model}: rows change with the batch")
+        out[model] = {"folded_dense_ms": _device_ms(lambda: folded_dense(
+                          x, w, b)),
+                      "linear_ms": _device_ms(lambda: F.linear(x, w, b)),
+                      "max_abs_diff": diff, "rows_batch_invariant": rows}
+    return out
+
+
+def phase_mesh(smi: str, fails: Failures, four_card: bool = False) -> dict:
+    """Serving over a device group (phase 43; ``--only mesh`` over every
+    visible card): see the module docstring."""
+    tmp = run_dir("mesh-")
+    ckpt = _seeded_ckpt(os.path.join(tmp, "ckpt"), seed=11, epoch=1,
+                        best_acc=0.5)
+    out: dict = {"card": smi}
+    launched = []
+    try:
+        procs = torch.cuda.device_count() if four_card else 2
+        ranks = _mesh_ranks(ckpt, procs, "float32")
+        single32 = _one_process(ckpt, "float32")
+        launched += [*ranks, single32]
+        if not four_card:
+            single = _one_process(ckpt, "bfloat16")
+            fleet = _Launcher([
+                "pytorch_cifar_tpu_torch.tools.router_run", "--ckpt", ckpt,
+                "--model", LIFECYCLE_MODEL, "--replicas", "2",
+                "--mesh_procs", "2", "--mesh_timeout_s", str(MESH_TIMEOUT_S),
+                "--aot_cache", os.path.join(tmp, "aot"),
+                "--buckets", *FLEET_BUCKETS, "--deadline_ms", "4000",
+                "--probe_s", "0.2", "--max_wait_ms", "1"])
+            launched += [single, fleet]
+        t0 = time.perf_counter()
+        if four_card:
+            out["group_engine"] = _mesh_group_engine(ckpt, fails)
+            print("mesh_group_engine " + json.dumps(out["group_engine"]),
+                  flush=True)
+        else:
+            out["dense"] = _dense_timing(fails)
+            print("mesh_dense " + json.dumps(out["dense"]), flush=True)
+        out["pair"] = _mesh_pair(ranks, single32, fails)
+        out["stage_s"] = {"pair": time.perf_counter() - t0}
+        print("mesh_pair " + json.dumps(out["pair"]), flush=True)
+        if not four_card:
+            t0 = time.perf_counter()
+            out["fleet"] = _mesh_fleet(ckpt, tmp, fleet, single, fails)
+            out["stage_s"]["fleet"] = time.perf_counter() - t0
+            print("mesh_fleet " + json.dumps(out["fleet"]), flush=True)
+    finally:
+        t0 = time.perf_counter()
+        for launcher in launched:  # a follower ignores it: its leader drains
+            if launcher.proc.poll() is None:
+                launcher.proc.send_signal(signal.SIGTERM)
+        for launcher in launched:
+            try:
+                launcher.finish(timeout=60)
+            except Exception:
+                launcher.kill()
+        _reap_orphans("mesh", tmp, fails)
+        shutil.rmtree(tmp, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        out.setdefault("stage_s", {})["cleanup"] = time.perf_counter() - t0
+        print("mesh_stage_s " + json.dumps(out["stage_s"]), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
     parser.add_argument(
-        "--only", choices=["dp"],
-        help="run the device, build and this phase alone (dp: over every "
-             "visible card, the four-card call); prints no kernels or ok "
+        "--only", choices=["dp", "mesh"],
+        help="run the device, build and this phase alone, over every "
+             "visible card (the four-card call); prints no kernels or ok "
              "line")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -5621,9 +5974,13 @@ def main(argv=None) -> int:
     peaks = peaks_for(name)
     fails = Failures()
     phase_build(_build)
-    if args.only == "dp":
-        phase_dp(G, M, K, smi, fails)
-        print(f"chip_smoke --only dp: {time.perf_counter() - t_start:.1f}s, "
+    if args.only:
+        if args.only == "dp":
+            phase_dp(G, M, K, smi, fails)
+        else:
+            phase_mesh(smi, fails, four_card=True)
+        print(f"chip_smoke --only {args.only}: "
+              f"{time.perf_counter() - t_start:.1f}s, "
               f"{len(fails)} check(s) failed", flush=True)
         return 1 if fails else 0
     phase_s = {}
@@ -5691,6 +6048,9 @@ def main(argv=None) -> int:
     # the port's drill: the trainer SIGKILLed and resumed, a serving
     # process hot-reloading, SIGKILLed and relaunched
     ch = timed("chaos", phase_chaos, smi, fails)
+    # serving over a device group: two ranks of one replica on the card,
+    # then two such replicas behind the router, one follower SIGKILLed
+    me = timed("mesh", phase_mesh, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -5824,6 +6184,13 @@ def main(argv=None) -> int:
             "per_forward": 6,
             **{k: ch.get("serve", {}).get("relaunch", {}).get(k)
                for k in ("k3_launches", "forwards")}},
+        # serving over a device group (phase 43): each rank's own count,
+        # 6 a forward, warm-ups and barrier probes included: the fp32
+        # pair's ranks and the surviving replica's
+        "mesh_rank_launches": {
+            "per_forward": 6,
+            "pair": me.get("pair", {}).get("ranks"),
+            "fleet_replica1": me.get("fleet", {}).get("replica1_ranks")},
     }, {
         "name": "dma_row_gather",
         "route": "cuda",

@@ -69,6 +69,60 @@ class Linear(nn.Linear):
         return F.linear(x, self.weight.to(x.dtype), bias)
 
 
+def folded_dense(x: torch.Tensor, w: torch.Tensor,
+                 b: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T + b`` of a folded forward, with each row's reduction order
+    fixed by construction: the products ``x[r, i] * w[o, i]`` in fp32
+    (exact for bf16 factors), zero-padded to a power of two along ``i`` and
+    summed by halving (``p[:h] + p[h:]`` until one column is left), then
+    the bias, then the cast back to ``x.dtype``. Every step is elementwise,
+    so a row's bits depend on neither the rows beside it, the thread count
+    nor the device, where a GEMM (``F.linear``: MKL's ``sgemm`` on the CPU)
+    picks its blocking by the batch. Serving only: training keeps
+    :class:`Linear`."""
+    p = x.float().unsqueeze(1) * w.float().unsqueeze(0)
+    width = p.shape[-1]
+    padded = 1 << max(width - 1, 0).bit_length()
+    if padded != width:
+        p = F.pad(p, (0, padded - width))
+    while p.shape[-1] > 1:
+        half = p.shape[-1] // 2
+        p = p[..., :half] + p[..., half:]
+    return (p[..., 0] + b.float()).to(x.dtype)
+
+
+# the batch extent of an fp32 folded forward's library convs on the card
+FP32_CONV_ROWS = 8
+
+
+def folded_conv2d(x: torch.Tensor, w: torch.Tensor,
+                  b: Optional[torch.Tensor] = None, stride: int = 1,
+                  padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` of a folded forward. On the card in fp32 it runs on
+    chunks of exactly :data:`FP32_CONV_ROWS` rows (the last one zero-padded,
+    the padding dropped after): cuDNN picks its fp32 algorithm by the batch
+    (TF32 or not), so a row's bits would depend on the micro-batch it
+    joins, and an fp32 device group owes every row the one-card engine's
+    bits. Every other case is one call: bf16 serving is held to 2% of the
+    largest logit (whether its bits hold across a group is measured, not
+    owed), and oneDNN keeps an fp32 row's bits at every batch of two rows
+    or more (one row is its own kernel class, as in JAX: the device
+    group's singleton bucket keeps it)."""
+    if not (x.is_cuda and x.dtype == torch.float32):
+        return F.conv2d(x, w, b, stride=stride, padding=padding,
+                        groups=groups)
+    n, rows = x.shape[0], FP32_CONV_ROWS
+    pad = -n % rows
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, *x.shape[1:]))])
+    # every chunk in one layout: cuDNN picks by the layout too
+    x = x.contiguous(memory_format=torch.channels_last)
+    y = torch.cat([
+        F.conv2d(c, w, b, stride=stride, padding=padding, groups=groups)
+        for c in x.split(rows)])
+    return y[:n]
+
+
 def swish(x: torch.Tensor) -> torch.Tensor:
     """``x * sigmoid(x)``, written as the JAX EfficientNet writes it."""
     return x * torch.sigmoid(x)
@@ -401,8 +455,8 @@ def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
         y = depthwise_stencil(x.permute(0, 2, 3, 1), f.weight)
         y = y.permute(0, 3, 1, 2)
     else:
-        y = F.conv2d(x, f.weight, stride=f.stride, padding=f.padding,
-                     groups=f.groups)
+        y = folded_conv2d(x, f.weight, stride=f.stride, padding=f.padding,
+                          groups=f.groups)
     if f.mul is None:
         return y
     return activate(y * f.mul + f.add, f.act)

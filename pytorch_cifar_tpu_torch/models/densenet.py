@@ -52,6 +52,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv_bn,
     fold_affine,
     fold_conv_bn,
+    folded_dense,
 )
 
 Moments = Tuple[torch.Tensor, torch.Tensor]
@@ -187,7 +188,7 @@ class DenseNet(nn.Module):
                 out = avg_pool(conv_bn(affine_relu(out, t["pre"]),
                                        t["conv"]), 2)
         out = avg_pool(affine_relu(out, folded["head"]), 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def DenseNet121(num_classes: int = 10) -> DenseNet:

@@ -29,7 +29,6 @@ from __future__ import annotations
 from typing import List
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
@@ -38,6 +37,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     avg_pool,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 from pytorch_cifar_tpu_torch.models.dla_simple import STEMS, TREES, Root, _stem
 from pytorch_cifar_tpu_torch.models.resnet import BasicBlock, _block_forward
@@ -153,4 +153,4 @@ class DLA(nn.Module):
         for f in folded["trees"]:
             out = _tree_forward(f, out)
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])

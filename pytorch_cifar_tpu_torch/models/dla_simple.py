@@ -49,6 +49,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 from pytorch_cifar_tpu_torch.models.resnet import BasicBlock, _block_forward
 
@@ -169,4 +170,4 @@ class SimpleDLA(nn.Module):
         for f in folded["trees"]:
             out = _tree_forward(f, out)
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])

@@ -36,6 +36,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 
 CFG_BASE = {"in_planes": (96, 192, 384, 768),
@@ -150,7 +151,7 @@ class DPN(nn.Module):
         for f in folded["blocks"]:
             out = _block_forward(f, out)
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def DPN26(num_classes: int = 10) -> DPN:

@@ -49,6 +49,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv_bn,
     drop_connect,
     fold_conv_bn,
+    folded_dense,
     keep_mask,
     swish,
 )
@@ -201,7 +202,7 @@ class EfficientNet(nn.Module):
                       folded["stem"])
         for f in folded["blocks"]:
             out = _block_forward(f, out)
-        return F.linear(out.mean(dim=(2, 3)), *folded["linear"])
+        return folded_dense(out.mean(dim=(2, 3)), *folded["linear"])
 
 
 def EfficientNetB0(num_classes: int = 10) -> EfficientNet:

@@ -55,6 +55,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
     max_pool,
 )
 
@@ -222,4 +223,4 @@ class GoogLeNet(nn.Module):
             out = max_pool(out, 3, stride=2, padding=1) if f is None \
                 else _cell_forward(f, out)
         out = avg_pool(out, 8, stride=1)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])

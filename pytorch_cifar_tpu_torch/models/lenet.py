@@ -16,7 +16,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from pytorch_cifar_tpu_torch.models.common import Conv2d, Linear
+from pytorch_cifar_tpu_torch.models.common import (
+    Conv2d,
+    Linear,
+    folded_conv2d,
+    folded_dense,
+)
 
 
 class LeNet(nn.Module):
@@ -46,8 +51,8 @@ class LeNet(nn.Module):
     def folded_forward(self, folded: dict, x: torch.Tensor) -> torch.Tensor:
         """:meth:`forward` over :meth:`fold`'s weights; ``x`` is NCHW in
         the compute dtype."""
-        out = F.max_pool2d(F.relu(F.conv2d(x, *folded["conv1"])), 2)
-        out = F.max_pool2d(F.relu(F.conv2d(out, *folded["conv2"])), 2)
-        out = F.relu(F.linear(out.flatten(1), *folded["fc1"]))
-        out = F.relu(F.linear(out, *folded["fc2"]))
-        return F.linear(out, *folded["fc3"])
+        out = F.max_pool2d(F.relu(folded_conv2d(x, *folded["conv1"])), 2)
+        out = F.max_pool2d(F.relu(folded_conv2d(out, *folded["conv2"])), 2)
+        out = F.relu(folded_dense(out.flatten(1), *folded["fc1"]))
+        out = F.relu(folded_dense(out, *folded["fc2"]))
+        return folded_dense(out, *folded["fc3"])

@@ -41,6 +41,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 
 # int = (planes, stride 1); tuple = (planes, stride)
@@ -115,4 +116,4 @@ class MobileNet(nn.Module):
             for site in sites:
                 out = conv_bn(out, site)
         out = avg_pool(out, 2)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])

@@ -42,6 +42,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 
 # (expansion, out planes, blocks, stride of the first block) per stage
@@ -153,4 +154,4 @@ class MobileNetV2(nn.Module):
             out = _block_forward(f, out)
         out = conv_bn(out, folded["head"])
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])

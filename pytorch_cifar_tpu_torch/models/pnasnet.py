@@ -48,6 +48,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
     max_pool,
 )
 
@@ -212,7 +213,7 @@ class PNASNet(nn.Module):
         for f in folded["cells"]:
             out = self.cell_type.folded(f, out)
         out = avg_pool(out, 8)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def PNASNetA(num_classes: int = 10) -> PNASNet:

@@ -36,6 +36,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
     global_avg_pool,
     se_gate,
 )
@@ -171,7 +172,7 @@ class RegNet(nn.Module):
                       folded["stem"])
         for f in folded["blocks"]:
             out = _block_forward(f, out)
-        return F.linear(global_avg_pool(out), *folded["linear"])
+        return folded_dense(global_avg_pool(out), *folded["linear"])
 
 
 def RegNetX_200MF(num_classes: int = 10) -> RegNet:

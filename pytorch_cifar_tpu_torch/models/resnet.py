@@ -42,6 +42,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 
 
@@ -191,7 +192,7 @@ class ResNet(nn.Module):
         for f in folded["blocks"]:
             out = _block_forward(f, out)
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def ResNet18(num_classes: int = 10) -> ResNet:

@@ -36,6 +36,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 from pytorch_cifar_tpu_torch.models.resnet import _block_forward
 
@@ -137,7 +138,7 @@ class ResNeXt(nn.Module):
         for f in folded["blocks"]:
             out = _block_forward(f, out)
         out = avg_pool(out, 8)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def ResNeXt29_2x64d(num_classes: int = 10) -> ResNeXt:

@@ -39,6 +39,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv_bn,
     fold_affine,
     fold_conv_bn,
+    folded_dense,
     se_gate,
 )
 
@@ -143,7 +144,7 @@ class SENet(nn.Module):
         for f in folded["blocks"]:
             out = _block_forward(f, out)
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def SENet18(num_classes: int = 10) -> SENet:

@@ -43,6 +43,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     conv,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
 )
 
 SPLIT_RATIO = 0.5
@@ -189,7 +190,7 @@ class ShuffleNetV2(nn.Module):
             out = _block_forward(f, out)
         out = conv_bn(out, folded["head"])
         out = avg_pool(out, 4)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def ShuffleNetV2_05(num_classes: int = 10) -> ShuffleNetV2:

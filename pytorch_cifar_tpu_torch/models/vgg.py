@@ -23,7 +23,6 @@ from __future__ import annotations
 from typing import Sequence, Union
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from pytorch_cifar_tpu_torch.models.common import (
@@ -33,6 +32,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     batchnorm,
     conv_bn,
     fold_conv_bn,
+    folded_dense,
     max_pool,
 )
 
@@ -97,7 +97,7 @@ class VGG(nn.Module):
         out = x.contiguous(memory_format=torch.channels_last)
         for f in folded["features"]:
             out = max_pool(out, 2) if f == "M" else conv_bn(out, f)
-        return F.linear(out.flatten(1), *folded["linear"])
+        return folded_dense(out.flatten(1), *folded["linear"])
 
 
 def VGG11(num_classes: int = 10) -> VGG:

@@ -72,6 +72,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -318,15 +319,14 @@ int launch(const void* x, const void* w, const float* scale,
     return (int)cudaErrorInvalidValue;
   constexpr int V = 16 / sizeof(T);
   // th * wd <= kMaxM, so the halo (th + 2) * (wd + 2) is at most
-  // (kMaxM + 2) * 3 pixels (th = 1 or wd = 1): the attribute is set once per
-  // instantiation to that size (thread-safe static init; one device per
-  // process), and each launch asks only for its own smem.
+  // (kMaxM + 2) * 3 pixels (th = 1 or wd = 1): the attribute is set to that
+  // size once per instantiation and device (smem_opt_in.cuh), and each
+  // launch asks only for its own smem.
   constexpr size_t kMaxSmem =
       ((size_t)(kMaxM + 2) * 3 * kStride + (size_t)9 * kChunk * kStrideW) *
       sizeof(T);
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_bn_relu_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kMaxSmem);
+  const cudaError_t attr =
+      smem_opt_in<conv3x3_bn_relu_kernel<T>>((int)kMaxSmem);
   if (attr != cudaSuccess) return (int)attr;
   const int th = min(h, kMaxM / wd);
   const size_t smem = ((size_t)(th + 2) * (wd + 2) * kStride +
@@ -616,11 +616,10 @@ template <int BN, int MINB>
 int launch(const void* x, const void* w, const float* scale,
            const float* bias, void* out, int n, int h, int wd, int cin,
            int cout, int ib, int th, int smem, cudaStream_t stream) {
-  // set once per instantiation (thread-safe static init; one device per
-  // process); each launch asks only for its own plan's bytes
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      conv3x3_bn_relu_wgmma_kernel<BN, MINB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+  // set once per instantiation and device (smem_opt_in.cuh); each launch
+  // asks only for its own plan's bytes
+  const cudaError_t attr =
+      smem_opt_in<conv3x3_bn_relu_wgmma_kernel<BN, MINB>>(kSmemOptIn);
   if (attr != cudaSuccess) return (int)attr;
   const long long tiles =
       (long long)((n + ib - 1) / ib) * ((h + th - 1) / th);

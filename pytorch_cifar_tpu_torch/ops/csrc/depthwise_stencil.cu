@@ -49,6 +49,7 @@
 #include <stdint.h>
 
 #include "nhwc_vec.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -157,11 +158,9 @@ int launch_k(const void* x, const void* wt, void* out, int n, int h, int w,
              int c, int ib, int th, int tr, int ccv, int xruns, int smem,
              cudaStream_t s) {
   using S = typename IO::S;
-  // set once per instantiation (thread-safe static init; one device per
-  // process); each launch asks only for its own plan's bytes
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      depthwise_kernel<IO, V, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemOptIn);
+  // set once per instantiation and device (smem_opt_in.cuh); each launch
+  // asks only for its own plan's bytes
+  const cudaError_t attr = smem_opt_in<depthwise_kernel<IO, V, K>>(kSmemOptIn);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long tiles = (long long)((n + ib - 1) / ib) * ((h + th - 1) / th);
   const int chunks = (c / V + ccv - 1) / ccv;

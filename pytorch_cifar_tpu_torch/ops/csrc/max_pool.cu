@@ -91,6 +91,7 @@
 #include <type_traits>
 
 #include "nhwc_vec.cuh"
+#include "smem_opt_in.cuh"
 
 namespace {
 
@@ -485,11 +486,10 @@ int launch_fwd(const void* x, void* out, void* idx, int n, int h, int w,
                int c, int ib, int rows, int ccv, int smem, unsigned blocks,
                cudaStream_t s) {
   using S = typename IO::S;
-  // set once per instantiation (thread-safe static init; one device per
-  // process); each launch asks only for its own plan's bytes
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      max_pool_fwd_kernel<IO, V, MAP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+  // set once per instantiation and device (smem_opt_in.cuh); each launch
+  // asks only for its own plan's bytes
+  const cudaError_t attr =
+      smem_opt_in<max_pool_fwd_kernel<IO, V, MAP>>(kSmemOptIn);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   max_pool_fwd_kernel<IO, V, MAP>
       <<<blocks, ib * w * ccv, smem, s>>>(
@@ -578,9 +578,8 @@ int backward(const void* g, const void* idx, void* gi, int n, int h, int w,
   if (bad) return bad;
   return with_vec<IO>(vec, [&](auto vc) {
     constexpr int V = decltype(vc)::value;
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        max_pool_bwd_kernel<IO, V>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemOptIn);
+    const cudaError_t attr =
+        smem_opt_in<max_pool_bwd_kernel<IO, V>>(kSmemOptIn);
     if (attr != cudaSuccess) return static_cast<int>(attr);
     max_pool_bwd_kernel<IO, V>
         <<<blocks, ib * w * ccv, smem, static_cast<cudaStream_t>(stream)>>>(

@@ -6,16 +6,25 @@ each card has its own process and the default ``torch.distributed``
 process group *is* the mesh: its one axis is :data:`DATA_AXIS`, its size
 the world, a rank's shard index its rank. There is no ``make_mesh``
 counterpart. The backend follows the process's device: NCCL for CUDA
-tensors, gloo for the CPU. Every collective here runs over the default
-group, with tensors on :func:`collective_device`.
+tensors, gloo for the CPU. The training collectives here run over the
+default group, with tensors on :func:`collective_device`.
+
+Serving over a device group (``serve/mesh_replica.py``) moves host arrays
+of fixed, known size over a gloo group of its own (:func:`gloo_group`),
+whatever the device: :func:`broadcast_array`, :func:`broadcast_tree`,
+:func:`gather_rows` and :func:`all_min` (JAX's ``broadcast_pytree``,
+``process_allgather`` and ``_agree_flags``). gloo lets two ranks share one
+card, runs the CPU tests on the same code, and never touches a CUDA
+stream.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+from typing import Mapping, Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -139,3 +148,72 @@ def any_rank(flag: bool) -> bool:
                      device=collective_device())
     dist.all_reduce(t, op=dist.ReduceOp.MAX)
     return bool(t.item())
+
+
+# -- serving over a device group: fixed-size host arrays over gloo ------
+
+
+def gloo_group(timeout_s: Optional[float] = None):
+    """A gloo group over every rank of the job (collective: every rank
+    calls it), whose collectives raise after ``timeout_s`` instead of
+    waiting for a dead peer forever (torch's default when None)."""
+    kwargs = {}
+    if timeout_s is not None:
+        kwargs["timeout"] = datetime.timedelta(seconds=timeout_s)
+    return dist.new_group(backend="gloo", **kwargs)
+
+
+def group_size(group=None) -> int:
+    """Ranks in ``group`` (1 for None: no group, one process)."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    """This process's rank in ``group`` (0 for None)."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def broadcast_array(arr: np.ndarray, group) -> np.ndarray:
+    """Rank 0's ``arr`` on every rank of ``group``: every rank passes an
+    array of the same shape and dtype (the others a placeholder) and
+    gets rank 0's values back (rank 0 its own array)."""
+    buf = torch.from_numpy(np.array(arr, order="C"))  # a copy, 0-d kept
+    dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+    return arr if dist.get_rank(group) == 0 else buf.numpy()
+
+
+def broadcast_tree(tree: Mapping[str, np.ndarray], group) -> dict:
+    """Rank 0's flat ``{name: array}`` tree on every rank, in ONE
+    broadcast of its bytes: every rank passes a tree of the same names,
+    shapes and dtypes (the others zeros)."""
+    # np.asarray keeps a 0-d array 0-d (np.ascontiguousarray would not)
+    arrays = [np.asarray(v, order="C") for v in tree.values()]
+    flat = np.concatenate([a.reshape(-1).view(np.uint8) for a in arrays]) \
+        if arrays else np.zeros(0, np.uint8)
+    flat = broadcast_array(flat, group)
+    out, off = {}, 0
+    for k, a in zip(tree, arrays):
+        out[k] = flat[off:off + a.nbytes].view(a.dtype).reshape(a.shape) \
+            .copy()
+        off += a.nbytes
+    return out
+
+
+def gather_rows(local: np.ndarray, group) -> np.ndarray:
+    """Every rank's ``local`` rows (the same shape on every rank)
+    concatenated in rank order on rank 0, in one gather; another rank
+    gets its own ``local`` back."""
+    t = torch.from_numpy(np.asarray(local, order="C"))
+    root = dist.get_rank(group) == 0
+    parts = [torch.empty_like(t) for _ in range(group_size(group))] \
+        if root else None
+    dist.gather(t, parts, dst=dist.get_global_rank(group, 0), group=group)
+    return torch.cat(parts).numpy() if root else local
+
+
+def all_min(flags: np.ndarray, group) -> np.ndarray:
+    """The element-wise minimum of an int64 vector over every rank of
+    ``group`` (an AND of 0/1 flags), on every rank."""
+    t = torch.from_numpy(np.asarray(flags, np.int64).copy())
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+    return t.numpy()

@@ -13,7 +13,11 @@ with the engine's int8 lane; and the fleet control plane
 (:mod:`~pytorch_cifar_tpu_torch.serve.fleet`): the autoscaling, journaled,
 restart-safe :class:`FleetController` with its rolling deploys, and the
 :class:`JournalFollower` that keeps a remote edge's router on the
-journal's membership.
+journal's membership; and serving over a device group: the engine's
+``num_devices`` and the multi-process replica
+(:mod:`~pytorch_cifar_tpu_torch.serve.mesh_replica`), whose
+:class:`MeshReplica` presents ranks of one engine to the router as one
+replica.
 
 The names below are imported on first use (PEP 562), not with the
 package: the fleet launchers (``tools/router_run.py``,
@@ -39,6 +43,10 @@ _EXPORTS = {
         "ScalingEvaluator", "recover_controller",
     ),
     "frontend": ("BatcherBackend", "ServingFrontend"),
+    "mesh_replica": (
+        "PEER_TIMEOUT_RC", "MeshReplica", "MeshReplicaClosed",
+        "MeshReplicaError",
+    ),
     "loadgen": (
         "HttpTarget", "percentile_ms", "run_async_load", "run_load",
         "zipf_mix",

@@ -14,6 +14,9 @@
         --aot_cache aot --http_port 0
     python -m pytorch_cifar_tpu_torch.serve \\
         --models ResNet18,GoogLeNet,MobileNet --max_resident 2 [--int8]
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --num_devices 4
+    python -m pytorch_cifar_tpu_torch.serve --model ResNet18 --http_port 0 \\
+        --mesh_procs 2 --mesh_rank R --mesh_coord 127.0.0.1:29500
 
 Builds an :class:`InferenceEngine` from seeded random weights, or from
 ``--ckpt`` (a trainer's directory, a ``.msgpack`` of either package, or a
@@ -42,7 +45,9 @@ names (in HTTP mode the report of its ``_serve_http``: what the network
 brought, from the metrics registry), plus ``kernel_launches`` (launches
 of the port's serving kernels during the run: the fused conv, the 3x3 max
 pool and the depthwise stencil, whichever the model has),
-``launches_by_kernel``, ``device`` and, with ``--ckpt``, ``ckpt_epoch``
+``launches_by_kernel``, ``forwards`` (the engine's forwards, each on
+every device of this process: warm-ups, barrier probes, buckets and
+``--verify``), ``device`` and, with ``--ckpt``, ``ckpt_epoch``
 (``reloads`` and ``reload_skipped`` count the watcher's swaps and deferred
 polls).
 ``--int8`` serves the engine's int8 weight-only lane. ``--aot_cache DIR``
@@ -51,6 +56,21 @@ prepared weight set and each bucket's probe logits are imported when a
 verified entry is there, and exported when they had to be prepared; the
 JSON line carries ``aot_cache_hits`` and ``aot_cache_misses``.
 ``--num_classes``, ``--mean`` and ``--std`` are ``serve.py``'s.
+
+``--num_devices D`` serves over a device group (0 = every visible card):
+each padded bucket is split into D shards, one a card (on the CPU, D
+logical shards one after the other), and the buckets round as JAX's mesh
+engine rounds them. ``--mesh_procs P --mesh_rank R --mesh_coord host:port``
+makes the process one rank of a logical replica over P processes
+(:class:`~pytorch_cifar_tpu_torch.serve.mesh_replica.MeshReplica`, over a
+gloo group, with ``--mesh_timeout_s`` its dead-peer bound): rank 0, the
+leader, serves as above; another rank answers the leader until it says
+shutdown and prints ``serve.py``'s follower record (``"role":
+"mesh_follower"``) instead. ``--num_devices`` then counts the whole
+replica's devices, ``--num_devices // --mesh_procs`` (at least one) a
+rank; ranks that outnumber the cards share them. ``--mesh_procs`` and
+``--models`` exclude each other, and ``--mesh_procs`` needs
+``--mesh_coord``.
 
 ``--models A,B=dir,...`` turns the process into a
 :class:`ModelZooServer` hosting every named model (``serve.py``'s zoo
@@ -88,6 +108,7 @@ from pytorch_cifar_tpu_torch.obs import (
     write_prometheus,
 )
 from pytorch_cifar_tpu_torch.obs.metrics import _percentile_from_buckets
+from pytorch_cifar_tpu_torch.parallel import mesh
 from pytorch_cifar_tpu_torch.serve import (
     BatcherBackend,
     CheckpointWatcher,
@@ -185,17 +206,91 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--prom_out", default="",
                    help="write the metrics as Prometheus text at exit")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--num_devices", type=int, default=1,
+                   help="devices of the replica's group: every bucket is "
+                        "split over them (0 = every visible card)")
+    p.add_argument("--mesh_procs", type=int, default=1,
+                   help="processes of one logical replica (rank 0 serves; "
+                        "1 = a one-process replica)")
+    p.add_argument("--mesh_rank", type=int, default=0,
+                   help="this process's rank in the replica")
+    p.add_argument("--mesh_coord", default="",
+                   help="host:port of the replica's rendezvous, shared by "
+                        "every rank")
+    p.add_argument("--mesh_timeout_s", type=float, default=60.0,
+                   help="a rank stuck this long at a collective exits "
+                        "rc 70")
     return p.parse_args(argv)
 
 
-def build_engine(args, registry, device) -> InferenceEngine:
+def _local_devices(args, device) -> int:
+    """This process's share of ``--num_devices`` (0 = every visible card):
+    the replica's devices over its ``--mesh_procs`` ranks, one at least."""
+    total = args.num_devices
+    if total <= 0:
+        total = torch.cuda.device_count() if device.type == "cuda" else 1
+    return max(1, total // max(1, args.mesh_procs))
+
+
+def _init_mesh_processes(args, device):
+    """Join the replica's ranks (a gloo group whose collectives raise
+    after ``--mesh_timeout_s``) and return the group; the refusals are
+    ``serve.py``'s."""
+    if not args.mesh_coord:
+        raise SystemExit(
+            "--mesh_procs > 1 needs --mesh_coord host:port (the "
+            "rendezvous address every rank shares)")
+    if args.models:
+        raise SystemExit(
+            "mesh-sharded zoo tenants are not served: --mesh_procs and "
+            "--models are mutually exclusive")
+    mesh.initialize_distributed(
+        args.mesh_coord, args.mesh_procs, args.mesh_rank, device="cpu",
+        timeout_s=args.mesh_timeout_s)
+    return mesh.gloo_group(args.mesh_timeout_s)
+
+
+def _mesh_follower(replica, engine, launches0) -> int:
+    """One follower rank: answer the leader's commands on this (main)
+    thread until it says shutdown, then print ``serve.py``'s follower
+    record (with this rank's kernel launches). SIGTERM is ignored: the
+    leader's shutdown broadcast is the drain signal, and the watchdog
+    bounds the wait when the leader is gone."""
+    signal.signal(signal.SIGTERM, lambda *a: None)
+    print(f"==> mesh: follower {replica.process_index}/"
+          f"{replica.process_count} ready (barrier generation "
+          f"{replica.barrier_generation})", file=sys.stderr, flush=True)
+    replica.follower_loop()
+    torch.distributed.destroy_process_group()  # exit with no gloo pair open
+    launches = {k: v - launches0[k] for k, v in kernel_launches().items()}
+    print(json.dumps({
+        "role": "mesh_follower",
+        "process_index": replica.process_index,
+        "process_count": replica.process_count,
+        "engine_version": engine.version,
+        "compiles": engine.compile_count,
+        "aot_cache_hits": engine.aot_cache_hits,
+        "aot_cache_misses": engine.aot_cache_misses,
+        "barrier_generation": replica.barrier_generation,
+        "forwards": engine.forward_count,
+        "kernel_launches": sum(launches.values()),
+        "launches_by_kernel": launches,
+    }), flush=True)
+    return 0
+
+
+def build_engine(args, registry, device, mesh_group=None) -> InferenceEngine:
     """The single-model engine the flags describe: ``--ckpt`` or seeded
     random weights, ``--num_classes``, ``--mean``/``--std``, ``--dtype``,
-    ``--buckets``, ``--int8`` and the cold-start cache ``--aot_cache``."""
+    ``--buckets``, ``--int8``, the cold-start cache ``--aot_cache`` and
+    the device group (``--num_devices``, over the ranks of
+    ``mesh_group``)."""
     kw = dict(buckets=args.buckets, compute_dtype=DTYPES[args.dtype],
               num_classes=args.num_classes, mean=args.mean, std=args.std,
               registry=registry, device=device, int8=args.int8,
-              aot_cache_dir=args.aot_cache or None)
+              aot_cache_dir=args.aot_cache or None,
+              num_devices=_local_devices(args, device),
+              mesh_group=mesh_group)
     if args.ckpt:
         return InferenceEngine.from_checkpoint(args.ckpt, args.model, **kw)
     return InferenceEngine.from_random(args.model, seed=args.seed, **kw)
@@ -389,6 +484,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     device = resolve_device(args.device)
+    mesh_group = None
+    if args.mesh_procs > 1:
+        mesh_group = _init_mesh_processes(args, device)
     registry = MetricsRegistry()
     if args.trace_out:
         trace.install(args.trace_out)
@@ -398,23 +496,42 @@ def main(argv=None) -> int:
     source = f"ckpt {args.ckpt}" if args.ckpt else f"seed {args.seed}"
     print(
         f"==> building {args.model} ({source}, buckets "
-        f"{tuple(args.buckets)}, {args.dtype}, {device})",
+        f"{tuple(args.buckets)}, {args.dtype}, {device} "
+        f"x{_local_devices(args, device)}"
+        + (f" over {args.mesh_procs} processes, rank {args.mesh_rank}"
+           if args.mesh_procs > 1 else "") + ")",
         file=sys.stderr,
     )
-    engine = build_engine(args, registry, device)
+    engine = build_engine(args, registry, device, mesh_group)
     print(
         f"==> warm: {engine.compile_count} buckets warmed on prepared "
         f"weights, {engine.aot_cache_hits} imported from the cold-start "
-        f"cache ({engine.cold_start_s:.2f}s cold start)",
+        f"cache ({engine.cold_start_s:.2f}s cold start; buckets "
+        f"{engine.buckets}, {engine.n_devices} device(s))",
         file=sys.stderr,
     )
+    # a multi-process replica: the bootstrap broadcast and the warm-up
+    # barrier run inside, on every rank; then the followers answer the
+    # leader, which serves with the replica in the engine's seat
+    replica = None
+    if mesh_group is not None:
+        from pytorch_cifar_tpu_torch.serve.mesh_replica import MeshReplica
+
+        replica = MeshReplica(engine, timeout_s=args.mesh_timeout_s,
+                              registry=registry)
+        print(f"==> mesh: replica spans {replica.process_count} processes "
+              f"x {len(engine.devices)} devices, barrier generation "
+              f"{replica.barrier_generation}", file=sys.stderr, flush=True)
+        if not replica.is_leader:
+            return _mesh_follower(replica, engine, launches0)
+    serving = replica if replica is not None else engine
     if args.verify:
         rs = np.random.RandomState(args.seed)
         bks = engine.buckets
         # an off-bucket size, so the padded path is actually exercised
         n = bks[0] - 1 if bks[0] > 1 else (bks[1] - 1 if len(bks) > 1 else 1)
         x = rs.randint(0, 256, size=(n, *engine.image_shape)).astype(np.uint8)
-        padded, direct = engine.predict(x), engine.direct_forward(x)
+        padded, direct = serving.predict(x), engine.direct_forward(x)
         if not np.array_equal(padded, direct):
             print(
                 "error: padded bucket forward is not bit-identical to the "
@@ -430,7 +547,7 @@ def main(argv=None) -> int:
         )
 
     batcher = MicroBatcher(
-        engine,
+        serving,
         max_batch=args.max_batch or None,
         max_wait_ms=args.max_wait_ms,
         max_queue=args.max_queue,
@@ -446,8 +563,10 @@ def main(argv=None) -> int:
         ).start()
     watcher = None
     if args.watch:
+        # on a multi-process replica the swap goes through the leader's
+        # broadcast, so every rank swaps the same generation
         watcher = CheckpointWatcher(
-            engine, args.ckpt, poll_s=args.poll_s, registry=registry
+            serving, args.ckpt, poll_s=args.poll_s, registry=registry
         ).start()
         print(
             f"==> watching {args.ckpt} for new best checkpoints "
@@ -457,7 +576,7 @@ def main(argv=None) -> int:
     try:
         if args.http_port >= 0:
             report = _serve_http(
-                args, BatcherBackend(engine, batcher, watcher=watcher),
+                args, BatcherBackend(serving, batcher, watcher=watcher),
                 registry,
             )
         else:
@@ -474,6 +593,9 @@ def main(argv=None) -> int:
         if watcher is not None:
             watcher.stop()
         batcher.close()  # graceful drain
+        if replica is not None:
+            replica.close()  # broadcast shutdown: the followers drain too
+            torch.distributed.destroy_process_group()
         if exporter is not None:
             exporter.stop()
         if args.prom_out:
@@ -493,7 +615,9 @@ def main(argv=None) -> int:
         ),
         "dtype": args.dtype,
         "int8": args.int8,
-        "n_devices": 1,
+        "n_devices": engine.n_devices,
+        "mesh_procs": args.mesh_procs,
+        "mesh": replica.mesh_health() if replica is not None else None,
         "buckets": list(engine.buckets),
         "max_batch": batcher.max_batch,
         "max_wait_ms": args.max_wait_ms,
@@ -512,7 +636,9 @@ def main(argv=None) -> int:
             k: (round(v, 3) if isinstance(v, float) else v)
             for k, v in report.items()
         },
-        "img_per_sec_per_chip": round(report["img_per_sec"], 3),
+        "img_per_sec_per_chip": round(
+            report["img_per_sec"] / max(engine.n_devices, 1), 3),
+        "forwards": engine.forward_count,
         "kernel_launches": sum(launches.values()),
         "launches_by_kernel": launches,
         "obs": {

@@ -26,6 +26,14 @@ Layout of a cache directory (``InferenceEngine(aot_cache_dir=)``):
   and takes any other ``*.json`` there for a checkpoint sidecar) sees the
   buckets alone.
 
+An entry is per topology and per rank, as the JAX module's: its key (the
+engine's ``_cache_key_fields``) carries the device group's size, the
+process count, this rank's index and its devices. A bucket's probe logits
+are what THIS rank's forward returned (the whole bucket on a leader or a
+one-process engine, the rank's own slab on a follower), so a replica
+relaunched on another topology imports nothing of the old one, and the
+ranks of one replica agree on what to import before any probe runs.
+
 File discipline, as the JAX module's:
 
 - The payload, then the sidecar, each through the checkpoint layer's

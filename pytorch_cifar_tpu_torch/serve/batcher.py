@@ -1,7 +1,8 @@
 """Dynamic micro-batching: coalesce concurrent requests into device batches.
 
-A copy of ``pytorch_cifar_tpu/serve/batcher.py`` for the port's
-single-device engine, without its mesh-engine paths.
+A copy of ``pytorch_cifar_tpu/serve/batcher.py`` for the port's engine,
+its device groups and :class:`~pytorch_cifar_tpu_torch.serve.mesh_replica.MeshReplica`
+included.
 
 The engine's per-bucket programs amortize fixed dispatch cost over the
 batch dimension, so serving throughput under concurrency hinges on running
@@ -148,6 +149,13 @@ class MicroBatcher:
         self.max_batch = int(max_batch or max(engine.buckets))
         if self.max_batch < 1:
             raise ValueError("max_batch must be >= 1")
+        # a device group lays a formed batch out over its shards, so
+        # max_batch rounds UP to the shard multiple: a full coalesced batch
+        # then fills every shard instead of padding the trailing one
+        self.shard_multiple = int(getattr(engine, "n_devices", 1) or 1)
+        if self.shard_multiple > 1:
+            self.max_batch = (-(-self.max_batch // self.shard_multiple)
+                              * self.shard_multiple)
         self.max_wait_ms = float(max_wait_ms)
         self.max_queue = int(max_queue)
         if self.max_queue < self.max_batch:
@@ -212,6 +220,15 @@ class MicroBatcher:
         # the next engine cycle
         self._c_cont_admitted = self.obs.counter("serve.continuous_admitted")
         self._c_cont_images = self.obs.counter("serve.continuous_images")
+        # valid rows a shard of each dispatched batch (device groups only):
+        # how unevenly a ragged tail batch left the trailing shards padded
+        self._h_shard = (
+            self.obs.histogram(
+                "serve.shard_images",
+                bounds=(1, 2, 4, 8, 16, 32, 64, 128, 256),
+            )
+            if self.shard_multiple > 1 else None
+        )
         if autostart:
             self.start()
 
@@ -471,6 +488,9 @@ class MicroBatcher:
         the condition)."""
         self._c_batches.inc()
         self._c_images.inc(total)
+        if self._h_shard is not None:
+            for rows in self.engine.shard_split(total):
+                self._h_shard.observe(rows)
         self._h_batch.observe(total)
         self._h_occupancy.observe(total / self.max_batch)
 
@@ -550,7 +570,15 @@ class MicroBatcher:
         admitted before the worker exits. ``drain=False`` fails all
         pending futures immediately; a worker that misses ``timeout``
         (stalled engine call) has its remaining queue failed too — either
-        way no caller stays blocked forever on ``future.result()``."""
+        way no caller stays blocked forever on ``future.result()``.
+
+        An engine that can wedge on a dead peer (a
+        :class:`~pytorch_cifar_tpu_torch.serve.mesh_replica.MeshReplica`,
+        whose dispatch blocks in a collective until its watchdog ends the
+        process) advertises ``drain_timeout_s``; with no explicit
+        ``timeout`` the join is bounded by it."""
+        if timeout is None:
+            timeout = getattr(self.engine, "drain_timeout_s", None)
         with self._cond:
             self._closed = True
             self._drain = drain

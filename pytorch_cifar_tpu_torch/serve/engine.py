@@ -32,6 +32,16 @@ Counterpart of ``pytorch_cifar_tpu/serve/engine.py`` (single device):
   reference; a swap validates that the new ``state_dict`` has the same keys,
   shapes and dtypes, prepares it off the lock and replaces the reference in
   one assignment. Requests already running keep the pair they captured.
+- **A device group** (``num_devices=D``, JAX's mesh engine): one copy of
+  the folded tree per device, every padded bucket split into D equal
+  shards, each run on its own device, and the logits put back together in
+  device order. Buckets follow JAX's rule (:func:`round_buckets`, a floor
+  of 2·D, and a singleton bucket of D rows that serves only n = 1, so a
+  lone row keeps the single engine's one-row kernels). On CUDA device
+  ``i`` is ``cuda:i``; on the CPU the D shards run one after the other
+  (the tests' stand-in for D cards). With ``mesh_group`` the group spans
+  processes (:mod:`.mesh_replica`): each rank runs its own slab of every
+  bucket and the leader gathers the logits.
 - **The int8 lane** (``int8=True``): weight-only symmetric int8, one scale
   per output channel, exactly the JAX package's :func:`quantize_int8`. The
   raw ``state_dict`` is quantized, the model is folded from the quantized
@@ -87,6 +97,61 @@ log = logging.getLogger(__name__)
 
 DEFAULT_BUCKETS = (1, 8, 32, 128)
 IMAGE_SHAPE = (32, 32, 3)
+
+
+def round_buckets(buckets: Sequence[int], multiple: int) -> Tuple[int, ...]:
+    """Each bucket rounded UP to a multiple of ``multiple``, deduplicated
+    (JAX's rule: every shard gets the same extent, and a request that fit
+    the old largest bucket still fits without chunking)."""
+    m = max(1, int(multiple))
+    return tuple(sorted({-(-int(b) // m) * m for b in buckets}))
+
+
+def mesh_buckets(buckets: Sequence[int], n_devices: int):
+    """JAX's mesh bucket rule for ``n_devices`` > 1: ``(buckets,
+    singleton)``. Buckets round up to multiples of D with a floor of 2·D (a
+    shard of one row selects other kernels than a shard of two or more);
+    a configured 1-bucket survives as the singleton bucket of D rows, one
+    a shard, which serves only n = 1."""
+    d = int(n_devices)
+    rounded = round_buckets(
+        [max(b, 2 * d) for b in buckets if b > 1], d) or (2 * d,)
+    singleton = None
+    if 1 in buckets:
+        singleton = d
+        rounded = tuple(sorted({d, *rounded}))
+    return rounded, singleton
+
+
+def shard_devices(device: "torch.device", num_devices: int,
+                  first: int = 0) -> list:
+    """The ``num_devices`` devices a rank's shards run on: the CPU
+    ``num_devices`` times (logical shards, one after the other), or cards
+    ``first, first + 1, ...`` modulo the visible count (``device``'s index
+    when it names one). Raises when more cards are asked for than are
+    visible."""
+    d = int(num_devices)
+    if d < 1:
+        raise ValueError(f"num_devices must be >= 1, got {d}")
+    if device.type != "cuda":
+        return [device] * d
+    count = torch.cuda.device_count()
+    if d > count:
+        raise ValueError(
+            f"num_devices={d} but only {count} CUDA device(s) are visible")
+    start = device.index if device.index is not None else int(first)
+    return [torch.device("cuda", (start + i) % count) for i in range(d)]
+
+
+class _Served(tuple):
+    """The served ``(model, folded)`` pair (device 0's tree) with every
+    device's copy in ``copies``: one object, so one assignment swaps every
+    device's weights together."""
+
+    def __new__(cls, model, copies):
+        self = super().__new__(cls, (model, copies[0]))
+        self.copies = tuple(copies)
+        return self
 
 
 def _is_qleaf(leaf) -> bool:
@@ -401,8 +466,13 @@ class InferenceEngine:
     still returns the float originals and a swap still takes (and
     re-quantizes) a float ``state_dict``.
 
-    ``n_devices`` is 1 (one card; serving over a device group is not
-    ported).
+    ``num_devices`` is the device group (module docstring): this process's
+    shards, on ``cuda:0 ..`` (or ``device``'s index on), or logical shards
+    on the CPU. ``mesh_group`` (a gloo group, :mod:`.mesh_replica`) spans
+    the group over processes: ``n_devices`` is then every rank's shards,
+    every bucket forward is a collective all ranks enter in the same
+    order, and only the leader (rank 0) gets the whole bucket's logits
+    back. :meth:`direct_forward` always runs on the first device alone.
 
     **The cold-start cache** (``aot_cache_dir``, :mod:`.aot_cache`). What a
     later process can reload bit for bit is the prepared weight set, so
@@ -430,13 +500,15 @@ class InferenceEngine:
       engine counts them.
     - The JAX engine's import has five phases; here: (1) the local scan
       reads and verifies every bucket's entry and the weight set's
-      (:meth:`_import_cached`); (2) the cross-process agreement has nothing
-      to guard: a replica is one process (a replica over several processes
-      is item 9e); (3) each candidate bucket's probe runs on the imported
-      weights and must equal its entry's logits bit for bit, or the entry
-      is poisoned; (4) one refuted probe drops the whole load, since every
-      bucket reads the same weight set, and the engine prepares from the
-      checkpoint as on a miss; (5) the fresh-reference check has nothing to
+      (:meth:`_import_cached`); (2) across processes a bucket stays a
+      candidate only where every rank holds a verified entry for it
+      (:meth:`_agree_flags`, a no-op in one process); (3) each candidate
+      bucket's probe runs on the imported weights (a collective across
+      processes) and must equal its entry's logits bit for bit, or the
+      entry is poisoned; (4) one refuted probe, on any rank, drops the
+      whole load on every rank, since every bucket reads the same weight
+      set, and the engine prepares from the checkpoint as on a miss; (5)
+      the fresh-reference check has nothing to
       guard: it stands against a deserializer that mis-executes programs,
       and the port deserializes only bytes, whose CRC the read checks and
       whose forward phase 3 has already held against the exporter's.
@@ -451,8 +523,6 @@ class InferenceEngine:
     (:meth:`from_checkpoint` adds the checkpoint's read); and
     ``cold_start_stages`` splits it (ms).
     """
-
-    n_devices = 1
 
     def __init__(
         self,
@@ -469,14 +539,34 @@ class InferenceEngine:
         int8: bool = False,
         aot_cache_dir: Optional[str] = None,
         weights_id=None,
+        num_devices: int = 1,
+        mesh_group=None,
     ):
+        from pytorch_cifar_tpu_torch.parallel import mesh
+
         t0 = time.perf_counter()
         if not buckets:
             raise ValueError("need at least one batch-size bucket")
         self.buckets = tuple(sorted({int(b) for b in buckets}))
         if self.buckets[0] < 1:
             raise ValueError(f"buckets must be >= 1, got {self.buckets}")
-        self.device = resolve_device(device)
+        self.mesh_group = mesh_group
+        self.process_count = mesh.group_size(mesh_group)
+        self.process_index = mesh.group_rank(mesh_group)
+        self.devices = shard_devices(
+            resolve_device(device), num_devices,
+            first=self.process_index * int(num_devices))
+        self.device = self.devices[0]
+        self.n_devices = len(self.devices) * self.process_count
+        self._singleton = None
+        if self.n_devices > 1:
+            rounded, self._singleton = mesh_buckets(self.buckets,
+                                                    self.n_devices)
+            if rounded != self.buckets:
+                log.info("rounded buckets %s -> %s (multiples of the "
+                         "%d-device group, two rows a shard at least)",
+                         self.buckets, rounded, self.n_devices)
+            self.buckets = rounded
         self.model_name = model_name
         self.num_classes = num_classes
         self.image_shape = IMAGE_SHAPE
@@ -487,8 +577,9 @@ class InferenceEngine:
             float(v) for v in (CIFAR10_MEAN if mean is None else mean))
         self._norm_std = tuple(
             float(v) for v in (CIFAR10_STD if std is None else std))
-        self._mean = torch.tensor(self._norm_mean, device=self.device)
-        self._std = torch.tensor(self._norm_std, device=self.device)
+        self._norm = {dev: (torch.tensor(self._norm_mean, device=dev),
+                            torch.tensor(self._norm_std, device=dev))
+                      for dev in self.devices}
         self._warm: set = set()
         self._swap_lock = threading.Lock()
         self._count_lock = threading.Lock()
@@ -582,7 +673,7 @@ class InferenceEngine:
             model.to(dev).eval()
             folded = model.fold(self.compute_dtype)
             model.to("meta")
-        return (model, folded), raw
+            return _Served(model, self._replicate(folded)), raw
 
     def _prepare_int8(self, state_dict: Mapping, stages=None):
         """The int8 lane's weight set: the model is folded on the device
@@ -629,7 +720,16 @@ class InferenceEngine:
                 raise ValueError(f"{self.model_name}: the int8 plan does "
                                  "not match the folded tree")
             model.to("meta")
-        return (model, folded), raw
+            return _Served(model, self._replicate(folded)), raw
+
+    def _replicate(self, folded) -> list:
+        """``folded`` (on the first device) and a copy on every other
+        device of the group; logical CPU shards share the one tree."""
+        from pytorch_cifar_tpu_torch.serve.aot_cache import _map_tensors
+
+        return [folded if dev == self.device
+                else _map_tensors(lambda t, dev=dev: t.to(dev), folded)
+                for dev in self.devices]
 
     def weights_host(self) -> dict:
         """Host-numpy copy of the served ``state_dict`` — what
@@ -692,6 +792,12 @@ class InferenceEngine:
             "std": list(self._norm_std),
             "int8": bool(self.int8),
             "n_devices": int(self.n_devices),
+            # the topology: an entry's probe logits are what THIS rank's
+            # forward returned (the whole bucket on the leader, its slab
+            # on another rank), on these devices
+            "process_count": int(self.process_count),
+            "process_index": int(self.process_index),
+            "devices": [str(d) for d in self.devices],
             "platform": dev.type,
             "device": torch.cuda.get_device_name(dev) if cuda else "cpu",
             "capability": list(torch.cuda.get_device_capability(dev))
@@ -746,19 +852,28 @@ class InferenceEngine:
                 candidates[b] = np.asarray(entry["probe_logits"])
             went = aot_cache.load_entry(cache_dir, wname, wkey) \
                 if candidates else None
-        if went is None:
-            self._miss(len(candidates))
+        folded = None
+        if went is not None:
+            try:
+                with _timed(stages, "cache_put_ms", self.device):
+                    folded = aot_cache.deserialize_entry(went, self.device)
+            except Exception as e:
+                log.warning("cold-start cache weights %s failed to load "
+                            "(%s) — preparing instead", wname, e)
+        # phase 2: a bucket is a candidate only where every rank has it
+        # (and its weight set): every probe below is a collective
+        local = [int(b in candidates and folded is not None)
+                 for b in self.buckets]
+        agreed = self._agree_flags(local)
+        for b, ok in zip(self.buckets, agreed):
+            if not ok and b in candidates:
+                del candidates[b]
+                self._miss()
+        if not candidates:
             return None
-        try:
-            with _timed(stages, "cache_put_ms", self.device):
-                folded = aot_cache.deserialize_entry(went, self.device)
-            with _timed(stages, "model_ms"):
-                self._weights = (self._skeleton(), folded)
-        except Exception as e:
-            log.warning("cold-start cache weights %s failed to load (%s) — "
-                        "preparing instead", wname, e)
-            self._miss(len(candidates))
-            return None
+        with _timed(stages, "model_ms", self.device):
+            self._weights = _Served(self._skeleton(),
+                                    self._replicate(folded))
         raw_avals = went["raw_avals"]
         del went  # the host copy of the weight set
         # phase 3: each candidate's probe, its first forward
@@ -771,8 +886,8 @@ class InferenceEngine:
                     cache_dir, names[b][0],
                     "probe logits differ from the exporter's")
                 refuted.append(b)
-        # phase 4: one refutation drops the whole load
-        if refuted:
+        # phase 4: one refutation, on any rank, drops the whole load
+        if not self._agree_flags([int(not refuted)])[0]:
             self._weights = None
             self._miss(len(candidates))
             for b in candidates:
@@ -804,19 +919,75 @@ class InferenceEngine:
 
     # -- forward -------------------------------------------------------
 
-    def _forward(self, x: np.ndarray) -> np.ndarray:
-        """uint8 NHWC host batch -> fp32 host logits, on the device."""
-        model, folded = self._weights  # atomic tuple read
-        with torch.inference_mode():
-            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
-            xn = normalize(xt, self._mean, self._std, self.compute_dtype)
+    def _shard_logits(self, model, folded, x: np.ndarray,
+                      dev: torch.device) -> torch.Tensor:
+        """One shard's fp32 logits on ``dev``, queued (not waited for)."""
+        mean, std = self._norm[dev]
+        on_card = torch.cuda.device(dev) if dev.type == "cuda" \
+            else contextlib.nullcontext()
+        with on_card:
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            xn = normalize(xt, mean, std, self.compute_dtype)
             if self.int8:
                 folded = dequantize_int8(folded, self.compute_dtype)
-            logits = model.folded_forward(folded, xn.permute(0, 3, 1, 2))
-            out = logits.float().cpu().numpy()  # waits for the device
+            return model.folded_forward(
+                folded, xn.permute(0, 3, 1, 2)).float()
+
+    def _forward(self, x: np.ndarray) -> np.ndarray:
+        """uint8 NHWC host batch, a bucket -> fp32 host logits. On a device
+        group the bucket is split into equal shards: this rank's run on its
+        devices, all queued before any is waited for, and the logits come
+        back in device order; across processes the leader gathers every
+        rank's rows (a collective) and another rank gets its own."""
+        if self.n_devices == 1:
+            return self._forward_whole(x)
+        w = self._weights  # atomic read of every device's weights
+        per = x.shape[0] // self.n_devices
+        first = self.process_index * len(self.devices)
+        with torch.inference_mode():
+            pending = [
+                self._shard_logits(
+                    w[0], w.copies[i],
+                    x[(first + i) * per:(first + i + 1) * per], dev)
+                for i, dev in enumerate(self.devices)]
+            out = np.concatenate([t.cpu().numpy() for t in pending])
+        if self.process_count > 1:
+            from pytorch_cifar_tpu_torch.parallel import mesh
+
+            out = mesh.gather_rows(out, self.mesh_group)
         with self._count_lock:
             self.forward_count += 1
         return out
+
+    def _forward_whole(self, x: np.ndarray) -> np.ndarray:
+        """The whole batch on the first device, whatever the group."""
+        w = self._weights
+        with torch.inference_mode():
+            out = self._shard_logits(w[0], w.copies[0], x,
+                                     self.device).cpu().numpy()
+        with self._count_lock:
+            self.forward_count += 1
+        return out
+
+    def _agree_flags(self, flags) -> np.ndarray:
+        """The element-wise AND (minimum) of a small flag vector over every
+        rank of the group, JAX's ``_agree_flags`` (the identity in one
+        process)."""
+        flags = np.asarray(flags, np.int64)
+        if self.process_count == 1:
+            return flags
+        from pytorch_cifar_tpu_torch.parallel import mesh
+
+        return mesh.all_min(flags, self.mesh_group)
+
+    def topology(self) -> dict:
+        """The device group as the health block shows it."""
+        return {
+            "process_count": int(self.process_count),
+            "process_index": int(self.process_index),
+            "local_devices": len(self.devices),
+            "global_devices": int(self.n_devices),
+        }
 
     def warmup(self) -> None:
         """Run every bucket not yet warm once on its probe batch
@@ -844,17 +1015,28 @@ class InferenceEngine:
             self._obs.gauge("serve.cold_start_s").set(self.cold_start_s)
 
     def bucket_for(self, n: int) -> int:
-        """Smallest bucket >= n, or the largest bucket (callers chunk)."""
+        """Smallest bucket >= n, or the largest bucket (callers chunk). On
+        a device group the singleton bucket serves ONLY n = 1."""
+        if self._singleton is not None and n == 1:
+            return self._singleton
         for b in self.buckets:
-            if n <= b:
+            if n <= b and b != self._singleton:
                 return b
         return self.buckets[-1]
 
     def shard_split(self, n: int):
-        """Valid rows per device call for an ``n``-image request (one device:
-        one entry per chunk of the largest bucket)."""
+        """Valid rows per shard for an ``n``-image request after padding
+        (and chunking past the largest bucket), JAX's layout: shard ``i``
+        of a ``b``-row bucket owns rows ``[i*b/D, (i+1)*b/D)``, so a ragged
+        tail leaves the trailing shards padded. Sums to ``n``."""
+        out = []
         cap = self.buckets[-1]
-        return [min(cap, n - off) for off in range(0, max(int(n), 0), cap)]
+        for off in range(0, max(int(n), 0), cap):
+            m = min(cap, n - off)
+            per = self.bucket_for(m) // self.n_devices
+            out.extend(min(per, max(0, m - i * per))
+                       for i in range(self.n_devices))
+        return out
 
     def _run_bucket(self, x: np.ndarray) -> np.ndarray:
         """One padded bucket call: len(x) <= max bucket. The pad buffer
@@ -901,10 +1083,11 @@ class InferenceEngine:
         )
 
     def direct_forward(self, images: np.ndarray) -> np.ndarray:
-        """Unpadded forward at the EXACT request shape — the bit-identity
-        oracle for tests and ``--verify``; not counted in
-        ``compile_count``."""
-        return self._forward(np.asarray(images))
+        """Unpadded forward at the EXACT request shape on the first device
+        alone — the bit-identity oracle for tests and ``--verify`` (a
+        device group must match the one-device answer, not merely itself);
+        not counted in ``compile_count``."""
+        return self._forward_whole(np.asarray(images))
 
     # -- constructors --------------------------------------------------
 

@@ -371,12 +371,22 @@ class ReplicaProcess:
     ``launches_by_kernel``) on stdout when it exits; ``decommission``
     reads it, keeps the text on the handle as ``exit_record`` and forwards
     it to stderr under the same ``[replica i]`` prefix, so a launcher's
-    reader can count each drained replica's kernel launches."""
+    reader can count each drained replica's kernel launches.
+
+    A multi-process replica (``--mesh_procs``) is its leader's handle with
+    the follower ranks in ``followers`` (handles of their own, which print
+    no URL): the router sees the leader alone, and ``decommission`` drains
+    leader first, then waits for every follower to exit on its own (the
+    leader's shutdown broadcast ends its loop; a dead leader, its
+    watchdog) before any backstop: a signal sent to a follower that is
+    already exiting would land after its interpreter restored the default
+    handler and kill it mid-exit."""
 
     def __init__(self, idx, cmd: List[str], env: Optional[dict] = None,
-                 cwd: Optional[str] = None):
+                 cwd: Optional[str] = None, followers=()):
         self.idx = idx
         self.cmd = list(cmd)
+        self.followers = list(followers)
         self.proc = subprocess.Popen(
             self.cmd,
             env=env,
@@ -473,13 +483,17 @@ class ReplicaProcess:
             client.close()
         raise RuntimeError(f"replica {self.idx} never became healthy")
 
-    def decommission(self, timeout_s: float = 60.0) -> float:
-        """SIGTERM (the drain signal), wait, SIGKILL backstop, drain the
-        pipes (keeping the exit record), join the pump thread. Returns
-        the drain wall seconds. Idempotent and safe on an already-dead
-        process: the corpse is still reaped, never orphaned."""
+    def decommission(self, timeout_s: float = 60.0,
+                     drain_signal: bool = True) -> float:
+        """SIGTERM (the drain signal; none with ``drain_signal=False``),
+        wait, SIGKILL backstop, drain the pipes (keeping the exit record),
+        join the pump thread; then each follower's, without the signal.
+        Returns the drain wall seconds. Idempotent and safe on an
+        already-dead process: the corpse is still reaped, never
+        orphaned."""
         t0 = time.monotonic()
-        self.terminate()
+        if drain_signal:
+            self.terminate()
         try:
             self.proc.wait(timeout=timeout_s)
         except subprocess.TimeoutExpired:
@@ -497,6 +511,8 @@ class ReplicaProcess:
                 for line in self.exit_record.splitlines():
                     sys.stderr.write(f"[replica {self.idx}] {line}\n")
         self._thread.join(timeout=10)
+        for f in self.followers:
+            f.decommission(timeout_s=timeout_s, drain_signal=False)
         return time.monotonic() - t0
 
 
@@ -515,12 +531,13 @@ def replica_command(
     host: str = "127.0.0.1",
     device: str = "cuda",
     aot_cache: str = "",
+    num_devices: int = 1,
     extra_args=(),
 ) -> List[str]:
     """The command line of one replica: the port's serving CLI as an
     HTTP replica on an ephemeral port, on ``device`` (bf16 on the card,
-    fp32 on the CPU), on the cold-start cache ``aot_cache`` when one is
-    named."""
+    fp32 on the CPU) over ``num_devices`` of them (``--num_devices``), on
+    the cold-start cache ``aot_cache`` when one is named."""
     return [
         sys.executable, "-m", REPLICA_MODULE,
         "--ckpt", ckpt,
@@ -532,6 +549,7 @@ def replica_command(
         "--deadline_ms", str(deadline_ms),
         "--device", device,
         "--dtype", REPLICA_DTYPE[device],
+        "--num_devices", str(num_devices),
         *(["--aot_cache", aot_cache] if aot_cache else []),
         *extra_args,
     ]

@@ -269,6 +269,12 @@ class BatcherBackend:
             out["reloads"] = self.watcher.reloads
             out["reload_skipped"] = self.watcher.skipped
             out["reload_quarantined"] = self.watcher.quarantined
+        # a multi-process replica: its topology (process_count,
+        # global_devices, ...) and warm-up barrier generation, so a probe
+        # tells a joined replica from a half-joined one
+        mesh_health = getattr(eng, "mesh_health", None)
+        if mesh_health is not None:
+            out["mesh"] = mesh_health()
         return out
 
 

@@ -41,11 +41,17 @@ only when ``match`` is true:
            wire load: a slow-loris trickle closed by the read deadline, a
            256-socket flood absorbed, a replica SIGKILLed with bounded
            loss and evicted, and a SIGTERM drain that exits 0.
+  mesh     router_run --replicas 2 --mesh_procs 2 under mixed-wire load:
+           every answer bit for bit a one-process replica's; one
+           follower rank SIGKILLed, its leader exits rc 70 within
+           --mesh_timeout_s, the router evicts the logical replica with no
+           failed request, and replica 1 joined at compiles == 0 on the
+           shared cold-start cache.
 
 The JAX drill's router, zoo, elastic and rollout modes are the port's
-``chip_smoke.py`` phases wire, zoo_fleet, fleet and rollout; its mesh mode
-waits for serving over a device group, and so does a --serve-devices
-other than 1.
+``chip_smoke.py`` phases wire, zoo_fleet, fleet and rollout.
+``--serve-devices N`` serves ``--mode serve`` over a group of N devices
+(on the CPU, N logical shards).
 
 Usage:
   python -m pytorch_cifar_tpu_torch.tools.chaos_run --device cpu \\
@@ -87,7 +93,7 @@ import numpy as np
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 MODES = ("sigterm", "sigkill", "corrupt", "nan", "serve", "ckpt", "canary",
-         "edge")
+         "edge", "mesh")
 
 
 def module_cmd(module: str, *argv) -> list:
@@ -347,6 +353,7 @@ def serve_drill(args, work: str) -> dict:
             "--poll_s", 0.2,
             "--device", args.device,
             "--dtype", REPLICA_DTYPE[args.device],
+            "--num_devices", args.serve_devices,
         )
         if duration_s:
             cmd += ["--duration_s", str(duration_s)]
@@ -657,6 +664,237 @@ def edge_drill(args, work: str) -> dict:
         "failed_during_kill": killed["failed"],
         "hedged_during_kill": killed["hedged"],
         "evictions": rec_run["router"]["evictions"],
+        "router_rc": proc.returncode,
+    }
+
+
+def mesh_drill(args, work: str) -> dict:
+    """The multi-process replica drill: SIGKILL one FOLLOWER rank of a
+    live 2-process replica under load.
+
+    Phases:
+      0. fleet up: router_run --replicas 2 --mesh_procs 2 (each logical
+         replica a leader and a follower rank; on the CPU two logical
+         shards a rank, on the card the visible cards shared out) on a
+         shared cold-start cache, so replica 1 joins with compiles == 0
+         on every rank; and one one-process serving CLI as the bit
+         reference.
+      1. bits: one payload in both wire encodings to replica 0's leader,
+         replica 1's leader, the reference and the router, all byte-equal.
+      2. steady state: closed-loop mixed-wire load on the router.
+      3. kill: replica 0's follower SIGKILLed mid-load. Its leader must
+         exit rc 70 within --mesh_timeout_s (never hang); the router must
+         evict the logical replica and hedge its requests: no failed
+         request.
+      4. load on the survivor, then a SIGTERM drain: router_run exits 0;
+         the exit codes say who died of what (leader 70, follower -9,
+         replica 1 clean).
+    """
+    import urllib.request
+
+    from pytorch_cifar_tpu_torch.serve.fleet import REPLICA_DTYPE
+    from pytorch_cifar_tpu_torch.serve.loadgen import HttpTarget, run_load
+
+    peer_timeout_rc = 70  # serve/mesh_replica.PEER_TIMEOUT_RC (no torch)
+    ckpt_dir = os.path.join(work, "ckpt")
+    print(f"==> [mesh] training checkpoint -> {ckpt_dir}", file=sys.stderr)
+    run_to_completion(train_cmd(args, ckpt_dir), child_env(), args.timeout)
+
+    mesh_timeout_s = 6.0
+    cmd = module_cmd(
+        "tools.router_run",
+        "--ckpt", ckpt_dir,
+        "--model", args.model,
+        "--replicas", 2,
+        "--mesh_procs", 2,
+        "--mesh_timeout_s", mesh_timeout_s,
+        # two logical shards a rank on the CPU (JAX's drill forces two
+        # CPU devices a rank); on the card every visible card, shared out
+        "--replica_devices", 4 if args.device == "cpu" else 0,
+        "--buckets", 1, 4, 8,
+        "--aot_cache", os.path.join(work, "aot"),
+        "--deadline_ms", 2000,
+        "--probe_s", 0.2,
+        "--max_wait_ms", 1,
+        "--device", args.device,
+    )
+    print("==> [mesh] fleet up (2 logical replicas x 2 processes)",
+          file=sys.stderr)
+    proc = subprocess.Popen(
+        cmd, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO,
+    )
+    leader_re = re.compile(r"==> replica (\d+) pid=(\d+) url=(\S+)")
+    follower_re = re.compile(r"==> replica (\d+) follower rank=(\d+) "
+                             r"pid=(\d+)")
+    router_re = re.compile(r"==> router: serving on (\S+)")
+    leaders, followers = {}, {}
+    router_url = None
+    deadline = time.monotonic() + args.timeout
+    while time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            if proc.poll() is not None:
+                raise SystemExit(
+                    f"router_run exited rc={proc.returncode} before the "
+                    "router came up")
+            time.sleep(0.05)
+            continue
+        sys.stderr.write(line)
+        m = leader_re.search(line)
+        if m:
+            leaders[int(m.group(1))] = (int(m.group(2)), m.group(3))
+        m = follower_re.search(line)
+        if m:
+            followers[int(m.group(1))] = int(m.group(3))
+        m = router_re.search(line)
+        if m:
+            router_url = m.group(1)
+            break
+    if router_url is None or len(leaders) != 2 or len(followers) != 2:
+        proc.kill()
+        raise SystemExit("timed out waiting for the mesh fleet topology")
+    drain_t = _drain_stderr(proc, "mesh-stderr-drain")
+
+    # the one-process bit reference
+    ref = subprocess.Popen(
+        module_cmd("serve", "--ckpt", ckpt_dir, "--model", args.model,
+                   "--buckets", 1, 4, 8, "--http_port", 0,
+                   "--device", args.device,
+                   "--dtype", REPLICA_DTYPE[args.device]),
+        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=REPO,
+    )
+    seen = _wait_for_stderr(ref, "==> http: serving on", args.timeout)
+    ref_url = re.search(r"==> http: serving on (\S+)", seen).group(1)
+    ref_drain = _drain_stderr(ref, "mesh-ref-stderr-drain")
+
+    def healthz(url):
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return json.load(r)
+
+    h1 = healthz(leaders[1][1])
+    warm_compiles = int(h1.get("compiles", -1))
+    mesh_block = h1.get("mesh") or {}
+
+    probe = np.random.RandomState(7).randint(
+        0, 256, size=(3, 32, 32, 3)).astype(np.uint8)
+    outs = []
+    for u in (leaders[0][1], leaders[1][1], ref_url, router_url):
+        for w in ("json", "binary"):
+            t = HttpTarget(u, wire=w)
+            try:
+                outs.append(t.submit(probe).result(timeout=60))
+            finally:
+                t.close()
+    bit_identical = all(np.array_equal(outs[0], o) for o in outs[1:])
+
+    def load_phase(tag, duration_s, seed):
+        target = HttpTarget(router_url, wire="mixed")
+        try:
+            rep = run_load(
+                target, clients=4, requests_per_client=10**6,
+                images_max=4, seed=seed, duration_s=duration_s,
+                # all interactive: a bulk 429 reaches its client by
+                # design, and the bar here is no client-visible error
+                bulk_fraction=0.0,
+            )
+        finally:
+            target.close()
+        print(f"==> [mesh] {tag}: {rep['requests']} reqs "
+              f"p99={rep['p99_ms']:.1f}ms hedged={rep['hedged']} "
+              f"failed={rep['failed']}", file=sys.stderr)
+        return rep
+
+    print("==> [mesh] phase 1: steady state", file=sys.stderr)
+    steady = load_phase("steady", 5.0, seed=1)
+
+    print(f"==> [mesh] phase 2: SIGKILL replica 0 follower "
+          f"(pid {followers[0]}) under load", file=sys.stderr)
+    # the leader's watchdog (or its collective's timeout) must turn the
+    # dead peer into a process exit within the bound: timed by a poller
+    # that starts with the SIGKILL, beside the load
+    detection = {"s": None}
+
+    def kill_and_time_detection():
+        t0 = time.monotonic()
+        os.kill(followers[0], signal.SIGKILL)
+        deadline_d = t0 + mesh_timeout_s + 10.0
+        while time.monotonic() < deadline_d:
+            try:
+                healthz(leaders[0][1])
+                time.sleep(0.25)
+            except (OSError, ValueError):
+                detection["s"] = time.monotonic() - t0
+                return
+
+    kill_at = threading.Timer(2.0, kill_and_time_detection)
+    kill_at.start()
+    killed = load_phase("kill", 4.0 + 2.0 * mesh_timeout_s, seed=2)
+    kill_at.join()
+    detection_s = detection["s"]
+
+    print("==> [mesh] phase 3: post-evict steady state", file=sys.stderr)
+    post = load_phase("post-evict", 5.0, seed=3)
+    healthy_after = int(healthz(router_url).get("healthy_replicas", -1))
+
+    print("==> [mesh] phase 4: drain", file=sys.stderr)
+    proc.send_signal(signal.SIGTERM)
+    ref.send_signal(signal.SIGTERM)
+    # stdout only: each stderr is read to its end by its drain thread
+    out = proc.stdout.read()
+    proc.wait(timeout=args.timeout)
+    drain_t.join(timeout=10)
+    ref.stdout.read()
+    ref.wait(timeout=60)
+    ref_drain.join(timeout=10)
+    rec_run = _last_record(out, "router_run")
+
+    leader_rc = rec_run["replica_rcs"][0]
+    follower_rcs = rec_run["follower_rcs"]
+    ok = (
+        proc.returncode == 0
+        and warm_compiles == 0
+        and mesh_block.get("process_count") == 2
+        and mesh_block.get("barrier_generation") == 1
+        and bit_identical
+        and steady["requests"] > 0
+        and killed["requests"] > 0
+        and post["requests"] > 0
+        and steady["failed"] == 0
+        and killed["failed"] == 0
+        and post["failed"] == 0
+        and detection_s is not None
+        and leader_rc == peer_timeout_rc
+        and follower_rcs[0][0] == -int(signal.SIGKILL)
+        and rec_run["replica_rcs"][1] == 0
+        and follower_rcs[1][0] == 0
+        and healthy_after == 1
+        and rec_run["router"]["evictions"] >= 1
+    )
+    return {
+        "harness": "chaos_run",
+        "mode": "mesh",
+        "match": ok,
+        "mesh_procs": 2,
+        "mesh_timeout_s": mesh_timeout_s,
+        "reference_s": round(steady["elapsed_s"], 2),
+        "detection_s": round(detection_s, 2) if detection_s else None,
+        "warm_replica_compiles": warm_compiles,
+        "mesh_health": mesh_block,
+        "bit_identical": bit_identical,
+        "wire": "mixed",
+        "requests": steady["requests"] + killed["requests"]
+        + post["requests"],
+        "failed": steady["failed"] + killed["failed"] + post["failed"],
+        "hedged_during_kill": killed["hedged"],
+        "p99_steady_ms": round(steady["p99_ms"], 2),
+        "p99_post_ms": round(post["p99_ms"], 2),
+        "leader_rc": leader_rc,
+        "follower_rcs": follower_rcs,
+        "healthy_after": healthy_after,
+        "evictions": rec_run["router"]["evictions"],
+        "router_hedged": rec_run["router"]["hedged"],
         "router_rc": proc.returncode,
     }
 
@@ -1177,8 +1415,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--mode", choices=MODES, default="sigterm")
     p.add_argument(
         "--serve-devices", type=int, default=1, dest="serve_devices",
-        help="devices of the --mode serve engine: 1 (serving over a "
-        "device group is not ported yet)",
+        help="devices of the --mode serve engine's group (the serving "
+        "CLI's --num_devices; on the CPU, logical shards)",
     )
     p.add_argument(
         "--corruption", choices=("truncate", "bitflip"), default="truncate",
@@ -1215,9 +1453,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="the device of every child process")
     args = p.parse_args(argv)
-    if args.serve_devices != 1:
-        p.error(f"--serve-devices {args.serve_devices}: serving over a "
-                "device group is not ported yet (ROADMAP 9e); use 1")
+    if args.serve_devices < 1:
+        p.error(f"--serve-devices {args.serve_devices}: need 1 or more")
     return args
 
 
@@ -1228,7 +1465,8 @@ def main(argv=None) -> int:
     )
     work = args.out or tempfile.mkdtemp(prefix=f"chaos_{args.mode}_")
     drills = {"serve": serve_drill, "ckpt": ckpt_drill,
-              "canary": canary_drill, "edge": edge_drill}
+              "canary": canary_drill, "edge": edge_drill,
+              "mesh": mesh_drill}
     if args.mode in drills:
         record = drills[args.mode](args, work)
     else:

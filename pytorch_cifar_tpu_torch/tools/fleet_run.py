@@ -170,6 +170,11 @@ def parse_args(argv=None):
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="where the replicas run (bf16 on the card, fp32 on the CPU)",
     )
+    p.add_argument(
+        "--replica_devices", type=int, default=1,
+        help="devices of each replica's group (the serving CLI's "
+        "--num_devices; 0 = every visible card)",
+    )
     args = p.parse_args(argv)
     if args.role == "controller" and not args.fleet_url:
         p.error("--role controller requires --fleet_url")
@@ -214,6 +219,7 @@ def main(argv=None) -> int:
         host=args.host,
         device=args.device,
         aot_cache=args.aot_cache,
+        num_devices=args.replica_devices,
         timeout_s=args.timeout,
         extra_args=tuple(extra_args),
     )

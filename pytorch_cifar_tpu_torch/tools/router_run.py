@@ -22,16 +22,28 @@ topology in one command:
 (``--max_resident`` bounds its resident set) and the built-in load draws a
 zipf per-model mix from the card's cost priors.
 
+``--replica_devices D`` serves each replica over a group of D devices
+(the serving CLI's ``--num_devices``). ``--mesh_procs P`` makes each
+replica a LOGICAL one of P processes: the leader rank (which owns the
+frontend; the router sees its URL alone), then P - 1 follower ranks, on a
+private rendezvous port, every rank with ``--num_devices`` set to
+``--replica_devices`` (the replica's devices, shared out among its ranks,
+one at least each; 0 = every visible card) and ``--mesh_timeout_s``; a
+replica drains leader first.
+
 Prints ONE JSON line on stdout under the JAX launcher's keys (requests,
 latency percentiles, router hedge/eviction counters, per-replica compile
-counts; ``replica_mesh`` is None and ``follower_rcs`` empty: a port replica
-is one process). Progress and the machine-parseable topology lines go to
-stderr, and so does each replica's own JSON record when it exits, under
-its ``[replica i]`` prefix:
+counts, ``replica_mesh``: each leader's topology block, None for a
+one-process replica; ``follower_rcs``: each replica's followers' exit
+codes). Progress and the machine-parseable topology lines go to stderr, and
+so does each rank's own JSON record when it exits, under its ``[replica
+i]`` (a follower: ``[replica i:rR]``) prefix:
 
     ==> replica 0 pid=12345 url=http://127.0.0.1:41001 gen=1
+    ==> replica 0 follower rank=1 pid=12346
     ==> router: serving on http://127.0.0.1:41000
     [replica 0] {"model": "ResNet18", ..., "launches_by_kernel": {...}}
+    [replica 0:r1] {"role": "mesh_follower", ..., "launches_by_kernel": ...}
 
 Usage:
   python -m pytorch_cifar_tpu_torch.tools.router_run --ckpt ./checkpoint \\
@@ -41,6 +53,8 @@ Usage:
       --models ResNet18,MobileNet,GoogLeNet --max_resident 2 --replicas 2
   python -m pytorch_cifar_tpu_torch.tools.router_run --ckpt ./checkpoint \\
       --model LeNet --device cpu --deadline_ms 250   # serve until SIGTERM
+  python -m pytorch_cifar_tpu_torch.tools.router_run --ckpt ./checkpoint \\
+      --model ResNet18 --replicas 2 --mesh_procs 2 --aot_cache ./aot
 
 This process never touches a device and never loads torch (it starts in
 well under a second where ``import torch`` alone takes seconds): replicas
@@ -95,6 +109,25 @@ def parse_args(argv=None) -> argparse.Namespace:
         help="shared cold-start cache dir: replica 0 populates it, "
         "later replicas cold-start with compile_count == 0",
     )
+    p.add_argument(
+        "--replica_devices", type=int, default=1,
+        help="devices of each replica's group (the serving CLI's "
+        "--num_devices; with --mesh_procs, shared out among the ranks; "
+        "0 = every visible card)",
+    )
+    p.add_argument(
+        "--mesh_procs", type=int, default=1,
+        help="processes per LOGICAL replica: one leader rank (owns the "
+        "frontend; the router sees its URL alone) plus N-1 follower "
+        "ranks on a private rendezvous port; drained leader first. 1 = "
+        "one-process replicas",
+    )
+    p.add_argument(
+        "--mesh_timeout_s", type=float, default=30.0,
+        help="dead-peer bound of every rank (the serving CLI's "
+        "--mesh_timeout_s): a rank stuck at a collective this long exits "
+        "rc 70 and the router evicts the logical replica",
+    )
     p.add_argument("--watch", action="store_true")
     p.add_argument("--poll_s", type=float, default=1.0)
     p.add_argument("--probe_s", type=float, default=0.5)
@@ -123,7 +156,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     return p.parse_args(argv)
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
 def spawn_replica(args, idx: int):
+    """One replica: a serving CLI process, or with ``--mesh_procs`` its
+    leader rank and then its followers, on a private rendezvous port."""
     from pytorch_cifar_tpu_torch.serve.fleet import (
         ReplicaProcess,
         replica_command,
@@ -138,11 +181,29 @@ def spawn_replica(args, idx: int):
                   "--max_resident", str(args.max_resident)]
     if args.watch:
         extra.append("--watch")
-    return ReplicaProcess(idx, replica_command(
-        args.ckpt, args.model, buckets=args.buckets,
-        deadline_ms=args.deadline_ms, max_wait_ms=args.max_wait_ms,
-        host=args.host, device=args.device, aot_cache=args.aot_cache,
-        extra_args=extra))
+
+    def command(num_devices, more=()):
+        return replica_command(
+            args.ckpt, args.model, buckets=args.buckets,
+            deadline_ms=args.deadline_ms, max_wait_ms=args.max_wait_ms,
+            host=args.host, device=args.device, aot_cache=args.aot_cache,
+            num_devices=num_devices, extra_args=[*extra, *more])
+
+    if args.mesh_procs <= 1:
+        return ReplicaProcess(idx, command(args.replica_devices))
+    mesh = ["--mesh_procs", str(args.mesh_procs),
+            "--mesh_coord", f"127.0.0.1:{_free_port()}",
+            "--mesh_timeout_s", str(args.mesh_timeout_s)]
+    devices = args.replica_devices
+    leader = ReplicaProcess(idx, command(devices,
+                                         [*mesh, "--mesh_rank", "0"]))
+    for rank in range(1, args.mesh_procs):
+        f = ReplicaProcess(f"{idx}:r{rank}", command(
+            devices, [*mesh, "--mesh_rank", str(rank)]))
+        leader.followers.append(f)
+        print(f"==> replica {idx} follower rank={rank} pid={f.pid}",
+              file=sys.stderr, flush=True)
+    return leader
 
 
 def shutdown_replicas(replicas, timeout: float) -> list:
@@ -258,7 +319,7 @@ def main(argv=None) -> int:
         "replicas": args.replicas,
         "model": args.model,
         "models": args.models,
-        "mesh_procs": 1,
+        "mesh_procs": args.mesh_procs,
         "router_url": frontend.url,
         "replica_compiles": [h.get("compiles") for h in healths],
         "replica_aot_hits": [h.get("aot_cache_hits") for h in healths],
@@ -268,7 +329,8 @@ def main(argv=None) -> int:
             h.get("promotion_generation") for h in healths
         ],
         "replica_rcs": replica_rcs,
-        "follower_rcs": [[] for _ in replicas],
+        "follower_rcs": [[f.proc.returncode for f in r.followers]
+                         for r in replicas],
         **{
             k: (round(v, 3) if isinstance(v, float) else v)
             for k, v in report.items()

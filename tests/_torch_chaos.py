@@ -55,6 +55,13 @@ RECORD_KEYS = {
              "flood", "failed_during_loris", "failed_during_flood",
              "failed_during_kill", "hedged_during_kill", "evictions",
              "router_rc"},
+    # mesh_drill's return, :1931-1959
+    "mesh": {"harness", "mode", "match", "mesh_procs", "mesh_timeout_s",
+             "reference_s", "detection_s", "warm_replica_compiles",
+             "mesh_health", "bit_identical", "wire", "requests", "failed",
+             "hedged_during_kill", "p99_steady_ms", "p99_post_ms",
+             "leader_rc", "follower_rcs", "healthy_after", "evictions",
+             "router_hedged", "router_rc"},
 }
 
 

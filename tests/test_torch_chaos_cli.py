@@ -5,9 +5,9 @@
   ``sys.modules`` (the children own the device). ``train/checkpoint.py``
   imports the tree mapping and the process group where they are used, so
   its staging and publish helpers load no torch either.
-- The drill's modes are the eight ported ones, ``--serve-devices`` other
-  than 1 is refused as not ported, and without a card the default
-  ``--device cuda`` fails through its first child.
+- The drill's modes are the nine ported ones (``mesh`` among them),
+  ``--serve-devices`` takes any group of one device or more, and without a
+  card the default ``--device cuda`` fails through its first child.
 - The record keys pinned in ``tests/_torch_chaos.py`` are the JAX drill's,
   read from JAX's ``tools/chaos_run.py`` by ``ast``.
 - The train CLI handles SIGTERM for its whole life: one that lands after
@@ -37,7 +37,7 @@ from _torch_threads import THREADS, torch_threads  # noqa: F401
 JAX_MODES = ("sigterm", "sigkill", "corrupt", "nan", "serve", "ckpt",
              "router", "canary", "zoo", "mesh", "elastic", "edge",
              "rollout")  # JAX tools/chaos_run.py:2663-2667
-NOT_PORTED = {"router", "zoo", "elastic", "rollout", "mesh"}
+NOT_PORTED = {"router", "zoo", "elastic", "rollout"}
 
 
 def _fresh(code: str) -> dict:
@@ -90,10 +90,14 @@ def test_modes_are_the_ported_eight(capsys):
 
 
 def test_serve_devices_other_than_one_is_not_ported(capsys):
+    """Serving over a device group is ported: ``--serve-devices 8`` (JAX's
+    default) is taken, and only a group of no device is refused."""
+    args = chaos_run.parse_args(["--mode", "serve", "--serve-devices", "8"])
+    assert args.serve_devices == 8
     with pytest.raises(SystemExit) as e:
-        chaos_run.parse_args(["--mode", "serve", "--serve-devices", "8"])
+        chaos_run.parse_args(["--mode", "serve", "--serve-devices", "0"])
     assert e.value.code == 2
-    assert "not ported yet (ROADMAP 9e)" in capsys.readouterr().err
+    assert "need 1 or more" in capsys.readouterr().err
 
 
 @pytest.mark.skipif(torch.cuda.is_available(),
@@ -131,7 +135,7 @@ def test_pinned_record_keys_are_the_jax_drill_s():
     (ret,) = [n for n in ast.walk(funcs["compare"])
               if isinstance(n, ast.Return)]
     assert _dict_keys(ret.value) == COMPARE_KEYS
-    for mode in ("serve", "ckpt", "canary", "edge"):
+    for mode in ("serve", "ckpt", "canary", "edge", "mesh"):
         rets = [n.value for n in ast.walk(funcs[f"{mode}_drill"])
                 if isinstance(n, ast.Return) and isinstance(n.value,
                                                             ast.Dict)]
