@@ -505,13 +505,39 @@ Serving over a device group, after phase 42:
     beside ``F.linear`` on the same inputs (ResNet-18's and DenseNet121's
     heads).
 
+Elastic training, after phase 43:
+
+44. elastic: (a) ``ElasticTrainRunner(procs=1)`` over the train CLI
+    (``--device cuda --model ResNet18``, full width, batch 512, bf16,
+    ``--synthetic_data`` at 10,240 / 2,048 images, device data, 4 epochs,
+    ``--metrics_out``), its rank SIGKILLed after its first durable
+    checkpoint: the record completed, 1 restart, the events
+    ``preempted:rank0:rc-9`` then ``completed``, both at world 1; the
+    second generation resumed at the saved epoch + 1 (its metrics:
+    ``checkpoint.restores`` 1, ``train.epochs`` the epochs left); finite
+    losses; the record's ``best_acc`` ``ckpt.json``'s. (b) That run's best
+    checkpoint re-cut to a two-shard v3 set (``reshard_checkpoint``) and
+    resumed by one elastic rank on the card for one epoch: resumed at the
+    saved epoch + 1, ``checkpoint.reshards`` 1 (its span's ms printed),
+    the layout left v2, finite losses. Each generation's start (spawn to
+    ``fit``) and the phase's seconds are printed; every rank is reaped.
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
 nor the ok line. ``--only mesh`` runs phases 1, 2 and 43's device-group
 checks over every visible card: an in-process engine over all of them
 (fp32 bit for bit a one-card engine's, bf16 within 2%, K3 6 times a
 forward on each card), then the replica as one rank a card against a
-one-process fp32 replica; no router, no kernels or ok line.
+one-process fp32 replica; no router, no kernels or ok line. ``--only
+elastic`` runs phases 1, 2 and 44: (a) and (b) on one card; on two or
+more, (c) JAX's preemption-and-growth scenario at ResNet-18 over NCCL
+instead (world 2, rank 1 SIGKILLed after the first durable checkpoint,
+world 1, a host added once that rank's ``fit`` began, world 2 to the
+end): the survivor exits 75 on its own (its rc, its seconds to leave the
+dead collective and which path ended it are printed), no rank but the
+killed one is SIGKILLed, the world-1 rank stops cleanly (rc 0), the grown
+world resumes and re-cuts both candidates (``checkpoint.reshards`` 2),
+and the final checkpoint is two shards.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -5948,11 +5974,329 @@ def phase_mesh(smi: str, fails: Failures, four_card: bool = False) -> dict:
     return out
 
 
+ELASTIC_ARGS = ("--device", "cuda", "--model", "ResNet18", "--batch_size",
+                str(BATCH), "--amp", "--synthetic_data",
+                "--synthetic_train_size", str(CUT_TRAIN),
+                "--synthetic_test_size", str(CUT_TEST), "--device_data",
+                "--log_every", "100000")
+ELASTIC_EPOCHS = 4  # (a): the kill lands in epoch 1 or 2, 2-3 left
+GROWTH_EPOCHS = 8  # (c): the world-1 generation stops after one epoch
+ELASTIC_GRACE_S = 30.0  # ElasticTrainRunner's default grace_s
+FIT_START = re.compile(r"^(\S+ \S+):INFO: ==> model ")
+TRAIN_LOSS = re.compile(r"train epoch (\d+): loss (\S+)")
+RESUMED = re.compile(r"resumed from .*: epoch (\d+)")
+
+
+def _wait_for(cond, timeout_s: float, poll_s: float = 0.05) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > deadline:
+            return False
+        time.sleep(poll_s)
+    return True
+
+
+def _supervise(argv: list, procs: int, scenario=None,
+               resume_first: bool = False, timeout_s: float = 600.0):
+    """``ElasticTrainRunner(argv, procs)`` over the train CLI, on a thread,
+    while ``scenario(runner)`` (the kills and the added host) runs here.
+    Returns the run record, each generation's spawn time (wall clock) and
+    the rank pids still alive after the run (none, if every child was
+    reaped)."""
+    from pytorch_cifar_tpu_torch.train.elastic import ElasticTrainRunner
+
+    class Timed(ElasticTrainRunner):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.spawned_at, self.spawned_pids = [], []
+
+        def _spawn_generation(self, gen, world):
+            self.spawned_at.append(time.time())
+            ranks = super()._spawn_generation(gen, world)
+            self.spawned_pids += [r.proc.pid for r in ranks]
+            return ranks
+
+    env = {k: v for k, v in os.environ.items() if k != "PCT_FAULTS"}
+    runner = Timed(argv, procs, env=env, cwd=REPO_ROOT,
+                   resume_first=resume_first, grace_s=ELASTIC_GRACE_S)
+    record: dict = {}
+    th = threading.Thread(
+        target=lambda: record.update(runner.run(timeout_s=timeout_s)))
+    th.start()
+    try:
+        if scenario is not None:
+            scenario(runner)
+    finally:
+        th.join(timeout=timeout_s + 4 * ELASTIC_GRACE_S)
+    alive = []
+    for pid in runner.spawned_pids:
+        try:
+            os.kill(pid, 0)
+            alive.append(pid)
+        except OSError:
+            pass
+    return record, runner, alive
+
+
+def _fit_starts(text: str) -> list:
+    """Wall-clock times of the log's ``==> model`` lines (each
+    generation's ``fit`` start), from the file handler's asctime."""
+    import datetime
+
+    return [datetime.datetime.strptime(
+        m.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+        for m in map(FIT_START.match, text.splitlines()) if m]
+
+
+def _elastic_log_checks(tag: str, text: str, record: dict, runner,
+                        fails: Failures) -> dict:
+    """What every supervised run is held to: the run completed, each
+    generation's losses finite, every rank reaped; returns each
+    generation's start (spawn to ``fit``) and the losses."""
+    fails.check(record.get("completed") is True,
+                f"elastic {tag}: the run did not complete: {record}")
+    losses = [(int(e), float(v)) for e, v in TRAIN_LOSS.findall(text)]
+    fails.check(losses and all(np.isfinite(v) for _, v in losses),
+                f"elastic {tag}: losses {losses}")
+    # a generation stopped before its fit (a signal in its start) logs
+    # no fit line: each fit start goes with the newest spawn before it
+    starts = [t - max([s for s in runner.spawned_at if s <= t] or [t])
+              for t in _fit_starts(text)]
+    return {"losses": losses, "generation_start_s": starts}
+
+
+def _read(path: str) -> str:
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def _last_metrics(path: str) -> dict:
+    with open(path) as f:
+        return json.loads(f.read().splitlines()[-1])["metrics"]["counters"]
+
+
+def _elastic_preempt(run: str, fails: Failures) -> dict:
+    """(a): one rank on the card, SIGKILLed after its first durable
+    checkpoint; the next generation resumes at the saved epoch + 1."""
+    metrics = os.path.join(run, "metrics.jsonl")
+    argv = [*ELASTIC_ARGS, "--epochs", str(ELASTIC_EPOCHS), "--output_dir",
+            run, "--metrics_out", metrics]
+    kill: dict = {}
+
+    def scenario(runner):
+        if not _wait_for(lambda: os.path.exists(os.path.join(
+                run, "ckpt.json")) or runner.generations, 300):
+            return
+        pids = runner.pids()
+        if 0 in pids and not runner.generations:
+            os.kill(pids[0], signal.SIGKILL)
+            _wait_for(lambda: runner.generations, 120)
+            with open(os.path.join(run, "ckpt.json")) as f:
+                kill["saved_epoch"] = json.load(f)["epoch"]
+
+    t0 = time.perf_counter()
+    record, runner, alive = _supervise(argv, 1, scenario)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "train.log")) as f:
+        text = f.read()
+    out = {"wall_s": wall, "record": record,
+           **_elastic_log_checks("preempt", text, record, runner, fails)}
+    fails.check(not alive, f"elastic preempt: ranks left alive {alive}")
+    gens = record.get("generations", [])
+    fails.check([(g["world"], g["event"]) for g in gens]
+                == [(1, "preempted:rank0:rc-9"), (1, "completed")]
+                and record.get("restarts") == 1,
+                f"elastic preempt: generations {gens}")
+    saved = kill.get("saved_epoch")
+    resumed = [int(e) for e in RESUMED.findall(text)]
+    counters = _last_metrics(metrics)
+    left = ELASTIC_EPOCHS - (saved + 1) if saved is not None else None
+    fails.check(saved is not None and resumed == [saved + 1]
+                and counters.get("checkpoint.restores") == 1
+                and counters.get("train.epochs") == left,
+                f"elastic preempt: saved epoch {saved}, resumed at {resumed}, "
+                f"the second generation's counters {counters}")
+    with open(os.path.join(run, "ckpt.json")) as f:
+        best = json.load(f)["best_acc"]
+    fails.check(record.get("best_acc") == round(best, 2),
+                f"elastic preempt: the record's best_acc "
+                f"{record.get('best_acc')}, ckpt.json's {best}")
+    out.update(saved_epoch=saved, resumed_at=resumed, epochs_after=left,
+               restores=counters.get("checkpoint.restores"))
+    return out
+
+
+def _elastic_cross_topology(run: str, fails: Failures) -> dict:
+    """(b): the run's best checkpoint re-cut to a two-shard v3 set, then
+    resumed by one elastic rank on the card for one epoch: the resume
+    re-cuts it to v2 (``reshard_to_world``)."""
+    import hashlib
+
+    from pytorch_cifar_tpu_torch.train.checkpoint import (
+        CKPT_NAME,
+        committed_shard_count,
+        read_meta,
+        read_verified_payload,
+        reshard_checkpoint,
+    )
+
+    reshard_checkpoint(run, CKPT_NAME, 2)
+    meta = read_meta(run, CKPT_NAME)
+    fails.check(committed_shard_count(run, CKPT_NAME) == 2
+                and meta.get("format") == 3,
+                f"elastic cross_topology: the re-cut is not a v3 set of 2: "
+                f"{meta}")
+    saved = int(meta["epoch"])
+    sha = hashlib.sha256(read_verified_payload(run, CKPT_NAME)).hexdigest()
+    metrics = os.path.join(run, "metrics_b.jsonl")
+    spans = os.path.join(run, "trace_b.json")
+    argv = [*ELASTIC_ARGS, "--epochs", str(saved + 2), "--output_dir", run,
+            "--metrics_out", metrics, "--trace_out", spans]
+    t0 = time.perf_counter()
+    record, runner, alive = _supervise(argv, 1, resume_first=True)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "train.log")) as f:
+        lines = f.read().splitlines()
+    # this run's part of the log: from the resume's line on
+    first = max([i for i, ln in enumerate(lines) if RESUMED.search(ln)]
+                or [0])
+    text = "\n".join(lines[first:])
+    resumed = [int(e) for e in RESUMED.findall(text)]
+    out = {"wall_s": wall, "record": record,
+           **_elastic_log_checks("cross_topology", text, record, runner,
+                                 fails)}
+    fails.check(not alive, f"elastic cross_topology: ranks left alive "
+                f"{alive}")
+    counters = _last_metrics(metrics)
+    after = read_meta(run, CKPT_NAME)
+    fails.check(record.get("restarts") == 0 and resumed == [saved + 1]
+                and counters.get("checkpoint.restores") == 1
+                and counters.get("checkpoint.reshards") == 1
+                and counters.get("train.epochs") == 1,
+                f"elastic cross_topology: resumed at {resumed} (saved "
+                f"{saved}), counters {counters}, record {record}")
+    fails.check(committed_shard_count(run, CKPT_NAME) == 1
+                and "shards" not in after,
+                f"elastic cross_topology: the layout left is not v2: {after}")
+    with open(spans) as f:
+        reshard_ms = [e["dur"] / 1e3 for e in json.load(f)["traceEvents"]
+                      if e.get("name") == "checkpoint/reshard"]
+    fails.check(len(reshard_ms) == 1,
+                f"elastic cross_topology: checkpoint/reshard spans "
+                f"{reshard_ms}")
+    out.update(saved_epoch=saved, resumed_at=resumed,
+               payload_bytes=meta["total"]["size"], payload_sha256=sha,
+               reshard_ms=reshard_ms, counters={
+                   k: counters.get(k) for k in (
+                       "checkpoint.restores", "checkpoint.reshards",
+                       "train.epochs")})
+    return out
+
+
+def _elastic_growth(run: str, fails: Failures) -> dict:
+    """(c), two or more cards: two ranks over NCCL, rank 1 SIGKILLed after
+    the first durable checkpoint, the survivor world of one, a host added,
+    two ranks again to the end."""
+    metrics = os.path.join(run, "metrics.jsonl")
+    argv = [*ELASTIC_ARGS, "--epochs", str(GROWTH_EPOCHS), "--output_dir",
+            run, "--metrics_out", metrics]
+    log = os.path.join(run, "train.log")
+    seen: dict = {}
+
+    def scenario(runner):
+        if not _wait_for(lambda: os.path.exists(os.path.join(
+                run, "ckpt.json")) or runner.generations, 300):
+            return
+        pids = runner.pids()
+        if 1 in pids and not runner.generations:
+            t_kill = time.monotonic()
+            os.kill(pids[1], signal.SIGKILL)
+            _wait_for(lambda: runner.generations, 4 * ELASTIC_GRACE_S)
+            seen["left_s"] = time.monotonic() - t_kill
+        # the host is added once the survivor world trains (its fit line
+        # logged): it stops after that epoch with last.msgpack saved
+        if _wait_for(lambda: len(runner.generations) == 1
+                     and set(runner.pids()) == {0}
+                     and len(_fit_starts(_read(log))) >= 2, 300):
+            runner.add_host()
+
+    t0 = time.perf_counter()
+    record, runner, alive = _supervise(argv, 2, scenario)
+    wall = time.perf_counter() - t0
+    with open(os.path.join(run, "train.log")) as f:
+        text = f.read()
+    out = {"wall_s": wall, "record": record,
+           **_elastic_log_checks("growth", text, record, runner, fails)}
+    fails.check(not alive, f"elastic growth: ranks left alive {alive}")
+    gens = record.get("generations", [])
+    events = [g["event"] for g in gens]
+    fails.check(len(gens) >= 3 and gens[0]["event"] == "preempted:rank1:rc-9"
+                and gens[1] == {"world": 1, "rcs": [0],
+                                "event": "scale:1->2"}
+                and record.get("final_world") == 2,
+                f"elastic growth: generations {gens}")
+    # the grown world resumed the world-1 generation's preemption save and
+    # re-cut both candidates to two shards
+    counters = _last_metrics(metrics)
+    fails.check(counters.get("checkpoint.reshards") == 2
+                and counters.get("checkpoint.restores") == 1,
+                f"elastic growth: the grown world's counters {counters}")
+    # the survivor left the dead collective on its own (the rank
+    # contract), never by the supervisor's SIGKILL
+    survivor_rc = gens[0]["rcs"][0] if gens else None
+    backstop = [(i, r) for i, g in enumerate(gens)
+                for r, rc in enumerate(g["rcs"])
+                if rc == -signal.SIGKILL and (i, r) != (0, 1)]
+    fails.check(survivor_rc == 75 and not backstop
+                and seen.get("left_s", 1e9) < ELASTIC_GRACE_S,
+                f"elastic growth: survivor rc {survivor_rc} after "
+                f"{seen.get('left_s')} s, SIGKILLed by the backstop: "
+                f"{backstop}")
+    with open(os.path.join(run, "ckpt.json")) as f:
+        meta = json.load(f)
+    fails.check(len(meta.get("shards") or ()) == 2,
+                f"elastic growth: the final layout is not two shards: {meta}")
+    # which path ended the survivor: its peer watch, or its fit raising
+    how = [ln for ln in text.splitlines()
+           if "elastic rank lost its world" in ln
+           or "elastic rank failed mid-fit" in ln][:1]
+    out.update(survivor_rc=survivor_rc, survivor_left_s=seen.get("left_s"),
+               survivor_exit=how, final_shards=len(meta.get("shards") or ()),
+               resumed_at=[int(e) for e in RESUMED.findall(text)],
+               grown_reshards=counters.get("checkpoint.reshards"))
+    return out
+
+
+def phase_elastic(smi: str, fails: Failures, multi_card: bool = False
+                  ) -> dict:
+    """Elastic training through the train CLI's supervisor (phase 44):
+    see the module docstring."""
+    tmp = run_dir("elastic-")
+    out: dict = {"card": smi}
+    t0 = time.perf_counter()
+    try:
+        if multi_card:
+            out["growth"] = _elastic_growth(os.path.join(tmp, "growth"),
+                                            fails)
+        else:
+            run = os.path.join(tmp, "run")
+            out["preempt"] = _elastic_preempt(run, fails)
+            out["cross_topology"] = _elastic_cross_topology(run, fails)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    print("elastic " + json.dumps(out), flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
     parser.add_argument(
-        "--only", choices=["dp", "mesh"],
+        "--only", choices=["dp", "mesh", "elastic"],
         help="run the device, build and this phase alone, over every "
              "visible card (the four-card call); prints no kernels or ok "
              "line")
@@ -5977,8 +6321,11 @@ def main(argv=None) -> int:
     if args.only:
         if args.only == "dp":
             phase_dp(G, M, K, smi, fails)
-        else:
+        elif args.only == "mesh":
             phase_mesh(smi, fails, four_card=True)
+        else:
+            phase_elastic(smi, fails,
+                          multi_card=torch.cuda.device_count() > 1)
         print(f"chip_smoke --only {args.only}: "
               f"{time.perf_counter() - t_start:.1f}s, "
               f"{len(fails)} check(s) failed", flush=True)
@@ -6051,6 +6398,9 @@ def main(argv=None) -> int:
     # serving over a device group: two ranks of one replica on the card,
     # then two such replicas behind the router, one follower SIGKILLed
     me = timed("mesh", phase_mesh, smi, fails)
+    # elastic training: one rank SIGKILLed and resumed by the supervisor,
+    # then a two-shard checkpoint resumed and re-cut by one rank
+    timed("elastic", phase_elastic, smi, fails)
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 

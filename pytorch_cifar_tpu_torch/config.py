@@ -82,6 +82,26 @@ class TrainConfig:
     dist_coord: str = ""
     dist_procs: int = 0
     dist_rank: int = 0
+    # elastic training (train/elastic.py).
+    #   elastic       — THIS RANK runs under an elastic supervisor: on
+    #                   resume, rank 0 re-cuts the on-disk checkpoint
+    #                   layout to the current world size
+    #                   (checkpoint.reshard_to_world — a v3 save by M
+    #                   processes restores into any N-world already;
+    #                   this keeps the dir's layout canonical), and a
+    #                   mid-fit failure in a multi-process world (a peer
+    #                   lost: its collective raising, or its heartbeat
+    #                   silent for elastic.PEER_TIMEOUT_S) exits with the
+    #                   elastic reshape code (75) so the supervisor
+    #                   relaunches the surviving world with --resume
+    #                   instead of declaring the run dead.
+    #   elastic_procs — supervisor mode of the train CLI: spawn this many
+    #                   ranks under train.elastic.ElasticTrainRunner,
+    #                   which turns a preempted (or added) host into a
+    #                   terminate → relaunch-at-new-world-size → resume
+    #                   cycle from the last durable checkpoint. 0 = off.
+    elastic: bool = False
+    elastic_procs: int = 0
     # cross-replica BatchNorm: the ranks' batch moments are averaged so
     # normalization uses global-batch statistics. Default off = the
     # reference's per-replica BN under DDP

@@ -53,6 +53,22 @@ any rank fails. ``--distributed`` makes this process one rank of a job
 (``--dist_*``, or ``torchrun``'s environment when ``--dist_coord`` is
 empty). Rank 0 logs to the console and ``<output_dir>/train.log``, rank
 K > 0 to ``train.rankK.log`` and warnings only to the console.
+
+Elastic training (``train/elastic.py``):
+
+    python -m pytorch_cifar_tpu_torch.train --elastic_procs 2 ...
+    python -m pytorch_cifar_tpu_torch.train --device cpu --elastic_procs 2 \\
+        --model LeNet --synthetic_data --epochs 6 --output_dir ./checkpoint
+
+``--elastic_procs N`` makes this process a supervisor, which loads no
+torch: it runs N ranks of this command line (``--distributed --elastic``
+on a localhost rendezvous, one card each), relaunches the surviving world
+with ``--resume`` when a rank dies, and prints one JSON record; the exit
+code is 0 when the run completed, else 1. ``--elastic`` marks a rank of
+such a run: its resume re-cuts the checkpoint layout to its world, and in
+a world of several ranks a ``fit`` that raises, or a peer lost (its
+heartbeat silent for ``elastic.PEER_TIMEOUT_S``), exits 75 for the
+supervisor.
 """
 
 from __future__ import annotations
@@ -61,7 +77,6 @@ import signal
 import threading
 
 from pytorch_cifar_tpu_torch.config import parse_config
-from pytorch_cifar_tpu_torch.train.launch import launch, local_ranks, run
 
 
 def main(argv=None, rank_hook=None, stop=None) -> dict:
@@ -75,6 +90,14 @@ def main(argv=None, rank_hook=None, stop=None) -> dict:
     CLI's SIGTERM handler sets) asks a run whose epochs have not begun to
     stop after the first."""
     config = parse_config(argv)
+    if config.elastic_procs > 0:
+        # supervisor mode: spawns and supervises N ranks of this command
+        # line, before anything here loads torch (it holds no device)
+        from pytorch_cifar_tpu_torch.train.elastic import run_supervisor
+
+        raise SystemExit(run_supervisor(config, argv))
+    from pytorch_cifar_tpu_torch.train.launch import launch, local_ranks, run
+
     n = local_ranks(config)
     ranks = (launch(config, n, rank_hook, stop) if n > 1
              else [run(config, rank_hook, stop)])

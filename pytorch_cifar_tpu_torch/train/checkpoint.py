@@ -31,6 +31,11 @@ state, the same sidecar.
   ``.prev`` pair; :func:`quarantine_checkpoint` writes the tombstone
   ``<stem>.quarantined.json`` that pins one rejected publish by its
   fingerprint. The live pair is byte for byte the JAX package's.
+- **Reshard** (elastic training): :func:`reshard_checkpoint` re-cuts a
+  committed publish to N byte-range shards (v2 for N = 1), the payload
+  bit-identical, the commit marker last; :func:`reshard_to_world` re-cuts
+  both resume candidates to the current world on rank 0. The files are
+  the JAX package's reshard's, byte for byte.
 - **Async saves**: only the snapshot and its one device-to-host copy run on
   the calling thread; the codec, the CRC and the commit run on an
   :class:`AsyncCheckpointWriter` thread, which touches host numpy only,
@@ -905,6 +910,111 @@ def heal_checkpoint(output_dir: str, name: str = CKPT_NAME) -> Optional[str]:
         _atomic_write(meta_path(output_dir, name), sidecar)
         return cand
     return None
+
+
+# -- reshard (elastic training) ------------------------------------------
+
+def committed_shard_count(output_dir: str, name: str) -> Optional[int]:
+    """Shard count of the current committed publish of ``name``: the
+    length of the commit marker's shard list for a v3 publish, 1 for a
+    monolithic v1/v2 publish, None when no committed publish exists."""
+    meta = read_meta(output_dir, name)
+    if not meta:
+        return None
+    shards = meta.get("shards")
+    if shards:
+        return len(shards)
+    if os.path.isfile(os.path.join(output_dir, name)):
+        return 1
+    return None
+
+
+def reshard_checkpoint(
+    output_dir: str,
+    name: str = CKPT_NAME,
+    num_shards: int = 1,
+    registry=None,
+) -> str:
+    """Re-cut a committed publish of ``name`` to ``num_shards`` byte-range
+    shards, the elastic world-size change: a v3 save written by M
+    processes becomes one laid out for N, the payload bit-identical
+    (byte-range sharding is a layout property; the reassembled bytes never
+    change). ``num_shards <= 1`` gives a v2 monolithic publish.
+
+    Commit marker last, as every writer here: the new layout's files land
+    first and the sidecar (which atomically replaces the old one) names
+    only complete sets, so a crash at any point leaves a restorable
+    checkpoint. The superseded layout's files are removed only once the
+    new marker is durable. Raises FileNotFoundError when no committed
+    publish of ``name`` exists, :class:`CheckpointCorrupt` when it fails
+    verification (nothing is rewritten from unverified bytes). Emits the
+    span ``checkpoint/reshard`` and counts ``checkpoint.reshards``."""
+    meta = read_meta(output_dir, name)
+    old_n = committed_shard_count(output_dir, name)
+    if old_n is None:
+        raise FileNotFoundError(
+            f"no committed publish of {name!r} in {output_dir!r}"
+        )
+    n = max(int(num_shards), 1)
+    payload = read_verified_payload(output_dir, name, meta)
+    if old_n == n:
+        return os.path.join(output_dir, name)
+    epoch = int(meta.get("epoch", -1))
+    best_acc = float(meta.get("best_acc", 0.0))
+    with trace.span("checkpoint/reshard", file=name, shards_from=old_n,
+                    shards_to=n):
+        if n > 1:
+            _write_sharded(output_dir, name, payload, epoch, best_acc,
+                           keep_last_n=0, num_shards=n, shard_index=None)
+        else:
+            _write_unsharded(output_dir, name, payload, epoch, best_acc,
+                             keep_last_n=0)
+    # the new marker is durable; retire the superseded layout. v3 to
+    # another N: the old -of-M names never collide with -of-N ones, so
+    # this is cleanup. v2 to v3: the monolithic payload goes too (the new
+    # sidecar lists shards; no reader opens it again)
+    stale = [s["name"] for s in (meta.get("shards") or ())]
+    for sn in stale:
+        for p in (os.path.join(output_dir, sn), meta_path(output_dir, sn)):
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+    if old_n == 1 and n > 1:
+        try:
+            os.remove(os.path.join(output_dir, name))
+        except OSError:
+            pass
+    if registry is not None:
+        registry.counter("checkpoint.reshards").inc()
+    log.info("resharded %s/%s: %d -> %d shard(s), payload bit-identical",
+             output_dir, name, old_n, n)
+    return os.path.join(output_dir, name)
+
+
+def reshard_to_world(output_dir: str, registry=None) -> None:
+    """Re-cut every committed checkpoint the resume may read (best and
+    preemption save) to this world's layout: one shard per process under
+    several processes, v2 in one. The elastic resume calls it on every
+    rank after the restore, which already accepted the old world's layout;
+    rank 0 alone rewrites (the others hold the broadcast state and never
+    re-read the files). A corrupt candidate is skipped with a warning:
+    falling back past it is the restore's business."""
+    from pytorch_cifar_tpu_torch.parallel.mesh import rank, world_size
+
+    if rank() != 0:
+        return
+    world = world_size()
+    n = world if world > 1 else 1
+    for name in (CKPT_NAME, LAST_NAME):
+        old = committed_shard_count(output_dir, name)
+        if old is None or old == n:
+            continue
+        try:
+            reshard_checkpoint(output_dir, name, n, registry=registry)
+        except CheckpointCorrupt as e:
+            log.warning("elastic reshard skipped corrupt candidate %s (%s)",
+                        name, e)
 
 
 def read_payload_tree(path: str, payload: bytes) -> dict:

@@ -103,7 +103,9 @@ def run(config: TrainConfig, rank_hook: RankHook = None,
     (``launches_by_kernel``), and what ``rank_hook(trainer)`` returns
     after ``fit``, inside the process group (``hook``). A ``stop`` already
     set when the trainer is built (the CLI's SIGTERM before the epochs)
-    stops the run after its first epoch, with ``last.msgpack`` saved."""
+    stops the run after its first epoch, with ``last.msgpack`` saved.
+    Under ``--elastic`` in a world of several ranks, a ``fit`` that raises
+    ends the process with ``elastic.ELASTIC_RC`` (the rank contract)."""
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
     log_path = _rank_logging(config)
@@ -113,7 +115,26 @@ def run(config: TrainConfig, rank_hook: RankHook = None,
             if stop is not None and stop.is_set():
                 trainer.request_stop()
             before = _launches()
-            best = trainer.fit()
+            try:
+                best = trainer.fit()
+            except Exception:
+                if not (config.elastic and trainer.world > 1):
+                    raise
+                # the elastic rank contract (train/elastic.py): a mid-fit
+                # failure in a multi-process world, most often a dead
+                # peer's collective raising, is a membership event, not a
+                # crash: exit ELASTIC_RC so the supervisor relaunches the
+                # surviving world with --resume
+                from pytorch_cifar_tpu_torch.train.elastic import ELASTIC_RC
+
+                logging.getLogger(__name__).exception(
+                    "elastic rank failed mid-fit; exiting %d for the "
+                    "supervisor to resume the surviving world", ELASTIC_RC)
+                # the supervisor's SIGTERM to the survivors must not turn
+                # this exit into -15 during the interpreter's teardown
+                if threading.current_thread() is threading.main_thread():
+                    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+                raise SystemExit(ELASTIC_RC) from None
             launches = {k: v - before[k] for k, v in _launches().items()}
             out = {
                 "rank": trainer.rank, "world": trainer.world,

@@ -73,6 +73,14 @@ trainer's warning. Checkpoints are format v3, each rank writing its shard,
 inline (``async_save on`` is ignored, with the JAX trainer's note); a stop
 requested on any rank stops every rank after the same epoch
 (``_agreed_stop``). ``close`` leaves the process group the trainer made.
+
+Elastic training (``config.elastic``, a rank under the supervisor of
+``train/elastic.py``): the resume re-cuts both checkpoint candidates to
+this world's layout (``reshard_to_world``, rank 0), and in a world of
+several ranks an ``elastic.PeerWatch`` heartbeats from the rendezvous
+until the epoch loop has passed its last collective: a peer lost makes
+this rank exit ``elastic.ELASTIC_RC`` within ``PEER_TIMEOUT_S + 2 *
+HEARTBEAT_S``, however its own main thread is blocked.
 """
 
 from __future__ import annotations
@@ -121,6 +129,7 @@ from pytorch_cifar_tpu_torch.train.checkpoint import (
     heal_checkpoint,
     newest_checkpoint_order,
     remove_stale_last,
+    reshard_to_world,
     restore_checkpoint,
     save_checkpoint,
 )
@@ -193,6 +202,23 @@ class Trainer:
         )
         self.data_parallel = is_distributed()
         self.world, self.rank = world_size(), rank()
+        self._peer_watch = None
+        if config.elastic and self.world > 1:
+            from pytorch_cifar_tpu_torch.train.elastic import PeerWatch
+
+            coord = config.dist_coord or (f"{os.environ['MASTER_ADDR']}:"
+                                          f"{os.environ['MASTER_PORT']}")
+            self._peer_watch = PeerWatch(coord, self.rank,
+                                         self.world).start()
+        try:
+            self._setup(config)
+        except BaseException:
+            self._stop_peer_watch()
+            raise
+
+    def _setup(self, config: TrainConfig) -> None:
+        """The rest of ``__init__``: device, data, model, state, steps and
+        the resume."""
         if config.num_devices > 1 and config.num_devices != self.world:
             raise ValueError(
                 f"num_devices={config.num_devices} but the process group "
@@ -339,6 +365,13 @@ class Trainer:
             if healed:
                 log.warning("best checkpoint %s was damaged: rewritten from "
                             "its history copy %s", CKPT_NAME, healed)
+            if config.elastic and not config.evaluate:
+                # the restore accepted whatever world wrote the files (a
+                # v3 save by M ranks restores into any N); re-cut them to
+                # this world so its own saves, history and inspectors see
+                # one layout. Rank 0 only: the peers hold the broadcast
+                # state and never re-read the files
+                reshard_to_world(self.ckpt_dir, registry=self.obs)
         self._stop_requested = False
         self._snapshot = None  # (device StateSnapshot, epoch, best_acc)
         # several processes commit every save inline: each rank's writer
@@ -725,9 +758,16 @@ class Trainer:
         stops alone strands the others in a collective."""
         return any_rank(self._stop_requested)
 
+    def _stop_peer_watch(self) -> None:
+        if self._peer_watch is not None:
+            self._peer_watch.stop()
+            self._peer_watch = None
+
     def close(self) -> None:
-        """Stop the exporter, flush and remove the tracer this trainer
-        installed, and leave the process group if this trainer made it."""
+        """Stop the peer watch and the exporter, flush and remove the
+        tracer this trainer installed, and leave the process group if this
+        trainer made it."""
+        self._stop_peer_watch()
         self._close_obs()
         if self.config.trace_out:
             trace.uninstall()
@@ -766,6 +806,7 @@ class Trainer:
             try:
                 return self.evaluate()
             finally:
+                self._stop_peer_watch()
                 self._close_obs()
         # the profiled epoch: the second (steady, past the cold first
         # calls), or the only one
@@ -821,6 +862,9 @@ class Trainer:
                 if is_primary():
                     remove_stale_last(self.ckpt_dir)
         finally:
+            # past the loop no rank waits on another: a peer that finishes
+            # first must not be taken for a lost one
+            self._stop_peer_watch()
             # the newest best must be on disk before fit returns; the
             # writer is joined and the exporter stopped on every exit path
             try:
