@@ -522,6 +522,42 @@ Elastic training, after phase 43:
     the layout left v2, finite losses. Each generation's start (spawn to
     ``fit``) and the phase's seconds are printed; every rank is reaped.
 
+Spatial partitioning, beside phase 44 (which runs on a thread while it
+does; both train in child processes and hold no time, so the step times
+this phase prints in the whole script are read beside phase 44's
+training; ``--only spatial`` reads them alone):
+
+45. spatial: (0) K3 and K4 on the halo-extended slabs the spatial path
+    hands them (``tools/spatial_runs.slab_shapes``): every extended shape
+    of ResNet-18's fused sites and of GoogLeNet's 3x3 / stride 1 pools at
+    ``(data, spatial, spatial_w)`` = (1, 2, 1), (1, 4, 1) and (1, 2, 2)
+    ((2, 2, 1) cuts as (1, 2, 1)), bf16 and fp32, the edge's pad value
+    along slab borders: K3 within phase 3's tolerances of its plain
+    version, K4's forward, winner map and backward bit for bit. Then two
+    gloo ranks on ``cuda:0`` (NCCL refuses two ranks on one card), each
+    image's height cut in two (``--spatial_devices 2``; halos through the
+    host, as gloo takes no CUDA tensor point to point). (1) A seeded
+    ResNet-18 at full width, b512 (5 rows labelled -1): the fp32 eval
+    forward (TF32 off; K3 at its 6 fused sites on the extended slabs, on
+    every rank) against one process's on the same batch (rtol 1e-3, atol
+    1e-4; each spatial group's ranks the same bits), then one fp32 step,
+    augmentation off, then on, each against the one-process step on the
+    same global batch from the same start: the loss within rtol 1e-5,
+    every parameter within atol 5e-4, every BN running stat within atol
+    1e-5 (JAX's ``tests/test_spatial.py``), both ranks' states equal as
+    raw bits; 3 more steps time each on every rank, in a window opened
+    and closed by an all-reduce the card has finished, beside the
+    one-process step's. (2) The train CLI (``tools/spatial_runs.fit_argv``:
+    ResNet-18, b512, bf16, device data, K1, 2 epochs on
+    ``synthetic_cifar10(10240, 2048)``) as that pair: a falling loss,
+    every image once an epoch, K1 twice and K3 6 times an eval forward
+    (36) on each rank, the same metrics on both; its checkpoint restored
+    by one process's ``--evaluate`` to the run's accuracy within 2 of
+    2,048 images. (3) GoogLeNet at b32 as in (1), K4's forward and
+    backward launched on both ranks. Prints each step's ms on the slowest
+    rank (and the ranks' range) beside one process's, a rank's halo
+    exchanges a step and the bytes it sent, and the phase's seconds.
+
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
 nor the ok line. ``--only mesh`` runs phases 1, 2 and 43's device-group
@@ -537,7 +573,13 @@ end): the survivor exits 75 on its own (its rc, its seconds to leave the
 dead collective and which path ended it are printed), no rank but the
 killed one is SIGKILLed, the world-1 rank stops cleanly (rc 0), the grown
 world resumes and re-cuts both candidates (``checkpoint.reshards`` 2),
-and the final checkpoint is two shards.
+and the final checkpoint is two shards. ``--only spatial`` runs phases 1,
+2 and 45: on four or more cards over NCCL instead (halos card to card),
+one rank a card: (0) as on one card, (1)'s fp32 ResNet-18 eval forward
+and step at ``(data, spatial, spatial_w)`` = (1, 4, 1), (1, 2, 2) and
+(2, 2, 1), then (2)'s run at (2, 2, 1) (``--num_devices 4
+--spatial_devices 2``, K3 6 times an eval forward on each of the 4
+ranks); no GoogLeNet step.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -6292,11 +6334,264 @@ def phase_elastic(smi: str, fails: Failures, multi_card: bool = False
     return out
 
 
+SPATIAL_EVAL_BS = 1000  # TrainConfig's eval batch: 3 eval forwards an epoch
+
+
+def _spatial_steps(specs: list, world: int, fails: Failures) -> list:
+    """Each spatial step spec against one process's step (phase 45, 1 and
+    3): the ranks' states equal, the step within JAX's tolerances, the
+    fp32 eval forward's logits within the served fp32 tolerance of one
+    process's, K3 launched in every rank's eval forward, K4 forward and
+    backward launched on every rank of a GoogLeNet step."""
+    from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
+
+    ranks = SR.compare_steps(specs, world)
+    rows = []
+    for i, bad in SR.step_checks(ranks):
+        spec = specs[i]
+        tag = (f"spatial: {spec['model']} b{spec['batch']} mesh "
+               f"{spec['mesh']} augment {spec['augment']}")
+        fails.check(not bad, f"{tag}: {bad}")
+        per = [r[i] for r in ranks]
+        want_k3 = 6 if spec["model"] == "ResNet18" else None
+        fails.check(all(p["k3_launches"] == want_k3 if want_k3 else
+                        p["k3_launches"] > 0 for p in per),
+                    f"{tag}: K3 not launched {want_k3 or 'at all'} times "
+                    f"in every rank's eval forward: "
+                    f"{[p['k3_launches'] for p in per]}")
+        if spec["model"] == "GoogLeNet":
+            fails.check(all(p["k4_launches"][0] > 0 and p["k4_launches"][1]
+                            > 0 for p in per),
+                        f"{tag}: K4 not launched on every rank: "
+                        f"{[p['k4_launches'] for p in per]}")
+        c = [p["counts"] for p in per]
+        rows.append({
+            "model": spec["model"], "mesh": spec["mesh"],
+            "batch": spec["batch"], "augment": spec["augment"],
+            "one_process": {k: v for k, v in per[0]["one_process"].items()
+                            if k != "logits"},
+            # every rank's ms: each window opens and closes on a fence all
+            # ranks leave together, and the slowest is the step's
+            "step_ms": [p["step_ms"] for p in per],
+            "logits_off": SR.logits_off(per),
+            # a rank's exchanges of the compared step: forward (height and
+            # width) and backward, and the bytes it sent
+            "halo_exchanges": [x["halo_exchanges_h"] + x["halo_exchanges_w"]
+                               + x["halo_exchanges_bwd"] for x in c],
+            "halo_bytes": [x["halo_bytes"] for x in c],
+            "halo_max_rows": max(x["halo_max_rows"] for x in c),
+            "bn_reductions": c[0]["bn_reductions"],
+            "k3_eval_launches": [p["k3_launches"] for p in per],
+            "k4_launches": [p["k4_launches"] for p in per],
+        })
+    return rows
+
+
+SLAB_MESHES = ((1, 2, 1), (1, 4, 1), (1, 2, 2))  # (2, 2, 1) cuts as (1, 2, 1)
+
+
+def _spatial_slab_kernels(K, P, fails: Failures) -> list:
+    """K3 and K4 on the halo-extended slabs the spatial path hands them
+    (phase 45, 0): every extended shape of ResNet-18's fused sites and of
+    GoogLeNet's 3x3 / stride 1 pools over :data:`SLAB_MESHES`, bf16 and
+    fp32. K3 at n = 128 and 3 against its plain version at phase_kernels'
+    tolerances; K4's forward, winner map and backward (n = 32) bit for bit
+    the plain version's (``_pool_checks``), with the pad value of an image
+    edge (zeros for K3, -inf for K4) along a slab's first and last rows and
+    columns of the first images."""
+    from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
+
+    # the plain fp32 conv without TF32, as phase 3 runs it (``--only
+    # spatial`` runs no phase 3)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(45)
+    k3_shapes = sorted({(a, b, cin, cout) for m in SLAB_MESHES
+                        for _, h, w, cin, cout, _ in SITES
+                        for a, b in SR.slab_shapes(h, w, m)})
+    k4_shapes = sorted({(a, b, c) for m in SLAB_MESHES
+                        for h, w, c, _ in POOL_SHAPES
+                        for a, b in SR.slab_shapes(h, w, m)})
+    rows = []
+    for dname, dt in DTYPES.items():
+        rtol, atol = (1e-4, 1e-4) if dname == "fp32" else (1.6e-2, 1e-2)
+        k3_err = 0.0
+        for h, w, cin, cout in k3_shapes:
+            wt = (torch.randn(3, 3, cin, cout, generator=g)
+                  / (9 * cin) ** 0.5).to("cuda", dt)
+            scale = (torch.rand(cout, generator=g) + 0.5).cuda()
+            bias = (0.1 * torch.randn(cout, generator=g)).cuda()
+            for n in (128, 3):
+                x = torch.randn(n, h, w, cin, generator=g).to("cuda", dt)
+                x[0, 0] = 0.0
+                x[1, -1] = 0.0
+                x[2, :, 0] = 0.0
+                out = K.conv3x3_bn_relu(x, wt, scale, bias)
+                ref = K.conv3x3_bn_relu_reference(x.float(), wt.float(),
+                                                  scale, bias)
+                diff = (out.float() - ref).abs()
+                fails.check(
+                    bool((diff <= atol + rtol * ref.abs()).all())
+                    and bool(torch.isfinite(out).all()),
+                    f"spatial slab K3 {dname} ({n}, {h}, {w}, {cin}) -> "
+                    f"{cout}: kernel vs plain max abs "
+                    f"{diff.max().item():.3g} over tolerance")
+                k3_err = max(k3_err, diff.max().item())
+        fwd_err = bwd_err = 0.0
+        for h, w, c in k4_shapes:
+            x = torch.randn(32, h, w, c, generator=g).to("cuda", dt)
+            x[0, 0] = float("-inf")
+            x[1, -1] = float("-inf")
+            x[2, :, 0] = float("-inf")
+            x[3, :, -1] = float("-inf")
+            cot = torch.randint(0, 9, x.shape, generator=g).to("cuda", dt)
+            f, b = _pool_checks(P, x, cot,
+                                f"spatial slab {dname} {tuple(x.shape)}",
+                                fails)
+            fwd_err, bwd_err = max(fwd_err, f), max(bwd_err, b)
+        rows.append({"dtype": dname,
+                     "k3_shapes": [list(t) for t in k3_shapes],
+                     "k3_max_abs_err": k3_err,
+                     "k4_shapes": [list(t) for t in k4_shapes],
+                     "k4_fwd_max_abs_err": fwd_err,
+                     "k4_bwd_max_abs_err": bwd_err})
+    return rows
+
+
+def _spatial_fit(root: str, four_card: bool, fails: Failures) -> dict:
+    """The train CLI's bf16 spatial run (phase 45, 2): a falling loss, K1
+    once an epoch and K3 6 times an eval forward on every rank, and the
+    checkpoint restored by one process to the run's accuracy (within 2 of
+    2,048 images: bf16's kernels tile a slab otherwise than an image)."""
+    from pytorch_cifar_tpu_torch.tools import dp_runs
+    from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
+    from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
+
+    out_dir = os.path.join(root, "fit")
+    t0 = time.perf_counter()
+    if four_card:
+        ranks = train_main(SR.fit_argv(out_dir) + ["--num_devices", "4"])[
+            "ranks"]
+    else:
+        ranks = dp_runs.gloo_pair(SR.fit_argv(out_dir))
+    fit_s = time.perf_counter() - t0
+    data = len(ranks) // 2
+    eval_forwards = 2 * -(-SR.TEST_N // (SPATIAL_EVAL_BS // data * data))
+    tag = f"spatial fit ({len(ranks)} ranks)"
+    hist = ranks[0]["history"]
+    losses = [h["train_loss"] for h in hist]
+    fails.check(len(hist) == 2 and all(np.isfinite(losses))
+                and losses[1] < losses[0], f"{tag}: losses {losses}")
+    fails.check(all(h["train"]["count"] == SR.TRAIN_N
+                    and h["eval"]["count"] == SR.TEST_N for h in hist),
+                f"{tag}: counts {[(h['train']['count'], h['eval']['count']) for h in hist]}")
+    launches = [r["launches_by_kernel"] for r in ranks]
+    fails.check(all(L["dma_row_gather"] == 2 for L in launches),
+                f"{tag}: K1 launches {launches}")
+    fails.check(all(L["conv3x3_bn_relu"] == 6 * eval_forwards
+                    for L in launches),
+                f"{tag}: K3 launches {launches}, want "
+                f"{6 * eval_forwards} a rank")
+    keys = ("train", "eval")
+    fails.check(all([{k: h[k] for k in keys} for h in r["history"]]
+                    == [{k: h[k] for k in keys} for h in hist]
+                    for r in ranks), f"{tag}: the ranks' metrics differ")
+    t1 = time.perf_counter()
+    one = train_main(SR.fit_argv(out_dir, 1, 1)
+                     + ["--evaluate", "--num_devices", "1"])
+    eval_s = time.perf_counter() - t1
+    best = ranks[0]["best_acc"]
+    fails.check(abs(one["best_acc"] - best) <= 100.0 * 2 / SR.TEST_N,
+                f"{tag}: one process restores {one['best_acc']:.3f}% of "
+                f"the run's {best:.3f}%")
+    return {"ranks": len(ranks), "backend": ranks[0]["backend"],
+            "epochs": [{k: h[k] for k in ("train_loss", "eval_loss",
+                                          "eval_acc", "img_per_sec")}
+                       for h in hist],
+            "launches_per_rank": launches, "best_acc": best,
+            "one_process_acc": one["best_acc"], "fit_s": fit_s,
+            "eval_s": eval_s}
+
+
+def phase_spatial(smi: str, fails: Failures, four_card: bool = False
+                  ) -> dict:
+    """Spatial partitioning (phase 45 of the module docstring): K3 and K4
+    on the extended slabs, the step against one process's, then the train
+    CLI's bf16 run."""
+    from pytorch_cifar_tpu_torch.ops import conv_bn_relu as K
+    from pytorch_cifar_tpu_torch.ops import max_pool as P
+    from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
+
+    t0 = time.perf_counter()
+    out: dict = {"card": smi}
+    out["slab_kernels"] = _spatial_slab_kernels(K, P, fails)
+    out["slab_kernels_s"] = time.perf_counter() - t0
+    if four_card:
+        specs = [SR.step_spec("ResNet18", m, 512, False)
+                 for m in ((1, 4, 1), (1, 2, 2), (2, 2, 1))]
+    else:
+        specs = [SR.step_spec("ResNet18", (1, 2, 1), 512, False),
+                 SR.step_spec("ResNet18", (1, 2, 1), 512, True),
+                 SR.step_spec("GoogLeNet", (1, 2, 1), 32, False)]
+    out["steps"] = _spatial_steps(specs, 4 if four_card else 2, fails)
+    out["steps_s"] = time.perf_counter() - t0
+    root = run_dir("spatial_")
+    try:
+        out["fit"] = _spatial_fit(root, four_card, fails)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t0
+    for row in out["slab_kernels"]:
+        print(f"spatial card {smi}: slab kernels {row['dtype']}: K3 at "
+              f"{len(row['k3_shapes'])} extended shapes, max abs "
+              f"{row['k3_max_abs_err']:.3g}; K4 at "
+              f"{len(row['k4_shapes'])}, forward {row['k4_fwd_max_abs_err']}"
+              f", backward {row['k4_bwd_max_abs_err']}", flush=True)
+    for row in out["steps"]:
+        one = row["one_process"]
+        ms = row["step_ms"]
+        print(f"spatial card {smi}: {row['model']} b{row['batch']} fp32 "
+              f"mesh {row['mesh']} augment {row['augment']}: step "
+              f"{max(ms):.1f} ms on the slowest rank (ranks "
+              f"{min(ms):.1f}-{max(ms):.1f}) against one process's "
+              f"{one['step_ms']:.1f} ms; {row['halo_exchanges'][0]} halo "
+              f"exchanges a step on rank 0, {row['halo_bytes'][0]} B sent; "
+              f"params {one['param_max_abs_diff']:.2e}, BN "
+              f"{one['bn_max_abs_diff']:.2e}, loss {one['loss_rel_diff']:.2e}"
+              f" off one process; eval logits {row['logits_off']:.3g} of "
+              f"the tolerance", flush=True)
+    print("spatial " + json.dumps(out), flush=True)
+    return out
+
+
+def beside(fn, *a, **kw):
+    """Start ``fn(*a, **kw)`` on a thread; returns the function that
+    waits for it and returns its result or raises its exception."""
+    done: dict = {}
+
+    def run():
+        try:
+            done["out"] = fn(*a, **kw)
+        except BaseException as e:  # handed to the waiting thread
+            done["err"] = e
+
+    th = threading.Thread(target=run, name=getattr(fn, "__name__", "phase"))
+    th.start()
+
+    def wait():
+        th.join()
+        if "err" in done:
+            raise done["err"]
+        return done["out"]
+
+    return wait
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
     parser.add_argument(
-        "--only", choices=["dp", "mesh", "elastic"],
+        "--only", choices=["dp", "mesh", "elastic", "spatial"],
         help="run the device, build and this phase alone, over every "
              "visible card (the four-card call); prints no kernels or ok "
              "line")
@@ -6323,6 +6618,9 @@ def main(argv=None) -> int:
             phase_dp(G, M, K, smi, fails)
         elif args.only == "mesh":
             phase_mesh(smi, fails, four_card=True)
+        elif args.only == "spatial":
+            phase_spatial(smi, fails,
+                          four_card=torch.cuda.device_count() >= 4)
         else:
             phase_elastic(smi, fails,
                           multi_card=torch.cuda.device_count() > 1)
@@ -6398,9 +6696,14 @@ def main(argv=None) -> int:
     # serving over a device group: two ranks of one replica on the card,
     # then two such replicas behind the router, one follower SIGKILLed
     me = timed("mesh", phase_mesh, smi, fails)
-    # elastic training: one rank SIGKILLed and resumed by the supervisor,
-    # then a two-shard checkpoint resumed and re-cut by one rank
-    timed("elastic", phase_elastic, smi, fails)
+    # elastic training (one rank SIGKILLed and resumed by the supervisor,
+    # then a two-shard checkpoint resumed and re-cut by one rank) on a
+    # thread, beside spatial partitioning (a gloo pair on the card, height
+    # cut in two): both train in child processes and hold no time, and
+    # side by side they keep the script inside its time limit
+    elastic = beside(timed, "elastic", phase_elastic, smi, fails)
+    sp = timed("spatial", phase_spatial, smi, fails)
+    elastic()
     print("phase_s " + json.dumps(phase_s), flush=True)
     dp_nccl = dp["runs"][0]
 
@@ -6541,6 +6844,10 @@ def main(argv=None) -> int:
             "per_forward": 6,
             "pair": me.get("pair", {}).get("ranks"),
             "fleet_replica1": me.get("fleet", {}).get("replica1_ranks")},
+        # spatial partitioning (phase 45): each rank's eval forwards in
+        # the gloo pair's fit, 6 a forward on its halo-extended slab
+        "spatial_launches_per_rank": [
+            L["conv3x3_bn_relu"] for L in sp["fit"]["launches_per_rank"]],
     }, {
         "name": "dma_row_gather",
         "route": "cuda",
@@ -6553,6 +6860,10 @@ def main(argv=None) -> int:
                                  dp_nccl["launches_per_rank"]],
         # the sentinel phase's run (2 epochs of the cut split)
         "sentinel_launches": sen["launches"]["dma_row_gather"],
+        # the spatial fit's ranks (phase 45): each gathers its data
+        # shard's whole rows once an epoch
+        "spatial_launches_per_rank": [
+            L["dma_row_gather"] for L in sp["fit"]["launches_per_rank"]],
         "redesigned": "one row per warp, each lane's loads of a row issued "
                       "before its stores; the design it replaced (a capped "
                       "grid, each load stored at once) and a cp.async.bulk "
@@ -6630,6 +6941,12 @@ def main(argv=None) -> int:
             "library_ms": pool_total(lib),
         })
         kernels[-1]["redesigned"] = redesigned
+        # the spatial GoogLeNet step's ranks (phase 45), on halo-extended
+        # slabs
+        kernels[-1]["spatial_step_launches_per_rank"] = [
+            k4[0 if kernel == "max_pool3x3_s1" else 1]
+            for row in sp["steps"] if row["model"] == "GoogLeNet"
+            for k4 in row["k4_launches"]]
         # one b512 bf16 PNASNetB step: its 18 pools each way
         pz = [r for r in dw["pool"] if r["dtype"] == "bf16"
               and r["model"] == "PNASNetB"]

@@ -106,6 +106,18 @@ class TrainConfig:
     # normalization uses global-batch statistics. Default off = the
     # reference's per-replica BN under DDP
     sync_bn: bool = False
+    # spatial partitioning (parallel/spatial.py): cut each image's height
+    # over this many ranks, with explicit halo exchanges at every conv
+    # and pool and BN moments pooled over every rank (global BN, so
+    # sync_bn has nothing to add). 1 = pure data parallel (the
+    # reference's scope). The world is data x spatial_devices x
+    # spatial_w_devices ranks. The vision analogue of sequence/context
+    # parallelism
+    spatial_devices: int = 1
+    # also cut the image's WIDTH over this many ranks: halo exchanges in
+    # both directions. Needs the device-resident data plane (the host
+    # loader serves batch x height slabs only)
+    spatial_w_devices: int = 1
 
     # checkpoints (the JAX package's format v2, train/checkpoint.py)
     output_dir: str = "./checkpoint"

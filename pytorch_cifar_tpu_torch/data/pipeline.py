@@ -12,7 +12,9 @@ Two planes feed the train step:
   device, by default from a producer thread feeding a bounded queue.
 
 Under data parallelism each rank takes its slab of every global batch
-(:func:`local_slab`), the rows the JAX package's process gets.
+(:func:`local_slab`), the rows the JAX package's process gets; under
+spatial partitioning with host augmentation, its batch rows and height
+rows.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import numpy as np
 import torch
 
 from pytorch_cifar_tpu_torch import native, resolve_device
+from pytorch_cifar_tpu_torch.parallel.spatial import SpatialMesh, shard_range
 
 
 def mix_seed(seed: int, k: int) -> int:
@@ -37,20 +40,33 @@ def mix_seed(seed: int, k: int) -> int:
 
 
 def local_slab(
-    global_shape: Tuple[int, ...], shard: int = 0, n_shards: int = 1
+    global_shape: Tuple[int, ...], shard: int = 0, n_shards: int = 1,
+    spatial: int = 1, spatial_w: int = 1,
 ) -> Tuple[Tuple[int, int], Tuple[int, int]]:
     """Rank ``shard``'s box of a global array of ``global_shape`` over
-    ``n_shards`` ranks: ``((b_lo, b_hi), (h_lo, h_hi))``. The port shards
-    the batch only (spatial partitioning is not ported), so the box is the
-    contiguous rows ``[shard * B / P, (shard + 1) * B / P)`` and every
-    image row: the DistributedSampler arithmetic, and the slab JAX's
-    ``local_slab`` gives a process of a batch-sharded mesh."""
+    ``n_shards`` ranks: ``((b_lo, b_hi), (h_lo, h_hi))``, what JAX's
+    ``local_slab`` gives a process. Batch-sharded (``spatial ==
+    spatial_w == 1``): the contiguous rows ``[shard * B / P, (shard + 1) *
+    B / P)`` and every image row, the DistributedSampler arithmetic. Over a
+    ``(data, spatial, spatial_w)`` mesh of the ``n_shards`` ranks
+    (``parallel.spatial``): the rows of the rank's data index over the
+    data axis, and its height rows over ``spatial`` (the width's cut is
+    not in the box, as in JAX)."""
     b = global_shape[0]
+    h = global_shape[1] if len(global_shape) > 1 else 0
+    if spatial * spatial_w > 1:
+        if n_shards % (spatial * spatial_w):
+            raise ValueError(f"{n_shards} ranks hold no mesh of spatial="
+                             f"{spatial} x spatial_w={spatial_w}")
+        mesh = SpatialMesh(n_shards // (spatial * spatial_w), spatial,
+                           spatial_w)
+        d, s, _ = mesh.coords(shard)
+        rows, _ = local_slab(global_shape, d, mesh.data)
+        return rows, shard_range(h, s, spatial)
     if not 0 <= shard < n_shards or b % n_shards:
         raise ValueError(f"a batch of {b} has no shard {shard} of "
                          f"{n_shards} equal ones")
     per = b // n_shards
-    h = global_shape[1] if len(global_shape) > 1 else 0
     return (shard * per, (shard + 1) * per), (0, h)
 
 
@@ -78,7 +94,9 @@ class Dataloader:
     ``RandomState((seed * 9973 + epoch * 31 + 7) % 2**31)``, and with
     ``drop_last=False`` a ragged tail is wrap-padded from the start of the
     epoch's order with labels -1. Rank ``shard`` of ``n_shards`` takes its
-    :func:`local_slab` of every batch.
+    :func:`local_slab` of every batch; with ``spatial > 1`` (host
+    augmentation only: the crop and the flip need whole images) its
+    height rows too, cut after the augmentation.
 
     ``async_input``: one producer thread assembles each batch (native
     gather, host augmentation) and starts its copy to the device, feeding
@@ -105,6 +123,7 @@ class Dataloader:
         seed: int = 0,
         shard: int = 0,
         n_shards: int = 1,
+        spatial: int = 1,
         prefetch: int = 2,
         async_input: bool = True,
         host_augment: bool = False,
@@ -124,8 +143,11 @@ class Dataloader:
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        if spatial > 1 and not host_augment:
+            raise ValueError("a host loader of height slabs augments on the "
+                             "host (host_augment)")
         self.slab = local_slab((batch_size,) + self.images.shape[1:], shard,
-                               n_shards)
+                               n_shards, spatial)
         self.prefetch = max(1, prefetch)
         self.async_input = async_input
         self.host_augment = host_augment
@@ -154,7 +176,8 @@ class Dataloader:
             if self.shuffle else np.arange(n))
         aug_rng = np.random.RandomState(
             (self.seed * 9973 + epoch * 31 + 7) % (2**31))
-        (r0, r1), _ = self.slab
+        (r0, r1), (h0, h1) = self.slab
+        cut = (h0, h1) != (0, self.images.shape[1])
         pad, bs = self.augment_padding, self.batch_size
 
         def host_batches():
@@ -176,6 +199,8 @@ class Dataloader:
                     fl = aug_rng.randint(0, 2 if self.augment_flip else 1,
                                          bs)[s]
                     x = native.augment_batch_u8(x, dx, dy, fl, padding=pad)
+                if cut:
+                    x = x[:, h0:h1]
                 if self._obs_hist is not None:
                     self._obs_hist.observe((time.perf_counter() - t0) * 1e3)
                 yield x, y

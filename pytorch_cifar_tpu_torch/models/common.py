@@ -20,6 +20,13 @@ Activations are NCHW-logical tensors in ``torch.channels_last`` memory, so
 the fused conv3x3+BN+ReLU (eval), the 3x3 / stride 1 max pool (train and
 eval) and the depthwise stencil (eval).
 
+Under ``parallel.spatial.spatial_partition`` (a spatial train or eval
+step) each layer runs on this rank's slab of the map: the convs and pools
+on a halo-extended slab (the kernels on it, cropped after), BN with its
+moments pooled over every rank by element count, and a pool over the whole
+map as a sum over the spatial group. Outside it every path keeps its
+bits.
+
 The models' random draws (EfficientNet's drop-connect and dropout) come
 from the draw function the train step sets with :func:`stochastic_draws`,
 never from the global RNG; :func:`keep_mask` asks it, and
@@ -46,6 +53,7 @@ from pytorch_cifar_tpu_torch.ops.depthwise_stencil import (
     depthwise_stencil,
 )
 from pytorch_cifar_tpu_torch.ops.max_pool import max_pool3x3_s1
+from pytorch_cifar_tpu_torch.parallel import spatial
 
 BN_EPS = 1e-5
 RELU, SWISH = "relu", "swish"  # the activations a folded site applies
@@ -58,7 +66,14 @@ class Conv2d(nn.Conv2d):
 
     def forward(self, x):
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight.to(x.dtype)
+        if spatial.active() is None:
+            return self._conv_forward(x, weight, bias)
+        return spatial.window_op(
+            x, self.kernel_size, self.stride, self.padding,
+            lambda e, pads: F.conv2d(e, weight, bias, self.stride, pads,
+                                     self.dilation, self.groups),
+            self.out_channels, params=(weight, bias))
 
 
 class Linear(nn.Linear):
@@ -98,6 +113,19 @@ FP32_CONV_ROWS = 8
 def folded_conv2d(x: torch.Tensor, w: torch.Tensor,
                   b: Optional[torch.Tensor] = None, stride: int = 1,
                   padding: int = 0, groups: int = 1) -> torch.Tensor:
+    """``F.conv2d`` of a folded forward (see :func:`_folded_conv2d`), on
+    this rank's halo-extended slab under a spatial partition."""
+    if spatial.active() is None:
+        return _folded_conv2d(x, w, b, stride, padding, groups)
+    return spatial.window_op(
+        x, tuple(w.shape[2:]), (stride, stride), (padding, padding),
+        lambda e, pads: _folded_conv2d(e, w, b, stride, pads, groups),
+        w.shape[0])
+
+
+def _folded_conv2d(x: torch.Tensor, w: torch.Tensor,
+                   b: Optional[torch.Tensor], stride: int, padding,
+                   groups: int) -> torch.Tensor:
     """``F.conv2d`` of a folded forward. On the card in fp32 it runs on
     chunks of exactly :data:`FP32_CONV_ROWS` rows (the last one zero-padded,
     the padding dropped after): cuDNN picks its fp32 algorithm by the batch
@@ -291,9 +319,11 @@ class BatchNorm(nn.BatchNorm2d):
     unbiased one (n / (n - 1)); the running stats are fp32 and updated in
     place, except while a recompute (:func:`recompute_context`) replays
     the forward. Under :func:`sync_batchnorm` the moments are the ranks'
-    mean and n counts the global batch. The normalization is one per-channel
-    FMA ``x * mul + add`` whose scalars are computed in fp32 and applied
-    in ``x``'s dtype. Eval mode
+    mean and n counts the global batch; under a spatial partition they are
+    pooled over every rank, each weighted by its slab's element count, and
+    n counts the global batch's elements. The normalization is one
+    per-channel FMA ``x * mul + add`` whose scalars are computed in fp32
+    and applied in ``x``'s dtype. Eval mode
     applies the same fold to the running stats. ``num_batches_tracked``
     stays in the ``state_dict`` (reference layout) and is not advanced:
     only ``momentum=None`` reads it."""
@@ -308,14 +338,21 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             mean, var = self.running_mean, self.running_var
         else:
-            mean, sq = bn_batch_moments(x) if moments is None else moments
-            world = 1
-            if _SYNC_BN_AXIS.get() is not None:
-                mean, sq, world = _sync_moments(mean, sq)
+            part = spatial.active()
+            if moments is None and (x.numel() or part is None):
+                moments = bn_batch_moments(x)
+            if part is not None:
+                # the slab's moments pooled over every rank by count
+                mean, sq, count = spatial.pool_moments(x, moments)
+            else:
+                mean, sq = moments
+                count = x.numel() // x.shape[1]
+                if _SYNC_BN_AXIS.get() is not None:
+                    mean, sq, world = _sync_moments(mean, sq)
+                    count *= world  # the global count
             var = torch.clamp(sq - mean * mean, min=0.0)
             if not _RUNNING_FROZEN.get():
-                self._update_running(mean, var, x.numel() // x.shape[1]
-                                     * world)  # the global count
+                self._update_running(mean, var, count)
         mul = self.weight * torch.rsqrt(var + self.eps)
         add = self.bias - mean * mul
         shape = (1, -1, 1, 1)
@@ -447,8 +484,13 @@ def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
     stencil sites go through their kernel's wrapper (the Hopper kernel on a
     CUDA tensor, its plain version on a CPU one)."""
     if f.fused:
-        y = conv3x3_bn_relu(x.permute(0, 2, 3, 1), f.weight, f.mul, f.add)
-        return y.permute(0, 3, 1, 2)
+        def k3(e):
+            y = conv3x3_bn_relu(e.permute(0, 2, 3, 1), f.weight, f.mul, f.add)
+            return y.permute(0, 3, 1, 2)
+
+        if spatial.active() is None:
+            return k3(x)
+        return spatial.same_op(x, 3, k3, f.weight.shape[3])
     if f.stencil:
         # a conv of a channel slice (ShuffleNetV2) need not come out dense
         x = x.contiguous(memory_format=torch.channels_last)
@@ -500,23 +542,44 @@ def max_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
     tensor); every other pool, such as GoogLeNet's 3 / 2 / 1 stage
     transitions and PNASNet's stride-2 cells, through ``F.max_pool2d``."""
     stride = stride or window
+    part = spatial.active()
     if (window, stride, padding) == (3, 1, 1):
-        x = x.contiguous(memory_format=torch.channels_last)
-        return max_pool3x3_s1(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
-    return F.max_pool2d(x, window, stride, padding)
+        def k4(e):
+            return max_pool3x3_s1(e.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+
+        if part is None:
+            return k4(x.contiguous(memory_format=torch.channels_last))
+        return spatial.same_op(x, 3, k4, x.shape[1], pad_value=-math.inf)
+    if part is None:
+        return F.max_pool2d(x, window, stride, padding)
+    return spatial.window_op(
+        x, (window, window), (stride, stride), (padding, padding),
+        lambda e, pads: F.max_pool2d(e, window, stride, pads), x.shape[1],
+        pad_value=-math.inf)
 
 
 def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
              padding: int = 0) -> torch.Tensor:
     """Average pool (``stride`` defaults to ``window``); padding counts in
     the divisor (``count_include_pad``, flax's ``avg_pool`` default, as
-    ShuffleNet's 3 / 2 / 1 shortcut pool needs)."""
-    return F.avg_pool2d(x, window, stride or window, padding)
+    ShuffleNet's 3 / 2 / 1 shortcut pool needs). Under a spatial
+    partition a window over the whole map is a sum over the spatial
+    group, any other one runs on the zero-extended slab."""
+    stride = stride or window
+    if spatial.active() is None:
+        return F.avg_pool2d(x, window, stride, padding)
+    if spatial.covers_map(x, window, padding):
+        return spatial.global_mean(x)[:, :, None, None]
+    return spatial.window_op(
+        x, (window, window), (stride, stride), (padding, padding),
+        lambda e, pads: F.avg_pool2d(e, window, stride, pads), x.shape[1])
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """``adaptive_avg_pool2d(1)`` + flatten of an NCHW activation: ``(n,
     c)``."""
+    if spatial.active() is not None:
+        return spatial.global_mean(x)
     return x.mean(dim=(2, 3))
 
 

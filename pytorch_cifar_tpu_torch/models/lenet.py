@@ -8,6 +8,11 @@ reference's NCHW order; the JAX model flattens NHWC, and
 ``compat.state_dict_from_jax`` permutes ``fc1``'s columns across the two.
 It has no fused site: its served forward (:meth:`LeNet.folded_forward`) is
 the eval forward on weights cast once to the compute dtype.
+
+Its pools go through ``common.max_pool`` and its flatten through
+``parallel.spatial.gather_slabs``, so under a spatial partition each rank
+pools its slab (the 5-row map splits 3 / 2 over two ranks) and ``fc1``
+reads the whole 5x5 map; elsewhere both are the plain ops, bit for bit.
 """
 
 from __future__ import annotations
@@ -21,7 +26,9 @@ from pytorch_cifar_tpu_torch.models.common import (
     Linear,
     folded_conv2d,
     folded_dense,
+    max_pool,
 )
+from pytorch_cifar_tpu_torch.parallel.spatial import gather_slabs
 
 
 class LeNet(nn.Module):
@@ -34,9 +41,9 @@ class LeNet(nn.Module):
         self.fc3 = Linear(84, num_classes)
 
     def forward(self, x):
-        out = F.max_pool2d(F.relu(self.conv1(x)), 2)
-        out = F.max_pool2d(F.relu(self.conv2(out)), 2)
-        out = out.flatten(1)
+        out = max_pool(F.relu(self.conv1(x)), 2)
+        out = max_pool(F.relu(self.conv2(out)), 2)
+        out = gather_slabs(out).flatten(1)
         out = F.relu(self.fc1(out))
         out = F.relu(self.fc2(out))
         return self.fc3(out)
@@ -51,8 +58,9 @@ class LeNet(nn.Module):
     def folded_forward(self, folded: dict, x: torch.Tensor) -> torch.Tensor:
         """:meth:`forward` over :meth:`fold`'s weights; ``x`` is NCHW in
         the compute dtype."""
-        out = F.max_pool2d(F.relu(folded_conv2d(x, *folded["conv1"])), 2)
-        out = F.max_pool2d(F.relu(folded_conv2d(out, *folded["conv2"])), 2)
-        out = F.relu(folded_dense(out.flatten(1), *folded["fc1"]))
+        out = max_pool(F.relu(folded_conv2d(x, *folded["conv1"])), 2)
+        out = max_pool(F.relu(folded_conv2d(out, *folded["conv2"])), 2)
+        out = F.relu(folded_dense(gather_slabs(out).flatten(1),
+                                  *folded["fc1"]))
         out = F.relu(folded_dense(out, *folded["fc2"]))
         return folded_dense(out, *folded["fc3"])

@@ -54,6 +54,21 @@ any rank fails. ``--distributed`` makes this process one rank of a job
 empty). Rank 0 logs to the console and ``<output_dir>/train.log``, rank
 K > 0 to ``train.rankK.log`` and warnings only to the console.
 
+Spatial partitioning (``parallel/spatial.py``):
+
+    python -m pytorch_cifar_tpu_torch.train --num_devices 4 \
+        --spatial_devices 2 [--spatial_w_devices 2] --model ResNet18 ...
+
+``--spatial_devices S`` cuts each image's height over S ranks and
+``--spatial_w_devices W`` its width over W; the world (``--num_devices``
+or the job's) is ``data x S x W`` ranks, and the global batch divides over
+the ``data`` axis. Each rank trains on its slab, with halo exchanges at
+every conv and pool and BN moments pooled over every rank; the step equals
+one process's on the global batch. S and W must divide 32 and their
+product the world; W > 1 needs the device-resident data plane. ResNet,
+LeNet and GoogLeNet are held; another model raises
+``NotImplementedError``.
+
 Elastic training (``train/elastic.py``):
 
     python -m pytorch_cifar_tpu_torch.train --elastic_procs 2 ...
@@ -99,6 +114,14 @@ def main(argv=None, rank_hook=None, stop=None) -> dict:
     from pytorch_cifar_tpu_torch.train.launch import launch, local_ranks, run
 
     n = local_ranks(config)
+    if not config.distributed:
+        # a spatial run that cannot be is refused before a rank starts
+        from pytorch_cifar_tpu_torch.train.trainer import (
+            check_spatial,
+            device_data_plane,
+        )
+
+        check_spatial(config, n, device_data_plane(config))
     ranks = (launch(config, n, rank_hook, stop) if n > 1
              else [run(config, rank_hook, stop)])
     best = ranks[0]["best_acc"]

@@ -27,8 +27,22 @@ selected on the device with no host sync; the step counter still
 advances. The fault hook ``nan_loss`` (``faults.py``) poisons one step's
 loss. ``remat`` recomputes the forward in the backward.
 
-Not ported yet: spatial partitioning (``batch_sharding``); the
-constructors raise ``NotImplementedError`` when asked for it.
+Spatial partitioning (``spatial``, a ``parallel.spatial.SpatialPartition``
+over the whole process group, and the epochs' ``batch_sharding`` /
+``label_sharding``): each rank holds a slab of its data shard's images,
+height (and width) cut over its spatial group, and the step equals a
+one-process step on the global batch, as JAX's global-semantics step under
+GSPMD does. Every rank draws the global batch's augmentation, crops and
+flips its data shard's whole images and only then cuts its slab; the
+layers exchange halos and pool BN moments over every rank
+(``models.common``), the spatial context set inside the forward so that a
+``remat`` recompute exchanges again. Each rank's loss is its data shard's
+summed loss times ``D / count`` (``D`` data shards): the ranks' losses add
+up to the world times the global mean, and the mean all-reduce of the
+gradients over the world gives the global gradient (every collective's
+backward is its transpose). The metrics count each image once (only the
+first rank of a spatial group adds them), and BN is global, so the
+running stats need no averaging.
 """
 
 from __future__ import annotations
@@ -64,6 +78,13 @@ from pytorch_cifar_tpu_torch.parallel.mesh import (
     rank,
     world_size,
 )
+from pytorch_cifar_tpu_torch.parallel.spatial import (
+    SpatialPartition,
+    SpatialSharding,
+    check_model,
+    mark_input,
+    spatial_partition,
+)
 from pytorch_cifar_tpu_torch.train.optim import set_lr
 from pytorch_cifar_tpu_torch.train.state import TrainState
 
@@ -78,14 +99,6 @@ def _device_stats(mean, std, device) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = resolve_device(device)
     return (torch.tensor(mean, dtype=torch.float32, device=dev),
             torch.tensor(std, dtype=torch.float32, device=dev))
-
-
-def _not_ported(**requested) -> None:
-    asked = sorted(k for k, v in requested.items() if v)
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)} not ported yet (no spatial partitioning)"
-        )
 
 
 def cross_entropy_sums(
@@ -131,10 +144,24 @@ def add_metrics(totals: Metrics, metrics: Metrics) -> Metrics:
     return out
 
 
-def _psum_metrics(metrics: Metrics) -> Metrics:
-    """The metrics summed over the ranks, in one all-reduce."""
-    both = all_reduce_sum_(torch.stack([metrics[k] for k in METRIC_KEYS]))
+def _psum_metrics(metrics: Metrics,
+                  spatial: Optional[SpatialPartition] = None) -> Metrics:
+    """The metrics summed over the ranks, in one all-reduce; under a
+    spatial partition only the first rank of each spatial group adds its
+    own (the group's ranks hold the same images' metrics), so the sum is
+    over the data axis."""
+    both = torch.stack([metrics[k] for k in METRIC_KEYS])
+    if spatial is not None and not spatial.counts_metrics:
+        both = torch.zeros_like(both)
+    both = all_reduce_sum_(both)
     return dict(zip(METRIC_KEYS, both.unbind()))
+
+
+def _check_spatial(spatial: Optional[SpatialPartition],
+                   axis_name: Optional[str]) -> None:
+    if spatial is not None and axis_name is not None:
+        raise ValueError("a spatial step is global over the whole process "
+                         "group: it takes no axis_name")
 
 
 def _check_axis(axis_name: Optional[str]) -> None:
@@ -230,7 +257,7 @@ class _UpdateGuard:
 
 
 def _train_forward(state: TrainState, x: torch.Tensor, shard, sync_axis,
-                   remat: bool) -> torch.Tensor:
+                   remat: bool, spatial=None) -> torch.Tensor:
     """The model's train forward on NCHW ``x``: its draws from this
     step's model stream, its BNs pooled over ``sync_axis``. Under
     ``remat`` it runs in ``torch.utils.checkpoint``: its activations are
@@ -239,13 +266,16 @@ def _train_forward(state: TrainState, x: torch.Tensor, shard, sync_axis,
     order on every rank, and :func:`recompute_context` restores the BN
     moments implementation and keeps the running stats from a second
     update. The kernels' autograd Functions (K2, K4) launch again there:
-    their counters count the recompute."""
+    their counters count the recompute. Under ``spatial`` the layers run
+    on this rank's slab, the context set in ``run`` so that the recompute
+    exchanges its halos again, in the same order on every rank."""
     model = state.model
 
     def run(x):
         with sync_batchnorm(sync_axis), \
-                stochastic_draws(state.model_draws(shard)):
-            return model(x)
+                stochastic_draws(state.model_draws(shard)), \
+                spatial_partition(spatial):
+            return model(mark_input(x))
 
     if not remat:
         return run(x)
@@ -267,6 +297,7 @@ def make_train_step(
     remat: bool = False,
     sync_bn: bool = False,
     skip_nonfinite: bool = False,
+    spatial: Optional[SpatialPartition] = None,
     device=None,
 ) -> Callable:
     """Returns ``step(state, batch=(uint8 NHWC images, labels)) ->
@@ -287,23 +318,43 @@ def make_train_step(
     the same decision. ``remat`` recomputes the forward in the backward
     (``torch.utils.checkpoint``). An armed ``nan_loss`` fault
     (``faults.nan_loss_step``, read once here) multiplies the loss by NaN
-    at that global step, or at every step when negative."""
+    at that global step, or at every step when negative.
+
+    ``spatial`` (with no ``axis_name``): the batch is this rank's data
+    shard's whole images, or with ``augment`` off its slabs already cut
+    (the host loader's); the update is the global batch's (see the module
+    docstring)."""
     if sync_bn and axis_name is None:
         raise ValueError("sync_bn requires a data-parallel axis_name")
     _check_axis(axis_name)
+    _check_spatial(spatial, axis_name)
     mean, std = _device_stats(mean, std, device)
     nan_step = faults.nan_loss_step()
     guard = _UpdateGuard() if skip_nonfinite else None
+    collective = axis_name is not None or spatial is not None
 
     def step(state: TrainState, batch) -> Metrics:
         images, labels = batch
         shard = None if axis_name is None else rank()
+        if spatial is not None:
+            check_model(state.model)
+            shard = spatial.d
         if augment:
-            offsets, flips = state.draw_augment(images.shape[0], shard=shard)
+            n = images.shape[0]
+            if spatial is None:
+                offsets, flips = state.draw_augment(n, shard=shard)
+            else:
+                # the one-process step's draws for the global batch: this
+                # data shard's rows, applied to whole images before the cut
+                offsets, flips = state.draw_augment(n * spatial.mesh.data)
+                rows = slice(shard * n, (shard + 1) * n)
+                offsets, flips = offsets[rows], flips[rows]
             x = augment_batch(images, offsets, flips, crop=crop, flip=flip,
                               mean=mean, std=std, dtype=compute_dtype)
         else:
             x = normalize(images, mean, std, dtype=compute_dtype)
+        if spatial is not None:
+            x = spatial.cut(x)
         model = state.model
         model.train()
         params = list(model.parameters())
@@ -313,17 +364,22 @@ def make_train_step(
             # before the forward, which updates the BN running buffers
             guard.save(params + momentum + bn_bufs)
         logits = _train_forward(state, x.permute(0, 3, 1, 2), shard,
-                                axis_name if sync_bn else None, remat)
+                                axis_name if sync_bn else None, remat,
+                                spatial)
         loss_sum, n_valid = cross_entropy_sums(logits, labels)
-        if axis_name is None:
+        if not collective:
             loss = loss_sum / n_valid.clamp(min=1)
         else:
             # the global-batch mean (JAX steps.py:148-160): shards of a
             # wrap-padded batch hold different valid counts, so the local
             # sum is scaled by world / global count, and the mean of the
-            # ranks' gradients is the global batch's
-            metrics = _psum_metrics(_metrics(logits.detach(), labels))
-            loss = loss_sum * world_size() / metrics["count"].clamp(min=1)
+            # ranks' gradients is the global batch's; under spatial
+            # partitioning the S ranks of a group share one data shard's
+            # sum, hence D = world / S
+            metrics = _psum_metrics(_metrics(logits.detach(), labels),
+                                    spatial)
+            scale = world_size() if spatial is None else spatial.mesh.data
+            loss = loss_sum * scale / metrics["count"].clamp(min=1)
         if nan_step is not None and (nan_step < 0 or state.step == nan_step):
             # multiplied in, so the NaN reaches every gradient as a real
             # blow-up would
@@ -338,15 +394,17 @@ def make_train_step(
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in params]
         local_bad = ~torch.isfinite(loss.detach())
-        if axis_name is None:
+        if not collective:
             metrics = _metrics(logits.detach(), labels)
             bad = local_bad
         else:
             # one flat all-reduce: the gradients, the running stats the
-            # forward updated from this shard (sync_bn's are equal), and
-            # the local verdict (its mean is > 0 when any rank's is set)
+            # forward updated from this shard (sync_bn's and the spatial
+            # step's global BN's are equal), and the local verdict (its
+            # mean is > 0 when any rank's is set)
             flag = local_bad.to(grads[0].dtype).reshape(1)
-            all_reduce_mean_(grads + ([] if sync_bn else bn_bufs) + [flag])
+            global_bn = sync_bn or spatial is not None
+            all_reduce_mean_(grads + ([] if global_bn else bn_bufs) + [flag])
             bad = (flag[0] > 0) | (metrics["nonfinite"] > 0)
         bad = bad | ~torch.isfinite(torch.nn.utils.get_total_norm(grads))
         metrics["nonfinite"] = torch.maximum(
@@ -360,6 +418,25 @@ def make_train_step(
         return metrics
 
     return step
+
+
+def _epoch_shard(axis_name: Optional[str], n_shards: int, batch_sharding,
+                 label_sharding) -> Tuple[int, int]:
+    """(this rank's shard, the shards) of an epoch program's rows: the
+    data axis's under ``axis_name``, the data index of a spatial mesh
+    under ``batch_sharding``/``label_sharding``, else (0, 1)."""
+    if batch_sharding is None and label_sharding is None:
+        _check_shards(axis_name, n_shards)
+        return (0, 1) if axis_name is None else (rank(), n_shards)
+    for sh in (batch_sharding, label_sharding):
+        if not isinstance(sh, SpatialSharding):
+            raise TypeError(
+                "batch_sharding and label_sharding are both "
+                "parallel.spatial shardings (spatial_batch_sharding, "
+                f"spatial_label_sharding), got {type(sh).__name__}")
+    if axis_name is not None:
+        raise ValueError("a spatial epoch takes no axis_name")
+    return batch_sharding.shard, batch_sharding.n_shards
 
 
 def make_train_epoch(
@@ -385,19 +462,23 @@ def make_train_epoch(
     (over ``n_shards`` ranks, every rank holding the same ``perm``) this
     rank gathers only its shard's ``global_batch / n_shards`` of them.
     When ``totals`` holds ``nonfinite_steps`` (:func:`zero_metrics` with
-    ``num_steps``), slot i takes step i's 0/1 verdict on the device."""
-    _not_ported(batch_sharding=batch_sharding is not None,
-                label_sharding=label_sharding is not None)
-    _check_shards(axis_name, n_shards)
+    ``num_steps``), slot i takes step i's 0/1 verdict on the device.
+
+    ``batch_sharding`` and ``label_sharding`` (``parallel.spatial``'s, with
+    a spatial ``step`` and no ``axis_name``): this rank gathers its data
+    shard's whole rows, the bytes JAX's spatial epoch moves, and the step
+    cuts its slab after the augmentation."""
+    shard, n_shards = _epoch_shard(axis_name, n_shards, batch_sharding,
+                                   label_sharding)
     shard_batch = global_batch // n_shards
     total = num_steps * shard_batch
 
     def epoch_fn(state, totals, images, labels, perm):
-        if axis_name is None:
+        if n_shards == 1:
             idx = perm[:total]
             pos = torch.arange(total, device=idx.device)
         else:
-            pos = shard_positions(num_steps, global_batch, rank(), n_shards,
+            pos = shard_positions(num_steps, global_batch, shard, n_shards,
                                   perm.device)
             idx = perm[pos]
         if dma_gather:
@@ -418,29 +499,60 @@ def make_train_epoch(
     return epoch_fn
 
 
+def make_eval_forward(
+    mean: Sequence[float] = CIFAR10_MEAN,
+    std: Sequence[float] = CIFAR10_STD,
+    compute_dtype: torch.dtype = torch.float32,
+    spatial: Optional[SpatialPartition] = None,
+    device=None,
+) -> Callable:
+    """Returns ``forward(state, images) -> logits``, the eval step's
+    forward: uint8 NHWC images normalized, the model in eval mode (a
+    ResNet folds its BNs and runs the serving forward). With ``spatial``
+    the images are this rank's data shard (whole, or slabs already cut),
+    the forward runs on its slab and every rank of a spatial group
+    returns the same logits, its data shard's."""
+    mean, std = _device_stats(mean, std, device)
+
+    @torch.no_grad()
+    def forward(state: TrainState, images: torch.Tensor) -> torch.Tensor:
+        x = normalize(images, mean, std, dtype=compute_dtype)
+        state.model.eval()
+        if spatial is not None:
+            check_model(state.model)
+            x = spatial.cut(x)
+        with spatial_partition(spatial):
+            return state.model(mark_input(x.permute(0, 3, 1, 2)))
+
+    return forward
+
+
 def make_eval_step(
     mean: Sequence[float] = CIFAR10_MEAN,
     std: Sequence[float] = CIFAR10_STD,
     compute_dtype: torch.dtype = torch.float32,
     axis_name: Optional[str] = None,
+    spatial: Optional[SpatialPartition] = None,
     device=None,
 ) -> Callable:
-    """Returns ``step(state, batch) -> metrics``, the model in eval mode
-    (a ResNet folds its BNs and runs the serving forward). Labels < 0 are
-    padding; the batch lies on ``device`` (CUDA unless the caller names
-    another). With ``axis_name`` the batch is this rank's shard and the
-    metrics are summed over the ranks."""
+    """Returns ``step(state, batch) -> metrics`` of
+    :func:`make_eval_forward`'s logits. Labels < 0 are padding; the batch
+    lies on ``device`` (CUDA unless the caller names another). With
+    ``axis_name`` the batch is this rank's shard and the metrics are
+    summed over the ranks. With ``spatial`` the batch is this rank's data
+    shard (whole images, or slabs already cut) and the metrics are summed
+    over the data axis."""
     _check_axis(axis_name)
-    mean, std = _device_stats(mean, std, device)
+    _check_spatial(spatial, axis_name)
+    forward = make_eval_forward(mean, std, compute_dtype, spatial, device)
 
     @torch.no_grad()
     def step(state: TrainState, batch) -> Metrics:
         images, labels = batch
-        x = normalize(images, mean, std, dtype=compute_dtype)
-        state.model.eval()
-        logits = state.model(x.permute(0, 3, 1, 2))
-        metrics = _metrics(logits, labels)
-        return metrics if axis_name is None else _psum_metrics(metrics)
+        metrics = _metrics(forward(state, images), labels)
+        if axis_name is None and spatial is None:
+            return metrics
+        return _psum_metrics(metrics, spatial)
 
     return step
 
@@ -458,15 +570,15 @@ def make_eval_epoch(
     """``epoch_fn(state, images, labels) -> totals`` over the static test
     set: batch i is rows ``[i * B, (i + 1) * B)``, with positions >=
     ``n_data`` clamped to the last row and labelled -1. With ``axis_name``
-    this rank takes its shard's ``B / n_shards`` rows of each batch."""
-    _not_ported(batch_sharding=batch_sharding is not None,
-                label_sharding=label_sharding is not None)
-    _check_shards(axis_name, n_shards)
+    this rank takes its shard's ``B / n_shards`` rows of each batch; with
+    ``batch_sharding``/``label_sharding`` its data shard's rows (whole
+    images, which the spatial step cuts)."""
+    shard, n_shards = _epoch_shard(axis_name, n_shards, batch_sharding,
+                                   label_sharding)
     shard_batch = global_batch // n_shards
 
     def epoch_fn(state, images, labels):
         totals = zero_metrics(images.device)
-        shard = 0 if axis_name is None else rank()
         for i in range(num_steps):
             start = i * global_batch + shard * shard_batch
             pos = torch.arange(start, start + shard_batch,

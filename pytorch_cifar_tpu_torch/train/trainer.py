@@ -74,6 +74,18 @@ inline (``async_save on`` is ignored, with the JAX trainer's note); a stop
 requested on any rank stops every rank after the same epoch
 (``_agreed_stop``). ``close`` leaves the process group the trainer made.
 
+Spatial partitioning (``config.spatial_devices`` S, ``spatial_w_devices``
+W, either above 1; JAX's checks in JAX's words, :func:`check_spatial`):
+the world is a ``(data, S, W)`` mesh (``parallel.spatial``), the global
+batch divides over its ``world / (S * W)`` data shards, and every step is
+the spatial step, each rank on its slab of its data shard's images: the
+epoch programs gather the data shard's whole rows (K1 on CUDA), the step
+augments them and cuts the slab, and the layers exchange halos. BN is
+global, so ``sync_bn`` is ignored, as JAX ignores it. The host loader
+serves height slabs under host augmentation (W = 1), else the data
+shard's whole images. Checkpoints are the data-parallel path's: the state
+is the same on every rank.
+
 Elastic training (``config.elastic``, a rank under the supervisor of
 ``train/elastic.py``): the resume re-cuts both checkpoint candidates to
 this world's layout (``reshard_to_world``, rank 0), and in a world of
@@ -119,6 +131,13 @@ from pytorch_cifar_tpu_torch.parallel.mesh import (
     rank,
     rank_device,
     world_size,
+)
+from pytorch_cifar_tpu_torch.parallel.spatial import (
+    SpatialPartition,
+    check_model,
+    make_spatial_mesh,
+    spatial_batch_sharding,
+    spatial_label_sharding,
 )
 from pytorch_cifar_tpu_torch.train.checkpoint import (
     CKPT_NAME,
@@ -174,6 +193,44 @@ def _to_host(*totals: Metrics) -> List[Dict]:
             m["nonfinite_steps"], i = flat[i:i + n], i + n
         out.append(m)
     return out
+
+
+def check_spatial(config: TrainConfig, world: int,
+                  device_data: bool) -> Tuple[int, int]:
+    """The run's ``(spatial_devices, spatial_w_devices)``, at least 1
+    each, after the JAX trainer's checks of a spatial run, in its words:
+    the spatial product divides the world, each of S and W divides the
+    32-pixel image, and W > 1 has the device-resident data plane; then
+    the model must be one the port holds (``NotImplementedError``)."""
+    sp = max(config.spatial_devices, 1)
+    sp_w = max(config.spatial_w_devices, 1)
+    if sp == sp_w == 1:
+        return sp, sp_w
+    if world % (sp * sp_w):
+        raise ValueError(
+            f"spatial_devices={sp} x spatial_w_devices={sp_w} must divide "
+            f"the device count {world}"
+        )
+    for name, v in (("spatial_devices", sp), ("spatial_w_devices", sp_w)):
+        if 32 % v:
+            raise ValueError(
+                f"{name}={v} must divide the 32-pixel CIFAR image extent"
+            )
+    if sp_w > 1 and not device_data:
+        raise ValueError(
+            "spatial_w_devices > 1 requires the device-resident data plane "
+            "(--device_data, no --host_augment): the host loader assembles "
+            "batch x height slabs only"
+        )
+    check_model(config.model)
+    return sp, sp_w
+
+
+def device_data_plane(config: TrainConfig) -> bool:
+    """Whether the run takes the device-resident data plane: host
+    augmentation takes the host loader."""
+    return config.device_data and not (config.host_augment
+                                       and config.random_crop)
 
 
 class Trainer:
@@ -248,17 +305,28 @@ class Trainer:
             tr_x, tr_y, te_x, te_y = load_cifar10(
                 config.data_dir, synthetic_ok=False
             )
-        n_dev = self.world
+        # where augmentation runs: the host (native data plane) or the
+        # step; host augmentation takes the host loader
+        host_aug = config.host_augment and config.random_crop
+        self.device_data = device_data_plane(config)
+        self.spatial = None
+        sp, sp_w = check_spatial(config, self.world, self.device_data)
+        if sp * sp_w > 1:
+            self.spatial = SpatialPartition(make_spatial_mesh(
+                spatial=sp, spatial_w=sp_w, world=self.world))
+            if config.sync_bn:
+                log.info("--sync_bn ignored under spatial partitioning: its "
+                         "BN is global already")
+        # the batch divides over the data axis
+        n_dev = self.world if self.spatial is None else self.spatial.mesh.data
+        self.data_shard = ((self.rank, self.world) if self.spatial is None
+                           else (self.spatial.d, n_dev))
         if config.batch_size % n_dev:
             # parity with main_dist.py:112-115's divisibility warning
             log.warning("batch_size %d not divisible by %d devices; "
                         "rounding down", config.batch_size, n_dev)
         self.global_batch = max(config.batch_size // n_dev, 1) * n_dev
         self.eval_bs = max(config.eval_batch_size // n_dev, 1) * n_dev
-        # where augmentation runs: the host (native data plane) or the
-        # step; host augmentation takes the host loader
-        host_aug = config.host_augment and config.random_crop
-        self.device_data = config.device_data and not host_aug
         if self.device_data:
             self.loader = DeviceDataset(
                 tr_x, tr_y, batch_size=self.global_batch, shuffle=True,
@@ -270,10 +338,16 @@ class Trainer:
                 device=self.device,
             )
         else:
+            # spatial: height slabs of host-augmented batches, else the
+            # data shard's whole images, which the step augments and cuts
+            slabs = self.spatial is not None and host_aug
+            shard, n_shards = ((self.rank, self.world) if slabs
+                               else self.data_shard)
             self.loader = Dataloader(
                 tr_x, tr_y, batch_size=self.global_batch, shuffle=True,
                 drop_last=config.drop_last, seed=config.seed,
-                shard=self.rank, n_shards=self.world,
+                shard=shard, n_shards=n_shards,
+                spatial=config.spatial_devices if slabs else 1,
                 prefetch=config.prefetch,
                 async_input=config.async_input == "on",
                 host_augment=host_aug, augment_flip=config.random_flip,
@@ -306,33 +380,40 @@ class Trainer:
 
         # -- steps and epoch programs ---------------------------------
         compute = torch.bfloat16 if config.amp else torch.float32
-        # cross-replica BN over one process is local BN: the same math
-        axis = DATA_AXIS if self.data_parallel else None
+        # cross-replica BN over one process is local BN: the same math.
+        # The spatial step is global over the whole group: no data axis
+        axis = (DATA_AXIS if self.data_parallel and self.spatial is None
+                else None)
         self.train_step = make_train_step(
             augment=not host_aug, crop=config.random_crop,
             flip=config.random_flip, mean=config.mean, std=config.std,
             compute_dtype=compute, axis_name=axis,
             sync_bn=config.sync_bn and axis is not None,
             remat=config.remat, skip_nonfinite=config.sentinel != "off",
-            device=self.device,
+            spatial=self.spatial, device=self.device,
         )
         self.eval_step = make_eval_step(
             mean=config.mean, std=config.std, compute_dtype=compute,
-            axis_name=axis, device=self.device,
+            axis_name=axis, spatial=self.spatial, device=self.device,
         )
+        if self.spatial is None:
+            epoch_kwargs = dict(axis_name=axis, n_shards=self.world)
+        else:
+            epoch_kwargs = dict(
+                batch_sharding=spatial_batch_sharding(self.spatial),
+                label_sharding=spatial_label_sharding(self.spatial))
         self.train_epoch_fn = self.eval_epoch_fn = None
         if self.device_data:
             self.train_epoch_fn = make_train_epoch(
                 self.train_step, global_batch=self.global_batch,
                 n_data=tr_x.shape[0], num_steps=self.steps_per_epoch,
-                axis_name=axis, n_shards=self.world,
-                dma_gather=config.dma_gather,
+                dma_gather=config.dma_gather, **epoch_kwargs,
             )
             n_eval = te_x.shape[0]
             self.eval_epoch_fn = make_eval_epoch(
                 self.eval_step, global_batch=self.eval_bs, n_data=n_eval,
                 num_steps=max(-(-n_eval // self.eval_bs), 1),
-                axis_name=axis, n_shards=self.world,
+                **epoch_kwargs,
             )
         self.start_epoch = 0
         self.best_acc = 0.0
@@ -596,7 +677,7 @@ class Trainer:
         rank's slab of each, through the eval step; the totals stay on the
         device until one fetch."""
         totals = zero_metrics(self.device)
-        (r0, r1), _ = local_slab((self.eval_bs,), self.rank, self.world)
+        (r0, r1), _ = local_slab((self.eval_bs,), *self.data_shard)
         for x, y in eval_batches(self.test_images, self.test_labels,
                                  self.eval_bs):
             batch = (torch.from_numpy(x[r0:r1]).to(self.device),

@@ -322,9 +322,20 @@ def test_unported_models_say_so():
 
 
 def test_unported_step_options_raise():
-    """Spatial partitioning is the one step option not ported (remat is:
-    ``tests/test_torch_remat.py``)."""
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    """Spatial partitioning holds the ResNet family, LeNet and GoogLeNet
+    (``tests/test_torch_spatial.py``); asked for another model, it raises
+    naming it, by registry name or by module. The epoch programs take the
+    spatial module's shardings and nothing else."""
+    from pytorch_cifar_tpu_torch.parallel import spatial
+
+    with pytest.raises(NotImplementedError, match="VGG16 is not ported yet"):
+        spatial.check_model("VGG16")
+    with pytest.raises(NotImplementedError, match="MobileNet is not ported"):
+        spatial.check_model(create_model("MobileNet"))
+    for name in spatial.HELD_MODELS:
+        spatial.check_model(name)
+        spatial.check_model(create_model(name))
+    with pytest.raises(TypeError, match="parallel.spatial shardings"):
         steps.make_train_epoch(None, 8, 20, 3, batch_sharding=object())
-    with pytest.raises(NotImplementedError, match="not ported yet"):
+    with pytest.raises(TypeError, match="parallel.spatial shardings"):
         steps.make_eval_epoch(None, 8, 20, 3, label_sharding=object())
