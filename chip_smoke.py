@@ -549,14 +549,27 @@ training; ``--only spatial`` reads them alone):
     and closed by an all-reduce the card has finished, beside the
     one-process step's. (2) The train CLI (``tools/spatial_runs.fit_argv``:
     ResNet-18, b512, bf16, device data, K1, 2 epochs on
-    ``synthetic_cifar10(10240, 2048)``) as that pair: a falling loss,
+    ``synthetic_cifar10(5120, 2048)``, cut from 10,240 training images to
+    pay for (0)'s and (4)'s checks) as that pair: a falling loss,
     every image once an epoch, K1 twice and K3 6 times an eval forward
     (36) on each rank, the same metrics on both; its checkpoint restored
     by one process's ``--evaluate`` to the run's accuracy within 2 of
     2,048 images. (3) GoogLeNet at b32 as in (1), K4's forward and
-    backward launched on both ranks. Prints each step's ms on the slowest
-    rank (and the ranks' range) beside one process's, a rank's halo
-    exchanges a step and the bytes it sent, and the phase's seconds.
+    backward launched on both ranks. (4) SimpleDLA, the train CLI's
+    default, at full width, b32, as in (1) with its step in float64
+    compute (fp32 parameters; its fp32 step is no closer than 5e-4 to
+    its own float64 one), K3 12 times in each rank's eval forward. (0)
+    also holds K3 at SimpleDLA's and VGG16's extended slab shapes, K4 at
+    PNASNet's, and K5 at every extended slab shape of MobileNet's and
+    PNASNet's stencil sites (k = 3, 5, 7; n = 32, zeros along the slab
+    edges) within phase 3's tolerances, and the input gradient of
+    ShuffleNet's 3 / 2 / 1 average pool (whole and on a slab) on a
+    channels_last tensor within 1e-6 of the CPU's float64 one
+    (``common._avg_pool2d`` pools an NCHW copy: the library's channels_last
+    backward of an overlapping pool is wrong on the card). Prints each
+    step's ms on the slowest rank (and the ranks' range) beside one
+    process's, a rank's halo exchanges a step and the bytes it sent, and
+    the phase's seconds.
 
 ``python3 chip_smoke.py --only dp`` runs phases 1, 2 and 18 alone, over
 every visible card (the four-card call); it prints neither the kernels
@@ -579,7 +592,16 @@ one rank a card: (0) as on one card, (1)'s fp32 ResNet-18 eval forward
 and step at ``(data, spatial, spatial_w)`` = (1, 4, 1), (1, 2, 2) and
 (2, 2, 1), then (2)'s run at (2, 2, 1) (``--num_devices 4
 --spatial_devices 2``, K3 6 times an eval forward on each of the 4
-ranks); no GoogLeNet step.
+ranks); no GoogLeNet or SimpleDLA step. ``--only spatial_zoo`` runs
+phases 1, 2 and the model families held beside ResNet, LeNet and
+GoogLeNet (``tools/spatial_runs.ZOO``: one registry name a family, at
+full width) on the gloo pair on one card as 45 (1) runs ResNet-18, at
+b64: the fp32 eval forward against one process's, every rank launching
+K3, K4 and K5 as one process's forward does, and one step against one
+process's (in float64 compute where ``ZOO`` says so; one process's fp32
+step against its float64 one printed as the step's own noise where K4,
+which takes bf16 and fp32, is not on the path); each family's halo
+exchanges and bytes a step on each rank.
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -591,6 +613,7 @@ from __future__ import annotations
 
 import argparse
 import base64
+import functools
 import dataclasses
 import gc
 import io
@@ -2454,8 +2477,6 @@ def _parity_checks(tag: str, got: dict, fails: Failures) -> dict:
 def phase_dp(G, M, K3, smi: str, fails: Failures) -> dict:
     """Data parallelism through the train CLI (phase 18 of the module
     docstring)."""
-    import functools
-
     from pytorch_cifar_tpu_torch.tools import dp_runs
     from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
     from pytorch_cifar_tpu_torch.train.launch import free_port
@@ -6337,12 +6358,24 @@ def phase_elastic(smi: str, fails: Failures, multi_card: bool = False
 SPATIAL_EVAL_BS = 1000  # TrainConfig's eval batch: 3 eval forwards an epoch
 
 
+@functools.lru_cache(maxsize=None)
+def _eval_kernels(model: str) -> dict:
+    """K3, K4 and K5 launches of one folded forward of ``model`` (its
+    sites recorded from one image on the CPU): what every rank of a
+    spatial group launches, each site on its own slab."""
+    return {"k3": sum(s[-1] for s in fused_sites(model)),
+            "k4": sum(s[-1] for s in pool_sites(model)),
+            "k5": sum(s[-1] for s in stencil_sites(model))}
+
+
 def _spatial_steps(specs: list, world: int, fails: Failures) -> list:
     """Each spatial step spec against one process's step (phase 45, 1 and
     3): the ranks' states equal, the step within JAX's tolerances, the
     fp32 eval forward's logits within the served fp32 tolerance of one
-    process's, K3 launched in every rank's eval forward, K4 forward and
-    backward launched on every rank of a GoogLeNet step."""
+    process's, every rank's eval forward launching K3, K4 and K5 as many
+    times as one process's forward (:func:`_eval_kernels`), and K4
+    forward and backward launched on every rank of a step of a model with
+    3x3 / stride 1 pools (GoogLeNet, PNASNet)."""
     from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
 
     ranks = SR.compare_steps(specs, world)
@@ -6350,16 +6383,15 @@ def _spatial_steps(specs: list, world: int, fails: Failures) -> list:
     for i, bad in SR.step_checks(ranks):
         spec = specs[i]
         tag = (f"spatial: {spec['model']} b{spec['batch']} mesh "
-               f"{spec['mesh']} augment {spec['augment']}")
+               f"{spec['mesh']} augment {spec['augment']} "
+               f"{spec['compute']}")
         fails.check(not bad, f"{tag}: {bad}")
         per = [r[i] for r in ranks]
-        want_k3 = 6 if spec["model"] == "ResNet18" else None
-        fails.check(all(p["k3_launches"] == want_k3 if want_k3 else
-                        p["k3_launches"] > 0 for p in per),
-                    f"{tag}: K3 not launched {want_k3 or 'at all'} times "
-                    f"in every rank's eval forward: "
-                    f"{[p['k3_launches'] for p in per]}")
-        if spec["model"] == "GoogLeNet":
+        want = _eval_kernels(spec["model"])
+        fails.check(all(p["eval_launches"] == want for p in per),
+                    f"{tag}: eval launches {[p['eval_launches'] for p in per]}"
+                    f" on the ranks, one forward's {want}")
+        if want["k4"] and not spec["library_pools"]:
             fails.check(all(p["k4_launches"][0] > 0 and p["k4_launches"][1]
                             > 0 for p in per),
                         f"{tag}: K4 not launched on every rank: "
@@ -6368,8 +6400,10 @@ def _spatial_steps(specs: list, world: int, fails: Failures) -> list:
         rows.append({
             "model": spec["model"], "mesh": spec["mesh"],
             "batch": spec["batch"], "augment": spec["augment"],
+            "compute": spec["compute"],
             "one_process": {k: v for k, v in per[0]["one_process"].items()
                             if k != "logits"},
+            "noise": per[0].get("noise"),
             # every rank's ms: each window opens and closes on a fence all
             # ranks leave together, and the slowest is the step's
             "step_ms": [p["step_ms"] for p in per],
@@ -6381,24 +6415,71 @@ def _spatial_steps(specs: list, world: int, fails: Failures) -> list:
             "halo_bytes": [x["halo_bytes"] for x in c],
             "halo_max_rows": max(x["halo_max_rows"] for x in c),
             "bn_reductions": c[0]["bn_reductions"],
-            "k3_eval_launches": [p["k3_launches"] for p in per],
+            "group_sums": c[0]["group_sums"],
+            "eval_launches": [p["eval_launches"] for p in per],
             "k4_launches": [p["k4_launches"] for p in per],
         })
     return rows
 
 
 SLAB_MESHES = ((1, 2, 1), (1, 4, 1), (1, 2, 2))  # (2, 2, 1) cuts as (1, 2, 1)
+# the models whose kernel sites the slab checks take: K3 (fused), K4
+# (3x3 / stride 1 pools) and K5 (depthwise stencils)
+SLAB_FUSED = ("SimpleDLA", "VGG16")
+SLAB_POOLS = ("PNASNetA", "PNASNetB")
+SLAB_STENCILS = ("MobileNet", "PNASNetA", "PNASNetB")
+SLAB_N5 = 32  # K5's batch on a slab
 
 
-def _spatial_slab_kernels(K, P, fails: Failures) -> list:
-    """K3 and K4 on the halo-extended slabs the spatial path hands them
-    (phase 45, 0): every extended shape of ResNet-18's fused sites and of
-    GoogLeNet's 3x3 / stride 1 pools over :data:`SLAB_MESHES`, bf16 and
-    fp32. K3 at n = 128 and 3 against its plain version at phase_kernels'
-    tolerances; K4's forward, winner map and backward (n = 32) bit for bit
-    the plain version's (``_pool_checks``), with the pad value of an image
-    edge (zeros for K3, -inf for K4) along a slab's first and last rows and
-    columns of the first images."""
+def _slab_stencils(D, g, fails: Failures) -> list:
+    """K5 on the halo-extended slabs (phase 45, 0): every extended shape of
+    the stride-1 depthwise sites of :data:`SLAB_STENCILS` (k = 3, 5, 7)
+    over :data:`SLAB_MESHES`, bf16 and fp32, at n = :data:`SLAB_N5`, with
+    zeros (the image edge's pad value) along a slab's first and last rows
+    and columns of the first images, against its plain version at phase
+    3's tolerances (``_stencil_row``)."""
+    from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
+
+    shapes = sorted({(a, b, c, k) for name in SLAB_STENCILS
+                     for h, w, c, k, _ in stencil_sites(name)
+                     for m in SLAB_MESHES
+                     for a, b in SR.slab_shapes(h, w, m, k)})
+    rows = []
+    for dname, dt in DTYPES.items():
+        rtol, atol = (2e-5, 2e-5) if dname == "fp32" else (2.0 ** -7, 1e-4)
+        err = 0.0
+        for h, w, c, k in shapes:
+            x = torch.randn(SLAB_N5, h, w, c, generator=g).to("cuda", dt)
+            x[0, 0] = 0.0
+            x[1, -1] = 0.0
+            x[2, :, 0] = 0.0
+            x[3, :, -1] = 0.0
+            wt = (torch.randn(k, k, c, generator=g) / k).to("cuda", dt)
+            out = D.depthwise_stencil(x, wt)
+            ref = D.depthwise_stencil_reference(x.float(), wt.float())
+            diff = (out.float() - ref).abs()
+            fails.check(
+                bool((diff <= atol + rtol * ref.abs()).all())
+                and bool(torch.isfinite(out).all()),
+                f"spatial slab K5 {dname} ({SLAB_N5}, {h}, {w}, {c}) k={k}: "
+                f"kernel vs plain max abs {diff.max().item():.3g} over "
+                "tolerance")
+            err = max(err, diff.max().item())
+        rows.append({"dtype": dname, "k5_shapes": [list(t) for t in shapes],
+                     "k5_max_abs_err": err})
+    return rows
+
+
+def _spatial_slab_kernels(K, P, D, fails: Failures) -> list:
+    """K3, K4 and K5 on the halo-extended slabs the spatial path hands them
+    (phase 45, 0): every extended shape of ResNet-18's, SimpleDLA's and
+    VGG16's fused sites, of GoogLeNet's and PNASNet's 3x3 / stride 1 pools
+    over :data:`SLAB_MESHES`, bf16 and fp32. K3 at n = 128 and 3 against
+    its plain version at phase_kernels' tolerances; K4's forward, winner
+    map and backward (n = 32) bit for bit the plain version's
+    (``_pool_checks``), with the pad value of an image edge (zeros for K3,
+    -inf for K4) along a slab's first and last rows and columns of the
+    first images; K5 as :func:`_slab_stencils`."""
     from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
 
     # the plain fp32 conv without TF32, as phase 3 runs it (``--only
@@ -6406,11 +6487,15 @@ def _spatial_slab_kernels(K, P, fails: Failures) -> list:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     g = torch.Generator().manual_seed(45)
+    sites = list(SITES) + [s for name in SLAB_FUSED
+                           for s in fused_sites(name)]
     k3_shapes = sorted({(a, b, cin, cout) for m in SLAB_MESHES
-                        for _, h, w, cin, cout, _ in SITES
+                        for _, h, w, cin, cout, _ in sites
                         for a, b in SR.slab_shapes(h, w, m)})
+    pools = list(POOL_SHAPES) + [p for name in SLAB_POOLS
+                                 for p in pool_sites(name)]
     k4_shapes = sorted({(a, b, c) for m in SLAB_MESHES
-                        for h, w, c, _ in POOL_SHAPES
+                        for h, w, c, _ in pools
                         for a, b in SR.slab_shapes(h, w, m)})
     rows = []
     for dname, dt in DTYPES.items():
@@ -6455,6 +6540,50 @@ def _spatial_slab_kernels(K, P, fails: Failures) -> list:
                      "k4_shapes": [list(t) for t in k4_shapes],
                      "k4_fwd_max_abs_err": fwd_err,
                      "k4_bwd_max_abs_err": bwd_err})
+    for row, k5 in zip(rows, _slab_stencils(D, g, fails)):
+        row.update(k5)
+    return rows
+
+
+# the overlapping average pools of the zoo (ShuffleNet's 3 / 2 / 1
+# shortcut), whole and on a height slab as ``window_op`` hands it
+AVG_POOLS = ((3, 2, 1, (64, 24, 32, 32)), (3, 2, (0, 1), (64, 24, 17, 32)))
+
+
+def _avg_pool_grads(fails: Failures) -> list:
+    """``common._avg_pool2d``'s input gradient on a channels_last CUDA
+    tensor against the CPU's float64 one, fp32 and float64, within 1e-6
+    of the largest value (phase 45, 0); beside it the plain
+    ``F.avg_pool2d`` on the same channels_last tensor, whose backward the
+    port routes around (printed, not held)."""
+    from pytorch_cifar_tpu_torch.models import common
+
+    g = torch.Generator().manual_seed(46)
+    rows = []
+    for k, s, pad, shape in AVG_POOLS:
+        x0 = torch.randn(*shape, generator=g, dtype=torch.float64)
+        g0 = torch.randn(*F.avg_pool2d(x0, k, s, pad).shape, generator=g,
+                         dtype=torch.float64)
+
+        def grad(fn, dev, dt):
+            x = x0.to(dev, dt).contiguous(
+                memory_format=torch.channels_last).requires_grad_(True)
+            fn(x, k, s, pad).backward(g0.to(dev, dt))
+            return x.grad.double().cpu()
+
+        ref = grad(F.avg_pool2d, "cpu", torch.float64)
+        row = {"pool": [k, s, pad], "x": list(shape)}
+        for dname, dt in (("fp32", torch.float32), ("f64", torch.float64)):
+            for tag, fn in (("port", common._avg_pool2d),
+                            ("library", F.avg_pool2d)):
+                err = float((grad(fn, "cuda", dt) - ref).abs().max()
+                            / ref.abs().max())
+                row[f"{tag}_{dname}_rel_err"] = err
+            fails.check(row[f"port_{dname}_rel_err"] <= 1e-6,
+                        f"avg pool {k}/{s}/{pad} {dname} {shape}: input "
+                        f"gradient {row[f'port_{dname}_rel_err']:.3g} off "
+                        "the CPU's float64")
+        rows.append(row)
     return rows
 
 
@@ -6519,12 +6648,14 @@ def phase_spatial(smi: str, fails: Failures, four_card: bool = False
     on the extended slabs, the step against one process's, then the train
     CLI's bf16 run."""
     from pytorch_cifar_tpu_torch.ops import conv_bn_relu as K
+    from pytorch_cifar_tpu_torch.ops import depthwise_stencil as D
     from pytorch_cifar_tpu_torch.ops import max_pool as P
     from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
 
     t0 = time.perf_counter()
     out: dict = {"card": smi}
-    out["slab_kernels"] = _spatial_slab_kernels(K, P, fails)
+    out["slab_kernels"] = _spatial_slab_kernels(K, P, D, fails)
+    out["avg_pool_grads"] = _avg_pool_grads(fails)
     out["slab_kernels_s"] = time.perf_counter() - t0
     if four_card:
         specs = [SR.step_spec("ResNet18", m, 512, False)
@@ -6532,7 +6663,9 @@ def phase_spatial(smi: str, fails: Failures, four_card: bool = False
     else:
         specs = [SR.step_spec("ResNet18", (1, 2, 1), 512, False),
                  SR.step_spec("ResNet18", (1, 2, 1), 512, True),
-                 SR.step_spec("GoogLeNet", (1, 2, 1), 32, False)]
+                 SR.step_spec("GoogLeNet", (1, 2, 1), 32, False),
+                 SR.step_spec("SimpleDLA", (1, 2, 1), SPATIAL_DLA_BATCH,
+                              False, reps=1, compute="float64")]
     out["steps"] = _spatial_steps(specs, 4 if four_card else 2, fails)
     out["steps_s"] = time.perf_counter() - t0
     root = run_dir("spatial_")
@@ -6546,12 +6679,24 @@ def phase_spatial(smi: str, fails: Failures, four_card: bool = False
               f"{len(row['k3_shapes'])} extended shapes, max abs "
               f"{row['k3_max_abs_err']:.3g}; K4 at "
               f"{len(row['k4_shapes'])}, forward {row['k4_fwd_max_abs_err']}"
-              f", backward {row['k4_bwd_max_abs_err']}", flush=True)
-    for row in out["steps"]:
+              f", backward {row['k4_bwd_max_abs_err']}; K5 at "
+              f"{len(row['k5_shapes'])}, max abs "
+              f"{row['k5_max_abs_err']:.3g}", flush=True)
+    for row in out["avg_pool_grads"]:
+        print(f"spatial card {smi}: avg pool grads {json.dumps(row)}",
+              flush=True)
+    _print_steps("spatial", smi, out["steps"])
+    print("spatial " + json.dumps(out), flush=True)
+    return out
+
+
+def _print_steps(tag: str, smi: str, rows: list) -> None:
+    for row in rows:
         one = row["one_process"]
         ms = row["step_ms"]
-        print(f"spatial card {smi}: {row['model']} b{row['batch']} fp32 "
-              f"mesh {row['mesh']} augment {row['augment']}: step "
+        print(f"{tag} card {smi}: {row['model']} b{row['batch']} "
+              f"{row['compute']} mesh {row['mesh']} augment "
+              f"{row['augment']}: step "
               f"{max(ms):.1f} ms on the slowest rank (ranks "
               f"{min(ms):.1f}-{max(ms):.1f}) against one process's "
               f"{one['step_ms']:.1f} ms; {row['halo_exchanges'][0]} halo "
@@ -6559,8 +6704,36 @@ def phase_spatial(smi: str, fails: Failures, four_card: bool = False
               f"params {one['param_max_abs_diff']:.2e}, BN "
               f"{one['bn_max_abs_diff']:.2e}, loss {one['loss_rel_diff']:.2e}"
               f" off one process; eval logits {row['logits_off']:.3g} of "
-              f"the tolerance", flush=True)
-    print("spatial " + json.dumps(out), flush=True)
+              f"the tolerance; eval launches {row['eval_launches'][0]} a "
+              f"rank; noise {row['noise']}", flush=True)
+
+
+# phase 45's SimpleDLA step, in float64 compute: its fp32 step lands
+# 5.1e-4-6.0e-4 from its own float64 step at b64-b128 (PERF.md §6), over
+# the 5e-4 the comparison holds
+SPATIAL_DLA_BATCH = 32
+SPATIAL_ZOO_BATCH = 64  # ``--only spatial_zoo``'s steps
+
+
+def phase_spatial_zoo(smi: str, fails: Failures) -> dict:
+    """The model families held under spatial partitioning beside ResNet,
+    LeNet and GoogLeNet (``--only spatial_zoo``): one registry name a
+    family (``tools/spatial_runs.ZOO``) at full width on the gloo pair on
+    one card, height cut in two, as phase 45 (1) runs ResNet-18: the fp32
+    eval forward against one process's and one step against one
+    process's, every rank's eval forward launching K3, K4 and K5 as one
+    process's does."""
+    from pytorch_cifar_tpu_torch.tools import spatial_runs as SR
+
+    t0 = time.perf_counter()
+    specs = [SR.step_spec(name, (1, 2, 1), SPATIAL_ZOO_BATCH, False,
+                          reps=2, compute=compute, noise=True,
+                          library_pools=name in SR.LIBRARY_POOLS)
+             for name, compute in SR.ZOO.items()]
+    out = {"card": smi, "steps": _spatial_steps(specs, 2, fails)}
+    out["phase_s"] = time.perf_counter() - t0
+    _print_steps("spatial_zoo", smi, out["steps"])
+    print("spatial_zoo " + json.dumps(out), flush=True)
     return out
 
 
@@ -6591,7 +6764,8 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         description="Smoke run of the PyTorch/CUDA port on the card")
     parser.add_argument(
-        "--only", choices=["dp", "mesh", "elastic", "spatial"],
+        "--only",
+        choices=["dp", "mesh", "elastic", "spatial", "spatial_zoo"],
         help="run the device, build and this phase alone, over every "
              "visible card (the four-card call); prints no kernels or ok "
              "line")
@@ -6621,6 +6795,8 @@ def main(argv=None) -> int:
         elif args.only == "spatial":
             phase_spatial(smi, fails,
                           four_card=torch.cuda.device_count() >= 4)
+        elif args.only == "spatial_zoo":
+            phase_spatial_zoo(smi, fails)
         else:
             phase_elastic(smi, fails,
                           multi_card=torch.cuda.device_count() > 1)

@@ -171,10 +171,14 @@ def channel_shuffle(x: torch.Tensor, groups: int) -> torch.Tensor:
     """ShuffleNet's channel shuffle of an NCHW activation: C -> (g, C/g)
     -> transposed -> C, the reference's view/permute (JAX
     ``models/common.py:508``). Computed on the NHWC view, so a
-    channels_last input gives a channels_last output (one copy)."""
+    channels_last input gives a channels_last output (one copy); a slab
+    keeps its extent."""
     n, c, h, w = x.shape
     y = x.permute(0, 2, 3, 1).reshape(n, h, w, groups, c // groups)
-    return y.transpose(3, 4).reshape(n, h, w, c).permute(0, 3, 1, 2)
+    y = y.transpose(3, 4).reshape(n, h, w, c).permute(0, 3, 1, 2)
+    act = spatial.active()
+    # the NHWC and 5-d steps between lose the slab's mark: keep x's
+    return y if act is None else spatial.mark(y, act.extent_of(x))
 
 
 # The models' random draws: fn(shape, keep) -> bool mask, True with
@@ -482,7 +486,9 @@ def fold_conv_bn(
 def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
     """Apply one folded site to a channels_last activation. Fused and
     stencil sites go through their kernel's wrapper (the Hopper kernel on a
-    CUDA tensor, its plain version on a CPU one)."""
+    CUDA tensor, its plain version on a CPU one); under a spatial partition
+    each kernel runs on the slab extended by ``k // 2`` rows a side
+    (``spatial.same_op``), every other site on its window's extension."""
     if f.fused:
         def k3(e):
             y = conv3x3_bn_relu(e.permute(0, 2, 3, 1), f.weight, f.mul, f.add)
@@ -492,10 +498,17 @@ def conv_bn(x: torch.Tensor, f: FoldedConvBN) -> torch.Tensor:
             return k3(x)
         return spatial.same_op(x, 3, k3, f.weight.shape[3])
     if f.stencil:
-        # a conv of a channel slice (ShuffleNetV2) need not come out dense
-        x = x.contiguous(memory_format=torch.channels_last)
-        y = depthwise_stencil(x.permute(0, 2, 3, 1), f.weight)
-        y = y.permute(0, 3, 1, 2)
+        def k5(e):
+            # a conv of a channel slice (ShuffleNetV2) need not come out
+            # dense
+            e = e.contiguous(memory_format=torch.channels_last)
+            return depthwise_stencil(e.permute(0, 2, 3, 1),
+                                     f.weight).permute(0, 3, 1, 2)
+
+        if spatial.active() is None:
+            y = k5(x)
+        else:
+            y = spatial.same_op(x, f.weight.shape[0], k5, f.weight.shape[2])
     else:
         y = folded_conv2d(x, f.weight, stride=f.stride, padding=f.padding,
                           groups=f.groups)
@@ -528,7 +541,7 @@ def se_gate(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     and ``x`` times the gate, all in ``x``'s dtype (the weights are cast to
     it, as the JAX model computes the gate in the compute dtype)."""
     dt = x.dtype
-    w = x.mean(dim=(2, 3), keepdim=True)
+    w = global_avg_pool(x, keepdim=True)
     w = torch.relu(F.conv2d(w, w1.to(dt), b1.to(dt)))
     return x * torch.sigmoid(F.conv2d(w, w2.to(dt), b2.to(dt)))
 
@@ -567,20 +580,38 @@ def avg_pool(x: torch.Tensor, window: int, stride: Optional[int] = None,
     group, any other one runs on the zero-extended slab."""
     stride = stride or window
     if spatial.active() is None:
-        return F.avg_pool2d(x, window, stride, padding)
+        return _avg_pool2d(x, window, stride, padding)
     if spatial.covers_map(x, window, padding):
         return spatial.global_mean(x)[:, :, None, None]
     return spatial.window_op(
         x, (window, window), (stride, stride), (padding, padding),
-        lambda e, pads: F.avg_pool2d(e, window, stride, pads), x.shape[1])
+        lambda e, pads: _avg_pool2d(e, window, stride, pads), x.shape[1])
 
 
-def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
+def _avg_pool2d(x: torch.Tensor, window: int, stride: int,
+                padding) -> torch.Tensor:
+    """``F.avg_pool2d``. On a CUDA tensor whose windows overlap it pools an
+    NCHW copy and hands the result back channels_last: the library's
+    backward of such a pool on a channels_last CUDA tensor is wrong (torch
+    2.11, CUDA 12.8, an H100: the input gradient of a 3 / 2 / 1 pool 0.94
+    of its largest value off, fp32 and float64 alike, the forward exact;
+    PERF.md §6), the NCHW one right. Elsewhere the plain call."""
+    if x.is_cuda and stride < window:
+        y = F.avg_pool2d(x.contiguous(), window, stride, padding)
+        return y.contiguous(memory_format=torch.channels_last)
+    return F.avg_pool2d(x, window, stride, padding)
+
+
+def global_avg_pool(x: torch.Tensor, keepdim: bool = False
+                    ) -> torch.Tensor:
     """``adaptive_avg_pool2d(1)`` + flatten of an NCHW activation: ``(n,
-    c)``."""
-    if spatial.active() is not None:
-        return spatial.global_mean(x)
-    return x.mean(dim=(2, 3))
+    c)``, or ``(n, c, 1, 1)`` with ``keepdim`` (a gate's squeeze); under a
+    spatial partition the mean over the whole map, on every rank of the
+    spatial group."""
+    if spatial.active() is None:
+        return x.mean(dim=(2, 3), keepdim=keepdim)
+    m = spatial.global_mean(x)
+    return m[:, :, None, None] if keepdim else m
 
 
 def count_params(model: nn.Module) -> int:

@@ -19,7 +19,9 @@ every later BN that covers the chunk the concatenated moments
 (``BatchNorm(moments=)``): per-channel moments of a concatenation are the
 concatenation of its parts' moments, so the outputs, gradients and
 running statistics are the per-layer path's. Each layer's ``bn2`` reduces
-its own input.
+its own input. Under a spatial partition each chunk's moments are its
+slab's, and each BN pools the concatenation once, by element count
+(``parallel.spatial.pool_moments``).
 
 Eval mode (:meth:`DenseNet.fold` / :meth:`DenseNet.folded_forward`): the
 BNs over the stack are affines + ReLU, each layer's ``conv1`` folds
@@ -58,10 +60,22 @@ from pytorch_cifar_tpu_torch.models.common import (
 Moments = Tuple[torch.Tensor, torch.Tensor]
 
 
+def _moments(x: torch.Tensor) -> Moments:
+    """``bn_batch_moments`` of a chunk, or zeros for a slab of no element
+    (a rank that owns no row of the map under a spatial partition, whose
+    moments its BN weights by its count, 0): no reduction is launched on
+    it."""
+    if x.numel():
+        return bn_batch_moments(x)
+    z = x.new_zeros(x.shape[1],
+                    dtype=torch.promote_types(x.dtype, torch.float32))
+    return z, z
+
+
 def _joined(new: torch.Tensor, moments: Moments) -> Moments:
     """The moments of ``cat([new, x])`` from ``x``'s: ``new``'s reduced
     once, in front."""
-    m, sq = bn_batch_moments(new)
+    m, sq = _moments(new)
     return torch.cat([m, moments[0]]), torch.cat([sq, moments[1]])
 
 
@@ -136,7 +150,7 @@ class DenseNet(nn.Module):
         if not self.training:
             return self.folded_forward(self.fold(x.dtype), x)
         out = self.conv1(x.contiguous(memory_format=torch.channels_last))
-        moments = bn_batch_moments(out) if self.shared_stats else None
+        moments = _moments(out) if self.shared_stats else None
         for i in range(self.stages):
             dense, trans = self._stage(i)
             for layer in dense:
@@ -147,8 +161,7 @@ class DenseNet(nn.Module):
             if trans is not None:
                 out = trans(out, moments)
                 # a fresh tensor: the stack restarts from one chunk
-                moments = bn_batch_moments(out) if self.shared_stats \
-                    else None
+                moments = _moments(out) if self.shared_stats else None
         out = avg_pool(F.relu(self.bn(out, moments)), 4)
         return self.linear(out.flatten(1))
 

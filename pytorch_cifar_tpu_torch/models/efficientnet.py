@@ -50,6 +50,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     drop_connect,
     fold_conv_bn,
     folded_dense,
+    global_avg_pool,
     keep_mask,
     swish,
 )
@@ -74,9 +75,9 @@ class SE(nn.Module):
         self.se2 = conv(se_channels, in_channels, 1, bias=True)
 
     def forward(self, x):
-        w = x.mean(dim=(2, 3), keepdim=True)
-        w = torch.sigmoid(self.se2(swish(self.se1(w))))
-        return x * w
+        # the folded forward's arithmetic, on weights that keep their graph
+        # (a 1x1 conv of the squeezed map is no window op of a slab)
+        return _se_forward(self.fold(x.dtype), x)
 
     def fold(self, dtype) -> tuple:
         return tuple(t.to(dtype) for t in (self.se1.weight, self.se1.bias,
@@ -85,7 +86,7 @@ class SE(nn.Module):
 
 def _se_forward(f: tuple, x: torch.Tensor) -> torch.Tensor:
     w1, b1, w2, b2 = f
-    w = x.mean(dim=(2, 3), keepdim=True)
+    w = global_avg_pool(x, keepdim=True)
     w = torch.sigmoid(F.conv2d(swish(F.conv2d(w, w1, b1)), w2, b2))
     return x * w
 
@@ -175,7 +176,7 @@ class EfficientNet(nn.Module):
         x = x.contiguous(memory_format=torch.channels_last)
         out = swish(self.bn1(self.conv1(x)))
         out = self.layers(out)
-        out = out.mean(dim=(2, 3))
+        out = global_avg_pool(out)
         rate = self.cfg["dropout_rate"]
         if rate > 0:
             out = drop_connect(out, keep_mask(tuple(out.shape), 1.0 - rate),
@@ -202,7 +203,7 @@ class EfficientNet(nn.Module):
                       folded["stem"])
         for f in folded["blocks"]:
             out = _block_forward(f, out)
-        return folded_dense(out.mean(dim=(2, 3)), *folded["linear"])
+        return folded_dense(global_avg_pool(out), *folded["linear"])
 
 
 def EfficientNetB0(num_classes: int = 10) -> EfficientNet:

@@ -14,6 +14,12 @@ stride-1 3x3 followed by BN and ReLU, so every one goes through the fused
 13 and 16 launches a forward, down to 2x2 maps of 512 channels after the
 fourth pool.
 
+The pools go through ``common.max_pool`` and the flatten through
+``parallel.spatial.gather_slabs``: under a spatial partition the last pool's
+1x1 map belongs to one rank of each line (at two ranks a line, the second
+owns no row of it), and the linear reads it whole on every rank; elsewhere
+both are the plain ops, bit for bit.
+
 Golden param counts: VGG11 9,231,114 · VGG13 9,416,010 · VGG16
 14,728,266 · VGG19 20,040,522.
 """
@@ -35,6 +41,7 @@ from pytorch_cifar_tpu_torch.models.common import (
     folded_dense,
     max_pool,
 )
+from pytorch_cifar_tpu_torch.parallel.spatial import gather_slabs
 
 CFG = {
     "VGG11": (64, "M", 128, "M", 256, 256, "M", 512, 512, "M", 512, 512, "M"),
@@ -47,6 +54,28 @@ CFG = {
 }
 
 
+class _MaxPool(nn.MaxPool2d):
+    """The reference's ``MaxPool2d(2, 2)``, through ``common.max_pool`` (a
+    slab's pool under a spatial partition, the same call elsewhere)."""
+
+    def __init__(self):
+        super().__init__(2, 2)
+
+    def forward(self, x):
+        return max_pool(x, 2)
+
+
+class _Identity(nn.AvgPool2d):
+    """The reference's ``AvgPool2d(1, 1)``: its input, unchanged (a 1x1
+    window divides by 1), on a slab too."""
+
+    def __init__(self):
+        super().__init__(1, 1)
+
+    def forward(self, x):
+        return x
+
+
 class VGG(nn.Module):
     def __init__(self, cfg: Sequence[Union[int, str]],
                  num_classes: int = 10):
@@ -54,12 +83,12 @@ class VGG(nn.Module):
         layers, cin = [], 3
         for item in cfg:
             if item == "M":
-                layers.append(nn.MaxPool2d(2, 2))
+                layers.append(_MaxPool())
             else:
                 layers += [Conv2d(cin, item, 3, padding=1), batchnorm(item),
                            nn.ReLU()]
                 cin = item
-        layers.append(nn.AvgPool2d(1, 1))  # the reference's identity
+        layers.append(_Identity())
         self.features = nn.Sequential(*layers)
         # 512 in every registered configuration (the reference's constant)
         self.classifier = Linear(cin, num_classes)
@@ -68,7 +97,7 @@ class VGG(nn.Module):
         if not self.training:
             return self.folded_forward(self.fold(x.dtype), x)
         out = self.features(x.contiguous(memory_format=torch.channels_last))
-        return self.classifier(out.flatten(1))
+        return self.classifier(gather_slabs(out).flatten(1))
 
     def fold(self, dtype: torch.dtype) -> dict:
         """The eval-mode weights for ``dtype`` compute (see
@@ -97,7 +126,7 @@ class VGG(nn.Module):
         out = x.contiguous(memory_format=torch.channels_last)
         for f in folded["features"]:
             out = max_pool(out, 2) if f == "M" else conv_bn(out, f)
-        return folded_dense(out.flatten(1), *folded["linear"])
+        return folded_dense(gather_slabs(out).flatten(1), *folded["linear"])
 
 
 def VGG11(num_classes: int = 10) -> VGG:

@@ -79,11 +79,26 @@ from pytorch_cifar_tpu_torch.parallel.mesh import (
 SPATIAL_AXIS = "spatial"
 SPATIAL_W_AXIS = "spatial_w"
 
-# the models whose every layer takes the spatial paths, by registry name
-# and by class (the ResNet family shares one module)
-HELD_MODELS = ("ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152",
-               "LeNet", "GoogLeNet")
-_HELD_CLASSES = ("ResNet", "LeNet", "GoogLeNet")
+# the models whose every layer takes the spatial paths: every registry
+# name, and the classes they build
+HELD_MODELS = (
+    "ResNet18", "ResNet34", "ResNet50", "ResNet101", "ResNet152", "LeNet",
+    "GoogLeNet", "SimpleDLA", "DLA", "VGG11", "VGG13", "VGG16", "VGG19",
+    "PreActResNet18", "PreActResNet34", "PreActResNet50", "PreActResNet101",
+    "PreActResNet152", "ResNeXt29_2x64d", "ResNeXt29_4x64d",
+    "ResNeXt29_8x64d", "ResNeXt29_32x4d", "RegNetX_200MF", "RegNetX_400MF",
+    "RegNetY_400MF", "SENet18", "DenseNet121", "DenseNet161", "DenseNet169",
+    "DenseNet201", "DenseNetCifar", "DPN26", "DPN92", "MobileNet",
+    "MobileNetV2", "ShuffleNetG2", "ShuffleNetG3", "ShuffleNetV2_0.5",
+    "ShuffleNetV2_1", "ShuffleNetV2_1.5", "ShuffleNetV2_2", "PNASNetA",
+    "PNASNetB", "EfficientNetB0",
+)
+_HELD_CLASSES = (
+    "ResNet", "LeNet", "GoogLeNet", "SimpleDLA", "DLA", "VGG",
+    "PreActResNet", "ResNeXt", "RegNet", "SENet", "DenseNet", "DPN",
+    "MobileNet", "MobileNetV2", "ShuffleNet", "ShuffleNetV2", "PNASNet",
+    "EfficientNet",
+)
 
 
 def check_model(model) -> None:
@@ -671,10 +686,12 @@ def group_sum(x: torch.Tensor) -> torch.Tensor:
 
 def global_mean(x: torch.Tensor) -> torch.Tensor:
     """The mean of NCHW ``x`` over its whole map, ``(n, c)`` in ``x``'s
-    dtype, on every rank of the spatial group: the slab's fp32 sum (an
-    average pool accumulates in fp32 too), summed over the group."""
+    dtype, on every rank of the spatial group: the slab's sum in fp32 at
+    least (an average pool accumulates in fp32 too), summed over the
+    group."""
     h, w = _ACTIVE.get().extent_of(x)
-    return (group_sum(x.float().sum(dim=(2, 3))) / (h * w)).to(x.dtype)
+    acc = x.to(torch.promote_types(x.dtype, torch.float32))
+    return (group_sum(acc.sum(dim=(2, 3))) / (h * w)).to(x.dtype)
 
 
 def covers_map(x: torch.Tensor, window: int, padding: int) -> bool:
@@ -713,7 +730,8 @@ def pool_moments(x: torch.Tensor, moments):
     n_total = x.shape[0] * act.part.mesh.data * h * w
     if n_local == 0:
         # no mean to weight: the sums are zeros, kept in the graph
-        s1 = s2 = x.float().sum(dim=(0, 2, 3))
+        s1 = s2 = x.to(torch.promote_types(x.dtype, torch.float32)).sum(
+            dim=(0, 2, 3))
     else:
         s1, s2 = (m * n_local for m in moments)
     _count(bn_reductions=1)

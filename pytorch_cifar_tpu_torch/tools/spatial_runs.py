@@ -13,20 +13,25 @@ data shard of a seeded global batch, takes one spatial step
 (``make_train_step(spatial=)``) on it, then ``reps`` more to time it;
 rank 0 then runs the one-process eval forward and step on the whole batch
 from the same start and times the step too. TF32 is off in the ranks, so
-the two sides differ only by the order of their sums. Each rank reports
-its logits, its state's SHA-256 (params and buffers), the compared step's
-metrics and spatial counters (``parallel.spatial.COUNTS``: halo
-exchanges, their rows and bytes), its K3 / K4 launches and its step's
-ms; rank 0 the one-process step's metrics and the largest differences
-from it. A rank's timing window opens and closes on an all-reduce that
-the card finishes before the clock reads (:func:`_fence`), so every rank
-of the synchronous step times the same steps.
+the two sides differ only by the order of their sums. A spec's step
+computes in fp32 or float64 (fp32 parameters either way; the eval forward
+is fp32). Each rank reports its logits, its state's SHA-256 (params and
+buffers), the compared step's metrics and spatial counters
+(``parallel.spatial.COUNTS``: halo exchanges, their rows and bytes), its
+eval forward's K3 / K4 / K5 launches, its step's K4 launches and its
+step's ms; rank 0 the one-process step's metrics and the largest
+differences from it, and with ``noise`` how far one process's step in
+the other dtype lands from it. A rank's timing window opens and closes
+on an all-reduce that the card finishes before the clock reads
+(:func:`_fence`), so every rank of the synchronous step times the same
+steps. :data:`ZOO` names one model a family, and its step's dtype, for
+``chip_smoke.py --only spatial_zoo``.
 
-:func:`slab_shapes` gives the extended slabs a stride-1 3x3 kernel (K3,
-K4) runs on over a mesh, for ``chip_smoke.py``'s kernel checks there.
+:func:`slab_shapes` gives the extended slabs a stride-1 kernel (K3, K4,
+K5) runs on over a mesh, for ``chip_smoke.py``'s kernel checks there.
 
 :func:`fit_argv` is the train CLI's spatial run: ResNet-18 at full width,
-b512, bf16, device data, K1, 2 epochs on ``synthetic_cifar10(10240,
+b512, bf16, device data, K1, 2 epochs on ``synthetic_cifar10(5120,
 2048)``. The CLI alone prints each comparison and exits non-zero when one
 is out of tolerance (loss rtol 1e-5, params atol 5e-4, BN stats atol
 1e-5: JAX's ``tests/test_spatial.py``; the eval logits rtol 1e-3, atol
@@ -36,6 +41,7 @@ is out of tolerance (loss rtol 1e-5, params atol 5e-4, BN stats atol
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -47,15 +53,44 @@ import torch
 
 from pytorch_cifar_tpu_torch.tools._bench import card_line
 
-TRAIN_N, TEST_N = 10_240, 2_048
+TRAIN_N, TEST_N = 5_120, 2_048
 LOSS_RTOL, PARAM_ATOL, BN_ATOL = 1e-5, 5e-4, 1e-5
 LOGIT_RTOL, LOGIT_ATOL = 1e-3, 1e-4  # fp32 served logits' (PERF.md §2)
 
 
 def step_spec(model: str, mesh, batch: int, augment: bool,
-              reps: int = 3, seed: int = 0) -> dict:
+              reps: int = 3, seed: int = 0, compute: str = "float32",
+              noise: bool = False, library_pools: bool = False) -> dict:
+    """One comparison: ``model`` at full width over ``mesh``, a global
+    batch of ``batch``, its step in ``compute`` (``"float32"`` or
+    ``"float64"``: fp32 parameters either way); with ``noise`` rank 0
+    also takes the one-process step in the other dtype from the same
+    start and reports how far the two land apart (the step's own
+    conditioning). ``library_pools``: both sides' steps take their 3x3 /
+    stride 1 pools from ``F.max_pool2d`` (on the slab as K4 would run, so
+    the seam is the same; K4 takes no float64), the eval forward K4's."""
     return {"model": model, "mesh": tuple(mesh), "batch": batch,
-            "augment": augment, "reps": reps, "seed": seed}
+            "augment": augment, "reps": reps, "seed": seed,
+            "compute": compute, "noise": noise,
+            "library_pools": library_pools}
+
+
+# one registry name a model family, at full width, and its step's compute
+# (``chip_smoke.py --only spatial_zoo``): the families held beside ResNet,
+# LeNet and GoogLeNet. float64 where one process's fp32 step at b64 lands
+# over half the 5e-4 tolerance from its own float64 step (PERF.md §6): the
+# spatial step's distance is then that conditioning, not the cut.
+# PNASNetB's fp32 step lands 5.5e-3-2.4e-2 from its float64 one at b32-b256,
+# so it steps in float64 with the library's pools (:data:`LIBRARY_POOLS`)
+ZOO = {"SimpleDLA": "float64", "DLA": "float64", "VGG16": "float64",
+       "PreActResNet18": "float32", "ResNeXt29_2x64d": "float64",
+       "RegNetX_200MF": "float64", "RegNetY_400MF": "float64",
+       "SENet18": "float32", "DenseNet121": "float32", "DPN26": "float32",
+       "MobileNet": "float64", "MobileNetV2": "float64",
+       "ShuffleNetG2": "float64", "ShuffleNetV2_1": "float64",
+       "PNASNetA": "float32", "PNASNetB": "float64",
+       "EfficientNetB0": "float32"}
+LIBRARY_POOLS = ("PNASNetB",)
 
 
 def fit_argv(out_dir: str, spatial: int = 2, spatial_w: int = 1) -> list:
@@ -74,6 +109,13 @@ def _digest(model) -> str:
     for t in list(model.parameters()) + list(model.buffers()):
         h.update(t.detach().contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def _dtype(spec, other: bool = False):
+    name = spec["compute"]
+    if other:
+        name = "float64" if name == "float32" else "float32"
+    return getattr(torch, name)
 
 
 def _state(spec, device):
@@ -100,17 +142,18 @@ def _batch(spec, device, rows=slice(None)):
             torch.from_numpy(y[rows]).to(device))
 
 
-def slab_shapes(h: int, w: int, mesh) -> list:
-    """The distinct ``(rows, cols)`` of the slabs a stride-1 3x3 kernel
-    (K3, K4) runs on, over the ranks of a ``(data, spatial, spatial_w)``
-    mesh, for an ``h x w`` map: each cut dimension extended by a row a
-    side (``spatial.same_op``'s halo), of ranks that own an output row."""
+def slab_shapes(h: int, w: int, mesh, k: int = 3) -> list:
+    """The distinct ``(rows, cols)`` of the slabs a stride-1 ``k x k``
+    kernel (K3 and K4 at 3, K5 at 3, 5 and 7) runs on, over the ranks of
+    a ``(data, spatial, spatial_w)`` mesh, for an ``h x w`` map: each cut
+    dimension extended by ``k // 2`` rows a side (``spatial.same_op``'s
+    halo), of ranks that own an output row."""
     from pytorch_cifar_tpu_torch.parallel.spatial import rows_needed
 
     def extended(extent, n):
         if n == 1:
             return {extent}
-        rows = (rows_needed(3, 1, 1, extent, i, n) for i in range(n))
+        rows = (rows_needed(k, 1, k // 2, extent, i, n) for i in range(n))
         return {r.need[1] - r.need[0] for r in rows if r.out[0] < r.out[1]}
 
     _, s, sw = mesh
@@ -146,8 +189,62 @@ def _sd(model) -> dict:
             if not k.endswith("num_batches_tracked")}
 
 
+def _launches() -> tuple:
+    """K3, K4 forward, K4 backward and K5 launches so far."""
+    from pytorch_cifar_tpu_torch.ops import (
+        conv_bn_relu,
+        depthwise_stencil,
+        max_pool,
+    )
+
+    return (conv_bn_relu.LAUNCHES, max_pool.FWD_LAUNCHES,
+            max_pool.BWD_LAUNCHES, depthwise_stencil.LAUNCHES)
+
+
+def _since(before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(_launches(), before))
+
+
+@contextlib.contextmanager
+def _pools(library: bool):
+    """Within the block the models' 3x3 / stride 1 pools run
+    ``F.max_pool2d`` when ``library`` (a yardstick: K4 takes bf16 and
+    fp32), else K4."""
+    from pytorch_cifar_tpu_torch.models import common
+    from pytorch_cifar_tpu_torch.tools._bench import library_pool
+
+    kernel_pool = common.max_pool3x3_s1
+    if library:
+        common.max_pool3x3_s1 = library_pool
+    try:
+        yield
+    finally:
+        common.max_pool3x3_s1 = kernel_pool
+
+
+def _noise_step(spec, state, batch, device) -> None:
+    """One process's step in the spec's other compute dtype, for the
+    step's own conditioning (a float64 step with the library's pools)."""
+    from pytorch_cifar_tpu_torch.train.steps import make_train_step
+
+    dtype = _dtype(spec, other=True)
+    with _pools(dtype == torch.float64):
+        make_train_step(augment=spec["augment"], compute_dtype=dtype,
+                        device=device)(state, batch)
+
+
+def _diffs(got: dict, want: dict) -> dict:
+    """The largest differences of two state dicts: parameters (and where),
+    BN running stats."""
+    diff = {k: (got[k] - want[k]).abs().max().item() for k in want}
+    params = [k for k in want if "running" not in k]
+    worst = max(params, key=diff.get)
+    return {"param_max_abs_diff": diff[worst], "param_worst": worst,
+            "bn_max_abs_diff": max(v for k, v in diff.items()
+                                   if "running" in k)}
+
+
 def _run_spec(spec, device) -> dict:
-    from pytorch_cifar_tpu_torch.ops import conv_bn_relu, max_pool
     from pytorch_cifar_tpu_torch.parallel import spatial
     from pytorch_cifar_tpu_torch.parallel.mesh import rank
     from pytorch_cifar_tpu_torch.train.steps import (
@@ -159,23 +256,25 @@ def _run_spec(spec, device) -> dict:
     n = spec["batch"] // part.mesh.data
     state = _state(spec, device)
     step = make_train_step(augment=spec["augment"], spatial=part,
-                           device=device)
+                           compute_dtype=_dtype(spec), device=device)
     batch = _batch(spec, device, slice(part.d * n, (part.d + 1) * n))
-    k3 = conv_bn_relu.LAUNCHES
+    before = _launches()
     logits = make_eval_forward(spatial=part, device=device)(state, batch[0])
+    k3, k4f, _, k5 = _since(before)
     out = {"spec": spec, "rank": rank(), "coords": (part.d, part.s, part.w),
            "logits": logits.float().cpu(),
-           "k3_launches": conv_bn_relu.LAUNCHES - k3}
+           "eval_launches": {"k3": k3, "k4": k4f, "k5": k5}}
     spatial.reset_counts()
-    k4 = (max_pool.FWD_LAUNCHES, max_pool.BWD_LAUNCHES)
-    m = {k: float(v) for k, v in step(state, batch).items()}
-    torch.cuda.synchronize(device)
-    out.update({"metrics": m, "counts": dict(spatial.COUNTS),
-                "k4_launches": (max_pool.FWD_LAUNCHES - k4[0],
-                                max_pool.BWD_LAUNCHES - k4[1]),
-                "digest": _digest(state.model)})
-    got = _sd(state.model) if rank() == 0 else None
-    out["step_ms"] = _timed(step, state, batch, spec["reps"], device)
+    with _pools(spec["library_pools"]):
+        before = _launches()
+        m = {k: float(v) for k, v in step(state, batch).items()}
+        torch.cuda.synchronize(device)
+        _, k4f, k4b, _ = _since(before)
+        out.update({"metrics": m, "counts": dict(spatial.COUNTS),
+                    "k4_launches": (k4f, k4b),
+                    "digest": _digest(state.model)})
+        got = _sd(state.model) if rank() == 0 else None
+        out["step_ms"] = _timed(step, state, batch, spec["reps"], device)
     del state, step, batch
     torch.cuda.empty_cache()
     if rank() == 0:
@@ -184,22 +283,25 @@ def _run_spec(spec, device) -> dict:
         ref = _state(spec, device)
         whole = _batch(spec, device)
         ref_logits = make_eval_forward(device=device)(ref, whole[0])
-        one = make_train_step(augment=spec["augment"], device=device)
-        rm = {k: float(v) for k, v in one(ref, whole).items()}
-        want = _sd(ref.model)
+        one = make_train_step(augment=spec["augment"],
+                              compute_dtype=_dtype(spec), device=device)
+        with _pools(spec["library_pools"]):
+            rm = {k: float(v) for k, v in one(ref, whole).items()}
+            want = _sd(ref.model)
+            one_ms = _timed(one, ref, whole, spec["reps"], device,
+                            collective=False)
+        if spec["noise"]:
+            other = _state(spec, device)
+            _noise_step(spec, other, whole, device)
+            out["noise"] = _diffs(_sd(other.model), want)
+            del other
         out["one_process"] = {
             "metrics": rm,
             "logits": ref_logits.float().cpu(),
             "loss_rel_diff": abs(m["loss_sum"] - rm["loss_sum"])
             / abs(rm["loss_sum"]),
-            "param_max_abs_diff": max(
-                (got[k] - want[k]).abs().max().item() for k in want
-                if "running" not in k),
-            "bn_max_abs_diff": max(
-                (got[k] - want[k]).abs().max().item() for k in want
-                if "running" in k),
-            "step_ms": _timed(one, ref, whole, spec["reps"], device,
-                              collective=False),
+            **_diffs(got, want),
+            "step_ms": one_ms,
         }
         del ref, one, whole
         torch.cuda.empty_cache()

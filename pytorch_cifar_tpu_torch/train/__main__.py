@@ -65,9 +65,9 @@ or the job's) is ``data x S x W`` ranks, and the global batch divides over
 the ``data`` axis. Each rank trains on its slab, with halo exchanges at
 every conv and pool and BN moments pooled over every rank; the step equals
 one process's on the global batch. S and W must divide 32 and their
-product the world; W > 1 needs the device-resident data plane. ResNet,
-LeNet and GoogLeNet are held; another model raises
-``NotImplementedError``.
+product the world; W > 1 needs the device-resident data plane. Every
+model of the registry is held (the default, SimpleDLA, too); a model
+outside it raises ``NotImplementedError``.
 
 Elastic training (``train/elastic.py``):
 

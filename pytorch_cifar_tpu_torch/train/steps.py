@@ -34,6 +34,8 @@ height (and width) cut over its spatial group, and the step equals a
 one-process step on the global batch, as JAX's global-semantics step under
 GSPMD does. Every rank draws the global batch's augmentation, crops and
 flips its data shard's whole images and only then cuts its slab; the
+model's masks (EfficientNet's) are the global batch's draws too, this data
+shard's rows; the
 layers exchange halos and pool BN moments over every rank
 (``models.common``), the spatial context set inside the forward so that a
 ``remat`` recompute exchanges again. Each rank's loss is its data shard's
@@ -256,6 +258,23 @@ class _UpdateGuard:
                 torch._foreach_copy_(views, new_parts)
 
 
+def _model_draws(state: TrainState, shard, spatial) -> Callable:
+    """This step's draw function for the model: the rank's (``shard``
+    folded in) or, under a spatial partition, the one-process step's
+    draws for the global batch, cut to this data shard's rows, as the
+    augmentation is: every rank of a spatial group draws the same masks."""
+    if spatial is None:
+        return state.model_draws(shard)
+    draw = state.model_draws()
+    d, n_shards = spatial.d, spatial.mesh.data
+
+    def draws(shape, keep):
+        n = shape[0]
+        return draw((n * n_shards, *shape[1:]), keep)[d * n:(d + 1) * n]
+
+    return draws
+
+
 def _train_forward(state: TrainState, x: torch.Tensor, shard, sync_axis,
                    remat: bool, spatial=None) -> torch.Tensor:
     """The model's train forward on NCHW ``x``: its draws from this
@@ -273,7 +292,7 @@ def _train_forward(state: TrainState, x: torch.Tensor, shard, sync_axis,
 
     def run(x):
         with sync_batchnorm(sync_axis), \
-                stochastic_draws(state.model_draws(shard)), \
+                stochastic_draws(_model_draws(state, shard, spatial)), \
                 spatial_partition(spatial):
             return model(mark_input(x))
 

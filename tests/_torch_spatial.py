@@ -12,14 +12,18 @@ job's world:
 - ``step``: spatial train steps (``make_train_step(spatial=...)``) from
   the given ``state_dict``, each rank on its data shard's whole images of
   every global batch; returns the state, each step's metrics and the
-  spatial counters of the steps;
+  spatial counters of the steps; with ``count_moments`` the batch moments
+  go through a hook (where kernel K2 plugs in) that records the element
+  count of each input it is handed;
 - ``eval``: the spatial eval epoch's metric totals (``make_eval_epoch``
   with the spatial shardings);
 - ``op``: one layer of ``models.common`` (a conv, a max or average pool,
-  a pool over the whole map, a flatten's gather) on this rank's slab of a
-  given input under ``spatial_partition``, and its gradient for a given
-  cotangent; returns the slab's box, the output slab and the input
-  gradient's slab.
+  a pool over the whole map, a flatten's gather, a folded depthwise
+  stencil site, a channel shuffle) on this rank's slab of a given input
+  under ``spatial_partition``, and its gradient for a given cotangent;
+  returns the slab's box, the output slab and the input gradient's slab;
+- ``draws``: the model's masks a spatial train step draws at a given
+  step (``steps._model_draws``), for the given shapes in order.
 """
 
 import os
@@ -98,6 +102,7 @@ def _rows(arr, part):
 def task_step(t, job_dir):
     import torch
 
+    from pytorch_cifar_tpu_torch.models import common
     from pytorch_cifar_tpu_torch.parallel import spatial
     from pytorch_cifar_tpu_torch.train import steps
 
@@ -108,14 +113,30 @@ def task_step(t, job_dir):
         compute_dtype=getattr(torch, t.get("compute", "float32")),
         device="cpu")
     spatial.reset_counts()
-    metrics = []
-    for x, y in t["batches"]:
-        m = step(state, (_rows(x, part), _rows(y, part)))
-        metrics.append({k: float(v) for k, v in m.items()})
+    metrics, sizes = [], []
+    with common.bn_moments_impl(_counted_moments(sizes)
+                                if t.get("count_moments") else None):
+        for x, y in t["batches"]:
+            m = step(state, (_rows(x, part), _rows(y, part)))
+            metrics.append({k: float(v) for k, v in m.items()})
     return {"sd": {k: v.detach().clone()
                    for k, v in state.model.state_dict().items()},
             "metrics": metrics, "counts": dict(spatial.COUNTS),
-            "coords": (part.d, part.s, part.w)}
+            "coords": (part.d, part.s, part.w), "moment_sizes": sizes}
+
+
+def _counted_moments(sizes):
+    """A batch-moments function (``common.bn_moments_impl``, where kernel
+    K2 plugs in) that records the element count of every input it is
+    handed in ``sizes``."""
+    import torch
+
+    def moments(x):
+        sizes.append(x.numel())
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        return xf.mean(dim=(0, 1, 2)), (xf * xf).mean(dim=(0, 1, 2))
+
+    return moments
 
 
 def task_eval(t, job_dir):
@@ -164,6 +185,19 @@ def _layer(t):
         return common.global_avg_pool
     if op["kind"] == "gather":
         return gather_slabs
+    if op["kind"] == "stencil":
+        c, k = op["weight"].shape[0], op["weight"].shape[-1]
+        conv = common.Conv2d(c, c, k, padding=k // 2, groups=c, bias=False)
+        bn = common.BatchNorm(c).eval()
+        with torch.no_grad():
+            conv.weight.copy_(torch.from_numpy(op["weight"]))
+            bn.weight.copy_(torch.from_numpy(op["scale"]))
+            bn.bias.copy_(torch.from_numpy(op["shift"]))
+        site = common.fold_conv_bn(conv, bn, torch.float32, act=common.RELU)
+        assert site.stencil
+        return lambda x: common.conv_bn(x, site)
+    if op["kind"] == "shuffle":
+        return lambda x: common.channel_shuffle(x, op["groups"])
     raise ValueError(op["kind"])
 
 
@@ -204,7 +238,26 @@ def task_op(t, job_dir):
             "counts": dict(spatial.COUNTS)}
 
 
-TASKS = {"step": task_step, "eval": task_eval, "op": task_op}
+def task_draws(t, job_dir):
+    import torch
+
+    from pytorch_cifar_tpu_torch.models import create_model
+    from pytorch_cifar_tpu_torch.train import optim, steps
+    from pytorch_cifar_tpu_torch.train.state import create_train_state
+
+    part = _partition(t)
+    model = create_model("LeNet")
+    state = create_train_state(
+        model, optim.make_optimizer(model.parameters(), lr=0.1),
+        optim.cosine_epoch_schedule(0.1, 4, 3), seed=t["seed"],
+        device="cpu")
+    state.step = t["step"]
+    draw = steps._model_draws(state, part.d, part)
+    return [draw(tuple(shape), keep) for shape, keep in t["draws"]]
+
+
+TASKS = {"step": task_step, "eval": task_eval, "op": task_op,
+         "draws": task_draws}
 
 
 def _worker(rank, world, port, job_dir):

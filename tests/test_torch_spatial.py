@@ -62,13 +62,22 @@ from pytorch_cifar_tpu_torch.train import optim, steps
 from pytorch_cifar_tpu_torch.train.state import create_train_state
 from _torch_ckpt import jax_model
 from _torch_spatial import run_job
+from _torch_spatial_zoo import (
+    BN_ATOL,
+    F64_LOSS_RTOL,
+    F64_STATE_ATOL,
+    F64_STATE_RTOL,
+    LOSS_RTOL,
+    LR,
+    PARAM_ATOL,
+    SPE,
+    T_MAX,
+    assert_state as _assert_state,
+    batch as _batch,
+    ranks_agree as _ranks_agree,
+    weights as _weights,
+)
 from _torch_threads import torch_threads  # noqa: F401
-
-LOSS_RTOL, PARAM_ATOL, BN_ATOL = 1e-5, 5e-4, 1e-5
-# float64 compute, fp32 parameters and buffers: the loss to float64's
-# reach, the state to one fp32 rounding of the update
-F64_LOSS_RTOL, F64_STATE_RTOL, F64_STATE_ATOL = 1e-9, 1e-6, 1e-7
-LR, T_MAX, SPE = 0.1, 4, 3
 MESHES = {"1x2x1": (1, 2, 1), "1x2x2": (1, 2, 2), "2x2x1": (2, 2, 1)}
 # LeNet's taller cuts: over 4 ranks its 5-row map splits 2 / 2 / 1 / 0;
 # over 8 the last rank owns no row of any map after the first conv's
@@ -76,44 +85,6 @@ MESHES = {"1x2x1": (1, 2, 1), "1x2x2": (1, 2, 2), "2x2x1": (2, 2, 1)}
 TALL = {"1x4x1": (1, 4, 1), "1x8x1": (1, 8, 1)}
 ALL_MESHES = {**MESHES, **TALL}
 GLOBAL = 16
-
-
-def _random_trees(name, seed):
-    """(params, batch_stats) as numpy: fan-in-scaled kernels, non-trivial
-    biases, BN affine and running stats."""
-    jm = jax_model(name)
-    shapes = jax.eval_shape(lambda: jm.init(
-        jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False))
-    rs = np.random.RandomState(seed)
-
-    def leaf(path, s):
-        key = path[-1].key
-        if key == "kernel":
-            bound = 1.0 / np.sqrt(np.prod(s.shape[:-1]))
-            return rs.uniform(-bound, bound, s.shape).astype(np.float32)
-        if key in ("scale", "var"):
-            return rs.uniform(0.5, 1.5, s.shape).astype(np.float32)
-        return (0.1 * rs.standard_normal(s.shape)).astype(np.float32)
-
-    return (jax.tree_util.tree_map_with_path(leaf, shapes["params"]),
-            jax.tree_util.tree_map_with_path(
-                leaf, shapes.get("batch_stats", {})))
-
-
-@functools.lru_cache(maxsize=None)
-def _weights(name, seed):
-    params, stats = _random_trees(name, seed)
-    sd = state_dict_from_jax(name, params, stats, model=create_model(name))
-    return params, stats, {k: torch.from_numpy(np.array(v))
-                           for k, v in sd.items()}
-
-
-def _batch(n, seed):
-    rs = np.random.RandomState(seed)
-    x = rs.randint(0, 256, (n, 32, 32, 3)).astype(np.uint8)
-    y = rs.randint(0, 10, n).astype(np.int32)
-    y[-2:] = -1
-    return x, y
 
 
 SEEDS = {"ResNet18": 1, "GoogLeNet": 2, "LeNet": 3}
@@ -222,24 +193,6 @@ def _one_process(task):
         for x, y in _batches(task)]
     return ({k: v.detach().clone() for k, v in model.state_dict().items()},
             metrics)
-
-
-def _assert_state(got, want, param_atol, bn_atol, rtol=0.0):
-    for k, w in want.items():
-        if k.endswith("num_batches_tracked"):
-            continue
-        atol = bn_atol if "running" in k else param_atol
-        np.testing.assert_allclose(np.asarray(got[k], np.float64),
-                                   np.asarray(w, np.float64), rtol=rtol,
-                                   atol=atol, err_msg=k)
-
-
-def _ranks_agree(results):
-    """Every rank holds the same state and metrics, bit for bit."""
-    for r in results[1:]:
-        assert r["metrics"] == results[0]["metrics"]
-        for k, v in results[0]["sd"].items():
-            assert torch.equal(r["sd"][k], v), k
 
 
 @functools.lru_cache(maxsize=None)

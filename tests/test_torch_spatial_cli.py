@@ -4,7 +4,8 @@
   divide the world, each factor the 32-pixel image, and ``spatial_w > 1``
   needs the device-resident data plane; the port's trainer raises the
   first in one process, and the CLI refuses a model it does not hold
-  with ``NotImplementedError`` naming it before a rank starts.
+  (one registered beside the registry's, which it holds whole) with
+  ``NotImplementedError`` naming it before a rank starts.
 - ``local_slab`` gives each rank the batch and height ranges of JAX's
   spatial sharding for its device, and the host loader's height slabs are
   the rows of the JAX loader's host-augmented global batch.
@@ -13,7 +14,8 @@
   one-process ``--evaluate`` restores to the run's best accuracy and eval
   loss, and every rank holding the same history; 4 ranks at
   ``--spatial_devices 2 --spatial_w_devices 2``; 2 ranks on the host
-  loader's height slabs (``--no-device_data --host_augment``).
+  loader's height slabs (``--no-device_data --host_augment``); and the
+  CLI's default model, SimpleDLA, on 2 ranks at ``--spatial_devices 2``.
 """
 
 import os
@@ -28,6 +30,8 @@ from pytorch_cifar_tpu.parallel.spatial import (
 )
 from pytorch_cifar_tpu_torch.config import TrainConfig
 from pytorch_cifar_tpu_torch.data.pipeline import Dataloader, local_slab
+from pytorch_cifar_tpu_torch.models import MODEL_REGISTRY
+from pytorch_cifar_tpu_torch.models.resnet import BasicBlock, ResNet
 from pytorch_cifar_tpu_torch.train.__main__ import main as train_main
 from pytorch_cifar_tpu_torch.train.trainer import (
     Trainer,
@@ -75,11 +79,17 @@ def test_one_process_trainer_refuses_a_spatial_run(tmp_path):
                             output_dir=str(tmp_path)))
 
 
-def test_cli_refuses_a_model_it_does_not_hold(tmp_path):
+def test_cli_refuses_a_model_it_does_not_hold(tmp_path, monkeypatch):
+    """Every registry name is held; a model registered beside them (a
+    ResNet of one block a stage, as the lifecycle tests register it) is
+    refused by name before a rank starts."""
+    monkeypatch.setitem(
+        MODEL_REGISTRY, "ResNetTiny",
+        lambda num_classes=10: ResNet(BasicBlock, (1, 1, 1, 1), num_classes))
     argv = LENET + ["--num_devices", "2", "--spatial_devices", "2",
                     "--output_dir", str(tmp_path)]
-    argv[argv.index("LeNet")] = "VGG16"
-    with pytest.raises(NotImplementedError, match="VGG16"):
+    argv[argv.index("LeNet")] = "ResNetTiny"
+    with pytest.raises(NotImplementedError, match="ResNetTiny"):
         train_main(argv)
 
 
@@ -160,6 +170,25 @@ def test_lenet_cli_cuts_height_and_width(tmp_path):
     h = res["ranks"][0]["history"][0]
     assert h["train"]["count"] == 256 and h["eval"]["count"] == 64
     assert np.isfinite(h["train_loss"]) and 0.0 <= res["best_acc"] <= 100.0
+
+
+def test_default_model_cli_trains_on_two_ranks(tmp_path):
+    """No ``--model``: the CLI's default, SimpleDLA, trains at
+    ``--spatial_devices 2`` on two gloo ranks, which log the same
+    history."""
+    argv = [a for a in LENET if a not in ("--model", "LeNet")]
+    for flag, value in (("--synthetic_train_size", "32"),
+                        ("--synthetic_test_size", "16"),
+                        ("--batch_size", "16"), ("--eval_batch_size", "16")):
+        argv[argv.index(flag) + 1] = value
+    res = train_main(argv + ["--num_devices", "2", "--spatial_devices", "2",
+                             "--output_dir", str(tmp_path)])
+    ranks = res["ranks"]
+    assert [r["world"] for r in ranks] == [2, 2]
+    _same_history(ranks)
+    h = ranks[0]["history"][0]
+    assert h["train"]["count"] == 32 and h["eval"]["count"] == 16
+    assert np.isfinite(h["train_loss"]) and np.isfinite(h["eval_loss"])
 
 
 def test_lenet_cli_on_host_loader_height_slabs(tmp_path):

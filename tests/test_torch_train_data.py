@@ -322,16 +322,23 @@ def test_unported_models_say_so():
 
 
 def test_unported_step_options_raise():
-    """Spatial partitioning holds the ResNet family, LeNet and GoogLeNet
-    (``tests/test_torch_spatial.py``); asked for another model, it raises
-    naming it, by registry name or by module. The epoch programs take the
+    """Spatial partitioning holds every model of the registry
+    (``tests/test_torch_spatial.py``, ``tests/test_torch_spatial_zoo*.py``),
+    by registry name and by module; asked for a model outside it, it
+    raises naming it, by name or by module. The epoch programs take the
     spatial module's shardings and nothing else."""
+    from pytorch_cifar_tpu_torch.models import available_models
     from pytorch_cifar_tpu_torch.parallel import spatial
 
-    with pytest.raises(NotImplementedError, match="VGG16 is not ported yet"):
-        spatial.check_model("VGG16")
-    with pytest.raises(NotImplementedError, match="MobileNet is not ported"):
-        spatial.check_model(create_model("MobileNet"))
+    class TinyNet(torch.nn.Module):
+        pass
+
+    assert sorted(spatial.HELD_MODELS) == available_models()
+    with pytest.raises(NotImplementedError,
+                       match="ResNetTiny is not ported yet"):
+        spatial.check_model("ResNetTiny")
+    with pytest.raises(NotImplementedError, match="TinyNet is not ported"):
+        spatial.check_model(TinyNet())
     for name in spatial.HELD_MODELS:
         spatial.check_model(name)
         spatial.check_model(create_model(name))
