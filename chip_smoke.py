@@ -345,13 +345,13 @@ and 35 after phase 18:
     ``rejected == 4``, ``promotions == 1``, no failed client request, K3
     launched 6 times a forward of the launcher's two engines; interactive
     p50/p99 idle and while a candidate is vetted, ``canary.golden_ms`` and
-    ``canary.promote_ms``. Then one pipeline run (``--epochs 3``, the
-    trainer child on the same card, 2 clients): exit 0, at least one
-    promotion, no failed request; the trainer's img/s from its
-    ``train.log``, the card's peak memory in use
-    (``torch.cuda.mem_get_info``) and the serving process's
-    ``max_memory_allocated``. (The same trainer run alone beside it was
-    cut to make room for phase 42.)
+    ``canary.promote_ms``. Beside all of it from the phase's start, one
+    pipeline run (``--epochs 3``, the trainer child on the same card, 2
+    clients): exit 0, at least one promotion, no failed request; the
+    trainer's img/s from its ``train.log``, the card's peak memory in use
+    (``torch.cuda.mem_get_info``, the drill's processes included) and the
+    serving process's ``max_memory_allocated``. (The same trainer run
+    alone beside it was cut to make room for phase 42.)
 
 The int8 lane and the multi-tenant zoo server, after phase 35:
 
@@ -471,15 +471,19 @@ The cold-start cache, after phase 40:
     process's bits; the next one takes the other 3 buckets from the cache
     and leaves the tombstone.
 
-The port's drill, after phase 41:
+The port's drill, beside phases 40 and 41 (started just before phase 40,
+on a thread; so their printed seconds are taken beside the drill's
+children):
 
 42. chaos: ``python -m pytorch_cifar_tpu_torch.tools.chaos_run`` as two
     child processes side by side at ResNet-18 (fp32 trainer children,
-    5,120 / 1,024 images, batch 128): ``--mode sigkill --epochs 3`` must
-    print ``"match": true`` at 1e-6, with the kill inside the run (rc -9,
-    the resume starting above epoch 0 and below the last); ``--mode serve
-    --epochs 2`` must print ``"match": true``, and its relaunched serving
-    process (bf16, buckets 1/4/8) must have launched K3 6 times a forward,
+    batch 128; each drill trains its reference beside its chaos run, or
+    its two checkpoints side by side): ``--mode sigkill --epochs 3`` on
+    5,120 / 1,024 images must print ``"match": true`` at 1e-6, with the
+    kill inside the run (rc -9, the resume starting above epoch 0 and
+    below the last); ``--mode serve --epochs 1`` on 1,024 / 256 images
+    must print ``"match": true``, and its relaunched serving process
+    (bf16, buckets 1/4/8) must have launched K3 6 times a forward,
     warm-ups included.
 
 Serving over a device group, after phase 42:
@@ -601,7 +605,17 @@ K3, K4 and K5 as one process's forward does, and one step against one
 process's (in float64 compute where ``ZOO`` says so; one process's fp32
 step against its float64 one printed as the step's own noise where K4,
 which takes bf16 and fp32, is not on the path); each family's halo
-exchanges and bytes a step on each rank.
+exchanges and bytes a step on each rank. ``--only drill`` runs phases 1,
+2 and the drill's fleet modes one after another, ``python -m
+pytorch_cifar_tpu_torch.tools.chaos_run --mode router|zoo|elastic|rollout``
+(``DRILL_MODES``: ResNet-18 replicas in bf16 from a one-epoch checkpoint
+of a cut split; the zoo's LeNet, MobileNet and VGG11), each to exit 0 with
+``"match": true``; from the launchers' records each mode keeps in its
+work dir, every drained ResNet-18 replica must have launched K3 6 times a
+forward (warm-ups included) and the zoo's survivor K3 and K5 as its VGG11
+(8 K3) and MobileNet (1 K3 + 9 K5) forwards do; no replica may outlive its
+mode. Prints one ``drill_<mode>`` line each (the record, the seconds, the
+drained replicas' launches).
 
 It prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true,
 "device": ...}`` line — only when every phase passed. Without CUDA, or
@@ -3798,60 +3812,66 @@ def _pipeline_checks(tag: str, rec: dict, fails: Failures) -> None:
 
 def phase_canary(smi: str, fails: Failures) -> dict:
     """The canary drill and one pipeline run, through the port's launcher
-    (phase 35)."""
+    (phase 35). The pipeline run needs nothing of the drill and runs
+    beside it from the phase's start; the drill's launcher starts (its
+    imports, A's warm-up) while B trains."""
     from pytorch_cifar_tpu_torch.serve import InferenceEngine
     from pytorch_cifar_tpu_torch.train.checkpoint import (
         CKPT_NAME, ensure_staging_dir, publish_checkpoint, read_meta)
     from pytorch_cifar_tpu_torch.train.trainer import Trainer
 
+    def fit(config) -> None:
+        tr = Trainer(config)
+        try:
+            tr.fit()
+        finally:
+            tr.close()
+
     root = run_dir("canary_")
     out: dict = {"card": smi, "model": LIFECYCLE_MODEL, "dtype": "bf16"}
+    run = mem = None
     try:
-        # A: 2 epochs; B: A resumed for 2 more, on one cosine schedule
-        dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
-        for d, kw in ((dir_a, {}), (dir_b, {"resume": True})):
-            if kw:
-                shutil.copytree(dir_a, dir_b)
-            tr = Trainer(_cut_config(d, epochs=2 if not kw else 4,
-                                     cosine_t_max=4, **kw))
-            try:
-                tr.fit()
-            finally:
-                tr.close()
-        epoch_a = read_meta(dir_a, CKPT_NAME)["epoch"]
-        epoch_b = read_meta(dir_b, CKPT_NAME)["epoch"]
-        out["epochs"] = {"a": epoch_a, "b": epoch_b}
-        fails.check(epoch_b > epoch_a, f"canary: B's best epoch {epoch_b} "
-                    f"is not past A's {epoch_a}")
-        live = os.path.join(root, "live")
-        publish_checkpoint(dir_a, live)
-        staging = ensure_staging_dir(live)
-        kw = dict(buckets=BUCKETS, compute_dtype=torch.bfloat16)
-        local = {t: InferenceEngine.from_checkpoint(d, LIFECYCLE_MODEL, **kw)
-                 for t, d in (("a", dir_a), ("b", dir_b))}
-        probe = np.random.RandomState(11).randint(
-            0, 256, size=(3, 32, 32, 3)).astype(np.uint8)
-        want = {t: e.predict(probe) for t, e in local.items()}
-        out["bucket_bits"] = _bucket_bits(local["a"])
-        del local
-        proc = _Replica(_pipeline_argv(
-            live, "--epochs", "0", "--golden", "eval",
-            "--shadow_fraction", "0.5", "--min_shadow", str(CANARY_SOAK),
-            "--max_flip_frac", "1.0"), PIPELINE_READY)
-        try:
-            out["drill"] = _canary_drill(
-                proc, live, staging, dir_b, epoch_a, epoch_b, probe, want,
-                fails)
-        finally:
-            proc.stop()
         # one pipeline-mode run: the trainer child on the same card
         train = ["--epochs", "3", "--batch", str(BATCH), "--lr", "0.05"]
         pipe_dir = os.path.join(root, "pipe")
         mem = _MemSampler()
         run = _Replica(_pipeline_argv(pipe_dir, *train, "--clients", "2"),
                        PIPELINE_READY)
+        # A: 2 epochs; B: A resumed for 2 more, on one cosine schedule
+        dir_a, dir_b = os.path.join(root, "a"), os.path.join(root, "b")
+        fit(_cut_config(dir_a, epochs=2, cosine_t_max=4))
+        live = os.path.join(root, "live")
+        publish_checkpoint(dir_a, live)
+        staging = ensure_staging_dir(live)
+        proc = _Replica(_pipeline_argv(
+            live, "--epochs", "0", "--golden", "eval",
+            "--shadow_fraction", "0.5", "--min_shadow", str(CANARY_SOAK),
+            "--max_flip_frac", "1.0"), PIPELINE_READY)
+        try:
+            shutil.copytree(dir_a, dir_b)
+            fit(_cut_config(dir_b, epochs=4, cosine_t_max=4, resume=True))
+            epoch_a = read_meta(dir_a, CKPT_NAME)["epoch"]
+            epoch_b = read_meta(dir_b, CKPT_NAME)["epoch"]
+            out["epochs"] = {"a": epoch_a, "b": epoch_b}
+            fails.check(epoch_b > epoch_a, f"canary: B's best epoch "
+                        f"{epoch_b} is not past A's {epoch_a}")
+            kw = dict(buckets=BUCKETS, compute_dtype=torch.bfloat16)
+            local = {t: InferenceEngine.from_checkpoint(d, LIFECYCLE_MODEL,
+                                                        **kw)
+                     for t, d in (("a", dir_a), ("b", dir_b))}
+            probe = np.random.RandomState(11).randint(
+                0, 256, size=(3, 32, 32, 3)).astype(np.uint8)
+            want = {t: e.predict(probe) for t, e in local.items()}
+            out["bucket_bits"] = _bucket_bits(local["a"])
+            del local
+            out["drill"] = _canary_drill(
+                proc, live, staging, dir_b, epoch_a, epoch_b, probe, want,
+                fails)
+        finally:
+            proc.stop()
         code, lines = run.finish(timeout=600)
         pipe_mem = mem.stop()
+        mem = None
         rec = json.loads(lines[-1]) if lines else {}
         fails.check(code == 0 and len(lines) == 1,
                     f"canary pipeline: exit {code}, {len(lines)} stdout "
@@ -3876,6 +3896,10 @@ def phase_canary(smi: str, fails: Failures) -> dict:
         print("canary " + json.dumps(out), flush=True)
         return out
     finally:
+        if run is not None:
+            run.stop()
+        if mem is not None:
+            mem.stop()
         shutil.rmtree(root, ignore_errors=True)
 
 
@@ -5625,12 +5649,17 @@ def phase_cold_start(K, smi: str, fails: Failures) -> dict:
 
 
 # the drill's ResNet-18 runs on the card: fp32 trainer children (the
-# drill's --no-amp) on a cut split whose epochs (about 2 s) are long enough
-# that a signal sent half a second after the first checkpoint lands inside
-# a later epoch; the two drills run side by side on the one card
-CHAOS_ARGS = ("--model", "ResNet18", "--train-size", "5120",
-              "--test-size", "1024", "--batch", "128")
-CHAOS_EPOCHS = {"sigkill": 3, "serve": 2}
+# drill's --no-amp); sigkill's on a cut split whose epochs (about 2 s) are
+# long enough that a signal sent half a second after the first checkpoint
+# lands inside a later epoch; serve's two checkpoints only serve, one
+# epoch of a smaller cut each; the two drills run side by side on the one
+# card
+CHAOS_MODES = {
+    "sigkill": ("--model", "ResNet18", "--train-size", "5120",
+                "--test-size", "1024", "--batch", "128", "--epochs", "3"),
+    "serve": ("--model", "ResNet18", "--train-size", "1024",
+              "--test-size", "256", "--batch", "128", "--epochs", "1"),
+}
 
 
 def phase_chaos(smi: str, fails: Failures) -> dict:
@@ -5643,12 +5672,11 @@ def phase_chaos(smi: str, fails: Failures) -> dict:
     out: dict = {"card": smi}
     procs = {}
     try:
-        for mode, epochs in CHAOS_EPOCHS.items():
+        for mode, argv in CHAOS_MODES.items():
             procs[mode] = subprocess.Popen(
                 [sys.executable, "-m",
                  "pytorch_cifar_tpu_torch.tools.chaos_run", "--mode", mode,
-                 *CHAOS_ARGS, "--epochs", str(epochs),
-                 "--out", os.path.join(tmp, mode)],
+                 *argv, "--out", os.path.join(tmp, mode)],
                 cwd=REPO_ROOT, stdout=subprocess.PIPE,
                 stderr=subprocess.PIPE, text=True)
         recs, errs = {}, {}
@@ -5671,7 +5699,7 @@ def phase_chaos(smi: str, fails: Failures) -> dict:
         text = open(log).read() if os.path.exists(log) else ""
         resumed = [int(e) for e in re.findall(
             r"resumed from .*: epoch (\d+)", text)]
-        last = CHAOS_EPOCHS["sigkill"] - 1
+        last = int(CHAOS_MODES["sigkill"][-1]) - 1
         fails.check(rec.get("tol") == 1e-6
                     and rec.get("rc") == -int(signal.SIGKILL)
                     and len(resumed) == 1 and 0 < resumed[0] < last,
@@ -5707,6 +5735,95 @@ def phase_chaos(smi: str, fails: Failures) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=60)
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+# the drill's fleet modes on the card (``--only drill``): ResNet-18 behind
+# router_run and fleet_run, its checkpoint's trainer child one epoch of a
+# cut split (the modes serve it; no signal lands in it); the zoo mode
+# keeps JAX's models and its LeNet tenant's trainer at the drill's sizes
+DRILL_MODES = {
+    "router": ("--model", "ResNet18", "--train-size", "1024",
+               "--test-size", "256", "--batch", "128", "--epochs", "1"),
+    "zoo": ("--epochs", "1"),
+    "elastic": ("--model", "ResNet18", "--train-size", "1024",
+                "--test-size", "256", "--batch", "128", "--epochs", "1"),
+    "rollout": ("--model", "ResNet18", "--train-size", "1024",
+                "--test-size", "256", "--batch", "128", "--epochs", "1"),
+}
+ZOO_DRILL_SITES = {"VGG11": 8, "MobileNet": 1}  # K3 a forward; K5: 9
+
+
+def _zoo_drill_launches(rec: dict, fails: Failures) -> dict:
+    """The zoo drill's survivor: MobileNet 1 K3 + 9 K5 a forward, VGG11 8
+    K3, LeNet none; both fused tenants served, K4 never."""
+    lk = rec.get("launches_by_kernel", {})
+    k3, k4, k5 = (lk.get(k, 0) for k in (
+        "conv3x3_bn_relu", "max_pool3x3_s1", "depthwise_stencil"))
+    mobilenet = k5 // 9
+    vgg11 = ((k3 - ZOO_DRILL_SITES["MobileNet"] * mobilenet)
+             // ZOO_DRILL_SITES["VGG11"])
+    fails.check(k5 > 0 and k5 % 9 == 0 and k4 == 0 and vgg11 > 0
+                and k3 == (ZOO_DRILL_SITES["VGG11"] * vgg11
+                           + ZOO_DRILL_SITES["MobileNet"] * mobilenet),
+                f"drill zoo: the survivor's launches (K3, K4, K5) "
+                f"({k3}, {k4}, {k5})")
+    fails.check(rec.get("device") == torch.cuda.get_device_name(0),
+                f"drill zoo: the survivor served on {rec.get('device')}")
+    return {"k3": k3, "k4": k4, "k5": k5, "mobilenet_forwards": mobilenet,
+            "vgg11_forwards": vgg11}
+
+
+def phase_drill(smi: str, fails: Failures) -> dict:
+    """The drill's fleet modes on the card (``--only drill``): ``python -m
+    pytorch_cifar_tpu_torch.tools.chaos_run --mode router|zoo|elastic|
+    rollout``, one after another, each to exit 0 with ``match: true``;
+    from the launchers' records each mode keeps in its work dir, K3 6
+    times a forward in every drained ResNet-18 replica, and K3 and K5 in
+    the zoo's VGG11 and MobileNet tenants."""
+    tmp = run_dir("drill-")
+    out: dict = {"card": smi}
+    try:
+        for mode, argv in DRILL_MODES.items():
+            work = os.path.join(tmp, mode)
+            t0 = time.perf_counter()
+            proc = subprocess.Popen(
+                [sys.executable, "-m",
+                 "pytorch_cifar_tpu_torch.tools.chaos_run", "--mode", mode,
+                 *argv, "--out", work],
+                cwd=REPO_ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+            try:
+                so, se = proc.communicate(timeout=600)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                so, se = proc.communicate()
+            secs = time.perf_counter() - t0
+            lines = [ln for ln in so.splitlines() if ln.startswith("{")]
+            rec = json.loads(lines[-1]) if lines else {}
+            fails.check(proc.returncode == 0 and rec.get("match") is True,
+                        f"drill {mode}: rc {proc.returncode}, record {rec}, "
+                        "stderr tail " + se[-3000:])
+            kept = os.path.join(work, f"{mode}.json")
+            records = {}
+            if os.path.exists(kept):
+                with open(kept) as f:
+                    records = json.load(f)["replicas"]
+            fails.check(bool(records), f"drill {mode}: no drained replica "
+                                       f"record in {kept}")
+            if mode == "zoo":
+                launches = {i: _zoo_drill_launches(r, fails)
+                            for i, r in records.items()}
+            else:
+                launches = _k3_drained(f"drill {mode}", {
+                    int(i): r for i, r in records.items()}, fails)
+            out[mode] = {"record": rec, "seconds": secs,
+                         "drained": launches,
+                         "orphan_pids": _reap_orphans(f"drill {mode}", work,
+                                                      fails)}
+            print(f"drill_{mode} " + json.dumps(out[mode]), flush=True)
+    finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return out
 
@@ -6765,7 +6882,8 @@ def main(argv=None) -> int:
         description="Smoke run of the PyTorch/CUDA port on the card")
     parser.add_argument(
         "--only",
-        choices=["dp", "mesh", "elastic", "spatial", "spatial_zoo"],
+        choices=["dp", "mesh", "elastic", "spatial", "spatial_zoo",
+                 "drill"],
         help="run the device, build and this phase alone, over every "
              "visible card (the four-card call); prints no kernels or ok "
              "line")
@@ -6797,6 +6915,8 @@ def main(argv=None) -> int:
                           four_card=torch.cuda.device_count() >= 4)
         elif args.only == "spatial_zoo":
             phase_spatial_zoo(smi, fails)
+        elif args.only == "drill":
+            phase_drill(smi, fails)
         else:
             phase_elastic(smi, fails,
                           multi_card=torch.cuda.device_count() > 1)
@@ -6863,12 +6983,16 @@ def main(argv=None) -> int:
     # fleet, the split deployment's rolling deploy, and a zoo fleet
     fle = timed("fleet", phase_fleet, smi, fails)
     ro = timed("rollout", phase_rollout, smi, fails)
+    # the port's drill (the trainer SIGKILLed and resumed, a serving
+    # process hot-reloading, SIGKILLed and relaunched) on a thread, beside
+    # the zoo fleet and the cold-start cache (fresh replica processes
+    # without and with it): the drill's children hold no time, and the
+    # two phases' checks count failed requests (under a 4 s deadline),
+    # compiles, hits, bits and launches, none of them seconds
+    chaos = beside(timed, "chaos", phase_chaos, smi, fails)
     zf = timed("zoo_fleet", phase_zoo_fleet, smi, fails)
-    # the cold-start cache: fresh replica processes without and with it
     cs = timed("cold_start", phase_cold_start, K, smi, fails)
-    # the port's drill: the trainer SIGKILLed and resumed, a serving
-    # process hot-reloading, SIGKILLed and relaunched
-    ch = timed("chaos", phase_chaos, smi, fails)
+    ch = chaos()
     # serving over a device group: two ranks of one replica on the card,
     # then two such replicas behind the router, one follower SIGKILLed
     me = timed("mesh", phase_mesh, smi, fails)

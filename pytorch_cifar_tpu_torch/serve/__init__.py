@@ -55,9 +55,10 @@ _EXPORTS = {
         "ControllerJournal", "FleetJournalState", "JournalCorrupt",
         "JournalFollower", "replay_journal",
     ),
+    "priors": ("load_cost_priors",),
     "reload": ("CheckpointWatcher",),
     "router": ("Router",),
-    "tenancy": ("ModelZooServer", "TenantSpec", "load_cost_priors"),
+    "tenancy": ("ModelZooServer", "TenantSpec"),
 }
 _HOME = {name: mod for mod, names in _EXPORTS.items() for name in names}
 __all__ = sorted(_HOME) + ["wire"]

@@ -53,7 +53,6 @@ model mid-(re)admission wait on the condition in a while-predicate loop.
 
 from __future__ import annotations
 
-import json
 import logging
 import os
 import threading
@@ -69,6 +68,10 @@ from pytorch_cifar_tpu_torch.serve.batcher import (
     UnknownModel,
 )
 from pytorch_cifar_tpu_torch.serve.engine import InferenceEngine
+from pytorch_cifar_tpu_torch.serve.priors import (  # noqa: F401
+    COST_PRIORS_PATH,
+    load_cost_priors,
+)
 from pytorch_cifar_tpu_torch.serve.reload import CheckpointWatcher
 
 log = logging.getLogger(__name__)
@@ -82,27 +85,6 @@ RESIDENT = "resident"
 LOADING = "loading"
 EVICTING = "evicting"
 EVICTED = "evicted"
-
-COST_PRIORS_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-    "tools", "zoo_sweep_h100.json",
-)
-
-
-def load_cost_priors(path: str = COST_PRIORS_PATH) -> Dict[str, float]:
-    """Per-model img/s priors from the zoo sweep (``results.<model>.
-    images_per_sec``). Missing/unreadable file -> {} — priors only seed
-    the LRU clock and placement order; real traffic overrides them."""
-    try:
-        with open(path) as f:
-            sweep = json.load(f)
-        return {
-            name: float(entry["images_per_sec"])
-            for name, entry in sweep.get("results", {}).items()
-            if isinstance(entry, dict) and "images_per_sec" in entry
-        }
-    except (OSError, ValueError, TypeError):
-        return {}
 
 
 class TenantSpec:

@@ -1,11 +1,12 @@
 """The port's drill: kill, corrupt or poison a real training run of the
-port, then prove that it recovers; and the serving, checkpoint, canary and
-edge drills.
+port, then prove that it recovers; and the serving, checkpoint, canary,
+edge and fleet drills.
 
 Counterpart of the JAX package's ``tools/chaos_run.py``, on the port's own
 CLIs, each a child process: ``python -m pytorch_cifar_tpu_torch.train``,
-``...serve``, ``...tools.pipeline_run``, ``...tools.router_run`` and
-``...tools.ckpt_inspect``. Each mode prints ONE JSON line under the JAX
+``...serve``, ``...tools.pipeline_run``, ``...tools.router_run``,
+``...tools.fleet_run``, ``...tools.ckpt_inspect`` and
+``...tools.journal_inspect``. Each mode prints ONE JSON line under the JAX
 drill's keys for that mode, with its verdict under ``match``, and exits 0
 only when ``match`` is true:
 
@@ -32,32 +33,63 @@ only when ``match`` is true:
            reference result; then a newer 4-shard v3 preemption save with
            a truncated shard is planted: ckpt_inspect must flag it, the
            resume must fall back past it, and the result must still match.
+  router   router_run with 2 replicas on a shared cold-start cache under
+           mixed-priority mixed-wire load, replica 0 SIGKILLed: replica 1
+           joined at compiles == 0, every answer bit for bit across the
+           replicas, the router and both encodings, bounded loss, the
+           corpse evicted, the post-evict p99 within 2x the steady one
+           (+25 ms), and a drain that exits 0.
   canary   serve-only pipeline_run under mixed-priority HTTP load: NaN,
            bit-flipped and regressed candidates staged one after another
            are each quarantined with the fleet's bits, epoch and
            generation unmoved; then a genuinely better B promotes, with no
            failed request across the drill.
-  edge     router_run --edge event with 2 replicas under open-loop mixed-
-           wire load: a slow-loris trickle closed by the read deadline, a
-           256-socket flood absorbed, a replica SIGKILLed with bounded
-           loss and evicted, and a SIGTERM drain that exits 0.
+  zoo      router_run --models LeNet=<trained>,MobileNet,VGG11
+           --max_resident 2 with 2 replicas under a zipf per-model mix,
+           replica 0 SIGKILLed: each model's answers bit for bit across
+           the replicas, the router, both encodings and evict/re-admit
+           cycles, no failed request, re-admissions from the cache at
+           compiles == 0, and a drain that exits 0.
   mesh     router_run --replicas 2 --mesh_procs 2 under mixed-wire load:
            every answer bit for bit a one-process replica's; one
            follower rank SIGKILLed, its leader exits rc 70 within
            --mesh_timeout_s, the router evicts the logical replica with no
            failed request, and replica 1 joined at compiles == 0 on the
            shared cold-start cache.
+  elastic  fleet_run (min 1 / max 3) under a load that ramps 10x and back,
+           replica 0 SIGKILLed mid-ramp: the controller scales up (every
+           scale-up at compiles == 0), replaces the corpse and scales back
+           down, with no failed request, p99 bounded and every replica
+           that ever served bit for bit the first.
+  edge     router_run --edge event with 2 replicas under open-loop mixed-
+           wire load: a slow-loris trickle closed by the read deadline, a
+           256-socket flood absorbed, a replica SIGKILLed with bounded
+           loss and evicted, and a SIGTERM drain that exits 0.
+  rollout  this process hosts the edge (a router following the
+           controller's journal) while fleet_run --role controller runs
+           the fleet: generation 2 is published under load, the
+           controller SIGKILLed at its surge, the edge serves headless, a
+           --resume relaunch adopts every journal-live replica (none
+           spawned twice: /proc is the ground truth) and finishes the
+           deploy; a CRC-valid NaN generation 3 is refused at surge and
+           rolled back fleet-wide; journal_inspect replays the whole life
+           cycle. A new generation's replicas join at compiles == 0 after
+           the first of their weight set: the port's cold-start cache
+           keeps one prepared weight set per checkpoint, where JAX's
+           holds executables for any weights.
 
-The JAX drill's router, zoo, elastic and rollout modes are the port's
-``chip_smoke.py`` phases wire, zoo_fleet, fleet and rollout.
 ``--serve-devices N`` serves ``--mode serve`` over a group of N devices
-(on the CPU, N logical shards).
+(on the CPU, N logical shards). The router, zoo, elastic and rollout modes
+keep each launcher's JSON record and each drained replica's own in
+``<work>/<mode>.json``.
 
 Usage:
   python -m pytorch_cifar_tpu_torch.tools.chaos_run --device cpu \\
       --mode sigkill
   python -m pytorch_cifar_tpu_torch.tools.chaos_run --device cpu \\
       --mode corrupt --corruption bitflip
+  python -m pytorch_cifar_tpu_torch.tools.chaos_run --device cpu \\
+      --mode rollout --epochs 2
   python -m pytorch_cifar_tpu_torch.tools.chaos_run --mode serve \\
       --model ResNet18 --epochs 2
 
@@ -65,12 +97,14 @@ The children run on the card unless ``--device cpu`` is given, which is
 passed to every child; without a card the first child fails and so does
 the drill. The children's sizes are the JAX drill's defaults (LeNet); on
 the card give ``--model ResNet18`` and sizes at which a signal lands
-inside a later epoch.
+inside a later epoch (the zoo mode's trained tenant is LeNet).
 
 This process loads no torch and holds no device: it reads checkpoints
 through ``serialization.py``, damages them through ``faults.py``,
-publishes through ``train/checkpoint.py``'s staging helpers and drives
-HTTP through ``serve/loadgen.py``. Only the children hold a CUDA context.
+publishes through ``train/checkpoint.py``'s staging helpers, drives HTTP
+through ``serve/loadgen.py`` and, in the rollout mode, hosts the edge from
+``serve/router.py``, ``frontend.py`` and ``journal.py``. Only the children
+hold a CUDA context.
 """
 
 from __future__ import annotations
@@ -92,8 +126,8 @@ import numpy as np
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-MODES = ("sigterm", "sigkill", "corrupt", "nan", "serve", "ckpt", "canary",
-         "edge", "mesh")
+MODES = ("sigterm", "sigkill", "corrupt", "nan", "serve", "ckpt", "router",
+         "canary", "zoo", "mesh", "elastic", "edge", "rollout")
 
 
 def module_cmd(module: str, *argv) -> list:
@@ -135,16 +169,45 @@ def child_env(extra=None):
     return env
 
 
-def run_to_completion(cmd, env, timeout) -> float:
-    t0 = time.monotonic()
-    r = subprocess.run(
-        cmd, env=env, capture_output=True, text=True, timeout=timeout,
-        cwd=REPO,
+def start_child(cmd, env) -> tuple:
+    """Start ``cmd``; ``finish_child`` waits for it. Children that do not
+    depend on each other (a reference run beside the chaos run, two
+    checkpoints) run side by side. A thread drains the child's pipes and
+    notes when it exited, so its seconds are its own whenever it is
+    waited for."""
+    proc = subprocess.Popen(
+        cmd, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, cwd=REPO,
     )
-    if r.returncode != 0:
-        sys.stderr.write(r.stdout[-2000:] + "\n" + r.stderr[-4000:] + "\n")
-        raise SystemExit(f"child failed rc={r.returncode}: {cmd}")
-    return time.monotonic() - t0
+    box = {"t0": time.monotonic()}
+
+    def drain():
+        box["out"], box["err"] = proc.communicate()
+        box["t1"] = time.monotonic()
+
+    t = threading.Thread(target=drain, name="child-drain", daemon=True)
+    t.start()
+    return proc, t, box
+
+
+def finish_child(started: tuple, timeout) -> float:
+    """Wait for a child ``start_child`` started; its seconds from start to
+    exit. Exits the drill when it fails or outlives ``timeout``."""
+    proc, t, box = started
+    t.join(timeout)
+    if t.is_alive():
+        proc.kill()
+        t.join()
+        raise SystemExit(f"child timed out: {proc.args}")
+    if proc.returncode != 0:
+        sys.stderr.write(box["out"][-2000:] + "\n" + box["err"][-4000:]
+                         + "\n")
+        raise SystemExit(f"child failed rc={proc.returncode}: {proc.args}")
+    return box["t1"] - box["t0"]
+
+
+def run_to_completion(cmd, env, timeout) -> float:
+    return finish_child(start_child(cmd, env), timeout)
 
 
 def wait_for_checkpoint(out_dir: str, proc, timeout: float) -> None:
@@ -316,14 +379,148 @@ def _wait_for_stderr(proc, needle: str, timeout: float) -> str:
                      "stderr")
 
 
-def _drain_stderr(proc, name: str) -> threading.Thread:
-    """Forward the rest of a child's stderr to ours, on a thread."""
-    t = threading.Thread(
-        target=lambda: [sys.stderr.write(ln) for ln in proc.stderr],
-        name=name, daemon=True,
-    )
+def _drain_stderr(proc, name: str, keep=None) -> threading.Thread:
+    """Forward the rest of a child's stderr to ours, on a thread; each
+    line also goes into the list ``keep`` when one is given."""
+
+    def run():
+        for ln in proc.stderr:
+            sys.stderr.write(ln)
+            if keep is not None:
+                keep.append(ln)
+
+    t = threading.Thread(target=run, name=name, daemon=True)
     t.start()
     return t
+
+
+REPLICA_RE = re.compile(r"==> replica (\d+) pid=(\d+) url=(\S+)")
+ROUTER_RE = re.compile(r"==> router: serving on (\S+)")
+# a drained replica's own JSON record, forwarded by its launcher
+RECORD_RE = re.compile(r"^\[replica (\S+)\] (\{.*\})$")
+
+
+def train_checkpoint(args, tag: str, ckpt_dir: str) -> None:
+    print(f"==> [{tag}] training checkpoint -> {ckpt_dir}", file=sys.stderr)
+    run_to_completion(train_cmd(args, ckpt_dir), child_env(), args.timeout)
+
+
+def _spawn(cmd):
+    return subprocess.Popen(
+        cmd, env=child_env(), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, cwd=REPO,
+    )
+
+
+def _fleet_topology(proc, timeout: float, on_line=None) -> tuple:
+    """Read ``router_run``'s stderr (forwarded to ours) up to the
+    router's line: ``({idx: (pid, url)}, router_url)``. ``on_line(line)``
+    sees every line before it."""
+    replicas = {}
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        line = proc.stderr.readline()
+        if not line:
+            if proc.poll() is not None:
+                raise SystemExit(
+                    f"router_run exited rc={proc.returncode} before the "
+                    "router came up"
+                )
+            time.sleep(0.05)
+            continue
+        sys.stderr.write(line)
+        if on_line is not None:
+            on_line(line)
+        m = REPLICA_RE.search(line)
+        if m:
+            replicas[int(m.group(1))] = (int(m.group(2)), m.group(3))
+        m = ROUTER_RE.search(line)
+        if m:
+            return replicas, m.group(1)
+    proc.kill()
+    raise SystemExit("timed out waiting for the fleet topology")
+
+
+def _healthz(url: str) -> dict:
+    """A ``/healthz`` payload, also on a 503 mid-transition (the body is
+    still the health payload)."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return json.load(r)
+    except urllib.error.HTTPError as e:
+        with e:
+            return json.loads(e.read().decode("utf-8"))
+
+
+def _bits(url: str, x, wire: str = "json", model=None):
+    from pytorch_cifar_tpu_torch.serve.loadgen import HttpTarget
+
+    target = HttpTarget(url, wire=wire)
+    try:
+        return target.submit(x, model=model).result()
+    finally:
+        target.close()
+
+
+def _load_phase(mode: str, tag: str, url: str, clients: int,
+                duration_s: float, seed: int, wire: str = "json",
+                **load_kw) -> dict:
+    """``run_load``'s closed-loop clients on ``url`` for ``duration_s``
+    (1-4 images a request), logged as one line."""
+    from pytorch_cifar_tpu_torch.serve.loadgen import HttpTarget, run_load
+
+    target = HttpTarget(url, wire=wire)
+    try:
+        rep = run_load(
+            target, clients=clients, requests_per_client=10**6,
+            images_max=4, seed=seed, duration_s=duration_s, **load_kw,
+        )
+    finally:
+        target.close()
+    mix = f" per_model={rep['per_model']}" if "per_model" in rep else ""
+    print(
+        f"==> [{mode}] {tag}: {rep['requests']} reqs{mix} "
+        f"p99={rep['p99_ms']:.1f}ms "
+        f"hedged={rep['hedged']} failed={rep['failed']}", file=sys.stderr,
+    )
+    return rep
+
+
+def _keep_records(work: str, mode: str, launcher: dict, lines,
+                  **extra) -> None:
+    """Write the launcher's JSON record and each drained replica's own
+    (``[replica i] {...}`` on its stderr) to ``<work>/<mode>.json``."""
+    replicas = {}
+    for ln in lines:
+        m = RECORD_RE.match(ln.strip())
+        if m:
+            replicas[m.group(1)] = json.loads(m.group(2))
+    with open(os.path.join(work, f"{mode}.json"), "w") as f:
+        json.dump({"launcher": launcher, "replicas": replicas, **extra}, f)
+
+
+def _serve_pids(marker: str) -> set:
+    """Live port replica processes (an argument ``pytorch_cifar_tpu_torch.
+    serve``) whose command line names ``marker``: the ground truth, from
+    ``/proc``. A zombie's command line is empty, so it is not counted."""
+    from pytorch_cifar_tpu_torch.serve.fleet import REPLICA_MODULE
+
+    pids = set()
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/cmdline", "rb") as f:
+                argv = f.read().split(b"\0")
+        except OSError:
+            continue  # raced an exit
+        if (REPLICA_MODULE.encode() in argv
+                and any(marker.encode() in a for a in argv)):
+            pids.add(int(d))
+    return pids
 
 
 def serve_drill(args, work: str) -> dict:
@@ -361,13 +558,16 @@ def serve_drill(args, work: str) -> dict:
             cmd.append("--watch")
         return cmd
 
-    # two distinct checkpoints: A is served first, B is published into
-    # the watched dir mid-load (different seed -> different weights)
-    print(f"==> [serve] training checkpoint A -> {dir_a}", file=sys.stderr)
-    run_to_completion(train_cmd(args, dir_a), env, args.timeout)
+    # two distinct checkpoints, trained side by side: A is served first,
+    # B is published into the watched dir mid-load (different seed ->
+    # different weights)
+    print(f"==> [serve] training checkpoints A -> {dir_a}, B -> {dir_b}",
+          file=sys.stderr)
     args_b = argparse.Namespace(**{**vars(args), "seed": args.seed + 1})
-    print(f"==> [serve] training checkpoint B -> {dir_b}", file=sys.stderr)
-    run_to_completion(train_cmd(args_b, dir_b), env, args.timeout)
+    runs = [start_child(train_cmd(a, d), env)
+            for a, d in ((args, dir_a), (args_b, dir_b))]
+    for run in runs:
+        finish_child(run, args.timeout)
     epoch_b = load_meta(dir_b)["epoch"]
     _publish_checkpoint(dir_a, serve_dir)
 
@@ -477,14 +677,10 @@ def edge_drill(args, work: str) -> dict:
     import urllib.request
 
     from pytorch_cifar_tpu_torch import faults
-    from pytorch_cifar_tpu_torch.serve.loadgen import (
-        HttpTarget,
-        run_async_load,
-    )
+    from pytorch_cifar_tpu_torch.serve.loadgen import run_async_load
 
     ckpt_dir = os.path.join(work, "ckpt")
-    print(f"==> [edge] training checkpoint -> {ckpt_dir}", file=sys.stderr)
-    run_to_completion(train_cmd(args, ckpt_dir), child_env(), args.timeout)
+    train_checkpoint(args, "edge", ckpt_dir)
 
     cmd = module_cmd(
         "tools.router_run",
@@ -500,37 +696,11 @@ def edge_drill(args, work: str) -> dict:
         "--device", args.device,
     )
     print("==> [edge] fleet up (--edge event)", file=sys.stderr)
-    proc = subprocess.Popen(
-        cmd, env=child_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=REPO,
-    )
-
-    replica_re = re.compile(r"==> replica (\d+) pid=(\d+) url=(\S+)")
-    router_re = re.compile(r"==> router: serving on (\S+)")
-    replicas = {}
-    router_url = None
-    deadline = time.monotonic() + args.timeout
-    while time.monotonic() < deadline:
-        line = proc.stderr.readline()
-        if not line:
-            if proc.poll() is not None:
-                raise SystemExit(
-                    f"router_run exited rc={proc.returncode} before the "
-                    "router came up"
-                )
-            time.sleep(0.05)
-            continue
-        sys.stderr.write(line)
-        m = replica_re.search(line)
-        if m:
-            replicas[int(m.group(1))] = (int(m.group(2)), m.group(3))
-        m = router_re.search(line)
-        if m:
-            router_url = m.group(1)
-            break
-    if router_url is None or len(replicas) != 2:
+    proc = _spawn(cmd)
+    replicas, router_url = _fleet_topology(proc, args.timeout)
+    if len(replicas) != 2:
         proc.kill()
-        raise SystemExit("timed out waiting for the fleet topology")
+        raise SystemExit(f"router_run came up with replicas {replicas}")
     drain_t = _drain_stderr(proc, "edge-stderr-drain")
 
     host, port = router_url.split("//", 1)[1].split(":")
@@ -552,7 +722,7 @@ def edge_drill(args, work: str) -> dict:
         0, 256, size=(3, 32, 32, 3)
     ).astype(np.uint8)
     outs = [
-        HttpTarget(u, wire=w).submit(probe).result()
+        _bits(u, probe, wire=w)
         for u in (replicas[0][1], replicas[1][1], router_url)
         for w in ("json", "binary")
     ]
@@ -693,12 +863,11 @@ def mesh_drill(args, work: str) -> dict:
     import urllib.request
 
     from pytorch_cifar_tpu_torch.serve.fleet import REPLICA_DTYPE
-    from pytorch_cifar_tpu_torch.serve.loadgen import HttpTarget, run_load
+    from pytorch_cifar_tpu_torch.serve.loadgen import HttpTarget
 
     peer_timeout_rc = 70  # serve/mesh_replica.PEER_TIMEOUT_RC (no torch)
     ckpt_dir = os.path.join(work, "ckpt")
-    print(f"==> [mesh] training checkpoint -> {ckpt_dir}", file=sys.stderr)
-    run_to_completion(train_cmd(args, ckpt_dir), child_env(), args.timeout)
+    train_checkpoint(args, "mesh", ckpt_dir)
 
     mesh_timeout_s = 6.0
     cmd = module_cmd(
@@ -720,51 +889,28 @@ def mesh_drill(args, work: str) -> dict:
     )
     print("==> [mesh] fleet up (2 logical replicas x 2 processes)",
           file=sys.stderr)
-    proc = subprocess.Popen(
-        cmd, env=child_env(), stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, cwd=REPO,
-    )
-    leader_re = re.compile(r"==> replica (\d+) pid=(\d+) url=(\S+)")
+    proc = _spawn(cmd)
     follower_re = re.compile(r"==> replica (\d+) follower rank=(\d+) "
                              r"pid=(\d+)")
-    router_re = re.compile(r"==> router: serving on (\S+)")
-    leaders, followers = {}, {}
-    router_url = None
-    deadline = time.monotonic() + args.timeout
-    while time.monotonic() < deadline:
-        line = proc.stderr.readline()
-        if not line:
-            if proc.poll() is not None:
-                raise SystemExit(
-                    f"router_run exited rc={proc.returncode} before the "
-                    "router came up")
-            time.sleep(0.05)
-            continue
-        sys.stderr.write(line)
-        m = leader_re.search(line)
-        if m:
-            leaders[int(m.group(1))] = (int(m.group(2)), m.group(3))
+    followers = {}
+
+    def on_line(line):
         m = follower_re.search(line)
         if m:
             followers[int(m.group(1))] = int(m.group(3))
-        m = router_re.search(line)
-        if m:
-            router_url = m.group(1)
-            break
-    if router_url is None or len(leaders) != 2 or len(followers) != 2:
+
+    leaders, router_url = _fleet_topology(proc, args.timeout, on_line)
+    if len(leaders) != 2 or len(followers) != 2:
         proc.kill()
         raise SystemExit("timed out waiting for the mesh fleet topology")
     drain_t = _drain_stderr(proc, "mesh-stderr-drain")
 
     # the one-process bit reference
-    ref = subprocess.Popen(
+    ref = _spawn(
         module_cmd("serve", "--ckpt", ckpt_dir, "--model", args.model,
                    "--buckets", 1, 4, 8, "--http_port", 0,
                    "--device", args.device,
-                   "--dtype", REPLICA_DTYPE[args.device]),
-        env=child_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True, cwd=REPO,
-    )
+                   "--dtype", REPLICA_DTYPE[args.device]))
     seen = _wait_for_stderr(ref, "==> http: serving on", args.timeout)
     ref_url = re.search(r"==> http: serving on (\S+)", seen).group(1)
     ref_drain = _drain_stderr(ref, "mesh-ref-stderr-drain")
@@ -790,21 +936,10 @@ def mesh_drill(args, work: str) -> dict:
     bit_identical = all(np.array_equal(outs[0], o) for o in outs[1:])
 
     def load_phase(tag, duration_s, seed):
-        target = HttpTarget(router_url, wire="mixed")
-        try:
-            rep = run_load(
-                target, clients=4, requests_per_client=10**6,
-                images_max=4, seed=seed, duration_s=duration_s,
-                # all interactive: a bulk 429 reaches its client by
-                # design, and the bar here is no client-visible error
-                bulk_fraction=0.0,
-            )
-        finally:
-            target.close()
-        print(f"==> [mesh] {tag}: {rep['requests']} reqs "
-              f"p99={rep['p99_ms']:.1f}ms hedged={rep['hedged']} "
-              f"failed={rep['failed']}", file=sys.stderr)
-        return rep
+        # all interactive: a bulk 429 reaches its client by design, and
+        # the bar here is no client-visible error
+        return _load_phase("mesh", tag, router_url, 4, duration_s, seed,
+                           wire="mixed", bulk_fraction=0.0)
 
     print("==> [mesh] phase 1: steady state", file=sys.stderr)
     steady = load_phase("steady", 5.0, seed=1)
@@ -896,6 +1031,1042 @@ def mesh_drill(args, work: str) -> dict:
         "evictions": rec_run["router"]["evictions"],
         "router_hedged": rec_run["router"]["hedged"],
         "router_rc": proc.returncode,
+    }
+
+
+def router_drill(args, work: str) -> dict:
+    """The fleet drill: SIGKILL one of two replicas under sustained
+    mixed-priority, mixed-wire HTTP load; the router must evict, reroute
+    and hold the latency and error bounds.
+
+    Phases:
+      0. fleet up: router_run spawns 2 replicas on a shared cold-start
+         cache (replica 1 must join with compiles == 0) and the router's
+         frontend; /predict bits probed across replica 0, replica 1 and
+         the router, each in JSON and binary.
+      1. steady state: closed-loop load -> p99_steady.
+      2. kill: the same load with replica 0 SIGKILLed mid-phase -> loss
+         bounded (every request answered, hedged or failed with an error)
+         and the corpse evicted.
+      3. post-evict: the same load on the survivor -> p99_post within
+         max(2 x p99_steady, p99_steady + 25 ms).
+      4. drain: SIGTERM to router_run must exit 0 with its eviction
+         counters in its JSON record.
+    The launcher's record and the drained replica's own go to
+    ``<work>/router.json``.
+    """
+    ckpt_dir = os.path.join(work, "ckpt")
+    train_checkpoint(args, "router", ckpt_dir)
+
+    print("==> [router] fleet up", file=sys.stderr)
+    proc = _spawn(module_cmd(
+        "tools.router_run",
+        "--ckpt", ckpt_dir,
+        "--model", args.model,
+        "--replicas", 2,
+        "--buckets", 1, 4, 8,
+        "--aot_cache", os.path.join(work, "aot"),
+        "--deadline_ms", 2000,
+        "--probe_s", 0.2,
+        "--max_wait_ms", 1,
+        "--device", args.device,
+    ))
+    replicas, router_url = _fleet_topology(proc, args.timeout)
+    if len(replicas) != 2:
+        proc.kill()
+        raise SystemExit(f"router_run came up with replicas {replicas}")
+    lines = []
+    drain_t = _drain_stderr(proc, "router-stderr-drain", lines)
+
+    # replica 1 imported replica 0's cold-start cache entries
+    warm_compiles = int(_healthz(replicas[1][1]).get("compiles", -1))
+    probe = np.random.RandomState(7).randint(
+        0, 256, size=(3, 32, 32, 3)
+    ).astype(np.uint8)
+    outs = [
+        _bits(u, probe, wire=w)
+        for u in (replicas[0][1], replicas[1][1], router_url)
+        for w in ("json", "binary")
+    ]
+    bit_identical = all(np.array_equal(outs[0], o) for o in outs[1:])
+
+    def load_phase(tag, duration_s, seed):
+        return _load_phase("router", tag, router_url, 4, duration_s, seed,
+                           wire="mixed", bulk_fraction=0.3)
+
+    print("==> [router] phase 1: steady state", file=sys.stderr)
+    steady = load_phase("steady", 5.0, seed=1)
+
+    print("==> [router] phase 2: SIGKILL replica 0 under load",
+          file=sys.stderr)
+    kill_at = threading.Timer(
+        2.0, os.kill, (replicas[0][0], signal.SIGKILL)
+    )
+    kill_at.start()
+    t_kill = time.monotonic()
+    killed = load_phase("kill", 6.0, seed=2)
+    kill_at.join()
+    kill_recovery_s = time.monotonic() - t_kill
+
+    print("==> [router] phase 3: post-evict steady state", file=sys.stderr)
+    post = load_phase("post-evict", 5.0, seed=3)
+    healthy_after = int(_healthz(router_url).get("healthy_replicas", -1))
+
+    print("==> [router] phase 4: drain", file=sys.stderr)
+    proc.send_signal(signal.SIGTERM)
+    out = proc.stdout.read()
+    proc.wait(timeout=args.timeout)
+    drain_t.join(timeout=10)
+    rec_run = _last_record(out, "router_run")
+    _keep_records(work, "router", rec_run, lines)
+
+    p99_budget_ms = max(2.0 * steady["p99_ms"], steady["p99_ms"] + 25.0)
+    loss_bound = killed["failed"] <= max(4, killed["requests"] // 20)
+    ok = (
+        proc.returncode == 0
+        and warm_compiles == 0
+        and bit_identical
+        and steady["requests"] > 0
+        and killed["requests"] > 0
+        and post["requests"] > 0
+        and steady["failed"] == 0
+        and loss_bound
+        and post["failed"] == 0
+        and post["p99_ms"] <= p99_budget_ms
+        and healthy_after == 1
+        and rec_run["router"]["evictions"] >= 1
+    )
+    return {
+        "harness": "chaos_run",
+        "mode": "router",
+        "match": ok,
+        "reference_s": round(steady["elapsed_s"], 2),
+        "recovery_s": round(kill_recovery_s, 2),
+        "warm_replica_compiles": warm_compiles,
+        "bit_identical": bit_identical,
+        "wire": "mixed",
+        "p99_steady_ms": round(steady["p99_ms"], 2),
+        "p99_kill_ms": round(killed["p99_ms"], 2),
+        "p99_post_ms": round(post["p99_ms"], 2),
+        "p99_budget_ms": round(p99_budget_ms, 2),
+        "requests": steady["requests"] + killed["requests"]
+        + post["requests"],
+        "failed_during_kill": killed["failed"],
+        "hedged_during_kill": killed["hedged"],
+        "healthy_after": healthy_after,
+        "evictions": rec_run["router"]["evictions"],
+        "router_hedged": rec_run["router"]["hedged"],
+        "router_replica_errors": rec_run["router"]["replica_errors"],
+        "router_rc": proc.returncode,
+    }
+
+
+ZOO_MODELS = ["LeNet", "MobileNet", "VGG11"]
+
+
+def zoo_drill(args, work: str) -> dict:
+    """The multi-tenant zoo drill: a 2-replica zoo fleet (LeNet from a
+    trained checkpoint, MobileNet and VGG11 on seeded random weights, the
+    same in every replica) with ``max_resident`` 2, so the third tenant
+    forces eviction churn, under a zipf per-model mix ranked by the card's
+    cost priors, replica 0 SIGKILLed mid-load.
+
+    Phases:
+      0. fleet up: router_run --models spawns 2 zoo replicas behind the
+         model-aware router on a shared cold-start cache (replica 1's
+         resident tenants join with compiles == 0).
+      1. per-model bits: the same payload to replica 0, replica 1 and the
+         router over both encodings, for every model (three models
+         through two resident slots: the probe itself churns).
+      2. steady, kill, post-evict: closed-loop mixed-priority mixed-wire
+         clients drawing the mix; replica 0 SIGKILLed mid-phase; no failed
+         request in any phase, the corpse evicted.
+      3. survivor audit: every resident tenant evicted and re-admitted
+         imported from the cache (compiles == 0, aot_cache_hits > 0), and
+         the router's per-model answers still phase 1's bits.
+      4. drain: SIGTERM to router_run exits 0.
+    The launcher's record and the survivor's own go to ``<work>/zoo.json``.
+    """
+    from pytorch_cifar_tpu_torch.serve.loadgen import zipf_mix
+    from pytorch_cifar_tpu_torch.serve.priors import load_cost_priors
+
+    ckpt_dir = os.path.join(work, "ckpt_lenet")
+    train_checkpoint(args, "zoo", ckpt_dir)
+
+    print("==> [zoo] fleet up", file=sys.stderr)
+    proc = _spawn(module_cmd(
+        "tools.router_run",
+        "--ckpt", os.path.join(work, "nonexistent"),
+        "--models", f"LeNet={ckpt_dir},MobileNet,VGG11",
+        "--max_resident", 2,
+        "--replicas", 2,
+        "--buckets", 1, 4,
+        "--aot_cache", os.path.join(work, "aot"),
+        "--deadline_ms", 4000,
+        "--probe_s", 0.2,
+        "--max_wait_ms", 1,
+        "--device", args.device,
+    ))
+    replicas, router_url = _fleet_topology(proc, args.timeout)
+    if len(replicas) != 2:
+        proc.kill()
+        raise SystemExit(f"router_run came up with replicas {replicas}")
+    lines = []
+    drain_t = _drain_stderr(proc, "zoo-stderr-drain", lines)
+
+    h1 = _healthz(replicas[1][1])
+    warm_compiles = sum(
+        int(t.get("compiles") or 0)
+        for t in h1.get("tenants", {}).values()
+        if t.get("resident")
+    )
+
+    probe = np.random.RandomState(7).randint(
+        0, 256, size=(3, 32, 32, 3)
+    ).astype(np.uint8)
+    pre_bits = {}
+    per_model_identical = {}
+    for model in ZOO_MODELS:
+        outs = [
+            _bits(u, probe, wire=w, model=model)
+            for u in (replicas[0][1], replicas[1][1], router_url)
+            for w in ("json", "binary")
+        ]
+        per_model_identical[model] = all(
+            np.array_equal(outs[0], o) for o in outs[1:]
+        )
+        pre_bits[model] = outs[0]
+    bit_identical = all(per_model_identical.values())
+
+    mix = zipf_mix(ZOO_MODELS, priors=load_cost_priors())
+
+    def load_phase(tag, duration_s, seed):
+        return _load_phase("zoo", tag, router_url, 4, duration_s, seed,
+                           wire="mixed", bulk_fraction=0.3, model_mix=mix)
+
+    print("==> [zoo] phase 2: steady state", file=sys.stderr)
+    steady = load_phase("steady", 5.0, seed=1)
+
+    print("==> [zoo] phase 3: SIGKILL replica 0 under load",
+          file=sys.stderr)
+    kill_at = threading.Timer(
+        2.0, os.kill, (replicas[0][0], signal.SIGKILL)
+    )
+    kill_at.start()
+    t_kill = time.monotonic()
+    killed = load_phase("kill", 6.0, seed=2)
+    kill_at.join()
+    kill_recovery_s = time.monotonic() - t_kill
+
+    print("==> [zoo] phase 4: post-evict survivor audit", file=sys.stderr)
+    post = load_phase("post-evict", 4.0, seed=3)
+    tenants = _healthz(replicas[1][1]).get("tenants", {})
+    churned = [
+        n for n, t in tenants.items() if int(t.get("evictions") or 0) >= 1
+    ]
+    readmits_clean = all(
+        int(t.get("compiles") or 0) == 0
+        and int(t.get("aot_cache_hits") or 0) > 0
+        for n, t in tenants.items()
+        if t.get("resident") and int(t.get("evictions") or 0) >= 1
+    )
+    post_bits_ok = all(
+        np.array_equal(_bits(router_url, probe, model=m), pre_bits[m])
+        for m in ZOO_MODELS
+    )
+    healthy_after = int(_healthz(router_url).get("healthy_replicas", -1))
+
+    print("==> [zoo] phase 5: drain", file=sys.stderr)
+    proc.send_signal(signal.SIGTERM)
+    out = proc.stdout.read()
+    proc.wait(timeout=args.timeout)
+    drain_t.join(timeout=10)
+    rec_run = _last_record(out, "router_run")
+    _keep_records(work, "zoo", rec_run, lines)
+
+    total_failed = steady["failed"] + killed["failed"] + post["failed"]
+    ok = (
+        proc.returncode == 0
+        and warm_compiles == 0
+        and bit_identical
+        and post_bits_ok
+        and steady["requests"] > 0
+        and killed["requests"] > 0
+        and post["requests"] > 0
+        and total_failed == 0
+        and len(churned) >= 1
+        and readmits_clean
+        and healthy_after == 1
+        and rec_run["router"]["evictions"] >= 1
+    )
+    return {
+        "harness": "chaos_run",
+        "mode": "zoo",
+        "match": ok,
+        "models": ZOO_MODELS,
+        "max_resident": 2,
+        "mix": {m: round(w, 4) for m, w in mix.items()},
+        "recovery_s": round(kill_recovery_s, 2),
+        "warm_replica_compiles": warm_compiles,
+        "per_model_bit_identical": per_model_identical,
+        "post_kill_bits_match": post_bits_ok,
+        "requests": steady["requests"] + killed["requests"]
+        + post["requests"],
+        "per_model_requests": {
+            m: steady["per_model"][m] + killed["per_model"][m]
+            + post["per_model"][m]
+            for m in ZOO_MODELS
+        },
+        "failed": total_failed,
+        "hedged_during_kill": killed["hedged"],
+        "churned_tenants": churned,
+        "readmit_compiles_zero": readmits_clean,
+        "survivor_tenants": {
+            n: {
+                "resident": t.get("resident"),
+                "admissions": t.get("admissions"),
+                "evictions": t.get("evictions"),
+                "compiles": t.get("compiles"),
+                "aot_cache_hits": t.get("aot_cache_hits"),
+            }
+            for n, t in tenants.items()
+        },
+        "healthy_after": healthy_after,
+        "evictions": rec_run["router"]["evictions"],
+        "router_hedged": rec_run["router"]["hedged"],
+        "router_rc": proc.returncode,
+    }
+
+
+def elastic_drill(args, work: str) -> dict:
+    """The autoscaling drill: a fleet under ``fleet_run``'s controller
+    (min 1 / max 3 replicas) serves a load that ramps 10x and back while
+    replica 0 is SIGKILLed mid-ramp.
+
+    Phases:
+      0. fleet up: fleet_run with an aggressive band (up after 0.5 s of
+         pressure), replica 0 filling the shared cold-start cache. A
+         stderr watcher tracks every membership line (seed, scale-up,
+         scale-down, died) so that every replica that ever serves is
+         probed for its bits the moment it appears.
+      1. baseline: 1 closed-loop client -> p99_steady; the fleet must hold
+         at 1 replica.
+      2. ramp 10x: 10 clients for 35 s. The controller must scale up (each
+         scale-up joining with compiles == 0); once the fleet is >= 2,
+         replica 0 is SIGKILLed mid-load: the router hedges the in-flight
+         loss (no failed request), the controller reaps the corpse and
+         refills.
+      3. ramp back: 1 client for 20 s; the controller must scale down.
+      4. drain: SIGTERM to fleet_run exits 0 with the scale ledger in its
+         JSON record; every child reaped.
+    The launcher's record and each drained replica's own go to
+    ``<work>/elastic.json``, with each phase's seconds.
+    """
+    ckpt_dir = os.path.join(work, "ckpt")
+    train_checkpoint(args, "elastic", ckpt_dir)
+
+    print("==> [elastic] fleet up (min 1, max 3)", file=sys.stderr)
+    proc = _spawn(module_cmd(
+        "tools.fleet_run",
+        "--ckpt", ckpt_dir,
+        "--model", args.model,
+        "--min_replicas", 1,
+        "--max_replicas", 3,
+        "--buckets", 1, 4, 8,
+        "--aot_cache", os.path.join(work, "aot"),
+        "--deadline_ms", 4000,
+        "--max_wait_ms", 1,
+        "--probe_s", 0.2,
+        "--control_interval_s", 0.25,
+        "--queue_high", 3,
+        "--queue_low", 2,
+        "--up_after_s", 0.5,
+        "--down_after_s", 2,
+        "--up_cooldown_s", 1.5,
+        "--down_cooldown_s", 2,
+        "--device", args.device,
+    ))
+    seed_re = re.compile(
+        r"==> fleet: replica (\d+) pid=(\d+) url=(\S+) compiles=(\S+)"
+    )
+    up_re = re.compile(
+        r"==> fleet: scale-up replica (\d+) url=(\S+) pid=(\d+) "
+        r"compiles=(\S+)"
+    )
+    down_re = re.compile(r"==> fleet: scale-down replica (\d+) url=(\S+)")
+    died_re = re.compile(r"==> fleet: replica (\d+) died; removed")
+    fleet_re = re.compile(r"==> fleet: serving on (\S+)")
+
+    # every replica that ever served, fed by the stderr watcher
+    state_lock = threading.Lock()
+    members = {}  # idx -> {"url", "pid", "compiles"}
+    events = {"ups": 0, "downs": 0, "died": 0}
+    fleet_url_box = {}
+    fleet_ready = threading.Event()
+    lines = []
+
+    def watch_stderr():
+        for line in proc.stderr:
+            sys.stderr.write(line)
+            lines.append(line)
+            m = seed_re.search(line)
+            if m:
+                with state_lock:
+                    members[int(m.group(1))] = {
+                        "url": m.group(3), "pid": int(m.group(2)),
+                        "compiles": m.group(4),
+                    }
+            m = up_re.search(line)
+            if m:
+                with state_lock:
+                    members[int(m.group(1))] = {
+                        "url": m.group(2), "pid": int(m.group(3)),
+                        "compiles": m.group(4),
+                    }
+                    events["ups"] += 1
+            if down_re.search(line):
+                with state_lock:
+                    events["downs"] += 1
+            if died_re.search(line):
+                with state_lock:
+                    events["died"] += 1
+            m = fleet_re.search(line)
+            if m:
+                fleet_url_box["url"] = m.group(1)
+                fleet_ready.set()
+
+    watcher = threading.Thread(
+        target=watch_stderr, name="fleet-stderr-watch", daemon=True
+    )
+    watcher.start()
+    if not fleet_ready.wait(args.timeout):
+        proc.kill()
+        raise SystemExit("timed out waiting for the fleet frontend")
+    fleet_url = fleet_url_box["url"]
+
+    # every replica generation must answer these bytes for this probe
+    probe = np.random.RandomState(7).randint(
+        0, 256, size=(3, 32, 32, 3)
+    ).astype(np.uint8)
+    ref_bits = _bits(fleet_url, probe)
+    probed = set()
+    identity = {"ok": True}
+
+    def probe_new_members():
+        with state_lock:
+            todo = {
+                i: m["url"] for i, m in members.items() if i not in probed
+            }
+        for i, url in todo.items():
+            try:
+                bits = _bits(url, probe)
+            except Exception as e:  # a member may die mid-probe (the kill)
+                print(
+                    f"==> [elastic] probe of replica {i} failed ({e}); "
+                    "skipping (already dead)", file=sys.stderr,
+                )
+                probed.add(i)
+                continue
+            if not np.array_equal(bits, ref_bits):
+                identity["ok"] = False
+            probed.add(i)
+            print(
+                f"==> [elastic] replica {i} bits "
+                f"{'match' if identity['ok'] else 'DIVERGE'}",
+                file=sys.stderr,
+            )
+
+    probe_new_members()  # the seed replica
+    phase_s = {}
+
+    def load_phase(tag, clients, duration_s, seed):
+        t0 = time.monotonic()
+        rep = _load_phase("elastic", tag, fleet_url, clients, duration_s,
+                          seed)
+        phase_s[tag] = round(time.monotonic() - t0, 2)
+        return rep
+
+    print("==> [elastic] phase 1: baseline (1 client)", file=sys.stderr)
+    steady = load_phase("baseline", 1, 5.0, seed=1)
+    held_at_min = int(_healthz(fleet_url).get("healthy_replicas", -1)) == 1
+
+    print("==> [elastic] phase 2: 10x ramp + SIGKILL", file=sys.stderr)
+    ramp_result = {}
+    ramp_t = threading.Thread(
+        target=lambda: ramp_result.update(
+            load_phase("ramp", 10, 35.0, seed=2)
+        ),
+        name="ramp-load",
+    )
+    ramp_t.start()
+    scaled_up = False
+    deadline = time.monotonic() + 30.0
+    while time.monotonic() < deadline:
+        if int(_healthz(fleet_url).get("healthy_replicas", 0)) >= 2:
+            scaled_up = True
+            break
+        time.sleep(0.25)
+    probe_new_members()  # the scale-up replicas
+    kill_pid = None
+    if scaled_up:
+        with state_lock:
+            kill_pid = members[0]["pid"]  # the seed replica
+        print(
+            f"==> [elastic] SIGKILL replica 0 (pid {kill_pid}) "
+            "under ramp load", file=sys.stderr,
+        )
+        os.kill(kill_pid, signal.SIGKILL)
+    ramp_t.join()
+    probe_new_members()  # a replacement spawned after the kill
+    ramp = ramp_result
+    healthy_after_ramp = int(
+        _healthz(fleet_url).get("healthy_replicas", -1))
+
+    print("==> [elastic] phase 3: ramp back (1 client)", file=sys.stderr)
+    settle = load_phase("settle", 1, 20.0, seed=3)
+    probe_new_members()
+    healthy_final = int(_healthz(fleet_url).get("healthy_replicas", -1))
+
+    print("==> [elastic] phase 4: drain", file=sys.stderr)
+    t0 = time.monotonic()
+    proc.send_signal(signal.SIGTERM)
+    out = proc.stdout.read()
+    proc.wait(timeout=args.timeout)
+    watcher.join(timeout=10)
+    phase_s["drain"] = round(time.monotonic() - t0, 2)
+    rec_run = _last_record(out, "fleet_run")
+    _keep_records(work, "elastic", rec_run, lines, phase_s=phase_s)
+
+    with state_lock:
+        ledger = dict(members)
+        ups, downs, died = events["ups"], events["downs"], events["died"]
+    scaleup_compiles = [
+        m["compiles"] for i, m in ledger.items() if i >= 1
+    ]
+    p99_budget_ms = max(2.0 * steady["p99_ms"], steady["p99_ms"] + 25.0)
+    total_failed = steady["failed"] + ramp["failed"] + settle["failed"]
+    ok = (
+        proc.returncode == 0
+        and held_at_min
+        and scaled_up
+        and kill_pid is not None
+        and identity["ok"]
+        and steady["requests"] > 0
+        and ramp["requests"] > 0
+        and settle["requests"] > 0
+        and total_failed == 0
+        # the ramp bounded by the request deadline, the settled fleet by
+        # the steady state's budget
+        and ramp["p99_ms"] <= 4000.0
+        and settle["p99_ms"] <= p99_budget_ms
+        and all(c == "0" for c in scaleup_compiles)
+        and rec_run["scale_ups"] >= 2  # ramp growth + post-kill refill
+        and rec_run["scale_downs"] >= 1  # the ramp-back shed
+        and rec_run["replica_failures"] >= 1  # the SIGKILL was seen
+        and healthy_final >= 1
+        and all(
+            rc in (0, None) for rc in rec_run["replica_rcs"].values()
+        )
+    )
+    return {
+        "harness": "chaos_run",
+        "mode": "elastic",
+        "match": ok,
+        "min_replicas": 1,
+        "max_replicas": 3,
+        "held_at_min_baseline": held_at_min,
+        "scaled_up_under_ramp": scaled_up,
+        "bit_identical_all_generations": identity["ok"],
+        "replicas_ever_served": len(ledger),
+        "scaleup_compiles": scaleup_compiles,
+        "scale_ups": rec_run["scale_ups"],
+        "scale_downs": rec_run["scale_downs"],
+        "replica_failures": rec_run["replica_failures"],
+        "stderr_ups": ups,
+        "stderr_downs": downs,
+        "stderr_died": died,
+        "requests": steady["requests"] + ramp["requests"]
+        + settle["requests"],
+        "failed": total_failed,
+        "hedged_during_ramp": ramp["hedged"],
+        "p99_steady_ms": round(steady["p99_ms"], 2),
+        "p99_ramp_ms": round(ramp["p99_ms"], 2),
+        "p99_settle_ms": round(settle["p99_ms"], 2),
+        "p99_budget_ms": round(p99_budget_ms, 2),
+        "healthy_after_ramp": healthy_after_ramp,
+        "healthy_final": healthy_final,
+        "spawn_ms_p50": rec_run["spawn_ms_p50"],
+        "drain_ms_p50": rec_run["drain_ms_p50"],
+        "fleet_rc": proc.returncode,
+    }
+
+
+def _after_first_zero(joined) -> bool:
+    """Every replica after the first of its weight set (its generation)
+    joined with compiles "0": the port's cold-start cache keeps one
+    prepared weight set per checkpoint, so the first replica of a new one
+    prepares it and compiles its buckets. ``joined``: (generation,
+    compiles) in join order; and there is one at all."""
+    seen = set()
+    ok = bool(joined)
+    for gen, compiles in joined:
+        if gen in seen:
+            ok = ok and compiles == "0"
+        seen.add(gen)
+    return ok
+
+
+def _nan_candidate(src: str, dst: str) -> None:
+    """``src``'s best checkpoint with every float leaf NaN, written with a
+    valid manifest into ``dst``: a semantic regression the checkpoint
+    layer cannot catch, only the rollout gate's golden batch."""
+    from pytorch_cifar_tpu_torch.serialization import (
+        msgpack_restore,
+        to_bytes,
+    )
+    from pytorch_cifar_tpu_torch.train.checkpoint import payload_manifest
+
+    with open(os.path.join(src, "ckpt.msgpack"), "rb") as f:
+        tree = msgpack_restore(f.read())
+
+    def poison(t):
+        if isinstance(t, dict):
+            return {k: poison(v) for k, v in t.items()}
+        a = np.asarray(t)
+        if np.issubdtype(a.dtype, np.floating):
+            return np.full_like(a, np.nan)
+        return a
+
+    payload = to_bytes(poison(tree))
+    os.makedirs(dst, exist_ok=True)
+    with open(os.path.join(dst, "ckpt.msgpack"), "wb") as f:
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    meta = dict(load_meta(src))
+    meta["manifest"] = payload_manifest(payload)
+    with open(os.path.join(dst, "ckpt.json"), "w") as f:
+        json.dump(meta, f)
+        f.flush()
+        os.fsync(f.fileno())
+
+
+def rollout_drill(args, work: str) -> dict:
+    """The durable-control-plane drill. The deployment is split: this
+    process hosts the edge (a ``Router(allow_empty=True)`` and its HTTP
+    frontend, membership from a ``JournalFollower`` on the controller's
+    journal) while the journaled controller runs as ``fleet_run --role
+    controller``. Killing the controller stops decisions, never traffic.
+
+    Phases:
+      0. generation 1 published; controller #1 seeds 2 replicas through
+         the journaled spawn path and the follower puts them behind the
+         edge. Reference /predict bits taken; mixed load starts and runs
+         through every later phase.
+      1. generation 2 published under load: the controller begins a
+         rolling deploy and surges one gated replica; the moment the surge
+         line prints, the controller is SIGKILLed, mid-rollout.
+      2. the edge serves headless. Controller #2 relaunches with
+         ``--resume``: it replays the journal against /healthz and pid
+         probes, adopts every journal-live replica (never spawning one of
+         them again: /proc is the ground truth) and finishes the
+         conversion: the fleet on gen 2, no failed request, /predict bit
+         for bit the reference on every replica.
+      3. a CRC-valid generation 3 with NaN weights is published: the gate
+         must refuse it at surge, halt, restore the ``.prev`` publish pair
+         and roll back fleet-wide to the gen-2 bits.
+      4. SIGTERM drains the fleet; ``journal_inspect`` must replay the
+         journal to the whole life cycle: 1 rollout, 1 rollback, no live
+         replica, no orphan replica process.
+
+    One gate is the port's own: a new generation's replicas join at
+    compiles "0" after the first of their weight set. The port's
+    cold-start cache keeps one prepared weight set per checkpoint, so the
+    first replica of a generation whose weights the cache has not seen
+    prepares them and compiles its buckets (JAX's cache holds executables
+    that take any weights, so JAX's gate wants "0" from every one). The
+    record keeps JAX's key, ``new_gen_compiles``. The launcher's record
+    and each drained replica's own go to ``<work>/rollout.json``.
+    """
+    from pytorch_cifar_tpu_torch.obs import MetricsRegistry
+    from pytorch_cifar_tpu_torch.serve.fleet import live_generation_probe
+    from pytorch_cifar_tpu_torch.serve.frontend import ServingFrontend
+    from pytorch_cifar_tpu_torch.serve.journal import (
+        FleetJournalState,
+        JournalFollower,
+        replay_journal,
+    )
+    from pytorch_cifar_tpu_torch.serve.loadgen import HttpTarget, run_load
+    from pytorch_cifar_tpu_torch.serve.router import Router
+    from pytorch_cifar_tpu_torch.train.checkpoint import publish_checkpoint
+
+    src = os.path.join(work, "ckpt")
+    live = os.path.join(work, "live")
+    jpath = os.path.join(work, "fleet.journal")
+    train_checkpoint(args, "rollout", src)
+    publish_checkpoint(src, live, extra_meta={"promotion": {"generation": 1}})
+
+    # the data plane outlives the controller: membership follows the
+    # journal, not the controller's word
+    registry = MetricsRegistry()
+    router = Router(
+        [], allow_empty=True, registry=registry, probe_s=0.2
+    ).start()
+    frontend = ServingFrontend(router, registry=registry).start()
+    follower = JournalFollower(jpath, router, poll_s=0.2).start()
+    fleet_url = frontend.url
+    print(
+        f"==> [rollout] edge serving on {fleet_url} "
+        "(membership follows the journal)", file=sys.stderr,
+    )
+
+    def controller_cmd(resume: bool):
+        cmd = module_cmd(
+            "tools.fleet_run",
+            "--ckpt", live,
+            "--model", args.model,
+            "--role", "controller",
+            "--fleet_url", fleet_url,
+            "--journal", jpath,
+            "--rollouts",
+            "--min_replicas", 2,
+            "--max_replicas", 3,
+            "--buckets", 1, 4, 8,
+            "--aot_cache", os.path.join(work, "aot"),
+            "--deadline_ms", 4000,
+            "--max_wait_ms", 1,
+            "--control_interval_s", 0.25,
+            # the scaling band parked wide open: the only actuations this
+            # drill may observe are the rolling deploy's
+            "--queue_high", 1000, "--queue_low", 0,
+            "--up_after_s", 600, "--down_after_s", 600,
+            "--up_cooldown_s", 600, "--down_cooldown_s", 600,
+            "--device", args.device,
+        )
+        if resume:
+            cmd.append("--resume")
+        return cmd
+
+    state_lock = threading.Lock()
+    members = {}  # idx -> {"url", "pid", "compiles", "gen", "tag"}
+    counts = {"canary_failed": 0}
+    lines = []
+    ev = {
+        name: threading.Event()
+        for name in ("surge", "done", "halt", "rolled_back", "resumed")
+    }
+    seed_re = re.compile(
+        r"==> fleet: replica (\d+) pid=(\d+) url=(\S+) compiles=(\S+) "
+        r"aot_hits=\S+ gen=(\S+)"
+    )
+    roll_re = re.compile(
+        r"==> fleet: (rollout-surge|rollout-up|rollback-up|scale-up) "
+        r"replica (\d+) url=(\S+) pid=(\d+) compiles=(\S+) gen=(\S+)"
+    )
+
+    def watch(proc):
+        def run():
+            for line in proc.stderr:
+                sys.stderr.write(line)
+                lines.append(line)
+                m = seed_re.search(line)
+                if m:
+                    with state_lock:
+                        members[int(m.group(1))] = {
+                            "url": m.group(3), "pid": int(m.group(2)),
+                            "compiles": m.group(4), "gen": m.group(5),
+                            "tag": "seed",
+                        }
+                m = roll_re.search(line)
+                if m:
+                    with state_lock:
+                        members[int(m.group(2))] = {
+                            "url": m.group(3), "pid": int(m.group(4)),
+                            "compiles": m.group(5), "gen": m.group(6),
+                            "tag": m.group(1),
+                        }
+                if "rollout-surge replica" in line:
+                    ev["surge"].set()
+                if "rollout done gen=2" in line:
+                    ev["done"].set()
+                if "rollout halt gen=3" in line:
+                    ev["halt"].set()
+                if "rollout rolled back to gen=2" in line:
+                    ev["rolled_back"].set()
+                if "controller resumed from journal" in line:
+                    ev["resumed"].set()
+                if "rollout canary failed" in line:
+                    with state_lock:
+                        counts["canary_failed"] += 1
+
+        t = threading.Thread(
+            target=run, name="controller-stderr-watch", daemon=True
+        )
+        t.start()
+        return t
+
+    def journal_state():
+        return FleetJournalState.from_records(replay_journal(jpath)[0])
+
+    def teardown(*procs):
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        follower.stop()
+        frontend.stop()
+        router.stop()
+
+    # -- phase 0: controller #1 seeds the gen-1 fleet ---------------------
+    print(
+        "==> [rollout] controller #1 up (seeding 2 replicas on gen 1)",
+        file=sys.stderr,
+    )
+    ctl = _spawn(controller_cmd(resume=False))
+    watch(ctl)
+    deadline = time.monotonic() + args.timeout
+    while time.monotonic() < deadline:
+        if ctl.poll() is not None:
+            teardown(ctl)
+            raise SystemExit(
+                f"controller #1 exited rc={ctl.returncode} before the "
+                "fleet seeded"
+            )
+        if (
+            int(_healthz(fleet_url).get("healthy_replicas", 0)) >= 2
+            and journal_state().generation == 1
+        ):
+            break
+        time.sleep(0.25)
+    else:
+        teardown(ctl)
+        raise SystemExit("timed out waiting for the seeded gen-1 fleet")
+
+    probe = np.random.RandomState(7).randint(
+        0, 256, size=(3, 32, 32, 3)
+    ).astype(np.uint8)
+    ref_bits = _bits(fleet_url, probe)
+
+    # mixed load through every phase, the headless window included
+    reports = []
+    load_stop = threading.Event()
+
+    def load_loop():
+        n = 0
+        while not load_stop.is_set():
+            n += 1
+            target = HttpTarget(fleet_url)
+            try:
+                reports.append(run_load(
+                    target, clients=2, requests_per_client=10**6,
+                    images_max=4, seed=100 + n, duration_s=4.0,
+                ))
+            finally:
+                target.close()
+
+    load_t = threading.Thread(target=load_loop, name="rollout-load")
+    load_t.start()
+
+    # -- phase 1: publish gen 2, SIGKILL the controller at the surge ------
+    print("==> [rollout] publishing generation 2 under load",
+          file=sys.stderr)
+    publish_checkpoint(src, live, extra_meta={"promotion": {"generation": 2}})
+    if not ev["surge"].wait(args.timeout):
+        load_stop.set()
+        load_t.join()
+        teardown(ctl)
+        raise SystemExit("timed out waiting for the rollout surge")
+    killed_mid_rollout = not ev["done"].is_set()
+    print(
+        f"==> [rollout] SIGKILL controller #1 (pid {ctl.pid}) at the "
+        "surge, mid-rollout", file=sys.stderr,
+    )
+    ctl.kill()
+    ctl.wait()
+
+    # -- phase 2: the edge serves on; --resume finishes the deploy --------
+    time.sleep(1.5)  # a headless window: traffic keeps flowing
+    healthy_while_dead = int(_healthz(fleet_url).get("healthy_replicas", -1))
+    st = journal_state()
+    rollout_in_flight = st.rollout is not None
+    pids_before_resume = {
+        int(info["pid"]) for info in st.live_replicas().values()
+    }
+    with state_lock:
+        surge_urls = {
+            m["url"] for m in members.values()
+            if m["tag"] == "rollout-surge"
+        }
+
+    print("==> [rollout] relaunching the controller with --resume",
+          file=sys.stderr)
+    ctl2 = _spawn(controller_cmd(resume=True))
+    watch(ctl2)
+    if not ev["resumed"].wait(60) or not ev["done"].wait(args.timeout):
+        load_stop.set()
+        load_t.join()
+        teardown(ctl2)
+        raise SystemExit("resumed controller never finished the rollout")
+
+    # no double spawn: /proc == the journal's live view (drains of the
+    # old generation may still be settling: poll)
+    journal_live = journal_state().live_replicas()
+    want_pids = {int(i["pid"]) for i in journal_live.values()}
+    deadline = time.monotonic() + 20.0
+    while time.monotonic() < deadline and _serve_pids(live) != want_pids:
+        time.sleep(0.5)
+    proc_pids = _serve_pids(live)
+    no_double_spawn = proc_pids == want_pids
+    surge_survived = surge_urls and surge_urls <= set(journal_live)
+
+    h = _healthz(fleet_url)
+    fleet_entries = h.get("replicas", [])
+    converted = (
+        len(fleet_entries) == 2
+        and all(r.get("generation") == 2 for r in fleet_entries)
+    )
+    identity_ok = all(
+        np.array_equal(_bits(r["url"], probe), ref_bits)
+        for r in fleet_entries
+    ) and np.array_equal(_bits(fleet_url, probe), ref_bits)
+    print(
+        f"==> [rollout] fleet converted={converted} "
+        f"bits={'match' if identity_ok else 'DIVERGE'} "
+        f"pids={sorted(proc_pids)}", file=sys.stderr,
+    )
+
+    # -- phase 3: a NaN gen-3 candidate must halt + roll back -------------
+    print("==> [rollout] publishing NaN generation 3 (gate must refuse)",
+          file=sys.stderr)
+    nan_dir = os.path.join(work, "nan3")
+    _nan_candidate(src, nan_dir)
+    publish_checkpoint(
+        nan_dir, live, extra_meta={"promotion": {"generation": 3}}
+    )
+    halted = ev["halt"].wait(args.timeout)
+    rolled_back = halted and ev["rolled_back"].wait(args.timeout)
+    live_gen_after = live_generation_probe(live)()
+    h = _healthz(fleet_url)
+    still_gen2 = (
+        int(h.get("healthy_replicas", -1)) == 2
+        and all(r.get("generation") == 2 for r in h.get("replicas", []))
+    )
+    bits_after_rollback = np.array_equal(_bits(fleet_url, probe), ref_bits)
+
+    # -- phase 4: drain; the journal replays the whole life cycle ---------
+    load_stop.set()
+    load_t.join()
+    print("==> [rollout] drain", file=sys.stderr)
+    ctl2.send_signal(signal.SIGTERM)
+    out = ctl2.stdout.read()
+    ctl2.wait(timeout=args.timeout)
+    try:
+        rec_run = _last_record(out, "fleet_run")
+    except SystemExit:
+        teardown(ctl2)
+        raise
+    _keep_records(work, "rollout", rec_run, lines)
+    ji = subprocess.run(
+        module_cmd("tools.journal_inspect", jpath, "--json"),
+        capture_output=True, text=True, cwd=REPO, timeout=120,
+    )
+    inspect_rec = (
+        json.loads(ji.stdout) if ji.returncode == 0 else {"corrupt": True}
+    )
+    deadline = time.monotonic() + 20.0
+    while time.monotonic() < deadline and _serve_pids(live):
+        time.sleep(0.5)
+    orphans = _serve_pids(live)
+    follower.stop()
+    frontend.stop()
+    router.stop()
+
+    with state_lock:
+        ledger = dict(members)
+        canary_failed = counts["canary_failed"]
+    new_gen = [
+        (m["gen"], m["compiles"]) for m in ledger.values()
+        if m["tag"] in ("rollout-surge", "rollout-up")
+    ]
+    new_gen_compiles = [c for _, c in new_gen]
+    total_requests = sum(r["requests"] for r in reports)
+    total_failed = sum(r["failed"] for r in reports)
+    p99_max = max((r["p99_ms"] for r in reports), default=0.0)
+
+    ok = (
+        ctl2.returncode == 0
+        and killed_mid_rollout
+        and rollout_in_flight  # the journal knew, at the kill instant
+        and healthy_while_dead >= 2  # the edge served on, headless
+        and ev["resumed"].is_set()
+        and ev["done"].is_set()
+        and halted
+        and rolled_back
+        and canary_failed >= 1
+        and rec_run["resumed"] is True
+        and rec_run["journal_replays"] == 1
+        # adopt every journal-live replica, spawn none of them again
+        and rec_run["adoptions"] == len(pids_before_resume)
+        and rec_run["adoptions"] >= 2
+        and no_double_spawn
+        and surge_survived  # the adopted surge replica finished the job
+        and converted
+        and identity_ok
+        and _after_first_zero(new_gen)  # the port's gate (docstring)
+        and rec_run["rollouts"] == 1
+        and rec_run["rollbacks"] == 1
+        and rec_run["generation"] == 2
+        # a deploy is not a scale event
+        and rec_run["scale_ups"] == 0
+        and rec_run["scale_downs"] == 0
+        and live_gen_after == 2  # the .prev pair came back fleet-wide
+        and still_gen2
+        and bits_after_rollback
+        and total_requests > 0
+        and total_failed == 0  # no failed request, in any phase
+        and not inspect_rec.get("corrupt", True)
+        and inspect_rec.get("rollouts") == 1
+        and inspect_rec.get("rollbacks") == 1
+        and inspect_rec.get("live_replicas") == []
+        and inspect_rec.get("spawn_intents") == {}
+        and orphans == set()
+    )
+    return {
+        "harness": "chaos_run",
+        "mode": "rollout",
+        "match": ok,
+        "killed_mid_rollout": killed_mid_rollout,
+        "rollout_in_flight_at_kill": rollout_in_flight,
+        "healthy_while_headless": healthy_while_dead,
+        "resumed": ev["resumed"].is_set(),
+        "adoptions": rec_run["adoptions"],
+        "adoptable_at_kill": len(pids_before_resume),
+        "no_double_spawn": no_double_spawn,
+        "surge_survived": bool(surge_survived),
+        "converted_to_gen2": converted,
+        "bit_identical_after_rollout": identity_ok,
+        "new_gen_compiles": new_gen_compiles,
+        "halted_on_nan_candidate": halted,
+        "rolled_back": rolled_back,
+        "canary_failed_lines": canary_failed,
+        "live_gen_after_rollback": live_gen_after,
+        "fleet_gen2_after_rollback": still_gen2,
+        "bit_identical_after_rollback": bits_after_rollback,
+        "rollouts": rec_run["rollouts"],
+        "rollbacks": rec_run["rollbacks"],
+        "scale_ups": rec_run["scale_ups"],
+        "scale_downs": rec_run["scale_downs"],
+        "journal_replays": rec_run["journal_replays"],
+        "journal_seq": rec_run["journal_seq"],
+        "journal_inspect": {
+            k: inspect_rec.get(k)
+            for k in ("records", "rollouts", "rollbacks", "torn_tail")
+        },
+        "requests": total_requests,
+        "failed": total_failed,
+        "p99_max_ms": round(p99_max, 2),
+        "orphan_pids": sorted(orphans),
+        "controller_rc": ctl2.returncode,
     }
 
 
@@ -1325,62 +2496,65 @@ def ckpt_drill(args, work: str) -> dict:
 
 def trainer_drill(args, work: str, tol: float) -> dict:
     """The trainer modes (sigterm, sigkill, corrupt, nan): a reference
-    run, the chaos run (signalled, or its preemption save damaged, or a
-    step poisoned), its resume, and the yardstick."""
+    run, beside it the chaos run (signalled, or its preemption save
+    damaged, or a step poisoned) and its resume, and the yardstick."""
     from pytorch_cifar_tpu_torch import faults
 
     dir_ref = os.path.join(work, "reference")
     dir_chaos = os.path.join(work, "chaos")
 
     print(f"==> [{args.mode}] reference run -> {dir_ref}", file=sys.stderr)
-    ref_s = run_to_completion(
-        train_cmd(args, dir_ref), child_env(), args.timeout
-    )
+    reference = start_child(train_cmd(args, dir_ref), child_env())
 
-    interrupted = None
-    if args.mode == "nan":
-        print(
-            f"==> [{args.mode}] faulted run (nan_loss={args.nan_step}, "
-            f"sentinel={args.sentinel}) -> {dir_chaos}", file=sys.stderr,
-        )
-        recovery_s = run_to_completion(
-            train_cmd(args, dir_chaos),
-            child_env({"PCT_FAULTS": f"nan_loss={args.nan_step}"}),
-            args.timeout,
-        )
-    else:
-        sig = signal.SIGKILL if args.mode == "sigkill" else signal.SIGTERM
-        print(
-            f"==> [{args.mode}] interrupted run -> {dir_chaos}",
-            file=sys.stderr,
-        )
-        rc = interrupt_run(args, dir_chaos, sig)
-        interrupted = {"signal": int(sig), "rc": rc}
-        if args.mode in ("sigterm", "corrupt") and rc != 0:
-            raise SystemExit(f"SIGTERM run did not exit cleanly (rc={rc})")
-        if args.mode == "corrupt":
-            # damage the preemption save and its rolling-history copies so
-            # the restore must fall all the way back to ckpt.msgpack; when
-            # the run completed before the signal landed there is no
-            # last.msgpack: damage the best checkpoint's primary instead
-            # and let its history serve the fallback
-            victims = glob.glob(os.path.join(dir_chaos, "last*.msgpack"))
-            if not victims:
-                victims = [os.path.join(dir_chaos, "ckpt.msgpack")]
-            for victim in victims:
-                if args.corruption == "truncate":
-                    faults.truncate_file(victim)
-                else:
-                    faults.bitflip_file(victim)
-                print(
-                    f"==> [{args.mode}] {args.corruption}d {victim}",
-                    file=sys.stderr,
-                )
-        print(f"==> [{args.mode}] resuming {dir_chaos}", file=sys.stderr)
-        recovery_s = run_to_completion(
-            train_cmd(args, dir_chaos, resume=True), child_env(),
-            args.timeout,
-        )
+    try:
+        interrupted = None
+        if args.mode == "nan":
+            print(
+                f"==> [{args.mode}] faulted run (nan_loss={args.nan_step}, "
+                f"sentinel={args.sentinel}) -> {dir_chaos}", file=sys.stderr,
+            )
+            recovery_s = run_to_completion(
+                train_cmd(args, dir_chaos),
+                child_env({"PCT_FAULTS": f"nan_loss={args.nan_step}"}),
+                args.timeout,
+            )
+        else:
+            sig = signal.SIGKILL if args.mode == "sigkill" else signal.SIGTERM
+            print(
+                f"==> [{args.mode}] interrupted run -> {dir_chaos}",
+                file=sys.stderr,
+            )
+            rc = interrupt_run(args, dir_chaos, sig)
+            interrupted = {"signal": int(sig), "rc": rc}
+            if args.mode in ("sigterm", "corrupt") and rc != 0:
+                raise SystemExit(f"SIGTERM run did not exit cleanly (rc={rc})")
+            if args.mode == "corrupt":
+                # damage the preemption save and its rolling-history copies so
+                # the restore must fall all the way back to ckpt.msgpack; when
+                # the run completed before the signal landed there is no
+                # last.msgpack: damage the best checkpoint's primary instead
+                # and let its history serve the fallback
+                victims = glob.glob(os.path.join(dir_chaos, "last*.msgpack"))
+                if not victims:
+                    victims = [os.path.join(dir_chaos, "ckpt.msgpack")]
+                for victim in victims:
+                    if args.corruption == "truncate":
+                        faults.truncate_file(victim)
+                    else:
+                        faults.bitflip_file(victim)
+                    print(
+                        f"==> [{args.mode}] {args.corruption}d {victim}",
+                        file=sys.stderr,
+                    )
+            print(f"==> [{args.mode}] resuming {dir_chaos}", file=sys.stderr)
+            recovery_s = run_to_completion(
+                train_cmd(args, dir_chaos, resume=True), child_env(),
+                args.timeout,
+            )
+    except BaseException:
+        reference[0].kill()  # the chaos side failed: no orphan
+        raise
+    ref_s = finish_child(reference, args.timeout)
 
     cmp = compare(dir_ref, dir_chaos)
     ok = (
@@ -1465,8 +2639,10 @@ def main(argv=None) -> int:
     )
     work = args.out or tempfile.mkdtemp(prefix=f"chaos_{args.mode}_")
     drills = {"serve": serve_drill, "ckpt": ckpt_drill,
-              "canary": canary_drill, "edge": edge_drill,
-              "mesh": mesh_drill}
+              "router": router_drill, "canary": canary_drill,
+              "zoo": zoo_drill, "mesh": mesh_drill,
+              "elastic": elastic_drill, "edge": edge_drill,
+              "rollout": rollout_drill}
     if args.mode in drills:
         record = drills[args.mode](args, work)
     else:

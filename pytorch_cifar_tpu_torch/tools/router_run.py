@@ -277,7 +277,7 @@ def main(argv=None) -> int:
             model_mix = None
             if args.models:
                 from pytorch_cifar_tpu_torch.serve.loadgen import zipf_mix
-                from pytorch_cifar_tpu_torch.serve.tenancy import (
+                from pytorch_cifar_tpu_torch.serve.priors import (
                     load_cost_priors,
                 )
 

@@ -2,12 +2,14 @@
 
 - The drill's own process loads no torch: ``--help`` and every module its modes
   import run in a fresh interpreter with ``torch`` absent from
-  ``sys.modules`` (the children own the device). ``train/checkpoint.py``
-  imports the tree mapping and the process group where they are used, so
-  its staging and publish helpers load no torch either.
-- The drill's modes are the nine ported ones (``mesh`` among them),
-  ``--serve-devices`` takes any group of one device or more, and without a
-  card the default ``--device cuda`` fails through its first child.
+  ``sys.modules`` (the children own the device), the rollout mode's edge
+  (router, frontend, journal follower) and the zoo mode's cost priors
+  among them. ``train/checkpoint.py`` imports the tree mapping and the
+  process group where they are used, so its staging and publish helpers
+  load no torch either.
+- The drill's modes are the JAX drill's thirteen, ``--serve-devices``
+  takes any group of one device or more, and without a card the default
+  ``--device cuda`` fails through its first child.
 - The record keys pinned in ``tests/_torch_chaos.py`` are the JAX drill's,
   read from JAX's ``tools/chaos_run.py`` by ``ast``.
 - The train CLI handles SIGTERM for its whole life: one that lands after
@@ -37,7 +39,6 @@ from _torch_threads import THREADS, torch_threads  # noqa: F401
 JAX_MODES = ("sigterm", "sigkill", "corrupt", "nan", "serve", "ckpt",
              "router", "canary", "zoo", "mesh", "elastic", "edge",
              "rollout")  # JAX tools/chaos_run.py:2663-2667
-NOT_PORTED = {"router", "zoo", "elastic", "rollout"}
 
 
 def _fresh(code: str) -> dict:
@@ -58,8 +59,14 @@ def test_the_drill_process_loads_no_torch():
         "    code = e.code\n"
         "import pytorch_cifar_tpu_torch.faults\n"
         "import pytorch_cifar_tpu_torch.serialization\n"
+        "import pytorch_cifar_tpu_torch.obs\n"
         "import pytorch_cifar_tpu_torch.serve.fleet\n"
+        "import pytorch_cifar_tpu_torch.serve.frontend\n"
+        "import pytorch_cifar_tpu_torch.serve.journal\n"
         "import pytorch_cifar_tpu_torch.serve.loadgen\n"
+        "import pytorch_cifar_tpu_torch.serve.priors\n"
+        "import pytorch_cifar_tpu_torch.serve.router\n"
+        "import pytorch_cifar_tpu_torch.tools.journal_inspect\n"
         "import pytorch_cifar_tpu_torch.train.checkpoint\n"
         "print(json.dumps({'code': code, 'torch': 'torch' in sys.modules}))")
     assert got == {"code": 0, "torch": False}
@@ -75,12 +82,13 @@ def test_checkpoint_publish_helpers_load_no_torch():
     assert got == {"torch": False}
 
 
-def test_modes_are_the_ported_eight(capsys):
-    assert set(chaos_run.MODES) == set(JAX_MODES) - NOT_PORTED
-    for mode in sorted(NOT_PORTED):
-        with pytest.raises(SystemExit) as e:
-            chaos_run.parse_args(["--mode", mode])
-        assert e.value.code == 2
+def test_modes_are_the_jax_thirteen(capsys):
+    assert chaos_run.MODES == JAX_MODES
+    for mode in JAX_MODES:
+        assert chaos_run.parse_args(["--mode", mode]).mode == mode
+    with pytest.raises(SystemExit) as e:
+        chaos_run.parse_args(["--mode", "fleet"])
+    assert e.value.code == 2
     capsys.readouterr()
     args = chaos_run.parse_args([])
     assert (args.device, args.model, args.epochs, args.train_size,
@@ -135,7 +143,8 @@ def test_pinned_record_keys_are_the_jax_drill_s():
     (ret,) = [n for n in ast.walk(funcs["compare"])
               if isinstance(n, ast.Return)]
     assert _dict_keys(ret.value) == COMPARE_KEYS
-    for mode in ("serve", "ckpt", "canary", "edge", "mesh"):
+    for mode in ("serve", "ckpt", "router", "canary", "zoo", "mesh",
+                 "elastic", "edge", "rollout"):
         rets = [n.value for n in ast.walk(funcs[f"{mode}_drill"])
                 if isinstance(n, ast.Return) and isinstance(n.value,
                                                             ast.Dict)]
